@@ -1,0 +1,204 @@
+// One WOW scale on the card: chain smooth, detail, power smooth, mask,
+// whiten, accumulate.  Plain C interface, loaded with ctypes
+// (wavelets_tpu_torch/ops/_build.py); wrapper in ops/hopper_conv.py.
+//
+// Replaces the per-scale step of two TPU kernels, which compute the same
+// thing and differ only in how they fit the TPU's VMEM:
+//   wavelets_tpu/ops/pallas_conv.py::_fused_wow_group (_make_kernel,
+//     whiten=...), g scales per launch on halo'd tiles;
+//   wavelets_tpu/ops/pallas_deep.py::deep_whiten_step (_make_stream_kernel
+//     / _make_deep_kernel), one deep scale per launch on row streams.
+// The TPU kernels' nine-window tiles, residue-class streams and MXU
+// mirrors exist because Mosaic has no `rev` and VMEM windows are tiled;
+// none of that carries over.
+//
+// Design.  One separable dilated 1-D pass kernel, templated on its axis,
+// prologue and epilogue, launched four times per scale at dilation D:
+//   1. rows pass on the carry                      -> tmp
+//   2. cols pass on tmp, epilogue: c_next, detail = carry - c_next
+//   3. rows pass on detail^2 (squared on load)     -> tmp
+//   4. cols pass on tmp, epilogue: lp = sqrt(max(lp, 1e-15) rule),
+//      mask (erf or hard, threshold 0 = no mask), white = wc*(fac/lp),
+//      optional white write, optional acc (set or +=).
+// Each thread owns one output pixel and reads its taps at stride D
+// through the periodic symmetric index map (numpy's 'symmetric' pad for
+// any width), so any H, W and D work: no W%128, H%2^s or single-bounce
+// gates.  Offsets are 64-bit.
+//
+// Bound: by design device memory.  A scale moves about 11 images (reads:
+// carry x2, tmp x2, detail x2, acc; writes: tmp x2, c_next, detail,
+// white, acc), 0.74 GB at 4096^2, and the 5-tap folds are a few FLOPs per
+// byte.  Threads of a warp cover neighbouring columns, so every tap read
+// is coalesced, and the dilated row reads of passes 1/3 hit L2 for the
+// shallow scales.  Measured on an H100 80GB HBM3 (700 W): 1.02-1.26 ms
+// per scale at 4096^2, about 0.7 TB/s, so the passes are still bound by
+// per-pixel instruction latency (64-bit index math, five dependent loads
+// per output), not by the bytes.  Fusing passes into shared-memory tiles
+// is later work.
+//
+// Rounding.  The folds use __fmul_rn/__fadd_rn, which nvcc never
+// contracts into FMAs, in the JAX package's order
+// x*t_c + sum_j t_{c+j}*(x<-jD + x->jD), so c_next and the detail are
+// bitwise equal to the plain PyTorch version on the same card.  The
+// epilogue uses IEEE sqrt and division; erff may differ from torch.erf
+// in the last place, which bounds |white - plain| well inside 5e-6*max.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define WT_MAX_HW 8
+
+namespace {
+
+struct Taps {
+  float t[WT_MAX_HW + 1];  // t[j]: weight of the taps at offsets -j and +j
+  int hw;
+};
+
+__device__ __forceinline__ long long sym_index(long long k, long long n) {
+  if (k >= 0 && k < n) return k;
+  long long p = k % (2 * n);
+  if (p < 0) p += 2 * n;
+  return p < n ? p : 2 * n - 1 - p;
+}
+
+template <bool SQUARE>
+__device__ __forceinline__ float load(const float* __restrict__ p, long long i) {
+  float v = p[i];
+  return SQUARE ? __fmul_rn(v, v) : v;
+}
+
+// Fold along the rows axis (stride W) around (h, w) of one plane.
+template <bool SQUARE>
+__device__ __forceinline__ float fold_rows(const float* __restrict__ plane,
+                                           const Taps& taps, long long h,
+                                           long long w, long long H,
+                                           long long W, long long D) {
+  float out = __fmul_rn(load<SQUARE>(plane, h * W + w), taps.t[0]);
+  for (int j = 1; j <= taps.hw; ++j) {
+    float l = load<SQUARE>(plane, sym_index(h - j * D, H) * W + w);
+    float r = load<SQUARE>(plane, sym_index(h + j * D, H) * W + w);
+    out = __fadd_rn(out, __fmul_rn(taps.t[j], __fadd_rn(l, r)));
+  }
+  return out;
+}
+
+// Fold along the columns axis (stride 1) around (., w) of one row.
+__device__ __forceinline__ float fold_cols(const float* __restrict__ row,
+                                           const Taps& taps, long long w,
+                                           long long W, long long D) {
+  float out = __fmul_rn(row[w], taps.t[0]);
+  for (int j = 1; j <= taps.hw; ++j) {
+    float l = row[sym_index(w - j * D, W)];
+    float r = row[sym_index(w + j * D, W)];
+    out = __fadd_rn(out, __fmul_rn(taps.t[j], __fadd_rn(l, r)));
+  }
+  return out;
+}
+
+// Grid: x over columns, y over rows, z over frames, each grid-strided;
+// no integer division per pixel.
+#define WT_FOR_EACH_PIXEL                                                  \
+  for (long long b = blockIdx.z; b < B; b += gridDim.z)                    \
+    for (long long h = blockIdx.y; h < H; h += gridDim.y)                  \
+      for (long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x; \
+           w < W; w += (long long)gridDim.x * blockDim.x)
+
+template <bool SQUARE>
+__global__ void rows_pass(const float* __restrict__ src,
+                          float* __restrict__ dst, Taps taps, long long B,
+                          long long H, long long W, long long D) {
+  WT_FOR_EACH_PIXEL {
+    const float* plane = src + b * H * W;
+    dst[(b * H + h) * W + w] = fold_rows<SQUARE>(plane, taps, h, w, H, W, D);
+  }
+}
+
+__global__ void cols_detail(const float* __restrict__ tmp,
+                            const float* __restrict__ carry,
+                            float* __restrict__ c_next,
+                            float* __restrict__ detail, Taps taps,
+                            long long B, long long H, long long W,
+                            long long D) {
+  WT_FOR_EACH_PIXEL {
+    long long row = (b * H + h) * W, i = row + w;
+    float cn = fold_cols(tmp + row, taps, w, W, D);
+    c_next[i] = cn;
+    detail[i] = __fsub_rn(carry[i], cn);
+  }
+}
+
+__global__ void cols_whiten(const float* __restrict__ tmp,
+                            const float* __restrict__ detail,
+                            float* __restrict__ white, float* __restrict__ acc,
+                            int acc_mode, const float* __restrict__ thr,
+                            float fac, int masked, int soft, Taps taps,
+                            long long B, long long H, long long W,
+                            long long D) {
+  WT_FOR_EACH_PIXEL {
+    long long row = (b * H + h) * W, i = row + w;
+    float lp = fold_cols(tmp + row, taps, w, W, D);
+    lp = lp <= 0.0f ? 1e-15f : lp;
+    lp = __fsqrt_rn(lp);
+    float wc = detail[i];
+    if (masked) {
+      float t = thr[b];
+      if (t != 0.0f) {
+        float m = soft ? erff(fabsf(__fdiv_rn(wc, t)))
+                       : (fabsf(wc) > t ? 1.0f : 0.0f);
+        wc = __fmul_rn(wc, m);
+      }
+    }
+    float v = __fmul_rn(wc, __fdiv_rn(fac, lp));
+    if (white) white[i] = v;
+    if (acc_mode == 1) acc[i] = v;
+    else if (acc_mode == 2) acc[i] = __fadd_rn(acc[i], v);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* wt_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// One scale at dilation D on a (B, H, W) float32 stack, all pointers on
+// the device and contiguous.  tmp and detail are scratch of the same
+// size; white and acc may be null (acc_mode 0 = none, 1 = acc = white,
+// 2 = acc += white).  thr points at B per-frame thresholds (read only
+// when masked).  taps: n_taps symmetric host-side weights.  Returns
+// cudaGetLastError() after the first failing launch, or 0.
+int wt_whiten_step_f32(const float* carry, float* c_next, float* detail,
+                       float* tmp, float* white, float* acc, int acc_mode,
+                       const float* thr, float fac, int masked, int soft,
+                       const double* taps, int n_taps, long long B,
+                       long long H, long long W, long long D,
+                       void* stream) {
+  if (n_taps < 1 || n_taps % 2 == 0 || (n_taps - 1) / 2 > WT_MAX_HW ||
+      B < 1 || H < 1 || W < 1 || D < 1 || (acc_mode != 0 && !acc) ||
+      (masked && !thr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Taps tp;
+  tp.hw = (n_taps - 1) / 2;
+  for (int j = 0; j <= tp.hw; ++j) tp.t[j] = static_cast<float>(taps[tp.hw + j]);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  dim3 block(256);
+  long long gx = (W + block.x - 1) / block.x;
+  dim3 grid(static_cast<unsigned>(gx < 65535 ? gx : 65535),
+            static_cast<unsigned>(H < 65535 ? H : 65535),
+            static_cast<unsigned>(B < 65535 ? B : 65535));
+  cudaError_t err;
+  rows_pass<false><<<grid, block, 0, s>>>(carry, tmp, tp, B, H, W, D);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  cols_detail<<<grid, block, 0, s>>>(tmp, carry, c_next, detail, tp, B, H, W, D);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  rows_pass<true><<<grid, block, 0, s>>>(detail, tmp, tp, B, H, W, D);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  cols_whiten<<<grid, block, 0, s>>>(tmp, detail, white, acc, acc_mode, thr,
+                                     fac, masked, soft, tp, B, H, W, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

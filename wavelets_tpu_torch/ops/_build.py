@@ -1,0 +1,118 @@
+"""Build and load the hand-written CUDA kernels of ``wavelets_tpu_torch/csrc``.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
+first use, by ``nvcc`` alone (no PyTorch headers, so a build takes
+seconds), into ``build/kernels/<name>-<hash>.so`` at the repository
+root, then loaded with ``ctypes``.  The hash is that of the source, so
+an edited source is rebuilt and a stale library is never loaded.
+Pointers and the stream are passed as ``ctypes.c_void_p`` taken from
+``tensor.data_ptr()`` and ``torch.cuda.current_stream().cuda_stream``.
+
+Nothing here runs at import time: the CPU tests import every module.
+
+The launch counters also live here: ``LAUNCHES[name]`` is incremented
+by a kernel's wrapper each time it launches the kernel, and
+``PLAIN_CALLS[name]`` each time the kernel's plain PyTorch version runs.
+A caller clears both to see which path a run took.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Tuple
+
+import torch
+
+__all__ = ["LAUNCHES", "PLAIN_CALLS", "reset_counters", "load", "build_all",
+           "check", "stream_ptr", "CSRC_DIR", "BUILD_DIR"]
+
+CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+LAUNCHES: collections.Counter = collections.Counter()
+PLAIN_CALLS: collections.Counter = collections.Counter()
+
+#: seconds and compiler output of each build made by this process
+BUILD_LOG: Dict[str, Tuple[float, str]] = {}
+
+
+def reset_counters() -> None:
+    LAUNCHES.clear()
+    PLAIN_CALLS.clear()
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _library_path(name: str) -> Path:
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def _build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless a library of the same source hash
+    exists; raise with nvcc's output if the build fails."""
+    out = _library_path(name)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # build under a private name and rename: a concurrent build never
+    # loads a half-written library
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed to build {name}.cu "
+                           f"(exit {proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)
+    BUILD_LOG[name] = (time.perf_counter() - t0, proc.stderr)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built if needed."""
+    lib = ctypes.CDLL(str(_build(name)))
+    lib.wt_error_string.argtypes = [ctypes.c_int]
+    lib.wt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build_all() -> Dict[str, Path]:
+    """Build and load every kernel source; returns name → library path."""
+    names = sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+    for name in names:
+        load(name)
+    return {name: _library_path(name) for name in names}
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error (its return value
+    is ``cudaGetLastError()`` after its launches, or a bad argument)."""
+    if code != 0:
+        msg = lib.wt_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def stream_ptr(device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

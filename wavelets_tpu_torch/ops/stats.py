@@ -1,0 +1,67 @@
+"""Coefficient statistics: MAD noise and significance masks.
+
+Counterpart of ``wavelets_tpu/ops/stats.py`` (the reference's coefficient
+algebra, watroo/wavelets.py:126-149).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import hopper_stats
+
+__all__ = ["MAD_TO_SIGMA", "median_abs", "mad_noise", "significance_soft",
+           "significance_hard", "significance"]
+
+#: MAD → σ conversion constant for a Gaussian (watroo/wavelets.py:127).
+MAD_TO_SIGMA = 0.6745
+
+
+def median_abs(x: torch.Tensor, fuse: bool = True) -> torch.Tensor:
+    """``median(|x|)`` with numpy's even-count rule, as a 0-d tensor on
+    ``x``'s device (``torch.median`` returns the lower middle value and is
+    not used).  float32 goes through kernel B's wrapper
+    (:func:`hopper_stats.median_bits2`: the kernel on the card, a sort on
+    the CPU) or, with ``fuse=False``, its plain version; other dtypes sort
+    in their own precision, as the JAX package sends them to XLA."""
+    if x.dtype == torch.float32:
+        return hopper_stats.median_abs(
+            x, hopper_stats.median_bits2 if fuse
+            else hopper_stats.median_bits2_plain)
+    a = torch.sort(torch.abs(x).reshape(-1)).values
+    k_lo, k_hi = hopper_stats.middle_ranks(a.numel())
+    return (a[k_lo] + a[k_hi]) / 2
+
+
+def mad_noise(w0: torch.Tensor, sigma_e0: float,
+              fuse: bool = True) -> torch.Tensor:
+    """Noise level from the finest detail plane via the MAD estimator:
+    ``median(|w0|) / 0.6745 / σ_e[0]`` (watroo/wavelets.py:126-127)."""
+    return median_abs(w0, fuse) / MAD_TO_SIGMA / sigma_e0
+
+
+def significance_soft(w: torch.Tensor, threshold) -> torch.Tensor:
+    """Smooth multiplicative mask ``erf(|w/t|)`` (watroo/wavelets.py:136-139)."""
+    return torch.erf(torch.abs(w / threshold))
+
+
+def significance_hard(w: torch.Tensor, threshold) -> torch.Tensor:
+    """Boolean mask ``|w| > t`` (watroo/wavelets.py:141)."""
+    return torch.abs(w) > threshold
+
+
+def significance(w: torch.Tensor, sigma: float, noise, sigma_e_scale: float,
+                 soft_threshold: bool = True) -> torch.Tensor:
+    """Per-plane significance for a known ``noise`` level
+    (watroo/wavelets.py:129-143).  The ``sigma == 0`` shortcut is the
+    caller's; a zero threshold (``noise == 0``) yields ones, the
+    reference's explicit ``noise == 0`` branch (:133-135), without a
+    host-side branch on the value."""
+    t = torch.as_tensor(sigma * noise * sigma_e_scale, dtype=w.dtype,
+                        device=w.device)
+    safe_t = torch.where(t == 0, torch.ones_like(t), t)
+    if soft_threshold:
+        mask = significance_soft(w, safe_t)
+    else:
+        mask = significance_hard(w, safe_t).to(w.dtype)
+    return torch.where(t == 0, torch.ones_like(mask), mask)
