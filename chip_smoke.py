@@ -8,21 +8,35 @@ CUDA toolkit.  It
 
 1. prints the card (``nvidia-smi`` name and power limit), torch and CUDA;
 2. builds the hand-written kernels from ``wavelets_tpu_torch/csrc`` into
-   ``build/kernels`` and prints the build seconds;
+   ``build/kernels`` (one ``nvcc`` per source, all at once) and prints the
+   build seconds;
 3. holds each kernel against its plain PyTorch version on the card at the
-   main path's shapes (kernel A: 4096² at s ∈ {0, 3, 6, 9}, masked soft,
-   masked hard and unmasked, plus 1000×1536 and 257×513, where s = 9
-   reflects more than once; kernel B: even
-   and odd n and heavy ties, bitwise, and bitwise to ``np.median``);
-4. drives the main path, ``wow`` on a 4096² float32 frame (auto 10
-   scales, denoise [5, 2], lazy MAD noise) and the 512² L6 entry
-   configuration, with the launch counters reset just before and read
-   just after: every kernel must have launched, no plain version may
-   have run, and the outputs must be finite, on the card, and agree with
-   ``fuse=False`` on the same tensors and with the float64 CPU path on a
-   small frame;
-5. times both paths and each kernel against its plain version with CUDA
-   events (median of 20 runs after warm-up).
+   paths' shapes: kernel A (4096² at s ∈ {0, 3, 6, 9}, masked soft, hard
+   and unmasked, plus 1000×1536 and 257×513, where s = 9 reflects more
+   than once), kernel B (even and odd n, heavy ties; bitwise, and bitwise
+   to ``np.median``), kernel C (groups at 4096², 1000×1536 and 257×513,
+   ``smooth_only``; bitwise), kernel D (4096², s ∈ {0, 1, 2, 5}, factors
+   from a device table, gamma on) and kernel E (the pairs (7, 8) at 4096²
+   and (4, 5) at 512² against two plain steps, carry bitwise, and against
+   two kernel A steps, bitwise);
+4. drives every ported path with the launch counters reset just before
+   and read just after — the main path (``wow`` 4096² auto 10 scales and
+   512² L6, denoise [5, 2], lazy noise), P1 ``AtrousTransform()(x, 6)``,
+   P2 ``denoise`` of 4096² frames and of a 64×1024×1024 volume, P3
+   ``wow`` with the gamma blend, with ``preserve_variance`` and from
+   ``AtrousTransform()(x, 10)`` — and requires that each expected kernel
+   launched, that no plain version ran, that the outputs are finite, on
+   the card, and agree with ``fuse=False`` on the same tensors and with
+   the float64 CPU path on a small input;
+5. times each path, kernels against plain, and each kernel against its
+   plain version and, where one exists, one PyTorch call computing the
+   same function, with CUDA events (median of 20 runs after warm-up),
+   beside the kernel's bound: the larger of its bytes (each input read
+   once, each output written once) over 3.35 TB/s and its float32
+   operations over 67 TFLOP/s, the H100 SXM's published peaks;
+6. traces each path's kernel route with ``torch.profiler`` over 5 runs:
+   device-busy ms per run, the idle share against the CUDA-event time,
+   and the kernels that take the most device time.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -47,6 +61,15 @@ CARRY_ULPS = 1
 WHITE_RTOL = 5e-6
 N_TIMED = 20
 N_WARM = 3
+
+#: H100 SXM published peaks (NVIDIA data sheet, 700 W): device memory
+#: bytes/s and float32 FLOP/s outside the tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+#: float32 operations per output pixel and scale: a 5-tap fold is one
+#: multiply and two adds plus one multiply per tap pair (7), two per
+#: separable smooth
+FOLD_OPS = 7
 
 
 def require(cond, msg):
@@ -74,6 +97,12 @@ def check_carry(got, ref, what):
     return err
 
 
+def check_bitwise(got, ref, what):
+    import torch
+    require(got.shape == ref.shape and bool(torch.equal(got, ref)),
+            f"{what}: not bitwise equal (max abs err {max_err(got, ref)})")
+
+
 def timed(fn, torch, n=N_TIMED):
     """Median milliseconds of ``fn`` over ``n`` runs, CUDA events."""
     for _ in range(N_WARM):
@@ -89,6 +118,29 @@ def timed(fn, torch, n=N_TIMED):
         b.synchronize()
         ms.append(a.elapsed_time(b))
     return float(np.median(ms))
+
+
+def bound_ms(n_bytes, n_ops):
+    """The least time for the work: ``(ms, "bytes" or "operations")``."""
+    t_b, t_o = n_bytes / PEAK_BYTES, n_ops / PEAK_F32
+    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
+
+
+class Phase:
+    """Prints a phase's seconds when it ends."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        print(f"---- {self.name}")
+        sys.stdout.flush()
+
+    def __exit__(self, *exc):
+        if exc[0] is None:
+            print(f"     {self.name}: {time.perf_counter() - self.t0:.1f} s")
+            sys.stdout.flush()
 
 
 def main():
@@ -112,9 +164,12 @@ def main():
     sys.stdout.flush()
 
     sys.path.insert(0, str(ROOT))
-    from wavelets_tpu_torch import wow
-    from wavelets_tpu_torch.ops import _build, hopper_conv, hopper_deep
-    from wavelets_tpu_torch.ops import hopper_stats
+    import wavelets_tpu_torch as wt
+    from wavelets_tpu_torch.core.transform import decompose, decompose_pieces
+    from wavelets_tpu_torch.models.wow import (_wow_body_fused,
+                                               _wow_body_merged)
+    from wavelets_tpu_torch.ops import (_build, hopper_conv, hopper_deep,
+                                        hopper_stats, hopper_wow)
     from wavelets_tpu_torch.ops.filters import B3SPLINE
 
     require("jax" not in sys.modules, "the port imported jax")
@@ -130,6 +185,7 @@ def main():
 
     rng = np.random.default_rng(0)
     sig = B3SPLINE.sigma_e(2)
+    plane_bytes = 4096 * 4096 * 4
 
     def frame(shape, b=None):
         size = shape if b is None else (b,) + shape
@@ -138,181 +194,537 @@ def main():
 
     # ---- 3a. kernel A against its plain version ------------------------
     errs_a = {"white": 0.0, "carry": 0.0}
-    n_checks = 0
-    for shape, scales in [((4096, 4096), (0, 3, 6, 9)),
-                          ((1000, 1536), (0, 3, 6, 9)),
-                          ((257, 513), (0, 3, 6, 9))]:
-        x = frame(shape, b=1)
-        recon = frame(shape, b=1)
-        for s in scales:
-            thr = torch.tensor([3.0 * 3.0 * float(sig[s])], device=dev)
-            for mode in ("soft", "hard", "unmasked"):
-                kw = dict(sf=B3SPLINE, scale=s, weight=1.5,
-                          soft=mode == "soft", masked=mode != "unmasked")
-                r_k, r_p = recon.clone(), recon.clone()
-                w_k, _, c_k = hopper_deep.deep_whiten_step(x, r_k, thr, **kw)
-                w_p, _, c_p = hopper_deep.deep_whiten_step_plain(
-                    x, r_p, thr, **kw)
-                torch.cuda.synchronize()
-                what = f"kernel A {shape} s={s} {mode}"
-                e_w = check_white(w_k, w_p, what)
-                check_white(r_k, r_p, what + " recon")
-                e_c = check_carry(c_k, c_p, what)
-                if shape == (4096, 4096):
-                    errs_a["white"] = max(errs_a["white"], e_w)
-                    errs_a["carry"] = max(errs_a["carry"], e_c)
-                n_checks += 1
-        del x, recon
-    x = frame((4096, 4096))
-    thr3 = torch.tensor([9.0 * float(sig[k]) for k in range(3)], device=dev)
-    for need_cube in (True, False):
-        args = ([1.0, 2.0, 0.5], thr3, 3, B3SPLINE)
-        kw = dict(offset=0, soft=True, masked=(True, True, False),
-                  need_cube=need_cube)
-        rows_k, acc_k = hopper_conv.fused_wow_group(x, *args, **kw)
-        rows_p, acc_p = hopper_conv.fused_wow_group_plain(x, *args, **kw)
-        torch.cuda.synchronize()
-        require(len(rows_k) == len(rows_p), "group row count")
-        for a, b in zip(rows_k[:-1], rows_p[:-1]):
-            errs_a["white"] = max(errs_a["white"],
-                                  check_white(a, b, "group plane"))
-        errs_a["carry"] = max(errs_a["carry"],
-                              check_carry(rows_k[-1], rows_p[-1], "group"))
-        check_white(acc_k, acc_p, "group acc")
-        n_checks += 1
-    print(f"kernel A: {n_checks} checks passed; 4096² max abs err "
-          f"white {errs_a['white']:.3e} carry {errs_a['carry']:.3e}")
+    with Phase("kernel A checks"):
+        n_checks = 0
+        for shape, scales in [((4096, 4096), (0, 3, 6, 9)),
+                              ((1000, 1536), (0, 3, 6, 9)),
+                              ((257, 513), (0, 3, 6, 9))]:
+            x = frame(shape, b=1)
+            recon = frame(shape, b=1)
+            for s in scales:
+                thr = torch.tensor([3.0 * 3.0 * float(sig[s])], device=dev)
+                for mode in ("soft", "hard", "unmasked"):
+                    kw = dict(sf=B3SPLINE, scale=s, weight=1.5,
+                              soft=mode == "soft", masked=mode != "unmasked")
+                    r_k, r_p = recon.clone(), recon.clone()
+                    w_k, _, c_k = hopper_deep.deep_whiten_step(x, r_k, thr,
+                                                               **kw)
+                    w_p, _, c_p = hopper_deep.deep_whiten_step_plain(
+                        x, r_p, thr, **kw)
+                    torch.cuda.synchronize()
+                    what = f"kernel A {shape} s={s} {mode}"
+                    e_w = check_white(w_k, w_p, what)
+                    check_white(r_k, r_p, what + " recon")
+                    e_c = check_carry(c_k, c_p, what)
+                    if shape == (4096, 4096):
+                        errs_a["white"] = max(errs_a["white"], e_w)
+                        errs_a["carry"] = max(errs_a["carry"], e_c)
+                    n_checks += 1
+            del x, recon
+        x = frame((4096, 4096))
+        thr3 = torch.tensor([9.0 * float(sig[k]) for k in range(3)],
+                            device=dev)
+        for need_cube in (True, False):
+            args = ([1.0, 2.0, 0.5], thr3, 3, B3SPLINE)
+            kw = dict(offset=0, soft=True, masked=(True, True, False),
+                      need_cube=need_cube)
+            rows_k, acc_k = hopper_conv.fused_wow_group(x, *args, **kw)
+            rows_p, acc_p = hopper_conv.fused_wow_group_plain(x, *args, **kw)
+            torch.cuda.synchronize()
+            require(len(rows_k) == len(rows_p), "group row count")
+            for a, b in zip(rows_k[:-1], rows_p[:-1]):
+                errs_a["white"] = max(errs_a["white"],
+                                      check_white(a, b, "group plane"))
+            errs_a["carry"] = max(errs_a["carry"],
+                                  check_carry(rows_k[-1], rows_p[-1],
+                                              "group"))
+            check_white(acc_k, acc_p, "group acc")
+            n_checks += 1
+        print(f"kernel A: {n_checks} checks passed; 4096² max abs err "
+              f"white {errs_a['white']:.3e} carry {errs_a['carry']:.3e}")
 
     # ---- 3b. kernel B: bitwise ------------------------------------------
-    cases_b = {
-        "4096² even n": rng.normal(size=4096 * 4096),
-        "999×1001 odd n": rng.normal(size=999 * 1001),
-        "4096² heavy ties": rng.choice([-2.0, 0.0, 1.0, 2.5],
-                                       size=4096 * 4096),
-    }
-    err_b = 0.0
-    for what, host in cases_b.items():
-        host = host.astype(np.float32)
-        xt = torch.from_numpy(host).to(dev)
-        got = hopper_stats.median_abs(xt)
-        plain = hopper_stats.median_abs(xt, hopper_stats.median_bits2_plain)
-        want = np.median(np.abs(host))
-        got_h, plain_h = got.cpu().numpy(), plain.cpu().numpy()
-        require(got_h.tobytes() == plain_h.tobytes() == want.tobytes(),
-                f"kernel B {what}: {got_h!r} plain {plain_h!r} "
-                f"np.median {want!r}")
-        err_b = max(err_b, abs(float(got_h) - float(want)))
-        print(f"kernel B {what}: {float(got_h)!r} bitwise == plain == "
-              "np.median")
+    with Phase("kernel B checks"):
+        cases_b = {
+            "4096² even n": rng.normal(size=4096 * 4096),
+            "999×1001 odd n": rng.normal(size=999 * 1001),
+            "4096² heavy ties": rng.choice([-2.0, 0.0, 1.0, 2.5],
+                                           size=4096 * 4096),
+        }
+        err_b = 0.0
+        for what, host in cases_b.items():
+            host = host.astype(np.float32)
+            xt = torch.from_numpy(host).to(dev)
+            got = hopper_stats.median_abs(xt)
+            plain = hopper_stats.median_abs(xt,
+                                            hopper_stats.median_bits2_plain)
+            want = np.median(np.abs(host))
+            got_h, plain_h = got.cpu().numpy(), plain.cpu().numpy()
+            require(got_h.tobytes() == plain_h.tobytes() == want.tobytes(),
+                    f"kernel B {what}: {got_h!r} plain {plain_h!r} "
+                    f"np.median {want!r}")
+            err_b = max(err_b, abs(float(got_h) - float(want)))
+            print(f"kernel B {what}: {float(got_h)!r} bitwise == plain == "
+                  "np.median")
 
-    # ---- 4. the main path ---------------------------------------------
-    configs = {
-        "4096² L10 (auto), denoise [5, 2], lazy noise":
-            (frame((4096, 4096)), dict(denoise_coefficients=[5, 2]), 10),
-        "512² L6, denoise [5, 2], lazy noise":
-            (frame((512, 512)), dict(n_scales=6,
-                                     denoise_coefficients=[5, 2]), 6),
-    }
+    # ---- 3c. kernel C: bitwise ------------------------------------------
+    with Phase("kernel C checks"):
+        n_c = 0
+        for shape, groups in [((4096, 4096), ((3, 0), (3, 3))),
+                              ((1000, 1536), ((3, 0), (3, 6))),
+                              ((257, 513), ((3, 0), (3, 6)))]:
+            x = frame(shape)
+            for g, off in groups:
+                for smooth_only in (False, True):
+                    got = hopper_conv.fused_group(x, g, B3SPLINE, off,
+                                                  smooth_only)
+                    want = hopper_conv.fused_group_plain(x, g, B3SPLINE, off,
+                                                         smooth_only)
+                    torch.cuda.synchronize()
+                    check_bitwise(got, want, f"kernel C {shape} g={g} "
+                                  f"offset={off} smooth_only={smooth_only}")
+                    n_c += 1
+        print(f"kernel C: {n_c} checks passed, details and carry bitwise")
+
+    # ---- 3d. kernel D ---------------------------------------------------
+    err_d = 0.0
+    with Phase("kernel D checks"):
+        x = frame((4096, 4096))
+        cube = hopper_conv.fused_group(x, 6, B3SPLINE)
+        pieces = (cube[:, None],)
+        layout = tuple((0, s) for s in range(3))
+        # preserve_variance's factors, computed on the card
+        fac = torch.stack([w * torch.sqrt(torch.mean(cube[s] ** 2))
+                           for s, w in enumerate((1.0, 2.0, 0.5))])
+        thr = torch.tensor([9.0 * float(sig[k]) for k in range(3)],
+                           device=dev)
+        args = (pieces, fac, thr, B3SPLINE, 3, layout)
+        got = hopper_wow.fused_whiten_pieces(*args, write_gamma=True)
+        want = hopper_wow.fused_whiten_pieces_plain(*args, write_gamma=True)
+        torch.cuda.synchronize()
+        scale = float(want[1].abs().max())
+        for s in range(3):
+            err_d = max(err_d, check_white(got[0][s], want[0][s],
+                                           f"kernel D s={s}", scale))
+        err_d = max(err_d, check_white(got[1], want[1], "kernel D recon"))
+        check_white(got[2], want[2], "kernel D gamma")
+        g_k, g_p = got[2].clone(), want[2].clone()
+        w5 = fac[1] * 0.5
+        kw = dict(sf=B3SPLINE, scale=5, weight=w5.reshape(1), masked=True)
+        t5 = torch.tensor([2.0 * float(sig[5])], device=dev)
+        d_k = hopper_deep.deep_whiten_plane(cube[5][None], t5, gamma=g_k,
+                                            **kw)
+        d_p = hopper_deep.deep_whiten_plane_plain(cube[5][None], t5,
+                                                  gamma=g_p, **kw)
+        torch.cuda.synchronize()
+        err_d = max(err_d, check_white(d_k, d_p, "kernel D s=5"))
+        check_white(g_k, g_p, "kernel D gamma after s=5")
+        print(f"kernel D: 4096² s=0,1,2 (pieces) and s=5 (plane) with "
+              f"device factors and gamma, max abs err {err_d:.3e}")
+        del cube, pieces
+
+    # ---- 3e. kernel E ---------------------------------------------------
+    err_e = {"white": 0.0, "carry": 0.0}
+    with Phase("kernel E checks"):
+        for shape, s in (((4096, 4096), 7), ((512, 512), 4)):
+            x = frame(shape, b=1)
+            recon = frame(shape, b=1)
+            thr = torch.tensor([[3.0 * float(sig[s])],
+                                [2.0 * float(sig[s + 1])]], device=dev)
+            require(hopper_deep.can_deep2(x, B3SPLINE, s),
+                    f"kernel E gate refuses {shape} s={s}")
+            for masked in ((True, True), (False, True), (False, False)):
+                kw = dict(sf=B3SPLINE, scale=s, weights=(1.5, 0.5),
+                          soft=True, masked=masked)
+                r_k, r_p, r_a = recon.clone(), recon.clone(), recon.clone()
+                w1, w2, _, c_k = hopper_deep.deep_whiten_step2(x, r_k, thr,
+                                                               **kw)
+                p1, p2, _, c_p = hopper_deep.deep_whiten_step2_plain(
+                    x, r_p, thr, **kw)
+                a1, _, mid = hopper_deep.deep_whiten_step(
+                    x, r_a, thr[0], sf=B3SPLINE, scale=s, weight=1.5,
+                    masked=masked[0])
+                a2, _, c_a = hopper_deep.deep_whiten_step(
+                    mid, r_a, thr[1], sf=B3SPLINE, scale=s + 1, weight=0.5,
+                    masked=masked[1])
+                torch.cuda.synchronize()
+                what = f"kernel E {shape} ({s}, {s + 1}) masked={masked}"
+                check_bitwise(c_k, c_p, what + " carry vs plain")
+                check_bitwise(c_k, c_a, what + " carry vs kernel A")
+                check_bitwise(w1, a1, what + " white_s vs kernel A")
+                check_bitwise(w2, a2, what + " white_s+1 vs kernel A")
+                check_bitwise(r_k, r_a, what + " recon vs kernel A")
+                e = max(check_white(w1, p1, what), check_white(w2, p2, what),
+                        check_white(r_k, r_p, what + " recon"))
+                err_e["white"] = max(err_e["white"], e)
+        print(f"kernel E: carry bitwise to two plain steps, everything "
+              f"bitwise to two kernel A steps; whites vs plain max abs err "
+              f"{err_e['white']:.3e}")
+
+    # ---- 4. the paths ----------------------------------------------------
     launches = {}
-    for what, (x, kw, n_scales) in configs.items():
+
+    def drive(what, fn, expect):
+        """Run ``fn`` with the counters reset just before and read just
+        after; every kernel in ``expect`` must launch and no plain version
+        may run."""
         torch.cuda.synchronize()
         _build.reset_counters()
-        recon, coeffs = wow(x, **kw)
+        out = fn()
         torch.cuda.synchronize()
         run_launches = dict(_build.LAUNCHES)
         run_plain = dict(_build.PLAIN_CALLS)
         for name, n in run_launches.items():
             launches[name] = launches.get(name, 0) + n
-        print(f"main path {what}: launches {run_launches} "
-              f"plain calls {run_plain}")
-        require(run_launches.get("whiten_step", 0) >= n_scales,
-                f"kernel A launched {run_launches.get('whiten_step', 0)} "
-                f"times for {n_scales} scales")
-        require(run_launches.get("median_select", 0) >= 1,
-                "kernel B did not launch")
-        require(not run_plain, f"plain versions ran: {run_plain}")
-        require(len(coeffs) == n_scales + 1, "plane count")
-        require(recon.is_cuda and recon.shape == x.shape
-                and recon.dtype == torch.float32, "recon placement")
-        require(bool(torch.isfinite(recon).all()), "recon not finite")
+        print(f"{what}: launches {run_launches} plain calls {run_plain}")
+        for name in expect:
+            require(run_launches.get(name, 0) >= 1,
+                    f"{what}: kernel {name} did not launch")
+        require(not run_plain, f"{what}: plain versions ran: {run_plain}")
+        return out, run_launches
+
+    def on_card(t, what, shape=None, dtype=torch.float32):
+        require(t.is_cuda and t.dtype == dtype, f"{what}: not on the card")
+        require(shape is None or tuple(t.shape) == tuple(shape),
+                f"{what}: shape {tuple(t.shape)}")
+        require(bool(torch.isfinite(t).all()), f"{what}: not finite")
+
+    def check_wow(what, recon, coeffs, r_p, c_p, n_planes):
+        require(len(coeffs) == n_planes, f"{what}: plane count")
+        on_card(recon, what + " recon")
         for k in range(len(coeffs)):
-            require(coeffs[k].is_cuda and bool(torch.isfinite(coeffs[k]).all()),
-                    f"plane {k} not finite on the card")
-        r_p, c_p = wow(x, fuse=False, **kw)
-        torch.cuda.synchronize()
+            on_card(coeffs[k], f"{what} plane {k}")
         scale = float(r_p.abs().max())
         e_r = check_white(recon, r_p, what + " recon vs fuse=False")
-        e_p = max(check_white(coeffs[k], c_p[k], f"{what} plane {k}", scale)
+        e_p = max(check_white(coeffs[k], c_p[k], f"{what} plane {k}",
+                              max(scale, float(c_p[k].abs().max())))
                   for k in range(len(coeffs)))
         print(f"  vs fuse=False on the card: recon max abs err {e_r:.3e}, "
               f"planes {e_p:.3e} (scale {scale:.4g})")
 
-    # a small frame against the float64 path on the CPU
-    small = rng.normal(size=(256, 256)) * 3 + 10
-    r_gpu, c_gpu = wow(torch.from_numpy(small.astype(np.float32)).to(dev),
-                       denoise_coefficients=[5, 2])
-    r_ref, c_ref = wow(small, denoise_coefficients=[5, 2])
-    scale = float(r_ref.abs().max())
-    e_small = check_white(r_gpu.cpu(), r_ref, "256² vs float64 CPU", scale)
-    for k in range(len(c_ref)):
-        check_white(c_gpu[k].cpu(), c_ref[k], f"256² plane {k} vs CPU",
-                    scale)
-    print(f"256² kernel path vs float64 CPU path: recon max abs err "
-          f"{e_small:.3e} (scale {scale:.4g})")
+    def small_vs_cpu(what, run, shape=(256, 256)):
+        """``run(x, **device)`` on a small float32 input on the card
+        against the float64 CPU path; returns the max abs error."""
+        small = rng.normal(size=shape) * 3 + 10
+        got = run(torch.from_numpy(small.astype(np.float32)).to(dev))
+        ref = run(small, device="cpu")
+        scale = float(ref.abs().max())
+        err = check_white(got.cpu(), ref, f"{what} vs float64 CPU", scale)
+        print(f"  {shape} on the card vs the float64 CPU path: max abs err "
+              f"{err:.3e} (scale {scale:.4g})")
+        return err
+
+    x4k = frame((4096, 4096))
+    paths = {}
+
+    # the main path
+    configs = {
+        "4096² L10 (auto), denoise [5, 2], lazy noise":
+            (x4k, dict(denoise_coefficients=[5, 2]), 10),
+        "512² L6, denoise [5, 2], lazy noise":
+            (frame((512, 512)), dict(n_scales=6,
+                                     denoise_coefficients=[5, 2]), 6),
+    }
+    with Phase("main path"):
+        for what, (x, kw, n_scales) in configs.items():
+            (recon, coeffs), run = drive(
+                f"main path {what}", lambda: wt.wow(x, **kw),
+                ("whiten_step", "median_select", "whiten_pair"))
+            # one kernel A launch per single scale, one kernel E per pair
+            covered = run.get("whiten_step", 0) + 2 * run.get("whiten_pair", 0)
+            require(covered == n_scales,
+                    f"main path {what}: launches cover {covered} scales")
+            r_p, c_p = wt.wow(x, fuse=False, **kw)
+            torch.cuda.synchronize()
+            check_wow(what, recon, coeffs, r_p, c_p, n_scales + 1)
+        small_vs_cpu("main path 256²", lambda x, **d: wt.wow(
+            x, denoise_coefficients=[5, 2], **d)[0])
+
+    # P1: decomposition
+    with Phase("P1 AtrousTransform 4096² L6"):
+        coeffs, _ = drive("P1 AtrousTransform()(x4096, 6)",
+                          lambda: wt.AtrousTransform()(x4k, 6),
+                          ("decompose_group",))
+        on_card(coeffs.data, "P1 planes", (7, 4096, 4096))
+        check_bitwise(coeffs.data, decompose(x4k, 6, B3SPLINE, fuse=False),
+                      "P1 vs fuse=False")
+        rt = max_err(wt.synthesize(coeffs.data), x4k)
+        require(rt <= WHITE_RTOL * max(1.0, float(x4k.abs().max())),
+                f"P1 round trip err {rt}")
+        print(f"  bitwise to fuse=False; round trip max abs err {rt:.3e}")
+        small_vs_cpu("P1 256²", lambda x, **d: wt.AtrousTransform()(
+            x, 6, **d).data)
+        paths["P1 AtrousTransform 4096² L6"] = (
+            lambda: wt.AtrousTransform()(x4k, 6),
+            lambda: decompose(x4k, 6, B3SPLINE, fuse=False))
+        del coeffs
+
+    # P2: denoise
+    x_vol = frame((64, 1024, 1024))
+    p2 = {
+        "P2 denoise 4096² [3, 3, 3]": (x4k, ([3, 3, 3],), {}),
+        "P2 denoise 4096² [5, 3] Triangle": (x4k, ([5, 3], wt.Triangle), {}),
+        "P2 denoise volume 64×1024² [5, 3, 2]": (x_vol, ([5, 3, 2],), {}),
+    }
+    for what, (x, args, kw) in p2.items():
+        with Phase(what):
+            out, _ = drive(what, lambda: wt.denoise(x, *args, **kw),
+                           ("decompose_group", "median_select"))
+            on_card(out, what, x.shape)
+            plain = wt.denoise(x, *args, fuse=False, **kw)
+            torch.cuda.synchronize()
+            e = check_white(out, plain, what + " vs fuse=False")
+            print(f"  vs fuse=False on the card: max abs err {e:.3e}")
+            small = (16, 64, 64) if x.ndim == 3 else (256, 256)
+            small_vs_cpu(what, lambda y, **d: wt.denoise(y, *args, **d),
+                         small)
+            paths[what] = (
+                lambda x=x, args=args: wt.denoise(x, *args),
+                lambda x=x, args=args: wt.denoise(x, *args, fuse=False))
+
+    # P3: the materialized-plane WOW route
+    p3 = {
+        "P3 wow 4096² h=0.5, denoise [5, 2]":
+            dict(denoise_coefficients=[5, 2], h=0.5),
+        "P3 wow 4096² preserve_variance, h=0.5, denoise [5, 2]":
+            dict(denoise_coefficients=[5, 2], h=0.5, preserve_variance=True),
+    }
+    for what, kw in p3.items():
+        with Phase(what):
+            (recon, coeffs), _ = drive(
+                what, lambda: wt.wow(x4k, **kw),
+                ("decompose_group", "whiten_plane", "median_select"))
+            r_p, c_p = wt.wow(x4k, fuse=False, **kw)
+            torch.cuda.synchronize()
+            check_wow(what, recon, coeffs, r_p, c_p, 11)
+            small_vs_cpu(what, lambda y, **d: wt.wow(y, **kw, **d)[0])
+            paths[what] = (lambda kw=kw: wt.wow(x4k, **kw),
+                           lambda kw=kw: wt.wow(x4k, fuse=False, **kw))
+    what = "P3 wow(AtrousTransform()(x4096, 10))"
+    with Phase(what):
+        (recon, coeffs), _ = drive(
+            what, lambda: wt.wow(wt.AtrousTransform()(x4k, 10)),
+            ("decompose_group", "whiten_plane"))
+        planes = wt.AtrousTransform()(x4k, 10)
+        r_p, c_p = wt.wow(planes, fuse=False)
+        torch.cuda.synchronize()
+        check_wow(what, recon, coeffs, r_p, c_p, 11)
+        small_vs_cpu(what, lambda y, **d: wt.wow(
+            wt.AtrousTransform()(y, 6, **d))[0])
+        paths[what] = (lambda: wt.wow(planes), lambda: wt.wow(
+            planes, fuse=False))
+
+    # the materialized-plane body with a deferred tail against the main
+    # path's body: the route the JAX package takes for lazy noise
+    with Phase("route A/B: pieces + deferred tail vs merged, 4096² L10"):
+        d = (5.0, 2.0) + (0.0,) * 8 + (1.0,)
+        w = (1.0,) * 11
+        zero = torch.zeros((), device=dev)
+
+        def route_fused():
+            pieces, layout, tail = decompose_pieces(x4k, 10, B3SPLINE,
+                                                    defer_tail=True)
+            return _wow_body_fused(pieces, layout, tail, zero, False,
+                                           B3SPLINE, 10, w, d, True,
+                                           planes_layout="rows")
+
+        def route_merged():
+            return _wow_body_merged(x4k, zero, False, B3SPLINE, 10,
+                                            w, d, True, kernels=True)
+
+        (r_f, c_f), _ = drive("pieces + deferred tail", route_fused,
+                              ("decompose_group", "whiten_plane",
+                               "whiten_pair", "median_select"))
+        r_m, c_m = route_merged()
+        torch.cuda.synchronize()
+        e = check_white(r_f, r_m, "route A/B recon")
+        print(f"  pieces route vs merged route: recon max abs err {e:.3e}")
+        paths["route pieces + deferred tail 4096² L10 lazy [5, 2]"] = (
+            route_fused, route_merged)
 
     # ---- 5. timings -----------------------------------------------------
     print(f"timings on {card}: median of {N_TIMED} runs, CUDA events")
     e2e = {}
-    for what, (x, kw, _) in configs.items():
-        t_k = timed(lambda: wow(x, **kw), torch)
-        t_p = timed(lambda: wow(x, fuse=False, **kw), torch)
-        e2e[what] = (t_k, t_p)
-        print(f"  wow {what}: kernels {t_k:.3f} ms, plain {t_p:.3f} ms")
-    x = frame((4096, 4096), b=1)
-    recon = torch.zeros_like(x)
-    zero = torch.zeros(1, device=dev)
-    thr = torch.tensor([1.0], device=dev)
-    step_k = step_p = 0.0
-    for s in range(10):
-        kw = dict(sf=B3SPLINE, scale=s, weight=1.0, soft=True,
-                  masked=s < 2)
-        t = thr if s < 2 else zero
-        tk = timed(lambda: hopper_deep.deep_whiten_step(x, recon, t, **kw),
-                   torch)
-        tp = timed(lambda: hopper_deep.deep_whiten_step_plain(x, recon, t,
+    with Phase("timings: paths"):
+        for what, (x, kw, _) in configs.items():
+            t_k = timed(lambda: wt.wow(x, **kw), torch)
+            t_p = timed(lambda: wt.wow(x, fuse=False, **kw), torch)
+            e2e[what] = (t_k, t_p)
+            print(f"  wow {what}: kernels {t_k:.3f} ms, plain {t_p:.3f} ms")
+        for what, (run_k, run_p) in paths.items():
+            t_k = timed(run_k, torch)
+            t_p = timed(run_p, torch)
+            e2e[what] = (t_k, t_p)
+            label = "merged" if what.startswith("route") else "plain"
+            print(f"  {what}: kernels {t_k:.3f} ms, {label} {t_p:.3f} ms")
+        del x_vol
+
+    kernels_out = []
+    with Phase("timings: kernels"):
+        # kernel A: one step per scale, 0-9 at 4096²
+        x = frame((4096, 4096), b=1)
+        recon = torch.zeros_like(x)
+        zero1 = torch.zeros(1, device=dev)
+        thr1 = torch.tensor([1.0], device=dev)
+        step_k = step_p = 0.0
+        for s in range(10):
+            kw = dict(sf=B3SPLINE, scale=s, weight=1.0, soft=True,
+                      masked=s < 2)
+            t = thr1 if s < 2 else zero1
+            tk = timed(lambda: hopper_deep.deep_whiten_step(x, recon, t,
+                                                            **kw), torch)
+            tp = timed(lambda: hopper_deep.deep_whiten_step_plain(
+                x, recon, t, **kw), torch)
+            step_k += tk
+            step_p += tp
+            print(f"  kernel A 4096² s={s}: {tk:.3f} ms, plain {tp:.3f} ms")
+        # per step: read carry and recon, write white, c_next, recon
+        b_a = bound_ms(10 * 5 * plane_bytes,
+                       10 * 4096 * 4096 * (4 * FOLD_OPS + 8))
+        kernels_out.append(dict(
+            name="whiten_step", route="cuda",
+            source="wavelets_tpu_torch/csrc/whiten_step.cu",
+            replaces="wavelets_tpu/ops/pallas_conv.py:607",
+            also_replaces="wavelets_tpu/ops/pallas_deep.py:514",
+            launches=launches.get("whiten_step", 0),
+            max_abs_err=errs_a["white"],
+            carry_max_abs_err=errs_a["carry"],
+            ms=step_k, plain_ms=step_p, bound_ms=b_a[0], bound_by=b_a[1],
+            library_ms=None,
+            timed="scales 0-9 at 4096², one step each",
+            library="none: PyTorch has no numpy-symmetric pad or dilated "
+                    "smooth in one call"))
+
+        # kernel B
+        x = frame((4096, 4096))
+        med_k = timed(lambda: hopper_stats.median_abs(x), torch)
+        med_p = timed(lambda: hopper_stats.median_abs(
+            x, hopper_stats.median_bits2_plain), torch)
+        med_l = timed(lambda: torch.quantile(x.abs(), 0.5), torch)
+        print(f"  kernel B 4096²: {med_k:.3f} ms, plain {med_p:.3f} ms, "
+              f"torch.quantile {med_l:.3f} ms")
+        b_b = bound_ms(plane_bytes, 4096 * 4096 * 2)
+        kernels_out.append(dict(
+            name="median_select", route="cuda",
+            source="wavelets_tpu_torch/csrc/median_select.cu",
+            replaces="wavelets_tpu/ops/pallas_stats.py:129",
+            launches=launches.get("median_select", 0), max_abs_err=err_b,
+            ms=med_k, plain_ms=med_p, bound_ms=b_b[0], bound_by=b_b[1],
+            library_ms=med_l, timed="median(|x|) of a 4096² frame",
+            library="torch.quantile(x.abs(), 0.5) (takes 2^24 elements)"))
+
+        # kernel C: one group of 3 scales at 4096²
+        c_k = timed(lambda: hopper_conv.fused_group(x, 3, B3SPLINE), torch)
+        c_p = timed(lambda: hopper_conv.fused_group_plain(x, 3, B3SPLINE),
+                    torch)
+        print(f"  kernel C 4096² g=3: {c_k:.3f} ms, plain {c_p:.3f} ms")
+        b_c = bound_ms(5 * plane_bytes, 3 * 4096 * 4096 * (2 * FOLD_OPS + 1))
+        kernels_out.append(dict(
+            name="decompose_group", route="cuda",
+            source="wavelets_tpu_torch/csrc/decompose_group.cu",
+            replaces="wavelets_tpu/ops/pallas_conv.py:542",
+            launches=launches.get("decompose_group", 0), max_abs_err=0.0,
+            ms=c_k, plain_ms=c_p, bound_ms=b_c[0], bound_by=b_c[1],
+            library_ms=None, timed="one group, scales 0-2 at 4096²",
+            library="none: PyTorch has no numpy-symmetric pad"))
+
+        # kernel D: the pieces of scales 0-2 at 4096², planes and gamma
+        cube = hopper_conv.fused_group(x, 3, B3SPLINE)
+        args = ((cube[:, None],), torch.ones(3, device=dev),
+                torch.full((3,), 0.5, device=dev), B3SPLINE, 3,
+                ((0, 0), (0, 1), (0, 2)))
+        d_k = timed(lambda: hopper_wow.fused_whiten_pieces(
+            *args, write_gamma=True), torch)
+        d_p = timed(lambda: hopper_wow.fused_whiten_pieces_plain(
+            *args, write_gamma=True), torch)
+        print(f"  kernel D 4096² scales 0-2 with gamma: {d_k:.3f} ms, "
+              f"plain {d_p:.3f} ms")
+        # read 3 planes; write 3 whites, recon, gamma
+        b_d = bound_ms(8 * plane_bytes, 3 * 4096 * 4096 * (FOLD_OPS * 2 + 12))
+        kernels_out.append(dict(
+            name="whiten_plane", route="cuda",
+            source="wavelets_tpu_torch/csrc/whiten_plane.cu",
+            replaces="wavelets_tpu/ops/pallas_wow.py:300",
+            also_replaces="wavelets_tpu/ops/pallas_deep.py:1161",
+            launches=launches.get("whiten_plane", 0), max_abs_err=err_d,
+            ms=d_k, plain_ms=d_p, bound_ms=b_d[0], bound_by=b_d[1],
+            library_ms=None,
+            timed="fused_whiten_pieces, scales 0-2 at 4096², gamma on",
+            library="none: PyTorch has no numpy-symmetric pad"))
+        del cube, args
+
+        # kernel E: the pairs against their plain versions and against two
+        # kernel A steps
+        pair_ab = {}
+        for shape, s in (((4096, 4096), 7), ((512, 512), 4)):
+            xb = frame(shape, b=1)
+            rb = torch.zeros_like(xb)
+            thr2 = torch.full((2, 1), 0.5, device=dev)
+            kw = dict(sf=B3SPLINE, scale=s, weights=(1.0, 1.0), soft=True,
+                      masked=(True, False))
+            e_k = timed(lambda: hopper_deep.deep_whiten_step2(xb, rb, thr2,
                                                               **kw), torch)
-        step_k += tk
-        step_p += tp
-        print(f"  kernel A 4096² s={s}: {tk:.3f} ms, plain {tp:.3f} ms")
-    x = frame((4096, 4096))
-    med_k = timed(lambda: hopper_stats.median_abs(x), torch)
-    med_p = timed(lambda: hopper_stats.median_abs(
-        x, hopper_stats.median_bits2_plain), torch)
-    print(f"  kernel B 4096²: {med_k:.3f} ms, plain {med_p:.3f} ms")
+            e_p = timed(lambda: hopper_deep.deep_whiten_step2_plain(
+                xb, rb, thr2, **kw), torch)
+
+            def two_steps():
+                _, _, mid = hopper_deep.deep_whiten_step(
+                    xb, rb, thr2[0], sf=B3SPLINE, scale=s, weight=1.0,
+                    masked=True)
+                hopper_deep.deep_whiten_step(mid, rb, thr2[1], sf=B3SPLINE,
+                                             scale=s + 1, weight=1.0)
+
+            e_a = timed(two_steps, torch)
+            pair_ab[f"{shape[0]}² ({s}, {s + 1})"] = (e_k, e_a, e_p)
+            print(f"  kernel E {shape[0]}² ({s}, {s + 1}): {e_k:.3f} ms, "
+                  f"two kernel A steps {e_a:.3f} ms, plain {e_p:.3f} ms")
+        e_k, _, e_p = pair_ab["4096² (7, 8)"]
+        # read carry and recon; write two whites, c_next2, recon
+        b_e = bound_ms(6 * plane_bytes, 2 * 4096 * 4096 * (4 * FOLD_OPS + 8))
+        kernels_out.append(dict(
+            name="whiten_pair", route="cuda",
+            source="wavelets_tpu_torch/csrc/whiten_pair.cu",
+            replaces="wavelets_tpu/ops/pallas_deep.py:929",
+            launches=launches.get("whiten_pair", 0),
+            max_abs_err=err_e["white"], carry_max_abs_err=0.0,
+            ms=e_k, plain_ms=e_p, bound_ms=b_e[0], bound_by=b_e[1],
+            library_ms=None, timed="the pair (7, 8) at 4096²",
+            two_kernel_a_steps_ms={k: v[1] for k, v in pair_ab.items()},
+            pair_ms={k: v[0] for k, v in pair_ab.items()},
+            library="none: PyTorch has no numpy-symmetric pad"))
+
+    # ---- 6. where the time goes ----------------------------------------
+    with Phase("profile"):
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        routes = {what: wt_run for what, (wt_run, _) in paths.items()}
+        for what, (x, kw, _) in configs.items():
+            routes[what] = lambda x=x, kw=kw: wt.wow(x, **kw)
+        for what, run in routes.items():
+            run()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    run()
+                torch.cuda.synchronize()
+            kern = [e for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA]
+            busy = sum(e.self_device_time_total for e in kern) / 5e3
+            wall = e2e[what][0]
+            top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
+            print(f"  {what}: busy {busy:.3f} ms of {wall:.3f} ms, idle "
+                  f"share {1 - busy / wall:.3f}; top: " + ", ".join(
+                      f"{e.key[:40]} {e.self_device_time_total / 5e3:.3f}"
+                      f" (x{e.count // 5})" for e in top))
 
     summary = {
         "card": card,
         "build_s": build_s,
-        "wow_ms": {k: {"kernels": v[0], "plain": v[1]}
-                   for k, v in e2e.items()},
-        "kernels": [
-            {"name": "whiten_step", "route": "cuda",
-             "source": "wavelets_tpu_torch/csrc/whiten_step.cu",
-             "replaces": "wavelets_tpu/ops/pallas_conv.py:607",
-             "also_replaces": "wavelets_tpu/ops/pallas_deep.py:514",
-             "launches": launches.get("whiten_step", 0),
-             "max_abs_err": errs_a["white"],
-             "carry_max_abs_err": errs_a["carry"],
-             "ms": step_k, "plain_ms": step_p,
-             "timed": "scales 0-9 at 4096², one step each"},
-            {"name": "median_select", "route": "cuda",
-             "source": "wavelets_tpu_torch/csrc/median_select.cu",
-             "replaces": "wavelets_tpu/ops/pallas_stats.py:129",
-             "launches": launches.get("median_select", 0),
-             "max_abs_err": err_b,
-             "ms": med_k, "plain_ms": med_p,
-             "timed": "median(|x|) of a 4096² frame"},
-        ],
+        "path_ms": {k: {"kernels": v[0], "plain": v[1]}
+                    for k, v in e2e.items()},
+        "kernels": kernels_out,
     }
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -134,7 +134,7 @@ def test_decompose_scale_offset(rng):
 def test_atrous_transform(rng, cls):
     x = rng.normal(size=(96, 80))
     jc = japi.AtrousTransform(getattr(japi, cls))(x, 5)
-    tc = tapi.AtrousTransform(getattr(tapi, cls))(x, 5)
+    tc = tapi.AtrousTransform(getattr(tapi, cls))(x, 5, device="cpu")
     assert len(tc) == len(jc) == 6
     assert tc.scaling_function.name == jc.scaling_function.name
     assert_rel(np.asarray(tc), np.asarray(jc), 1e-12)
@@ -158,7 +158,7 @@ def test_atrous_transform_options_outside_the_slice():
 ])
 def test_as_tensor_dtype_rules(dtype, want):
     arr = np.arange(6).reshape(2, 3).astype(dtype)
-    t = tapi._as_tensor(arr)
+    t = tapi._as_tensor(arr, device="cpu")
     assert t.dtype == want and t.device.type == "cpu"
     assert np.array_equal(to_np(t), arr.astype(np.float64))
     # the JAX package applies the same rule
@@ -169,6 +169,18 @@ def test_as_tensor_keeps_tensors():
     t = torch.arange(4, dtype=torch.float32)
     assert tapi._as_tensor(t) is t
     assert tapi._as_tensor(torch.arange(4)).dtype == torch.float64
+
+
+def test_array_input_without_a_card_raises(monkeypatch):
+    # array input goes to the card by default and never carries on
+    # silently on the CPU; a CPU tensor keeps its device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tapi._as_tensor(np.zeros((4, 4)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tapi.Coefficients(np.zeros((2, 4, 4)), tapi.B3spline(2))
+    t = torch.zeros(4, 4)
+    assert tapi._as_tensor(t) is t
 
 
 def test_stack_planes():
@@ -184,5 +196,6 @@ def test_coefficients_rows_and_cube():
     assert np.asarray(c).shape == (3, 4, 4)
     assert np.asarray(c, dtype=np.float32).dtype == np.float32
     assert c.data.shape == (3, 4, 4) and float(c[2][0, 0]) == 2.0
-    cube = tapi.Coefficients(np.zeros((2, 3, 3)), tapi.B3spline(2))
+    cube = tapi.Coefficients(np.zeros((2, 3, 3)), tapi.B3spline(2),
+                             device="cpu")
     assert len(cube) == 2 and cube[0].shape == (3, 3)

@@ -6,7 +6,8 @@ which has no JAX: ``python -m pytest tests/test_torch_cuda.py -q
 
 Tolerances (as chip_smoke.py): the carry (``c_next``) within 1 unit in
 the last place of its magnitude (the folds are rounded step by step in
-both versions, so bitwise is expected); whitened planes, ``acc`` and the
+both versions, so bitwise is expected); kernel C's details and carry and
+kernel E's carry bitwise; whitened planes, ``acc``, the gamma sum and the
 reconstruction within ``5e-6·max(|ref|, 1)`` (``erff`` against
 ``torch.erf``); kernel B bitwise."""
 
@@ -16,7 +17,8 @@ import torch
 
 from tests.torch_parity import assert_close_scaled, to_np
 from wavelets_tpu_torch import wow
-from wavelets_tpu_torch.ops import _build, hopper_conv, hopper_deep, hopper_stats
+from wavelets_tpu_torch.ops import (_build, hopper_conv, hopper_deep,
+                                    hopper_stats, hopper_wow)
 from wavelets_tpu_torch.ops.filters import B3SPLINE, TRIANGLE
 
 pytestmark = pytest.mark.cuda
@@ -99,15 +101,66 @@ def test_wow_kernel_path_vs_plain(dev):
     torch.cuda.synchronize()
     launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
     r_p, c_p = wow(x, n_scales=6, denoise_coefficients=[5, 2], fuse=False)
-    # one kernel A launch per scale
+    # kernel A for scales 0-2 and 5, kernel E for the pair (3, 4): 256 >> 3
+    # = 32 rows per residue class
     assert len(c_k) == 7
-    assert launches == {"whiten_step": 6, "median_select": 1}
+    assert launches == {"whiten_step": 4, "whiten_pair": 1,
+                        "median_select": 1}
     assert plain == {}
     assert r_k.device.type == "cuda" and bool(torch.isfinite(r_k).all())
     scale = float(r_p.abs().max())
     assert_close_scaled(r_k, r_p, 5e-6)
     for k in range(len(c_p)):
         assert_close_scaled(c_k[k], c_p[k], 5e-6, scale)
+
+
+@pytest.mark.parametrize("shape,launched", [
+    ((512, 512), {"whiten_step": 4, "whiten_pair": 1}),
+    # 8 does not divide 250: kernel E's gate refuses, two kernel A steps
+    ((250, 256), {"whiten_step": 6}),
+])
+def test_wow_pair_route_on_the_card(dev, shape, launched):
+    x = torch.from_numpy(np.random.default_rng(5).normal(size=shape)
+                         .astype(np.float32) * 3 + 10).to(dev)
+    _build.reset_counters()
+    r_k, c_k = wow(x, n_scales=6, denoise_coefficients=[5, 2])
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {**launched, "median_select": 1}
+    r_p, c_p = wow(x, n_scales=6, denoise_coefficients=[5, 2], fuse=False)
+    scale = float(r_p.abs().max())
+    assert_close_scaled(r_k, r_p, 5e-6)
+    for k in range(len(c_p)):
+        assert_close_scaled(c_k[k], c_p[k], 5e-6, scale)
+
+
+@pytest.mark.parametrize("path", ["atrous", "denoise", "wow-h", "wow-pv",
+                                  "wow-coefficients"])
+def test_paths_launch_only_kernels(dev, path):
+    import wavelets_tpu_torch as wt
+    x = torch.from_numpy(np.random.default_rng(6).normal(size=(128, 192))
+                         .astype(np.float32) * 3 + 10).to(dev)
+    runs = {
+        "atrous": (lambda f: wt.AtrousTransform()(x, 5).data
+                   if f else wt.decompose(x, 5, wt.B3SPLINE, fuse=False),
+                   {"decompose_group"}),
+        "denoise": (lambda f: wt.denoise(x, [3, 2], fuse=f),
+                    {"decompose_group", "median_select"}),
+        "wow-h": (lambda f: wow(x, denoise_coefficients=[5, 2], h=0.5,
+                                fuse=f)[0],
+                  {"decompose_group", "whiten_plane", "median_select"}),
+        "wow-pv": (lambda f: wow(x, preserve_variance=True, fuse=f)[0],
+                   {"decompose_group", "whiten_plane"}),
+        "wow-coefficients": (lambda f: wow(wt.AtrousTransform()(x, 5),
+                                           fuse=f)[0],
+                             {"decompose_group", "whiten_plane"}),
+    }
+    run, kernels = runs[path]
+    _build.reset_counters()
+    got = run(True)
+    torch.cuda.synchronize()
+    assert set(_build.LAUNCHES) == kernels and not _build.PLAIN_CALLS
+    assert got.is_cuda and bool(torch.isfinite(got).all())
+    assert_close_scaled(got, run(False), 5e-6)
 
 
 def test_wrappers_refuse_what_the_kernel_cannot_take(dev):
@@ -123,3 +176,109 @@ def test_wrappers_refuse_what_the_kernel_cannot_take(dev):
     r, _ = wow(torch.ones(64, 64, dtype=torch.float64, device=dev),
                denoise_coefficients=[3])
     assert r.device.type == "cuda" and not _build.LAUNCHES
+
+
+@pytest.mark.parametrize("shape", [(64, 96), (37, 70), (2, 40, 56)])
+@pytest.mark.parametrize("g,offset", [(1, 0), (3, 0), (3, 2)])
+@pytest.mark.parametrize("smooth_only", [False, True])
+def test_decompose_group_kernel_bitwise(dev, shape, g, offset, smooth_only):
+    x = torch.from_numpy(np.random.default_rng(g).normal(size=shape)
+                         .astype(np.float32)).to(dev)
+    got = hopper_conv.fused_group(x, g, B3SPLINE, offset, smooth_only)
+    want = hopper_conv.fused_group_plain(x, g, B3SPLINE, offset, smooth_only)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == ((1 if smooth_only else g + 1),) + shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("per_frame", [False, True])
+@pytest.mark.parametrize("write_planes,write_gamma",
+                         [(True, True), (False, False), (True, False)])
+def test_whiten_pieces_kernel_vs_plain(dev, per_frame, write_planes,
+                                       write_gamma):
+    x = torch.from_numpy(np.random.default_rng(4).normal(size=(2, 64, 80))
+                         .astype(np.float32)).to(dev)
+    pieces = (hopper_conv.fused_group_plain(x, 3, B3SPLINE),)
+    fac = torch.tensor([[1.5, 0.5], [2.0, 1.0], [0.7, 0.7]], device=dev)
+    fac = fac if per_frame else fac[:, 0]
+    thr = torch.tensor([[0.3, 0.0], [0.0, 0.1], [0.2, 0.2]], device=dev)
+    args = (pieces, fac, thr, B3SPLINE, 3, ((0, 0), (0, 1), (0, 2)))
+    kw = dict(soft=True, write_planes=write_planes, write_gamma=write_gamma)
+    got = hopper_wow.fused_whiten_pieces(*args, **kw)
+    want = hopper_wow.fused_whiten_pieces_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        if b is None:
+            assert a is None
+        else:
+            assert_close_scaled(a, b, 5e-6)
+
+
+@pytest.mark.parametrize("s", [2, 4])
+@pytest.mark.parametrize("mode", ["soft", "hard", "unmasked"])
+def test_deep_plane_kernel_vs_plain(dev, s, mode):
+    rng = np.random.default_rng(s)
+    c = torch.from_numpy(rng.normal(size=(2, 64, 96)).astype(np.float32))
+    c = c.to(dev)
+    g_k = torch.ones_like(c)
+    g_p = g_k.clone()
+    kw = dict(sf=B3SPLINE, scale=s, soft=mode == "soft",
+              masked=mode != "unmasked")
+    thr = torch.tensor([0.5, 0.0], device=dev)
+    weight = torch.tensor([1.5, 0.25], device=dev)
+    w_k = hopper_deep.deep_whiten_plane(c, thr, weight=weight, gamma=g_k,
+                                        **kw)
+    w_p = hopper_deep.deep_whiten_plane_plain(c, thr, weight=weight,
+                                              gamma=g_p, **kw)
+    torch.cuda.synchronize()
+    assert_close_scaled(w_k, w_p, 5e-6)
+    assert_close_scaled(g_k, g_p, 5e-6)
+
+
+@pytest.mark.parametrize("shape,s", [((1, 64, 96), 3), ((2, 40, 56), 2),
+                                     ((1, 512, 512), 4), ((1, 16, 24), 0)])
+@pytest.mark.parametrize("masked", [(True, False), (True, True),
+                                    (False, False)])
+@pytest.mark.parametrize("with_recon", [False, True])
+def test_pair_kernel_vs_two_steps(dev, shape, s, masked, with_recon):
+    rng = np.random.default_rng(s)
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32) * 3 + 10)
+    x = x.to(dev)
+    recon = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    recon = recon.to(dev)
+    thr = torch.tensor([[0.2] * shape[0], [0.05] * shape[0]], device=dev)
+    kw = dict(sf=B3SPLINE, scale=s, weights=(1.5, 0.5), soft=True,
+              masked=masked)
+    assert hopper_deep.can_deep2(x, B3SPLINE, s)
+    r_k = recon.clone() if with_recon else None
+    r_p = recon.clone() if with_recon else None
+    w1_k, w2_k, _, c_k = hopper_deep.deep_whiten_step2(x, r_k, thr, **kw)
+    w1_p, w2_p, _, c_p = hopper_deep.deep_whiten_step2_plain(x, r_p, thr,
+                                                             **kw)
+    # two kernel A steps: the same bits, erff included
+    r_a = recon.clone()
+    a1, _, mid = hopper_deep.deep_whiten_step(
+        x, r_a, thr[0], sf=B3SPLINE, scale=s, weight=1.5, masked=masked[0])
+    a2, _, c_a = hopper_deep.deep_whiten_step(
+        mid, r_a, thr[1], sf=B3SPLINE, scale=s + 1, weight=0.5,
+        masked=masked[1])
+    torch.cuda.synchronize()
+    assert torch.equal(c_k, c_p) and torch.equal(c_k, c_a)
+    assert torch.equal(w1_k, a1) and torch.equal(w2_k, a2)
+    assert_close_scaled(w1_k, w1_p, 5e-6)
+    assert_close_scaled(w2_k, w2_p, 5e-6)
+    if with_recon:
+        assert torch.equal(r_k, r_a)
+        assert_close_scaled(r_k, r_p, 5e-6)
+
+
+def test_pair_gate_refuses_and_the_kernel_raises(dev):
+    x = torch.zeros(1, 36, 72, device=dev)
+    assert not hopper_deep.can_deep2(x, B3SPLINE, 3)    # 36 % 8 != 0
+    assert not hopper_deep.can_deep2(torch.zeros(1, 512, 512, device=dev),
+                                     B3SPLINE, 1)       # torus too large
+    with pytest.raises(ValueError, match="can_deep2"):
+        hopper_deep.deep_whiten_step2(x, None, torch.zeros(2, device=dev),
+                                      sf=B3SPLINE, scale=3,
+                                      weights=(1.0, 1.0))

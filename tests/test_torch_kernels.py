@@ -142,15 +142,19 @@ def test_kernel_input_check(bad):
 
 def test_build_helper(tmp_path, monkeypatch):
     # every kernel source of the package is present and named in the
-    # build, and the library name follows the source hash
+    # build, and the library name follows the source and header hash
     names = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
-    assert names == ["median_select", "whiten_step"]
+    assert names == ["decompose_group", "median_select", "whiten_pair",
+                     "whiten_plane", "whiten_step"]
     p1 = _build._library_path("whiten_step")
     assert p1.parent == _build.BUILD_DIR and p1.suffix == ".so"
     src = tmp_path / "whiten_step.cu"
-    src.write_text("// edited\n")
+    src.write_text((_build.CSRC_DIR / "whiten_step.cu").read_text())
     monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
-    assert _build._library_path("whiten_step") != p1
+    p2 = _build._library_path("whiten_step")
+    assert p2 != p1     # the shared header is part of the hash
+    (tmp_path / "wt_common.cuh").write_text("// edited\n")
+    assert _build._library_path("whiten_step") not in (p1, p2)
     # without a CUDA toolkit the build says so instead of half-working
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))

@@ -22,6 +22,8 @@ from tests.torch_parity import assert_close_scaled, assert_rel
 from wavelets_tpu.models.wow import normalize_wow_params as j_normalize
 from wavelets_tpu.ops.filters import B3SPLINE as JB3
 from wavelets_tpu.ops.filters import TRIANGLE as JTRI
+from wavelets_tpu_torch.core.transform import (
+    decompose_pieces as tdecompose_pieces)
 from wavelets_tpu_torch.ops import _build
 from wavelets_tpu_torch.ops.filters import B3SPLINE, TRIANGLE
 
@@ -54,7 +56,7 @@ def test_wow_matches_jax(frames, case, shape, dtype):
     x = frames[shape].astype(dtype)
     kw = CASES[case]
     rj, cj = J.wow(x, **kw)
-    rt, ct = T.wow(x, **kw)
+    rt, ct = T.wow(x, device="cpu", **kw)
     assert rt.dtype == torch.from_numpy(x).dtype and rt.shape == shape
     assert len(ct) == len(cj)
     assert ct.noise == cj.noise
@@ -79,7 +81,7 @@ def test_wow_scaling_functions(frames, sf_name):
     rj, cj = J.wow(x, scaling_function=getattr(J, sf_name), n_scales=4,
                    denoise_coefficients=[3])
     rt, ct = T.wow(x, scaling_function=getattr(T, sf_name), n_scales=4,
-                   denoise_coefficients=[3])
+                   denoise_coefficients=[3], device="cpu")
     assert_rel(rt, np.asarray(rj), 1e-12)
     assert ct.scaling_function.name == cj.scaling_function.name
 
@@ -92,12 +94,137 @@ def test_wow_fuse_false_is_the_same_on_cpu(frames):
     r2, c2 = T.wow(x, denoise_coefficients=[5, 2], fuse=False)
     assert torch.equal(r1, r2)
     assert all(torch.equal(c1[k], c2[k]) for k in range(len(c1)))
-    # CPU tensors take the plain versions: one group, one step per deeper
-    # scale, one median; nothing launches
-    n_scales = len(c1) - 1
-    assert counts == {"whiten_step": 1 + n_scales - twow.N_FAST,
+    # CPU tensors take the plain versions: one group (scales 0-2), one
+    # pair for scales 3 and 4 (200 >> 3 = 25 rows per residue class, and
+    # 8 divides 200 and 328), one median; nothing launches
+    assert len(c1) - 1 == twow.N_FAST + 2
+    assert counts == {"whiten_step": 1, "whiten_pair": 1,
                       "median_select": 1}
     assert sum(_build.LAUNCHES.values()) == 0
+
+
+OPTION_CASES = {
+    "pv-lazy": dict(preserve_variance=True, denoise_coefficients=[5, 2]),
+    "pv-known-hard": dict(n_scales=6, preserve_variance=True, noise=0.5,
+                          soft_threshold=False, denoise_coefficients=[3, 1]),
+    "gamma": dict(h=0.5, denoise_coefficients=[5, 2]),
+    "gamma-bounds": dict(h=0.3, gamma=2.0, gamma_min=0.0, gamma_max=40.0),
+    "no-whitening": dict(whitening=False, denoise_coefficients=[3]),
+    "h1": dict(h=1, denoise_coefficients=[3, 2]),
+}
+
+
+def _assert_wow_close(rt, ct, rj, cj, dtype, whitened=True):
+    assert len(ct) == len(cj)
+    if dtype == np.float64:
+        assert_rel(rt, np.asarray(rj), 1e-12)
+        for k in range(len(cj)):
+            assert_rel(ct[k], np.asarray(cj[k]), 1e-12)
+        return
+    scale = float(np.abs(np.asarray(rj)).max())
+    assert_close_scaled(rt, np.asarray(rj), 5e-6)
+    for k in range(len(cj)):
+        ref = np.asarray(cj[k])
+        # whitened planes at the reconstruction's scale; planes that are
+        # not whitened (whitening=False, h >= 1) at their own
+        assert_close_scaled(ct[k], ref, 5e-6, scale if whitened else max(
+            scale, float(np.abs(ref).max())))
+
+
+@pytest.mark.parametrize("case", sorted(OPTION_CASES))
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_wow_options_match_jax(frames, case, dtype):
+    kw = OPTION_CASES[case]
+    x = frames[(256, 256)].astype(dtype)
+    rj, cj = J.wow(x, **kw)
+    _build.reset_counters()
+    rt, ct = T.wow(x, device="cpu", **kw)
+    whitened = kw.get("whitening", True) and kw.get("h", 0) < 1
+    if dtype == np.float32 and whitened:
+        # the materialized-plane route: kernel C's pieces, kernel D's
+        # whitening (their plain versions on the CPU)
+        assert _build.PLAIN_CALLS["decompose_group"] >= 1
+        assert _build.PLAIN_CALLS["whiten_plane"] >= 2
+    _assert_wow_close(rt, ct, rj, cj, dtype, whitened)
+
+
+@pytest.mark.parametrize("case", ["pv-lazy", "gamma"])
+def test_wow_options_odd_shape(frames, case):
+    x = frames[(200, 328)].astype(np.float32)
+    kw = OPTION_CASES[case]
+    rj, cj = J.wow(x, **kw)
+    rt, ct = T.wow(x, device="cpu", **kw)
+    _assert_wow_close(rt, ct, rj, cj, np.float32)
+
+
+REUSE_CASES = [("cube", None), ("rows", None), ("cube", 0.4),
+               ("rows", 0.4)]
+
+
+@pytest.mark.parametrize("form,noise", REUSE_CASES)
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_wow_from_coefficients_matches_jax(frames, form, noise, dtype):
+    x = frames[(256, 256)].astype(dtype)
+    jc = J.AtrousTransform()(x, 6)
+    jc.noise = noise
+    cube = np.asarray(jc.data)
+    data = (tuple(torch.from_numpy(cube[s].copy()) for s in range(7))
+            if form == "rows" else cube.copy())
+    tc = T.Coefficients(data, T.B3spline(2), device="cpu")
+    tc.noise = noise
+    kw = dict(denoise_coefficients=[5, 2])
+    rj, cj = J.wow(jc, **kw)
+    _build.reset_counters()
+    rt, ct = T.wow(tc, **kw)
+    assert ct.noise == cj.noise == noise
+    assert ("median_select" in _build.PLAIN_CALLS) == (
+        noise is None and dtype == np.float32)
+    if form == "rows":
+        assert ct._rows is not None
+    _assert_wow_close(rt, ct, rj, cj, dtype)
+
+
+@pytest.mark.parametrize("case", ["pv-lazy", "gamma"])
+def test_wow_from_coefficients_options(frames, case):
+    x = frames[(256, 256)].astype(np.float32)
+    kw = {k: v for k, v in OPTION_CASES[case].items() if k != "n_scales"}
+    rj, cj = J.wow(J.AtrousTransform()(x, 6), **kw)
+    rt, ct = T.wow(T.AtrousTransform()(x, 6, device="cpu"), **kw)
+    _assert_wow_close(rt, ct, rj, cj, np.float32)
+
+
+@pytest.mark.parametrize("shape,pairs,steps", [
+    ((512, 512), 1, 1),      # L6: group 0-2, step 3, pair (4, 5)
+    ((250, 256), 0, 3),      # 8 does not divide 250: no pair, 3 steps
+])
+def test_main_path_takes_the_pair(shape, pairs, steps):
+    x = (np.random.default_rng(1).normal(size=shape) * 3 + 10
+         ).astype(np.float32)
+    _build.reset_counters()
+    rt, ct = T.wow(x, n_scales=6, denoise_coefficients=[5, 2], device="cpu")
+    assert _build.PLAIN_CALLS == {
+        "whiten_step": 1 + steps, "median_select": 1,
+        **({"whiten_pair": pairs} if pairs else {})}
+    rj, cj = J.wow(x, n_scales=6, denoise_coefficients=[5, 2])
+    _assert_wow_close(rt, ct, rj, cj, np.float32)
+
+
+def test_fused_body_with_deferred_tail_is_the_merged_body(frames):
+    # the materialized-plane body over kernel C's first group, with scales
+    # 3.. deferred to the deep steps and the pair, gives the main path's
+    # bits
+    x = torch.from_numpy(frames[(256, 256)].astype(np.float32))
+    n, w, d = 6, (1.0, 2.0, 0.5, 1.0, 1.5, 1.0, 1.0), (5, 2, 0, 1, 0, 0, 1)
+    pieces, layout, tail = tdecompose_pieces(x, n, B3SPLINE, defer_tail=True)
+    assert tail[1] == 3
+    zero = torch.zeros((), dtype=x.dtype)
+    r_f, c_f = twow._wow_body_fused(pieces, layout, tail, zero, False,
+                                    B3SPLINE, n, w, d, True,
+                                    planes_layout="rows")
+    r_m, c_m = twow._wow_body_merged(x, zero, False, B3SPLINE, n, w, d, True,
+                                     kernels=True)
+    assert torch.equal(r_f, r_m)
+    assert all(torch.equal(a, b) for a, b in zip(c_f, c_m))
 
 
 def test_wow_core_layouts(frames):
@@ -117,13 +244,29 @@ def test_wow_core_layouts(frames):
 
 
 def test_wow_constant_frame_is_finite():
-    r, c = T.wow(np.full((64, 64), 3.0), denoise_coefficients=[5, 2])
+    r, c = T.wow(np.full((64, 64), 3.0), denoise_coefficients=[5, 2],
+                 device="cpu")
     assert torch.isfinite(r).all()
 
 
 def test_wow_numpy_goes_to_cpu_and_int_to_float64():
-    r, _ = T.wow(np.arange(64 * 64).reshape(64, 64).astype(np.int32))
+    # numpy goes where ``device`` says; int goes to float64
+    r, c = T.wow(np.arange(64 * 64).reshape(64, 64).astype(np.int32),
+                 device="cpu")
     assert r.dtype == torch.float64 and r.device.type == "cpu"
+    assert c[0].device.type == "cpu"
+
+
+@pytest.mark.parametrize("entry", ["wow", "denoise", "AtrousTransform"])
+def test_numpy_input_without_device_needs_a_card(entry):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: numpy input goes there")
+    x = np.zeros((32, 32), np.float32)
+    calls = {"wow": lambda: T.wow(x),
+             "denoise": lambda: T.denoise(x, [3]),
+             "AtrousTransform": lambda: T.AtrousTransform()(x, 2)}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[entry]()
 
 
 NORMALIZE_CASES = [
@@ -158,20 +301,21 @@ def test_normalize_wow_params(case):
 
 
 @pytest.mark.parametrize("option", [
-    "bilateral", "preserve_variance", "h", "whitening", "coefficients",
-    "bfloat16", "3d", "wow_stack",
+    "bilateral", "bfloat16", "3d", "wow_stack", "denoise-bilateral",
+    "bilateral-coefficients",
 ])
 def test_options_outside_the_slice_raise(option):
     x = np.zeros((32, 32), np.float32)
+    cpu = dict(device="cpu")
+    bil = T.AtrousTransform()(x, 2, **cpu)
+    bil.bilateral = 1.0
     calls = {
-        "bilateral": lambda: T.wow(x, bilateral=1.0),
-        "preserve_variance": lambda: T.wow(x, preserve_variance=True),
-        "h": lambda: T.wow(x, h=0.5),
-        "whitening": lambda: T.wow(x, whitening=False),
-        "coefficients": lambda: T.wow(T.wow(x)[1]),
+        "bilateral": lambda: T.wow(x, bilateral=1.0, **cpu),
         "bfloat16": lambda: T.wow(torch.zeros(32, 32, dtype=torch.bfloat16)),
-        "3d": lambda: T.wow(np.zeros((2, 32, 32), np.float32)),
+        "3d": lambda: T.wow(np.zeros((2, 32, 32), np.float32), **cpu),
         "wow_stack": lambda: twow.wow_stack(np.zeros((2, 32, 32))),
+        "denoise-bilateral": lambda: T.denoise(x, [3], bilateral=1.0, **cpu),
+        "bilateral-coefficients": lambda: T.wow(bil),
     }
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
         calls[option]()
@@ -185,9 +329,17 @@ def test_bad_inputs_raise_value_error():
 
 
 def test_import_loads_no_jax():
-    code = ("import sys, wavelets_tpu_torch, wavelets_tpu_torch.ops.hopper_conv, "
-            "wavelets_tpu_torch.ops.hopper_deep, wavelets_tpu_torch.ops."
-            "hopper_stats; print('jax' in sys.modules)")
+    modules = ["wavelets_tpu_torch", "wavelets_tpu_torch.api",
+               "wavelets_tpu_torch.core.transform",
+               "wavelets_tpu_torch.models.denoise",
+               "wavelets_tpu_torch.models.wow",
+               "wavelets_tpu_torch.ops.hopper_conv",
+               "wavelets_tpu_torch.ops.hopper_deep",
+               "wavelets_tpu_torch.ops.hopper_stats",
+               "wavelets_tpu_torch.ops.hopper_wow",
+               "wavelets_tpu_torch.ops.stats"]
+    code = (f"import sys, importlib; [importlib.import_module(m) for m in "
+            f"{modules!r}]; print('jax' in sys.modules)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -195,6 +347,7 @@ def test_import_loads_no_jax():
 
 
 def test_exports():
-    for name in ["wow", "wow_core", "AtrousTransform", "B3spline", "Triangle",
-                 "Coefficients", "ScalingFunction", "B3SPLINE", "TRIANGLE"]:
+    for name in ["wow", "wow_core", "denoise", "decompose", "synthesize",
+                 "AtrousTransform", "B3spline", "Triangle", "Coefficients",
+                 "ScalingFunction", "B3SPLINE", "TRIANGLE"]:
         assert name in T.__all__ and hasattr(T, name)

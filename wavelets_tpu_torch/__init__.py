@@ -1,16 +1,22 @@
 """wavelets_tpu_torch — the à trous wavelet engine in PyTorch for NVIDIA Hopper.
 
 The port of ``wavelets_tpu`` (JAX on a TPU), module by module, to
-PyTorch with hand-written CUDA kernels for the H100.  The ported slice
-is standard WOW on one 2-D float32 or float64 frame: decomposition,
-per-scale whitening with erf/hard significance denoising and lazy MAD
-noise.  The kernels live in ``csrc/`` and are built with ``nvcc`` on
-first use (``ops/_build.py``); a CPU tensor runs each kernel's plain
-PyTorch version.  This package never imports JAX.
+PyTorch with hand-written CUDA kernels for the H100.  The ported slice:
+the standard à trous decomposition and synthesis (1-D, 2-D frames and
+stacks, 3-D volumes), ``denoise``, and standard WOW on one 2-D float32
+or float64 frame with all its options but bilateral (denoising with lazy
+MAD noise, ``preserve_variance``, the gamma blend, ``whitening=False``
+and the ``wow(Coefficients)`` reuse entry).  The kernels live in
+``csrc/`` and are built with ``nvcc`` on first use (``ops/_build.py``); a
+CPU tensor runs each kernel's plain PyTorch version.  Array input goes
+to the card unless the caller passes ``device="cpu"`` or a CPU tensor.
+This package never imports JAX.
 """
 
 from .ops.filters import B3SPLINE, TRIANGLE, ScalingFunction
 from .api import AtrousTransform, B3spline, Coefficients, Triangle
+from .core.transform import decompose, synthesize
+from .models.denoise import denoise
 from .models.wow import wow, wow_core
 
 __all__ = [
@@ -18,6 +24,9 @@ __all__ = [
     "B3spline",
     "Triangle",
     "Coefficients",
+    "decompose",
+    "synthesize",
+    "denoise",
     "wow",
     "wow_core",
     "ScalingFunction",

@@ -3,11 +3,14 @@
 Counterpart of ``wavelets_tpu/api.py`` for the ported slice:
 ``AtrousTransform`` (standard algorithm), ``B3spline``/``Triangle``
 (classes instantiated with ``n_dim``) and ``Coefficients`` (per-scale
-rows or a cube, ``noise``, ``__len__``, ``__getitem__``, ``__array__``).
+rows or a cube, ``noise``, ``get_noise``, ``significance``, ``denoise``,
+item assignment, ``__array__``).
 
-Tensors keep their device: a ``torch.Tensor`` input stays where it is,
-and a numpy input goes to the ``device`` argument (CPU by default).
-There is no device auto-detection.
+Devices: a ``torch.Tensor`` input keeps its device, which is how a
+caller asks for the CPU.  Anything else (numpy, lists) goes to the
+``device`` argument, ``"cuda"`` by default, as the JAX package puts
+numpy input on its accelerator; without a card that raises unless
+``device="cpu"`` is given, and never carries on silently on the CPU.
 
 Reference surface: ``watroo/wavelets.py:108-149`` (Coefficients),
 ``:152-287`` (scaling functions), ``:290-444`` (AtrousTransform).
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 
 from .core.transform import decompose
+from .ops import stats as _stats
 from .ops.filters import B3SPLINE, TRIANGLE, ScalingFunction
 from .ops.layout import stack_planes
 
@@ -37,11 +41,26 @@ _RECASTING_TORCH = (torch.int16, torch.int32, torch.int64, torch.uint16,
                     torch.uint32)
 
 
-def _as_tensor(arr, device=None) -> torch.Tensor:
+#: where the entry points put an input that is not a tensor
+DEFAULT_DEVICE = "cuda"
+
+
+def _target_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: wavelets_tpu_torch puts array input on the "
+            "card by default; pass device='cpu' (or a CPU tensor) to run "
+            "on the CPU")
+    return device
+
+
+def _as_tensor(arr, device=DEFAULT_DEVICE) -> torch.Tensor:
     """numpy/torch → tensor with the reference dtype recast rules
     (watroo/wavelets.py:319-320): the listed int and big-endian dtypes
     become float64; float32 is preserved.  A tensor stays on its device;
-    anything else goes to ``device`` (default CPU)."""
+    anything else goes to ``device`` (the card by default, which raises
+    without one)."""
     if isinstance(arr, torch.Tensor):
         if arr.dtype in _RECASTING_TORCH:
             return arr.to(torch.float64)
@@ -51,7 +70,14 @@ def _as_tensor(arr, device=None) -> torch.Tensor:
         arr = arr.astype(np.float64)
     if arr.dtype.byteorder == ">":
         arr = arr.astype(arr.dtype.newbyteorder("="))
-    return torch.as_tensor(arr, device=device)
+    return _on_device(arr, device)
+
+
+def _on_device(arr, device=DEFAULT_DEVICE) -> torch.Tensor:
+    """A tensor as it is; anything else as a tensor on ``device``."""
+    if isinstance(arr, torch.Tensor):
+        return arr
+    return torch.as_tensor(np.asarray(arr), device=_target_device(device))
 
 
 class AbstractScalingFunction:
@@ -122,19 +148,24 @@ class Coefficients:
     ``data`` is a ``(level+1, *shape)`` tensor.  Construction also takes
     the planes as a tuple/list of per-scale tensors (the rows form
     :func:`~wavelets_tpu_torch.models.wow.wow` returns); the cube is then
-    stacked on first ``.data`` access, while ``len`` and integer indexing
-    read the rows directly."""
+    stacked on first ``.data`` access, while ``len``, integer indexing,
+    ``get_noise`` and ``significance`` read the rows directly.  Arrays
+    that are not tensors go to ``device``, the card by default.
 
-    def __init__(self, data, scaling_function, bilateral=None):
+    As in the JAX package, ``denoise`` and item assignment rebind the
+    planes instead of writing into them: ``coeffs[s] = coeffs[s] * mask``
+    replaces plane ``s``."""
+
+    def __init__(self, data, scaling_function, bilateral=None,
+                 device=DEFAULT_DEVICE):
         if isinstance(data, (tuple, list)) and all(
             isinstance(r, (torch.Tensor, np.ndarray)) for r in data
         ):
-            self._rows = tuple(torch.as_tensor(r) for r in data)
+            self._rows = tuple(_on_device(r, device) for r in data)
             self._cube = None
         else:
             self._rows = None
-            self._cube = (data if isinstance(data, torch.Tensor)
-                          else torch.as_tensor(np.asarray(data)))
+            self._cube = _on_device(data, device)
         self.scaling_function = scaling_function
         self.bilateral = bilateral
         self.noise = None
@@ -146,6 +177,14 @@ class Coefficients:
             self._rows = None
         return self._cube
 
+    @data.setter
+    def data(self, value):
+        self._cube = torch.as_tensor(value, device=self._plane(0).device)
+        self._rows = None
+
+    def _plane(self, s):
+        return self._rows[s] if self._rows is not None else self._cube[s]
+
     def __len__(self):
         return len(self._rows) if self._rows is not None else len(self.data)
 
@@ -155,11 +194,65 @@ class Coefficients:
             return self._rows[s]
         return self.data[s]
 
+    def __setitem__(self, s, value):
+        """Replace plane(s) ``s`` — the counterpart of the reference's
+        in-place ``coeffs.data[s] *= mask`` (watroo/wavelets.py:145-149);
+        rows stay rows, and a cube gets a new cube."""
+        value = torch.as_tensor(value, device=self._plane(0).device)
+        if self._rows is not None and isinstance(s, (int, np.integer)):
+            rows = list(self._rows)
+            rows[s] = value
+            self._rows = tuple(rows)
+            return
+        cube = self.data.clone()
+        cube[s] = value
+        self.data = cube
+
     def __array__(self, dtype=None, copy=None):
         out = self.data.detach().cpu().numpy()
         if dtype is not None:
             out = out.astype(dtype)
         return out
+
+    @property
+    def sigma_e(self):
+        return self.scaling_function.sigma_e(bilateral=self.bilateral)
+
+    def get_noise(self):
+        """MAD noise from the finest plane (watroo/wavelets.py:126-127),
+        a 0-d tensor on the planes' device."""
+        return _stats.mad_noise(self._plane(0), float(self.sigma_e[0]))
+
+    def significance(self, sigma, scale, soft_threshold=True):
+        """Per-plane significance mask (watroo/wavelets.py:129-143)."""
+        if sigma != 0:
+            if self.noise is None:
+                self.noise = self.get_noise()
+            noise = self.noise
+            if not isinstance(noise, (np.ndarray, torch.Tensor)) or (
+                getattr(noise, "ndim", 1) == 0
+            ):
+                if float(noise) == 0:
+                    return torch.ones_like(self._plane(0))
+            return _stats.significance(
+                self._plane(scale), sigma, torch.as_tensor(noise),
+                float(self.sigma_e[scale]), soft_threshold)
+        return torch.ones_like(self._plane(0))
+
+    def denoise(self, sigma, weights=None, soft_threshold=True):
+        """Scale-wise thresholding (watroo/wavelets.py:145-149); rebinds
+        ``data``.  ``zip`` truncation is kept: the residual plane is
+        untouched when ``len(sigma) == level``."""
+        sigma = tuple(sigma)
+        if weights is None:
+            weights = (1,) * len(sigma)
+        if any(s != 0 for s in sigma) and self.noise is None:
+            self.noise = self.get_noise()
+        noise = self.noise if self.noise is not None else 0.0
+        self.data = _stats.apply_denoise(
+            self.data, sigma, tuple(weights),
+            tuple(float(v) for v in self.sigma_e[: len(sigma)]),
+            torch.as_tensor(noise), soft_threshold)
 
 
 class AtrousTransform:
@@ -172,9 +265,11 @@ class AtrousTransform:
         self.bilateral = bilateral
         self.bilateral_scaling = bilateral_scaling
 
-    def __call__(self, arr, level, recursive=False):
+    def __call__(self, arr, level, recursive=False, device=DEFAULT_DEVICE):
         """Decompose ``arr`` over ``level`` scales → ``Coefficients`` with
-        ``level+1`` planes."""
+        ``level+1`` planes, through :func:`~.core.transform.decompose`
+        (kernel C on the card for float32).  A tensor stays on its device;
+        other input goes to ``device``."""
         if self.bilateral is not None:
             raise NotImplementedError(
                 "the bilateral transform is not ported yet "
@@ -183,9 +278,15 @@ class AtrousTransform:
             raise NotImplementedError(
                 "recursive=True is not ported yet "
                 "(ROADMAP.md queue A: transform options)")
-        arr = _as_tensor(arr)
-        if arr.ndim > 3:
+        if np.ndim(arr) > 3:
             raise ValueError("Unsupported number of dimensions")
+        arr = _as_tensor(arr, device)
         sf_compat = self.scaling_function_class(arr.ndim)
         planes = decompose(arr, level, sf_compat.spec)
         return Coefficients(planes, sf_compat, self.bilateral)
+
+    def atrous_standard(self, arr, level, scaling_function=None,
+                        device=DEFAULT_DEVICE):
+        """Parity alias of the reference's method
+        (watroo/wavelets.py:408): the plane cube as a numpy array."""
+        return np.asarray(self(arr, level, device=device).data.cpu())

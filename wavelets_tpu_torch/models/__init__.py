@@ -1,3 +1,4 @@
+from .denoise import denoise, denoise_core
 from .wow import wow, wow_core
 
-__all__ = ["wow", "wow_core"]
+__all__ = ["denoise", "denoise_core", "wow", "wow_core"]

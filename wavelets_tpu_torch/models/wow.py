@@ -1,22 +1,32 @@
 """WOW — Wavelets Optimized Whitening (reference: watroo/utils.py:105-219).
 
 Counterpart of ``wavelets_tpu/models/wow.py`` for standard (non-bilateral)
-WOW on one 2-D float32 or float64 frame.  The body mirrors the JAX
-package's merged route (``_wow_body_merged`` with the standard branch of
-``_deep_tail_scales``), in both of its noise modes:
+WOW on one 2-D float32 or float64 frame, with three bodies:
 
-* lazy MAD noise from ``w0 = data − smooth(data, 0)`` when some scale is
-  denoised and no noise is given (kernel B on the card);
-* the shallow scales ``[0, n_fast)`` in one ``fused_wow_group`` call,
-  the deeper ones one ``deep_whiten_step`` each (kernel A on the card);
-  the significance thresholds stay device tensors from the noise
-  estimate to the kernels, with no host round trip;
-* the residual divided by its population std (clamped ``≤0 → 1e-15``),
-  and the sum of the whitened planes.
+* ``_wow_body_merged`` — standard WOW (whitening, ``h == 0``, no
+  ``preserve_variance``), the main path: lazy MAD noise from ``w0 = data
+  − smooth(data, 0)`` when some scale is denoised and no noise is given
+  (kernel B on the card); the scales ``[0, N_FAST)`` in one
+  ``fused_wow_group`` call (kernel A), the deeper ones from the carry by
+  ``_deep_tail_scales``: a pair ``deep_whiten_step2`` (kernel E) where
+  ``H >> s ≤ 32`` and kernel E's gate admits it, else one
+  ``deep_whiten_step`` (kernel A) per scale;
+* ``_wow_body_fused`` — the materialized-plane route of
+  ``preserve_variance``, the gamma blend (``0 < h < 1``) and the
+  ``wow(Coefficients)`` reuse entry: decomposition by kernel C, the
+  scales ``[0, N_FAST)`` whitened from the pieces by
+  ``fused_whiten_pieces`` and the deeper materialized ones by
+  ``deep_whiten_plane`` (both kernel D, with a device factor table and
+  the gamma sum), a deferred tail by ``_deep_tail_scales``;
+* ``_wow_body`` — the plain per-scale loop: ``whitening=False``,
+  ``h ≥ 1`` (decomposition by kernel C on the card) and the plain route
+  of the options above.
 
-Dispatch is by a documented rule, not a fallback: ``fuse=True`` on a
-float32 tensor goes through the kernels' wrappers (the kernels on a CUDA
-tensor, their plain versions on a CPU tensor); ``fuse=False`` or a
+Every body ends with the residual divided by its population std (clamped
+``≤0 → 1e-15``), the sum of the planes and, for ``h > 0``, the gamma
+blend.  Dispatch is by a documented rule, not a fallback: ``fuse=True``
+on a float32 tensor goes through the kernels' wrappers (the kernels on a
+CUDA tensor, their plain versions on a CPU tensor); ``fuse=False`` or a
 float64 tensor runs the plain versions, as the JAX package sends float64
 to XLA.  Options outside this slice raise ``NotImplementedError`` on
 every device.
@@ -33,23 +43,23 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..api import B3spline, Coefficients, _as_tensor, _spec_of
-from ..core.transform import normalize_bilateral
-from ..ops import hopper_conv, hopper_deep
+from ..api import (DEFAULT_DEVICE, B3spline, Coefficients, _as_tensor,
+                   _spec_of)
+from ..core.transform import (assemble_pieces, decompose_pieces,
+                              normalize_bilateral, synthesize)
+from ..ops import hopper_conv, hopper_deep, hopper_wow
 from ..ops.conv import smooth
 from ..ops.filters import ScalingFunction
+from ..ops.hopper_conv import N_FAST
 from ..ops.layout import stack_planes
-from ..ops.stats import mad_noise
+from ..ops.stats import mad_noise, significance
 
 __all__ = ["wow", "wow_core", "wow_stack", "normalize_wow_params", "N_FAST"]
 
-#: scales ``[0, N_FAST)`` run as one ``fused_wow_group`` call, the rest as
-#: one ``deep_whiten_step`` each.  Both drive the same per-scale kernel
-#: today, so the split changes no number; it marks the scales whose
-#: whitening reach ``hw·(3·2^(g−1)−1)`` (22 pixels for the B3spline at
-#: g = 3) fits a shared-memory tile with a 32-pixel halo, the group a
-#: later fused kernel takes.
-N_FAST = 3
+#: the deep pair (kernel E) takes scales ``(s, s+1)`` where the frame has
+#: at most this many rows per residue class, ``H >> s`` — the JAX
+#: package's dispatch rule (wavelets_tpu/models/wow.py:219-247)
+PAIR_MAX_CLASS_ROWS = 32
 
 
 def normalize_wow_params(spec, n_scales, weights, denoise_coefficients,
@@ -99,22 +109,92 @@ def _not_ported(what: str, item: str):
         f"(ROADMAP.md queue A: {item})")
 
 
-def _check_slice(data, whitening, bilateral, preserve_variance, h, axes):
+def _check_slice(data, bilateral, axes):
     """Raise for every option outside the ported slice, on every device:
     no option may run without its kernel."""
     if bilateral is not None:
         raise _not_ported("bilateral WOW", "bilateral")
-    if preserve_variance:
-        raise _not_ported("preserve_variance", "WOW options")
-    if h != 0:
-        raise _not_ported("the gamma blend (h > 0)", "WOW options")
-    if not whitening:
-        raise _not_ported("whitening=False", "WOW options")
     if data.ndim != 2 or axes not in (None, (0, 1), (-2, -1)):
         raise _not_ported("WOW of 3-D volumes and frame stacks",
                           "volumes and wow_stack")
     if data.dtype not in (torch.float32, torch.float64):
         raise _not_ported(f"WOW in {data.dtype}", "bfloat16 and float16")
+
+
+def _threshold_fn(noise, sigma_e, denoise_coefficients):
+    """``thr_of(k)``: the significance threshold of scale ``k`` as a
+    tensor of ``noise``'s shape on its device, 0 for an undenoised scale.
+    Guarded: sigma_e may be shorter than n_scales, and the reference
+    never touches sigma_e[k] for undenoised scales
+    (watroo/wavelets.py:136)."""
+    def thr_of(k):
+        if denoise_coefficients[k] == 0:
+            return torch.zeros_like(noise)
+        return (denoise_coefficients[k] * float(sigma_e[k])) * noise
+    return thr_of
+
+
+def _deep_tail_scales(carry, recon, thr_of, sf, start, n_scales, weights,
+                      denoise_coefficients, soft_threshold, kernels,
+                      write_planes=True):
+    """Whiten scales ``start .. n_scales−1`` from the smooth ``carry``
+    (one frame), adding into ``recon`` in place.  A pair ``(s, s+1)``
+    runs as one ``deep_whiten_step2`` (kernel E) where ``H >> s ≤ 32``
+    and kernel E's gate admits the shape; elsewhere, and where the gate
+    refuses, each scale is one ``deep_whiten_step`` (kernel A), the JAX
+    package's rule when ``can_deep2`` is false
+    (wavelets_tpu/ops/pallas_deep.py:688-710).  ``kernels`` selects the
+    wrappers over their plain versions.  Returns ``(rows, residual)``."""
+    step = (hopper_deep.deep_whiten_step if kernels
+            else hopper_deep.deep_whiten_step_plain)
+    pair = (hopper_deep.deep_whiten_step2 if kernels
+            else hopper_deep.deep_whiten_step2_plain)
+    rows, carry, acc = [], carry[None], recon[None]
+
+    def masked(k):
+        return denoise_coefficients[k] != 0
+
+    s = start
+    while s < n_scales:
+        if (s + 1 < n_scales
+                and (carry.shape[-2] >> s) <= PAIR_MAX_CLASS_ROWS
+                and hopper_deep.can_deep2(carry, sf, s)):
+            w1, w2, _, carry = pair(
+                carry, acc, torch.stack([thr_of(s), thr_of(s + 1)])
+                .reshape(2, 1), sf=sf, scale=s,
+                weights=(weights[s], weights[s + 1]), soft=soft_threshold,
+                masked=(masked(s), masked(s + 1)), write_plane=write_planes)
+            if write_planes:
+                rows.extend([w1[0], w2[0]])
+            s += 2
+            continue
+        white, _, carry = step(
+            carry, acc, thr_of(s).reshape(1), sf=sf, scale=s,
+            weight=weights[s], soft=soft_threshold, masked=masked(s),
+            write_plane=write_planes)
+        if write_planes:
+            rows.append(white[0])
+        s += 1
+    return rows, carry[0]
+
+
+def _residual_std(residual):
+    """``(std, clamped std)`` of the residual plane: the population std
+    (``jnp.std``), clamped ``≤0 → 1e-15`` for the whitening
+    (watroo/utils.py:185-191)."""
+    std = torch.std(residual, correction=0)
+    return std, torch.where(std <= 0, 1e-15, std)
+
+
+def _gamma_blend(recon, gamma_scaled, gamma, gamma_min, gamma_max, h):
+    """Gamma-blend tone mapping (watroo/utils.py:205-217)."""
+    gmin = (torch.min(gamma_scaled) if gamma_min is None
+            else torch.tensor(gamma_min, dtype=recon.dtype))
+    gmax = (torch.max(gamma_scaled) if gamma_max is None
+            else torch.tensor(gamma_max, dtype=recon.dtype))
+    gs = (gamma_scaled - gmin) / (gmax - gmin)
+    gs = torch.clamp(gs, 0.0, 1.0) ** (1.0 / gamma)
+    return (1 - h) * recon + h * gs
 
 
 def _wow_body_merged(data, noise, has_noise, sf, n_scales, weights,
@@ -124,55 +204,170 @@ def _wow_body_merged(data, noise, has_noise, sf, n_scales, weights,
     selects the kernels' wrappers over their plain versions."""
     group = (hopper_conv.fused_wow_group if kernels
              else hopper_conv.fused_wow_group_plain)
-    step = (hopper_deep.deep_whiten_step if kernels
-            else hopper_deep.deep_whiten_step_plain)
     sigma_e = sf.sigma_e(2, False)
     if not has_noise and any(
         d != 0 for d in denoise_coefficients[:n_scales]
     ):
         w0 = data - smooth(data, sf, scale=0)
         noise = mad_noise(w0, float(sigma_e[0]), fuse=kernels)
-
-    def thr_of(k):
-        # guarded: sigma_e may be shorter than n_scales; the reference
-        # never touches sigma_e[k] for un-denoised scales
-        # (watroo/wavelets.py:136)
-        if denoise_coefficients[k] == 0:
-            return torch.zeros_like(noise)
-        return (denoise_coefficients[k] * float(sigma_e[k])) * noise
-
-    def masked(k):
-        return denoise_coefficients[k] != 0
+    thr_of = _threshold_fn(noise, sigma_e, denoise_coefficients)
 
     n_fast = min(n_scales, N_FAST)
     out_rows, recon, carry = [], None, data
     if n_fast:
         rows, recon = group(
-            data, weights[:n_fast], torch.stack([thr_of(k)
-                                                 for k in range(n_fast)]),
-            n_fast, sf, offset=0, soft=soft_threshold,
-            masked=tuple(masked(k) for k in range(n_fast)),
+            data, weights[:n_fast],
+            torch.stack([thr_of(k) for k in range(n_fast)]), n_fast, sf,
+            offset=0, soft=soft_threshold,
+            masked=tuple(denoise_coefficients[k] != 0
+                         for k in range(n_fast)),
             need_cube=need_planes)
         out_rows.extend(rows[:-1])
-        carry = rows[-1]
-    for s in range(n_fast, n_scales):
-        # recon accumulates in place inside the step
-        white, _, carry = step(
-            carry[None], recon[None], thr_of(s).reshape(1), sf=sf, scale=s,
-            weight=weights[s], soft=soft_threshold, masked=masked(s),
-            write_plane=need_planes)
-        carry = carry[0]
-        if need_planes:
-            out_rows.append(white[0])
+        # recon accumulates in place inside the deep steps
+        deep_rows, carry = _deep_tail_scales(
+            rows[-1], recon, thr_of, sf, n_fast, n_scales, weights,
+            denoise_coefficients, soft_threshold, kernels, need_planes)
+        out_rows.extend(deep_rows)
 
-    # residual: global population-std normalization, clamped
-    # (watroo/utils.py:185-191; jnp.std is the population std)
-    lp = torch.std(carry, correction=0)
-    lp = torch.where(lp <= 0, 1e-15, lp)
+    _, lp = _residual_std(carry)
     c = carry * torch.div(torch.tensor(weights[n_scales], dtype=lp.dtype), lp)
     out_rows.append(c)
-    recon = c if recon is None else recon + c
-    return recon, out_rows
+    return (c if recon is None else recon + c), out_rows
+
+
+def _wow_body_fused(pieces, layout, tail, noise, has_noise, sf, n_scales,
+                    weights, denoise_coefficients, soft_threshold,
+                    preserve_variance=False, h=0.0, gamma=3.2,
+                    gamma_min=None, gamma_max=None, need_planes=True,
+                    planes_layout="cube"):
+    """WOW of one float32 frame from its decompose ``pieces``/``layout``
+    (core.transform.decompose_pieces), through the kernels' wrappers.
+    The scales ``[0, N_FAST)`` go to ``fused_whiten_pieces``, the deeper
+    materialized ones to ``deep_whiten_plane`` (kernel D for both:
+    ``preserve_variance``'s power norm ``w·sqrt(mean(c²))`` rides in the
+    device factor table, the gamma sum of the masked planes in the
+    kernel's gamma output).  Scales past the pieces arrive deferred,
+    ``tail = (carry, n_tail)``, and run ``_deep_tail_scales`` without
+    materializing their detail planes; ``preserve_variance`` and the
+    gamma blend need every plane, so they take no tail."""
+    def plane(s):
+        k, r = layout[s]
+        return pieces[k][r]
+
+    tail_start = n_scales - tail[1] if tail is not None else n_scales
+    if tail is not None and (preserve_variance or h > 0):
+        raise ValueError("preserve_variance and the gamma blend need every "
+                         "plane materialized (no deferred tail)")
+    sigma_e = sf.sigma_e(2, False)
+    if not has_noise and any(
+        d != 0 for d in denoise_coefficients[:n_scales]
+    ):
+        noise = mad_noise(plane(0), float(sigma_e[0]))
+    noise = torch.as_tensor(noise, dtype=torch.float32,
+                            device=plane(0).device)
+    thr_of = _threshold_fn(noise, sigma_e, denoise_coefficients)
+
+    def factor(s):
+        # the per-scale power norm sqrt(mean(c²)) (watroo/utils.py:178-184)
+        if preserve_variance:
+            return weights[s] * torch.sqrt(torch.mean(plane(s) ** 2))
+        return weights[s]
+
+    n_fast = min(n_scales, N_FAST, tail_start)
+    outs = hopper_wow.fused_whiten_pieces(
+        tuple(p[:, None] for p in pieces),
+        torch.stack([torch.as_tensor(factor(s), dtype=torch.float32,
+                                     device=noise.device)
+                     for s in range(n_fast)]),
+        torch.stack([thr_of(s) for s in range(n_fast)]), sf, n_fast,
+        tuple(layout[:n_fast]), soft=soft_threshold,
+        write_planes=need_planes, write_gamma=h > 0)
+    recon = outs[1][0]
+    gamma_scaled = outs[2][0] if h > 0 else None
+    out_rows = [outs[0][s, 0] for s in range(n_fast)] if need_planes else []
+    for s in range(n_fast, tail_start):
+        white = hopper_deep.deep_whiten_plane(
+            plane(s)[None], thr_of(s).reshape(1), sf=sf, scale=s,
+            weight=factor(s), soft=soft_threshold,
+            masked=denoise_coefficients[s] != 0,
+            gamma=None if gamma_scaled is None else gamma_scaled[None])[0]
+        if need_planes:
+            out_rows.append(white)
+        recon = recon + white
+    if tail is not None:
+        deep_rows, residual = _deep_tail_scales(
+            tail[0], recon, thr_of, sf, tail_start, n_scales, weights,
+            denoise_coefficients, soft_threshold, True, need_planes)
+        out_rows.extend(deep_rows)
+    else:
+        residual = plane(n_scales)
+    std, lp = _residual_std(residual)
+    # the residual's power norm is the unclamped std (watroo/utils.py:182)
+    pn = std if preserve_variance else torch.ones((), dtype=std.dtype)
+    c = residual * (weights[n_scales] * pn / lp)
+    out_rows.append(c)
+    recon = recon + c
+    if gamma_scaled is not None:
+        recon = _gamma_blend(recon, gamma_scaled + residual, gamma,
+                             gamma_min, gamma_max, h)
+    if not need_planes:
+        return recon, None
+    if planes_layout == "rows":
+        return recon, tuple(out_rows)
+    return recon, stack_planes(out_rows)
+
+
+def _wow_body(planes, noise, has_noise, sf, n_scales, weights, whitening,
+              denoise_coefficients, soft_threshold, preserve_variance, gamma,
+              gamma_min, gamma_max, h, fuse=True, planes_layout="cube"):
+    """The per-scale whitening loop (watroo/utils.py:157-219) over the
+    coefficient cube ``(n_scales+1, H, W)`` in plain PyTorch; the lazy
+    MAD noise goes through kernel B's wrapper unless ``fuse=False``."""
+    sigma_e = sf.sigma_e(planes.ndim - 1, False)
+    if not has_noise and any(
+        d != 0 for d in denoise_coefficients[:n_scales]
+    ):
+        noise = mad_noise(planes[0], float(sigma_e[0]), fuse=fuse)
+    one = torch.ones((), dtype=planes.dtype)
+    gamma_scaled = torch.zeros_like(planes[0]) if h > 0 else None
+    out_planes = []
+    for s in range(n_scales + 1):
+        c = planes[s]
+        power = c * c
+        if preserve_variance:
+            power_norm = (torch.std(c, correction=0) if s == n_scales
+                          else torch.sqrt(torch.mean(power)))
+        else:
+            power_norm = one
+        if s == n_scales:
+            local_power = (_residual_std(c)[1] if whitening and h < 1
+                           else one)
+        else:
+            if whitening and h < 1:
+                lp = smooth(power, sf, scale=s)
+                local_power = torch.sqrt(torch.where(lp <= 0, 1e-15, lp))
+            else:
+                local_power = one
+            if denoise_coefficients[s] != 0:
+                c = c * significance(c, denoise_coefficients[s], noise,
+                                     float(sigma_e[s]), soft_threshold)
+        if h > 0:
+            gamma_scaled = gamma_scaled + c
+        c = c * (float(weights[s]) * power_norm / local_power)
+        out_planes.append(c)
+
+    if planes_layout == "rows":
+        out = tuple(out_planes)
+        recon = out_planes[0]
+        for c in out_planes[1:]:
+            recon = recon + c
+    else:
+        out = stack_planes(out_planes)
+        recon = synthesize(out)
+    if h > 0:
+        recon = _gamma_blend(recon, gamma_scaled, gamma, gamma_min,
+                             gamma_max, h)
+    return recon, out
 
 
 def wow_core(
@@ -198,24 +393,80 @@ def wow_core(
     need_planes: bool = True,
     planes_layout: str = "cube",
 ):
-    """Fused decomposition + whitening from a raw 2-D frame → ``(recon,
+    """Decomposition + whitening from a raw 2-D frame → ``(recon,
     planes)``, with the JAX package's signature.  ``noise`` is a 0-d
     tensor on ``data``'s device (read when ``has_noise``).  ``fuse=False``
     runs the kernels' plain versions.  ``need_planes=False`` skips the
     whitened plane writes and returns ``(recon, None)``;
     ``planes_layout="rows"`` returns the planes as a tuple instead of a
-    stacked cube."""
-    _check_slice(data, whitening, bilateral, preserve_variance, h, axes)
+    stacked cube.
+
+    Dispatch (wavelets_tpu/models/wow.py:961-1003): standard WOW takes
+    ``_wow_body_merged``; ``preserve_variance`` or ``0 < h < 1`` on the
+    kernels' route take ``_wow_body_fused`` over kernel C's pieces;
+    ``whitening=False``, ``h ≥ 1`` and the plain route of those options
+    take ``_wow_body`` over the decomposition."""
+    _check_slice(data, bilateral, axes)
     kernels = bool(fuse) and data.dtype == torch.float32
-    recon, rows = _wow_body_merged(
-        data, noise, has_noise, sf, n_scales, weights,
-        denoise_coefficients, soft_threshold, kernels,
-        need_planes=need_planes)
+    if whitening and h == 0 and not preserve_variance:
+        recon, rows = _wow_body_merged(
+            data, noise, has_noise, sf, n_scales, weights,
+            denoise_coefficients, soft_threshold, kernels,
+            need_planes=need_planes)
+        out = rows if planes_layout == "rows" else stack_planes(rows)
+    elif kernels and whitening and h < 1:
+        pieces, layout = decompose_pieces(data, n_scales, sf)
+        recon, out = _wow_body_fused(
+            pieces, layout, None, noise, has_noise, sf, n_scales, weights,
+            denoise_coefficients, soft_threshold,
+            preserve_variance=preserve_variance, h=h, gamma=gamma,
+            gamma_min=gamma_min, gamma_max=gamma_max,
+            need_planes=need_planes, planes_layout=planes_layout)
+    else:
+        pieces, layout = decompose_pieces(data, n_scales, sf, fuse=kernels)
+        recon, out = _wow_body(
+            assemble_pieces(pieces, layout), noise, has_noise, sf, n_scales,
+            weights, whitening, denoise_coefficients, soft_threshold,
+            preserve_variance, gamma, gamma_min, gamma_max, h, fuse=kernels,
+            planes_layout=planes_layout)
     if not need_planes:
         return recon, None
-    if planes_layout == "rows":
-        return recon, tuple(rows)
-    return recon, stack_planes(rows)
+    return recon, (tuple(out) if planes_layout == "rows" else out)
+
+
+def _wow_from_planes_core(planes, noise, *, sf, n_scales, weights, whitening,
+                          denoise_coefficients, soft_threshold,
+                          preserve_variance, gamma, gamma_min, gamma_max, h,
+                          has_noise, fuse=True):
+    """Whitening from a precomputed coefficient set (the
+    ``wow(Coefficients)`` reuse entry, watroo/utils.py:128-133,152-155).
+    ``planes`` is the ``(n_scales+1, H, W)`` cube or a tuple of
+    ``n_scales+1`` per-scale rows (the form ``wow`` emits), which pass
+    through without stacking.  A float32 set with whitening on and
+    ``h < 1`` rides ``_wow_body_fused`` with the planes as decompose
+    pieces (the cube is one piece with ``layout[s] = (0, s)``; rows are
+    one piece each, ``layout[s] = (s, 0)``); everything else runs
+    ``_wow_body``."""
+    rows = planes if isinstance(planes, tuple) else None
+    first = rows[0] if rows is not None else planes[0]
+    if fuse and whitening and h < 1 and first.dtype == torch.float32:
+        if rows is not None:
+            pieces = tuple(r[None] for r in rows)
+            layout = tuple((s, 0) for s in range(n_scales + 1))
+        else:
+            pieces = (planes,)
+            layout = tuple((0, s) for s in range(n_scales + 1))
+        return _wow_body_fused(
+            pieces, layout, None, noise, has_noise, sf, n_scales, weights,
+            denoise_coefficients, soft_threshold,
+            preserve_variance=preserve_variance, h=h, gamma=gamma,
+            gamma_min=gamma_min, gamma_max=gamma_max, planes_layout="rows")
+    cube = stack_planes(list(planes)) if rows is not None else planes
+    return _wow_body(
+        cube, noise, has_noise, sf, n_scales, weights, whitening,
+        denoise_coefficients, soft_threshold, preserve_variance, gamma,
+        gamma_min, gamma_max, h, fuse=fuse and first.dtype == torch.float32,
+        planes_layout="rows" if rows is not None else "cube")
 
 
 def wow(data,
@@ -233,42 +484,51 @@ def wow(data,
         gamma_min=None,
         gamma_max=None,
         h=0,
-        fuse=True):
+        fuse=True,
+        device=DEFAULT_DEVICE):
     """Wavelets Optimized Whitening, signature-compatible with
-    ``watroo.utils.wow`` (watroo/utils.py:105-219) plus ``fuse``.
+    ``watroo.utils.wow`` (watroo/utils.py:105-219) plus ``fuse`` and
+    ``device``.
 
-    ``data`` is a 2-D numpy array (placed on the CPU) or tensor (kept on
-    its device).  Returns ``(reconstruction, Coefficients)``.
+    ``data`` is a raw 2-D frame or a precomputed :class:`Coefficients`
+    (the reuse entry, watroo/utils.py:128-133).  A tensor, and the planes
+    of a ``Coefficients``, stay on their device; a numpy frame goes to
+    ``device``, the card by default.  Returns ``(reconstruction,
+    Coefficients)``.
     """
-    if isinstance(data, Coefficients):
-        raise _not_ported("wow(Coefficients)", "WOW options")
-    if not isinstance(data, (np.ndarray, torch.Tensor)):
-        # parity with watroo/utils.py:133
-        raise ValueError("Unknown input type")
-    if data.ndim not in (2, 3):
-        # parity with watroo/utils.py:52
-        raise ValueError("Unsupported number of dimensions")
-    data = _as_tensor(data)
+    from_coefficients = isinstance(data, Coefficients)
+    if from_coefficients:
+        n_scales = len(data) - 1
+        first = data[0]
+        if data.bilateral is not None:
+            raise _not_ported("wow of bilateral coefficients", "bilateral")
+        _check_slice(first, None, None)
+        n_dims = first.ndim
+        scaling_function = data.scaling_function.__class__
+        min_extent = None
+    else:
+        if not isinstance(data, (np.ndarray, torch.Tensor)):
+            # parity with watroo/utils.py:133
+            raise ValueError("Unknown input type")
+        if data.ndim not in (2, 3):
+            # parity with watroo/utils.py:52
+            raise ValueError("Unsupported number of dimensions")
+        data = _as_tensor(data, device)
+        n_dims = data.ndim
+        min_extent = min(data.shape)
     spec = _spec_of(scaling_function)
-    n_dims = data.ndim
 
     n_scales, weights_t, denoise_t, sigma_bilateral = normalize_wow_params(
         spec, n_scales, weights, denoise_coefficients, bilateral, h,
-        n_dims, min(data.shape))
+        n_dims, min_extent)
 
     has_noise = noise is not None
-    noise_arr = (torch.as_tensor(noise, dtype=data.dtype, device=data.device)
-                 if has_noise
-                 else torch.zeros((), dtype=data.dtype, device=data.device))
-    recon, out_planes = wow_core(
-        data, noise_arr,
+    static = dict(
         sf=spec,
         n_scales=n_scales,
         weights=weights_t,
         whitening=bool(whitening),
         denoise_coefficients=denoise_t,
-        bilateral=sigma_bilateral,
-        bilateral_scaling=bool(bilateral_scaling),
         soft_threshold=bool(soft_threshold),
         preserve_variance=bool(preserve_variance),
         gamma=float(gamma),
@@ -276,8 +536,35 @@ def wow(data,
         gamma_max=None if gamma_max is None else float(gamma_max),
         h=float(h),
         has_noise=has_noise,
-        fuse=fuse,
-        planes_layout="rows")
+        fuse=fuse)
+
+    if from_coefficients:
+        # rows pass through as they are: stacking them here would cost
+        # the cube the rows form exists to avoid
+        planes = data._rows if data._rows is not None else data.data
+        given = noise if has_noise else data.noise
+        noise_arr = (torch.as_tensor(given, dtype=first.dtype,
+                                     device=first.device)
+                     if given is not None
+                     else torch.zeros((), dtype=first.dtype,
+                                      device=first.device))
+        if data.noise is not None:
+            static["has_noise"] = True
+        recon, out_planes = _wow_from_planes_core(planes, noise_arr, **static)
+        coeffs = Coefficients(out_planes, data.scaling_function,
+                              data.bilateral)
+        coeffs.noise = data.noise
+        return recon, coeffs
+
+    noise_arr = (torch.as_tensor(noise, dtype=data.dtype, device=data.device)
+                 if has_noise
+                 else torch.zeros((), dtype=data.dtype, device=data.device))
+    recon, out_planes = wow_core(
+        data, noise_arr,
+        bilateral=sigma_bilateral,
+        bilateral_scaling=bool(bilateral_scaling),
+        planes_layout="rows",
+        **static)
     coeffs = Coefficients(out_planes, scaling_function(n_dims), bilateral)
     coeffs.noise = noise
     return recon, coeffs

@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 first use, by ``nvcc`` alone (no PyTorch headers, so a build takes
 seconds), into ``build/kernels/<name>-<hash>.so`` at the repository
-root, then loaded with ``ctypes``.  The hash is that of the source, so
-an edited source is rebuilt and a stale library is never loaded.
+root, then loaded with ``ctypes``.  The hash is that of the source and
+of the shared headers (``csrc/*.cuh``), so an edited source or header is
+rebuilt and a stale library is never loaded.  :func:`build_all` starts
+one ``nvcc`` per source, all at once.
 Pointers and the stream are passed as ``ctypes.c_void_p`` taken from
 ``tensor.data_ptr()`` and ``torch.cuda.current_stream().cuda_stream``.
 
@@ -19,6 +21,7 @@ A caller clears both to see which path a run took.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -63,9 +66,10 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _build(name: str) -> Path:
@@ -99,8 +103,11 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def build_all() -> Dict[str, Path]:
-    """Build and load every kernel source; returns name → library path."""
+    """Build every kernel source, one ``nvcc`` each, all at once, then
+    load them; returns name → library path."""
     names = sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(_build, names))
     for name in names:
         load(name)
     return {name: _library_path(name) for name in names}

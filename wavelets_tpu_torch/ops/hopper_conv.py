@@ -1,7 +1,15 @@
-"""Merged decompose + whiten of a group of WOW scales (kernel A).
+"""The group kernels of the transform: decompose (kernel C) and merged
+decompose + whiten (kernel A).
 
-Counterpart of ``wavelets_tpu/ops/pallas_conv.py::_fused_wow_group``,
-with its signature and return contract.  Per scale ``s = offset + k``:
+Counterpart of ``wavelets_tpu/ops/pallas_conv.py``: ``_fused_group`` is
+:func:`fused_group` (kernel C, ``csrc/decompose_group.cu``), with the
+pieces decomposition built on it (:func:`fused_decompose_pieces`,
+:func:`fused_decompose`, :func:`fused_volume_decompose`); groups are of
+:data:`N_FAST` scales and every scale runs on the kernel, which takes any
+dilation, so there is no plain tail and no tile planner.
+
+``_fused_wow_group`` is :func:`fused_wow_group`, with its signature and
+return contract.  Per scale ``s = offset + k``:
 
 1. chain smooth at dilation ``2^s``, symmetric reflection of the
    current smooth at the image border;
@@ -16,7 +24,7 @@ On a CUDA tensor each scale is one call of the hand-written kernel
 ``csrc/whiten_step.cu`` (four launches; see the source's note for its
 design and bound); on a CPU tensor the plain PyTorch version below runs.
 There is no fallback between the two: a CUDA tensor the kernel cannot
-take raises.
+take raises.  The same holds for kernel C.
 """
 
 from __future__ import annotations
@@ -27,12 +35,28 @@ from typing import Sequence, Tuple
 import torch
 
 from . import _build
-from .conv import smooth
+from .conv import separable_smooth_axis, smooth
 from .filters import ScalingFunction
+from .layout import stack_planes
 
-__all__ = ["fused_wow_group", "fused_wow_group_plain", "whiten_scale_plain"]
+__all__ = ["N_FAST", "fused_group", "fused_group_plain",
+           "fused_decompose_pieces", "fused_decompose",
+           "fused_volume_decompose", "fused_wow_group",
+           "fused_wow_group_plain", "whiten_scale_plain",
+           "whiten_detail_plain"]
 
 KERNEL = "whiten_step"
+DECOMPOSE_KERNEL = "decompose_group"
+
+#: scales per group: the decompose groups (kernel C), the merged WOW
+#: group (kernel A) and the whitening of decompose pieces (kernel D) take
+#: scales ``[0, N_FAST)`` together, the deeper ones one scale or one pair
+#: at a time.  The kernels take any dilation, so the split changes no
+#: number; it marks the scales whose whitening reach
+#: ``hw·(3·2^(g−1)−1)`` (22 pixels for the B3spline at g = 3) fits a
+#: shared-memory tile with a 32-pixel halo, the group a later fused
+#: kernel takes.
+N_FAST = 3
 
 
 def _lib():
@@ -80,14 +104,14 @@ def launch_whiten_step(carry, c_next, detail, tmp, white, acc, acc_mode,
     _build.LAUNCHES[KERNEL] += 1
 
 
-def whiten_scale_plain(carry: torch.Tensor, thr: torch.Tensor, fac: float,
-                       sf: ScalingFunction, scale: int, soft: bool,
-                       masked: bool):
-    """One WOW scale in plain PyTorch on the last two axes → ``(white,
-    c_next)``.  ``thr`` broadcasts against ``carry`` (a scalar, or
-    ``(B, 1, 1)`` per frame)."""
-    c_next = smooth(carry, sf, scale=scale, axes=(-2, -1))
-    c = carry - c_next
+def whiten_detail_plain(c: torch.Tensor, fac, thr, sf: ScalingFunction,
+                        scale: int, soft: bool, masked: bool = True):
+    """Whiten a detail plane in plain PyTorch on the last two axes →
+    ``(white, wc)``: power smooth at dilation ``2^scale``, clamped
+    ``≤0 → 1e-15``, sqrt, the erf or hard mask (a threshold of 0 meaning
+    no mask) giving ``wc``, then ``white = wc·(fac/lp)``.  ``fac`` is a
+    float or a tensor and ``thr`` a tensor, each broadcasting against
+    ``c`` (a scalar, or ``(B, 1, 1)`` per frame)."""
     lp = smooth(c * c, sf, scale=scale, axes=(-2, -1))
     lp = torch.sqrt(torch.where(lp <= 0, 1e-15, lp))
     if masked:
@@ -97,9 +121,23 @@ def whiten_scale_plain(carry: torch.Tensor, thr: torch.Tensor, fac: float,
         else:
             mask = (torch.abs(c) > safe_t).to(c.dtype)
         c = c * torch.where(thr == 0, torch.ones_like(mask), mask)
-    # a true division: ``fac / lp`` on a tensor multiplies by the
+    if not isinstance(fac, torch.Tensor):
+        fac = torch.tensor(fac, dtype=lp.dtype)
+    # a true division: ``fac / lp`` with a Python float multiplies by the
     # reciprocal, one rounding more than the kernel and the JAX package
-    return c * torch.div(torch.tensor(fac, dtype=lp.dtype), lp), c_next
+    return c * torch.div(fac, lp), c
+
+
+def whiten_scale_plain(carry: torch.Tensor, thr: torch.Tensor, fac: float,
+                       sf: ScalingFunction, scale: int, soft: bool,
+                       masked: bool):
+    """One WOW scale in plain PyTorch on the last two axes → ``(white,
+    c_next)``.  ``thr`` broadcasts against ``carry`` (a scalar, or
+    ``(B, 1, 1)`` per frame)."""
+    c_next = smooth(carry, sf, scale=scale, axes=(-2, -1))
+    white, _ = whiten_detail_plain(carry - c_next, fac, thr, sf, scale, soft,
+                                   masked)
+    return white, c_next
 
 
 def _group_args(x, factors, thresholds, g, masked):
@@ -181,3 +219,124 @@ def fused_wow_group(x: torch.Tensor, factors: Sequence[float], thresholds,
     if not batched:
         return tuple(r[0] for r in rows), acc[0]
     return tuple(rows), acc
+
+
+# ---------------------------------------------------------------------
+# Kernel C: the decompose group
+# ---------------------------------------------------------------------
+
+def _lib_decompose():
+    lib = _build.load(DECOMPOSE_KERNEL)
+    fn = lib.wt_decompose_group_f32
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p, ctypes.c_int]
+                   + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _group_rows(level: int, smooth_only: bool) -> int:
+    if level < 1:
+        raise ValueError("a decompose group needs at least one scale")
+    return 1 if smooth_only else level + 1
+
+
+def fused_group_plain(x: torch.Tensor, level: int, sf: ScalingFunction,
+                      offset: int = 0,
+                      smooth_only: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_group` (any dtype or
+    device)."""
+    _build.PLAIN_CALLS[DECOMPOSE_KERNEL] += 1
+    _group_rows(level, smooth_only)
+    rows, cur = [], x
+    for k in range(level):
+        c_next = smooth(cur, sf, scale=offset + k, axes=(-2, -1))
+        if not smooth_only:
+            rows.append(cur - c_next)
+        cur = c_next
+    rows.append(cur)
+    return stack_planes(rows)
+
+
+def fused_group(x: torch.Tensor, level: int, sf: ScalingFunction,
+                offset: int = 0, smooth_only: bool = False) -> torch.Tensor:
+    """Decomposition of ``level`` scales at dilation base ``2^offset`` on
+    the last two axes.  ``x`` is ``(H, W)`` or a frame stack
+    ``(B, H, W)``; returns ``(level+1, *x.shape)``: the detail planes of
+    scales ``offset .. offset+level−1``, then the carry, or with
+    ``smooth_only`` the carry alone, ``(1, *x.shape)`` (the 3-D volume
+    path's in-plane pass).  A CPU ``x`` runs :func:`fused_group_plain`; a
+    CUDA ``x`` runs kernel C (``csrc/decompose_group.cu``) or raises."""
+    if not x.is_cuda:
+        return fused_group_plain(x, level, sf, offset, smooth_only)
+    check_kernel_input(x, sf, "fused_group")
+    if x.ndim not in (2, 3):
+        raise ValueError("fused_group takes (H, W) or (B, H, W)")
+    n_rows = _group_rows(level, smooth_only)
+    out = torch.empty((n_rows,) + tuple(x.shape), dtype=x.dtype,
+                      device=x.device)
+    B = x.shape[0] if x.ndim == 3 else 1
+    H, W = x.shape[-2:]
+    lib = _lib_decompose()
+    taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
+    code = lib.wt_decompose_group_f32(
+        _ptr(x), _ptr(out), _ptr(torch.empty_like(x)), int(level),
+        int(offset), int(bool(smooth_only)), taps, len(sf.taps), B, H, W,
+        _build.stream_ptr(x.device))
+    _build.check(lib, code, "decompose_group")
+    _build.LAUNCHES[DECOMPOSE_KERNEL] += 1
+    return out
+
+
+def fused_decompose_pieces(x: torch.Tensor, level: int, sf: ScalingFunction,
+                           *, defer_tail: bool = False):
+    """Multi-scale decomposition as ``(pieces, layout, tail)`` with no
+    plane-cube concatenation: ``pieces[k]`` is the cube of one group of
+    :data:`N_FAST` scales (the last group may be shorter), ``layout[s] =
+    (k, row)`` locates scale ``s`` and ``layout[level]`` the residual.
+
+    ``defer_tail=True`` stops after the first group and returns ``tail =
+    (carry, level − N_FAST)``: the deeper scales are left to the consumer,
+    which whitens them from the carry without materializing their detail
+    planes (``models/wow.py::_deep_tail_scales``).  ``tail`` is None when
+    every scale was computed.  ``x``: ``(H, W)`` or ``(B, H, W)``."""
+    pieces, layout, cur = [], {}, x
+    last = min(level, N_FAST) if defer_tail else level
+    for offset in range(0, last, N_FAST):
+        g = min(N_FAST, last - offset)
+        planes = fused_group(cur, g, sf, offset=offset)
+        for s in range(g):
+            layout[offset + s] = (len(pieces), s)
+        pieces.append(planes)
+        cur = planes[g]
+    if last < level:
+        return pieces, layout, (cur, level - last)
+    layout[level] = (len(pieces) - 1, g)
+    return pieces, layout, None
+
+
+def fused_decompose(x: torch.Tensor, level: int,
+                    sf: ScalingFunction) -> torch.Tensor:
+    """Plane-cube form of :func:`fused_decompose_pieces` (one stack)."""
+    pieces, layout, _ = fused_decompose_pieces(x, level, sf)
+    return stack_planes([pieces[k][r] for s in range(level + 1)
+                         for (k, r) in [layout[s]]])
+
+
+def fused_volume_decompose(x: torch.Tensor, level: int,
+                           sf: ScalingFunction) -> torch.Tensor:
+    """3-D à trous decomposition of a volume ``(D, H, W)`` with the
+    in-plane passes on kernel C: per scale, the axial dilated pass in
+    plain PyTorch (the JAX package leaves it to XLA), then the in-plane
+    pass as a one-scale ``smooth_only`` group with the depth as the
+    batch, then the 3-D detail ``cur − c_next``.  The axis order (axial,
+    rows, cols) is that of :func:`~.conv.smooth`, so the result is
+    bitwise the plain chain's (watroo/wavelets.py:47-64)."""
+    planes, cur = [], x
+    for s in range(level):
+        axial = separable_smooth_axis(cur, sf.taps, s, 0, "symmetric")
+        c_next = fused_group(axial, 1, sf, offset=s, smooth_only=True)[0]
+        planes.append(cur - c_next)
+        cur = c_next
+    planes.append(cur)
+    return stack_planes(planes)

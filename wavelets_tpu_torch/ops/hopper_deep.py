@@ -1,27 +1,50 @@
-"""One deep WOW scale (kernel A, one scale per call).
+"""The deep WOW scales: one scale, a scale pair, one given plane.
 
-Counterpart of ``wavelets_tpu/ops/pallas_deep.py::deep_whiten_step``
-with its signature minus ``interpret`` and ``halo``.  The TPU needs a
-separate deep kernel because its group tiles cannot hold the halo of a
-deep scale; on the card the same per-scale kernel as the shallow group
-(``csrc/whiten_step.cu``) serves every dilation, so this wrapper drives
-it for one scale.  ``deep_whiten_step2`` (two scales per pass) is two
-calls of this step: the JAX package documents the two as numerically
-identical (pallas_deep.py:950-952).
+Counterpart of ``wavelets_tpu/ops/pallas_deep.py`` (signatures minus
+``interpret`` and ``halo``):
+
+* :func:`deep_whiten_step` — one scale from the carry.  The TPU needs a
+  separate deep kernel because its group tiles cannot hold the halo of a
+  deep scale; on the card the same per-scale kernel A as the shallow
+  group (``csrc/whiten_step.cu``) serves every dilation.
+* :func:`deep_whiten_step2` — scales ``(s, s+1)`` from the carry in one
+  launch of kernel E (``csrc/whiten_pair.cu``), the middle carry kept in
+  shared memory.  :func:`can_deep2` is kernel E's own gate; where it
+  refuses, the caller takes two :func:`deep_whiten_step` calls, the JAX
+  package's rule when ``can_deep2`` is false (the two are numerically
+  identical, pallas_deep.py:950-952).
+* :func:`deep_whiten_plane` — whiten one materialized deep plane, on
+  kernel D (``csrc/whiten_plane.cu``), with a runtime factor and an
+  optional gamma sum.
+
+A CPU tensor runs each kernel's plain version; a CUDA tensor runs the
+kernel or raises.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
 
 from . import _build
 from .filters import ScalingFunction
-from .hopper_conv import (KERNEL, check_kernel_input, launch_whiten_step,
+from .hopper_conv import (KERNEL, _ptr, check_kernel_input,
+                          launch_whiten_step, whiten_detail_plain,
                           whiten_scale_plain)
+from .hopper_wow import KERNEL as PLANE_KERNEL
+from .hopper_wow import launch_whiten_plane
 
-__all__ = ["deep_whiten_step", "deep_whiten_step_plain"]
+__all__ = ["deep_whiten_step", "deep_whiten_step_plain", "can_deep2",
+           "deep_whiten_step2", "deep_whiten_step2_plain",
+           "deep_whiten_plane", "deep_whiten_plane_plain"]
+
+PAIR_KERNEL = "whiten_pair"
+
+#: shared memory one block may opt in to on an H100 (227 KB); kernel E
+#: holds four float32 copies of its 2M × 2N torus (csrc/whiten_pair.cu)
+PAIR_SMEM_BYTES = 232448
 
 
 def _check_args(carry, recon, write_plane):
@@ -85,3 +108,166 @@ def deep_whiten_step(carry: torch.Tensor, recon: Optional[torch.Tensor],
                        0 if recon is None else 2, thr, weight, masked, soft,
                        sf, scale)
     return white, recon, c_next
+
+
+# ---------------------------------------------------------------------
+# Kernel E: two deep scales per launch
+# ---------------------------------------------------------------------
+
+def can_deep2(carry: torch.Tensor, sf: ScalingFunction, scale: int) -> bool:
+    """Kernel E's gate for the pair ``(scale, scale+1)`` on a ``(B, H, W)``
+    carry: ``D = 2^scale`` divides ``H`` and ``W`` (every tap and
+    reflection then stays in a pair of residue classes per axis) and the
+    block's four ``2H/D × 2W/D`` float32 buffers fit the shared memory.
+    It depends on the shape only, so the plain versions dispatch as the
+    kernels do."""
+    H, W = carry.shape[-2:]
+    D = 1 << scale
+    if H % D or W % D or not sf.is_symmetric or sf.half_width > 8:
+        return False
+    return 16 * (2 * H // D) * (2 * W // D) <= PAIR_SMEM_BYTES
+
+
+def _lib_pair():
+    lib = _build.load(PAIR_KERNEL)
+    fn = lib.wt_whiten_pair_f32
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_float] * 2
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int]
+                   + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _pair_args(carry, recon, thresholds, weights, masked, write_plane):
+    _check_args(carry, recon, write_plane)
+    if len(weights) != 2 or len(masked) != 2:
+        raise ValueError("deep_whiten_step2 takes two weights and two "
+                         "masked flags")
+    thr = torch.as_tensor(thresholds, dtype=carry.dtype,
+                          device=carry.device).reshape(2, -1)
+    return thr.expand(2, carry.shape[0]).contiguous()
+
+
+def deep_whiten_step2_plain(carry: torch.Tensor,
+                            recon: Optional[torch.Tensor],
+                            thresholds: torch.Tensor, *,
+                            sf: ScalingFunction, scale: int, weights,
+                            soft: bool = True, masked=(False, False),
+                            write_plane: bool = True):
+    """Plain PyTorch version of :func:`deep_whiten_step2` (any dtype or
+    device): two plain steps; like the kernel it adds into ``recon`` in
+    place, scale ``s`` first."""
+    _build.PLAIN_CALLS[PAIR_KERNEL] += 1
+    thr = _pair_args(carry, recon, thresholds, weights, masked, write_plane)
+    whites, cur = [], carry
+    for k in range(2):
+        white, cur = whiten_scale_plain(
+            cur, thr[k][:, None, None], float(weights[k]), sf, scale + k,
+            soft, bool(masked[k]))
+        if recon is not None:
+            recon.add_(white)
+        whites.append(white if write_plane else None)
+    return whites[0], whites[1], recon, cur
+
+
+def deep_whiten_step2(carry: torch.Tensor, recon: Optional[torch.Tensor],
+                      thresholds: torch.Tensor, *, sf: ScalingFunction,
+                      scale: int, weights, soft: bool = True,
+                      masked=(False, False), write_plane: bool = True):
+    """Two consecutive deep WOW scales ``(scale, scale+1)`` in one pass:
+    returns ``(white_s, white_s1, recon', c_next2)``.  ``thresholds``:
+    ``(2, B)`` (or ``(2,)``) per-scale, per-frame thresholds on the
+    carry's device; ``weights``/``masked``: pairs.  ``recon`` (or None) is
+    accumulated in place, ``(recon + white_s) + white_s1``, the order of
+    two :func:`deep_whiten_step` calls; the whites are None when
+    ``write_plane=False``.  Gate with :func:`can_deep2`.  A CPU carry runs
+    :func:`deep_whiten_step2_plain`; a CUDA carry runs kernel E or
+    raises."""
+    if not carry.is_cuda:
+        return deep_whiten_step2_plain(
+            carry, recon, thresholds, sf=sf, scale=scale, weights=weights,
+            soft=soft, masked=masked, write_plane=write_plane)
+    check_kernel_input(carry, sf, "deep_whiten_step2")
+    thr = _pair_args(carry, recon, thresholds, weights, masked, write_plane)
+    if recon is not None:
+        check_kernel_input(recon, sf, "deep_whiten_step2")
+    if not can_deep2(carry, sf, scale):
+        raise ValueError("deep_whiten_step2: kernel E does not take this "
+                         "shape (use can_deep2 before dispatch)")
+    B, H, W = carry.shape
+    c_next = torch.empty_like(carry)
+    w1 = torch.empty_like(carry) if write_plane else None
+    w2 = torch.empty_like(carry) if write_plane else None
+    lib = _lib_pair()
+    taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
+    code = lib.wt_whiten_pair_f32(
+        _ptr(carry), _ptr(c_next), _ptr(w1), _ptr(w2), _ptr(recon), _ptr(thr),
+        float(weights[0]), float(weights[1]), int(bool(masked[0])),
+        int(bool(masked[1])), int(bool(soft)), taps, len(sf.taps), B, H, W,
+        1 << scale, _build.stream_ptr(carry.device))
+    _build.check(lib, code, "whiten_pair")
+    _build.LAUNCHES[PAIR_KERNEL] += 1
+    return w1, w2, recon, c_next
+
+
+# ---------------------------------------------------------------------
+# Kernel D: one given deep plane
+# ---------------------------------------------------------------------
+
+def _plane_args(plane, threshold, weight, gamma):
+    if plane.ndim != 3:
+        raise ValueError("deep_whiten_plane takes a (B, H, W) plane")
+    if gamma is not None and gamma.shape != plane.shape:
+        raise ValueError("deep_whiten_plane: gamma must match the plane")
+    B = plane.shape[0]
+    fac = torch.as_tensor(weight, dtype=plane.dtype,
+                          device=plane.device).reshape(-1).expand(B)
+    thr = torch.as_tensor(threshold, dtype=plane.dtype,
+                          device=plane.device).reshape(-1).expand(B)
+    return fac.contiguous(), thr.contiguous()
+
+
+def deep_whiten_plane_plain(plane: torch.Tensor, threshold, *,
+                            sf: ScalingFunction, scale: int, weight,
+                            soft: bool = True, masked: bool = False,
+                            gamma: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of :func:`deep_whiten_plane` (any dtype or
+    device); like the kernel it adds into ``gamma`` in place."""
+    _build.PLAIN_CALLS[PLANE_KERNEL] += 1
+    fac, thr = _plane_args(plane, threshold, weight, gamma)
+    white, wc = whiten_detail_plain(plane, fac[:, None, None],
+                                    thr[:, None, None], sf, scale, soft,
+                                    masked)
+    if gamma is not None:
+        gamma.add_(wc)
+    return white
+
+
+def deep_whiten_plane(plane: torch.Tensor, threshold, *,
+                      sf: ScalingFunction, scale: int, weight,
+                      soft: bool = True, masked: bool = False,
+                      gamma: Optional[torch.Tensor] = None):
+    """Whiten one materialized deep detail plane: returns ``white =
+    plane·sig·(weight / sqrt(max(smooth_s(plane²), 1e-15)))``.
+
+    ``plane``: ``(B, H, W)``; ``threshold``: ``(B,)`` (read only when
+    ``masked``).  ``weight`` is a float or a ``(B,)`` tensor on the
+    plane's device, so a runtime factor (``preserve_variance``'s
+    ``w·sqrt(mean(c²))``) needs no host round trip.  ``gamma`` (or None)
+    is a ``(B, H, W)`` tensor to which the masked, unwhitened plane is
+    added in place (the gamma-blend input).  A CPU plane runs
+    :func:`deep_whiten_plane_plain`; a CUDA plane runs kernel D or
+    raises."""
+    if not plane.is_cuda:
+        return deep_whiten_plane_plain(
+            plane, threshold, sf=sf, scale=scale, weight=weight, soft=soft,
+            masked=masked, gamma=gamma)
+    check_kernel_input(plane, sf, "deep_whiten_plane")
+    fac, thr = _plane_args(plane, threshold, weight, gamma)
+    if gamma is not None:
+        check_kernel_input(gamma, sf, "deep_whiten_plane")
+    white = torch.empty_like(plane)
+    launch_whiten_plane(plane, white, None, 0, gamma,
+                        0 if gamma is None else 2, fac,
+                        thr if masked else None, soft, sf, scale)
+    return white

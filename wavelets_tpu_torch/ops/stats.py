@@ -1,7 +1,7 @@
-"""Coefficient statistics: MAD noise and significance masks.
+"""Coefficient statistics: Anscombe, MAD noise, significance, denoise.
 
 Counterpart of ``wavelets_tpu/ops/stats.py`` (the reference's coefficient
-algebra, watroo/wavelets.py:126-149).
+algebra, watroo/wavelets.py:14-21 and :126-149).
 """
 
 from __future__ import annotations
@@ -9,12 +9,27 @@ from __future__ import annotations
 import torch
 
 from . import hopper_stats
+from .layout import stack_planes
 
-__all__ = ["MAD_TO_SIGMA", "median_abs", "mad_noise", "significance_soft",
-           "significance_hard", "significance"]
+__all__ = ["MAD_TO_SIGMA", "generalized_anscombe", "median_abs", "mad_noise",
+           "significance_soft", "significance_hard", "significance",
+           "apply_denoise"]
 
 #: MAD → σ conversion constant for a Gaussian (watroo/wavelets.py:127).
 MAD_TO_SIGMA = 0.6745
+
+
+def generalized_anscombe(signal, alpha=1.0, g=0.0, sigma=0.0, inverse=False):
+    """Generalized Anscombe variance-stabilizing transform, with the
+    forward branch's ``≤0 → 0`` clamp (watroo/wavelets.py:14-21)."""
+    signal = torch.as_tensor(signal)
+    if inverse:
+        return ((alpha * signal / 2) ** 2 + alpha * g - sigma ** 2
+                - 3 * alpha / 8) / alpha
+    dum = alpha * signal + 3 * alpha ** 2 / 8 + sigma ** 2 - alpha * g
+    dum = torch.where(dum <= 0, torch.zeros((), dtype=dum.dtype,
+                                            device=dum.device), dum)
+    return 2 * torch.sqrt(dum) / alpha
 
 
 def median_abs(x: torch.Tensor, fuse: bool = True) -> torch.Tensor:
@@ -65,3 +80,27 @@ def significance(w: torch.Tensor, sigma: float, noise, sigma_e_scale: float,
     else:
         mask = significance_hard(w, safe_t).to(w.dtype)
     return torch.where(t == 0, torch.ones_like(mask), mask)
+
+
+def apply_denoise(planes: torch.Tensor, sigmas, weights, sigma_e, noise,
+                  soft_threshold: bool = True) -> torch.Tensor:
+    """Scale-wise denoise of a coefficient cube ``(level+1, ...)``
+    (watroo/wavelets.py:145-149).  ``zip`` truncation: only the
+    ``min(len(planes), len(sigmas), len(weights))`` leading planes are
+    modified; the trailing ones (typically the residual) pass through."""
+    sigmas = tuple(sigmas)
+    weights = tuple(weights) if weights is not None else (1.0,) * len(sigmas)
+    n = min(planes.shape[0], len(sigmas), len(weights))
+    out = []
+    for s in range(planes.shape[0]):
+        c = planes[s]
+        if s < n:
+            wgt = torch.tensor(weights[s], dtype=c.dtype)
+            if sigmas[s] != 0:
+                mask = significance(c, sigmas[s], noise, sigma_e[s],
+                                    soft_threshold)
+                c = c * (wgt * mask)
+            else:
+                c = c * wgt
+        out.append(c)
+    return stack_planes(out)
