@@ -18,22 +18,32 @@ CUDA toolkit.  It
    ``smooth_only``; bitwise), kernel D (4096², s ∈ {0, 1, 2, 5}, factors
    from a device table, gamma on) and kernel E (the pairs (7, 8) at 4096²
    and (4, 5) at 512² against two plain steps, carry bitwise, and against
-   two kernel A steps, bitwise);
+   two kernel A steps, bitwise), kernel F (bilateral groups at 4096²,
+   1000×1536 and 257×513, offsets 0, 3 and 6, σ scalar and a list,
+   scaling on and off, and a mean of 1000) and kernel G (deep bilateral
+   scales 3, 6, 9 at 4096² and 8 at 257×513, masked soft, hard and
+   unmasked);
 4. drives every ported path with the launch counters reset just before
    and read just after — the main path (``wow`` 4096² auto 10 scales and
    512² L6, denoise [5, 2], lazy noise), P1 ``AtrousTransform()(x, 6)``,
    P2 ``denoise`` of 4096² frames and of a 64×1024×1024 volume, P3
    ``wow`` with the gamma blend, with ``preserve_variance`` and from
-   ``AtrousTransform()(x, 10)`` — and requires that each expected kernel
-   launched, that no plain version ran, that the outputs are finite, on
-   the card, and agree with ``fuse=False`` on the same tensors and with
-   the float64 CPU path on a small input;
+   ``AtrousTransform()(x, 10)``, and the bilateral paths B1 (``wow``
+   4096² auto 10 scales, ``bilateral=1``, known noise; B1-lazy with lazy
+   noise and ``bilateral_scaling``), B2 ``AtrousTransform(bilateral=1)(x,
+   6)``, B3 ``denoise(x, [3, 3, 3], bilateral=1)`` and B4 ``wow`` of
+   ``AtrousTransform(bilateral=1)(x, 10)`` — and requires that each
+   expected kernel launched (for B1-B4 exactly the expected counts), that
+   no plain version ran, that the outputs are finite, on the card, and
+   agree with ``fuse=False`` on the same tensors and with the float64 CPU
+   path on a small input;
 5. times each path, kernels against plain, and each kernel against its
    plain version and, where one exists, one PyTorch call computing the
    same function, with CUDA events (median of 20 runs after warm-up),
    beside the kernel's bound: the larger of its bytes (each input read
    once, each output written once) over 3.35 TB/s and its float32
-   operations over 67 TFLOP/s, the H100 SXM's published peaks;
+   operations over 67 TFLOP/s, the H100 SXM's published peaks (an
+   ``expf`` counted as :data:`EXPF_OPS` instructions);
 6. traces each path's kernel route with ``torch.profiler`` over 5 runs:
    device-busy ms per run, the idle share against the CUDA-event time,
    and the kernels that take the most device time.
@@ -70,6 +80,18 @@ PEAK_F32 = 67e12
 #: multiply and two adds plus one multiply per tap pair (7), two per
 #: separable smooth
 FOLD_OPS = 7
+#: float32 instructions of one accurate ``expf`` (range reduction, ex2,
+#: scaling), as counted for the bilateral kernels' bound
+EXPF_OPS = 8
+#: one bilateral chain smooth per pixel and scale (kernels F and G): rows
+#: moments (two folds, five squares) 19, cols moments and range factor
+#: (two folds, mean², difference, clamp, two products, division) 20, 24
+#: taps of 7 operations and one expf, 3 to finish (centre, division,
+#: detail)
+BIL_OPS = 19 + 20 + 24 * (7 + EXPF_OPS) + 3
+#: kernel G's power smooth (two folds, five squares) and whitening
+#: epilogue (clamp, sqrt, mask, division, product, recon add)
+BIL_WHITEN_OPS = 2 * FOLD_OPS + 5 + 12
 
 
 def require(cond, msg):
@@ -168,7 +190,8 @@ def main():
     from wavelets_tpu_torch.core.transform import decompose, decompose_pieces
     from wavelets_tpu_torch.models.wow import (_wow_body_fused,
                                                _wow_body_merged)
-    from wavelets_tpu_torch.ops import (_build, hopper_conv, hopper_deep,
+    from wavelets_tpu_torch.ops import (_build, hopper_bilateral,
+                                        hopper_conv, hopper_deep,
                                         hopper_stats, hopper_wow)
     from wavelets_tpu_torch.ops.filters import B3SPLINE
 
@@ -187,10 +210,16 @@ def main():
     sig = B3SPLINE.sigma_e(2)
     plane_bytes = 4096 * 4096 * 4
 
-    def frame(shape, b=None):
+    def frame(shape, b=None, mean=10.0):
         size = shape if b is None else (b,) + shape
-        x = rng.normal(size=size).astype(np.float32) * 3 + 10
+        x = rng.normal(size=size).astype(np.float32) * 3 + mean
         return torch.from_numpy(x).to(dev)
+
+    def bil_frame(shape, b=None):
+        # zero mean: the range weights exp(-d²/2V) amplify float32
+        # round-off of the local variance, which cancels on a large mean
+        # (the float64 comparison would read conditioning, not the port)
+        return frame(shape, b, mean=0.0)
 
     # ---- 3a. kernel A against its plain version ------------------------
     errs_a = {"white": 0.0, "carry": 0.0}
@@ -361,13 +390,85 @@ def main():
               f"bitwise to two kernel A steps; whites vs plain max abs err "
               f"{err_e['white']:.3e}")
 
+    # ---- 3f. kernel F ---------------------------------------------------
+    err_f = 0.0
+    with Phase("kernel F checks"):
+        n_f = 0
+        for shape, offsets in [((4096, 4096), (0, 3)),
+                               ((1000, 1536), (0, 3)),
+                               ((257, 513), (0, 3, 6))]:
+            x = bil_frame(shape)
+            for off in offsets:
+                for sig2, scaling in (((1.0,) * 3, False),
+                                      ((2.25, 1.0, 0.25), True),
+                                      ((2.25, 1.0, 0.25), False),
+                                      ((1.0,) * 3, True)):
+                    got = hopper_bilateral.fused_bilateral_group(
+                        x, 3, B3SPLINE, sig2, off, scaling)
+                    want = hopper_bilateral.fused_bilateral_group_plain(
+                        x, 3, B3SPLINE, sig2, off, scaling)
+                    torch.cuda.synchronize()
+                    e = check_white(got, want, f"kernel F {shape} offset="
+                                    f"{off} σ²={sig2} scaling={scaling}")
+                    if shape == (4096, 4096):
+                        err_f = max(err_f, e)
+                    n_f += 1
+            del x
+        for shape in ((4096, 4096), (257, 513)):
+            # m2 - mean·mean cancels at a mean of 1000
+            x = frame(shape, mean=1000.0)
+            got = hopper_bilateral.fused_bilateral_group(x, 3, B3SPLINE,
+                                                         (1.0,) * 3)
+            want = hopper_bilateral.fused_bilateral_group_plain(
+                x, 3, B3SPLINE, (1.0,) * 3)
+            torch.cuda.synchronize()
+            e = check_white(got, want, f"kernel F {shape} mean 1000")
+            print(f"kernel F {shape} mean 1000: max abs err {e:.3e}")
+            n_f += 1
+            del x
+        print(f"kernel F: {n_f} checks passed; 4096² max abs err "
+              f"{err_f:.3e}")
+
+    # ---- 3g. kernel G ---------------------------------------------------
+    err_g = {"white": 0.0, "carry": 0.0}
+    with Phase("kernel G checks"):
+        n_g = 0
+        for shape, scales in [((4096, 4096), (3, 6, 9)), ((257, 513), (8,))]:
+            x = bil_frame(shape, b=1)
+            recon = bil_frame(shape, b=1)
+            for s in scales:
+                thr = torch.tensor([3.0 * float(sig[s])], device=dev)
+                for mode in ("soft", "hard", "unmasked"):
+                    kw = dict(sf=B3SPLINE, scale=s, var_factor=2.25,
+                              weight=1.5, soft=mode == "soft",
+                              masked=mode != "unmasked",
+                              bilateral_scaling=mode == "hard")
+                    r_k, r_p = recon.clone(), recon.clone()
+                    w_k, c_k = hopper_deep.deep_bilateral_whiten_step(
+                        x, thr, recon=r_k, **kw)
+                    w_p, c_p = hopper_deep.deep_bilateral_whiten_step_plain(
+                        x, thr, recon=r_p, **kw)
+                    torch.cuda.synchronize()
+                    what = f"kernel G {shape} s={s} {mode}"
+                    e_c = check_white(c_k, c_p, what + " carry")
+                    e_w = check_white(w_k, w_p, what)
+                    check_white(r_k, r_p, what + " recon")
+                    if shape == (4096, 4096):
+                        err_g["white"] = max(err_g["white"], e_w)
+                        err_g["carry"] = max(err_g["carry"], e_c)
+                    n_g += 1
+            del x, recon
+        print(f"kernel G: {n_g} checks passed; 4096² max abs err white "
+              f"{err_g['white']:.3e} carry {err_g['carry']:.3e}")
+
     # ---- 4. the paths ----------------------------------------------------
     launches = {}
 
     def drive(what, fn, expect):
         """Run ``fn`` with the counters reset just before and read just
-        after; every kernel in ``expect`` must launch and no plain version
-        may run."""
+        after; every kernel in ``expect`` must launch (exactly as often
+        as a dict ``expect`` says, and no other) and no plain version may
+        run."""
         torch.cuda.synchronize()
         _build.reset_counters()
         out = fn()
@@ -380,6 +481,9 @@ def main():
         for name in expect:
             require(run_launches.get(name, 0) >= 1,
                     f"{what}: kernel {name} did not launch")
+        if isinstance(expect, dict):
+            require(run_launches == expect,
+                    f"{what}: launches {run_launches}, expected {expect}")
         require(not run_plain, f"{what}: plain versions ran: {run_plain}")
         return out, run_launches
 
@@ -402,10 +506,10 @@ def main():
         print(f"  vs fuse=False on the card: recon max abs err {e_r:.3e}, "
               f"planes {e_p:.3e} (scale {scale:.4g})")
 
-    def small_vs_cpu(what, run, shape=(256, 256)):
+    def small_vs_cpu(what, run, shape=(256, 256), mean=10.0):
         """``run(x, **device)`` on a small float32 input on the card
         against the float64 CPU path; returns the max abs error."""
-        small = rng.normal(size=shape) * 3 + 10
+        small = rng.normal(size=shape) * 3 + mean
         got = run(torch.from_numpy(small.astype(np.float32)).to(dev))
         ref = run(small, device="cpu")
         scale = float(ref.abs().max())
@@ -541,6 +645,82 @@ def main():
         print(f"  pieces route vs merged route: recon max abs err {e:.3e}")
         paths["route pieces + deferred tail 4096² L10 lazy [5, 2]"] = (
             route_fused, route_merged)
+
+    # B1-B4: the bilateral paths, on a zero-mean frame (see bil_frame)
+    xb4k = bil_frame((4096, 4096))
+    b1 = {
+        "B1 wow 4096² L10 bilateral=1, denoise [5, 2], noise 1.0":
+            (dict(bilateral=1, denoise_coefficients=[5, 2], noise=1.0),
+             {"bilateral_group": 1, "whiten_plane": 3,
+              "bilateral_step": 7}),
+        "B1-lazy wow 4096² L10 bilateral=1 scaling, denoise [5, 2]":
+            (dict(bilateral=1, bilateral_scaling=True,
+                  denoise_coefficients=[5, 2]),
+             {"bilateral_group": 1, "whiten_plane": 3, "bilateral_step": 7,
+              "median_select": 1}),
+    }
+    for what, (kw, expect) in b1.items():
+        with Phase(what):
+            (recon, coeffs), _ = drive(what, lambda: wt.wow(xb4k, **kw),
+                                       expect)
+            r_p, c_p = wt.wow(xb4k, fuse=False, **kw)
+            torch.cuda.synchronize()
+            check_wow(what, recon, coeffs, r_p, c_p, 11)
+            small_vs_cpu(what, lambda y, **d: wt.wow(y, **kw, **d)[0],
+                         mean=0.0)
+            paths[what] = (lambda kw=kw: wt.wow(xb4k, **kw),
+                           lambda kw=kw: wt.wow(xb4k, fuse=False, **kw))
+    what = "B2 AtrousTransform(bilateral=1) 4096² L6"
+    with Phase(what):
+        coeffs, _ = drive(what, lambda: wt.AtrousTransform(
+            bilateral=1)(xb4k, 6), {"bilateral_group": 2})
+        on_card(coeffs.data, what, (7, 4096, 4096))
+        plain = decompose(xb4k, 6, B3SPLINE, bilateral=(1.0,) * 7,
+                          fuse=False)
+        e = check_white(coeffs.data, plain, what + " vs fuse=False")
+        rt = max_err(wt.synthesize(coeffs.data), xb4k)
+        require(rt <= WHITE_RTOL * max(1.0, float(xb4k.abs().max())),
+                f"B2 round trip err {rt}")
+        print(f"  vs fuse=False: max abs err {e:.3e}; round trip max abs "
+              f"err {rt:.3e}")
+        small_vs_cpu(what, lambda y, **d: wt.AtrousTransform(bilateral=1)(
+            y, 6, **d).data, mean=0.0)
+        paths[what] = (
+            lambda: wt.AtrousTransform(bilateral=1)(xb4k, 6),
+            lambda: decompose(xb4k, 6, B3SPLINE, bilateral=(1.0,) * 7,
+                              fuse=False))
+        del coeffs, plain
+    what = "B3 denoise 4096² [3, 3, 3] bilateral=1"
+    with Phase(what):
+        out, _ = drive(what, lambda: wt.denoise(xb4k, [3, 3, 3],
+                                                bilateral=1),
+                       {"bilateral_group": 1, "median_select": 1})
+        on_card(out, what, xb4k.shape)
+        plain = wt.denoise(xb4k, [3, 3, 3], bilateral=1, fuse=False)
+        torch.cuda.synchronize()
+        e = check_white(out, plain, what + " vs fuse=False")
+        print(f"  vs fuse=False on the card: max abs err {e:.3e}")
+        small_vs_cpu(what, lambda y, **d: wt.denoise(y, [3, 3, 3],
+                                                     bilateral=1, **d),
+                     mean=0.0)
+        paths[what] = (
+            lambda: wt.denoise(xb4k, [3, 3, 3], bilateral=1),
+            lambda: wt.denoise(xb4k, [3, 3, 3], bilateral=1, fuse=False))
+    what = "B4 wow(AtrousTransform(bilateral=1)(x4096, 10))"
+    with Phase(what):
+        # four kernel F groups (3, 3, 3, 1 scales); kernel D whitens
+        # scales 0-2 from the pieces and 3-9 one plane each
+        (recon, coeffs), _ = drive(
+            what, lambda: wt.wow(wt.AtrousTransform(bilateral=1)(xb4k, 10)),
+            {"bilateral_group": 4, "whiten_plane": 10})
+        bplanes = wt.AtrousTransform(bilateral=1)(xb4k, 10)
+        r_p, c_p = wt.wow(bplanes, fuse=False)
+        torch.cuda.synchronize()
+        check_wow(what, recon, coeffs, r_p, c_p, 11)
+        small_vs_cpu(what, lambda y, **d: wt.wow(
+            wt.AtrousTransform(bilateral=1)(y, 6, **d))[0], mean=0.0)
+        paths[what + ": wow of the planes"] = (
+            lambda: wt.wow(bplanes), lambda: wt.wow(bplanes, fuse=False))
 
     # ---- 5. timings -----------------------------------------------------
     print(f"timings on {card}: median of {N_TIMED} runs, CUDA events")
@@ -692,6 +872,54 @@ def main():
             two_kernel_a_steps_ms={k: v[1] for k, v in pair_ab.items()},
             pair_ms={k: v[0] for k, v in pair_ab.items()},
             library="none: PyTorch has no numpy-symmetric pad"))
+
+        # kernel F: one bilateral group of 3 scales at 4096²
+        xf = bil_frame((4096, 4096))
+        f_k = timed(lambda: hopper_bilateral.fused_bilateral_group(
+            xf, 3, B3SPLINE, (1.0,) * 3), torch)
+        f_p = timed(lambda: hopper_bilateral.fused_bilateral_group_plain(
+            xf, 3, B3SPLINE, (1.0,) * 3), torch)
+        print(f"  kernel F 4096² g=3: {f_k:.3f} ms, plain {f_p:.3f} ms")
+        # read x; write 3 details and the carry
+        b_f = bound_ms(5 * plane_bytes, 3 * 4096 * 4096 * BIL_OPS)
+        kernels_out.append(dict(
+            name="bilateral_group", route="cuda",
+            source="wavelets_tpu_torch/csrc/bilateral_group.cu",
+            replaces="wavelets_tpu/ops/pallas_bilateral.py:341",
+            launches=launches.get("bilateral_group", 0), max_abs_err=err_f,
+            ms=f_k, plain_ms=f_p, bound_ms=b_f[0], bound_by=b_f[1],
+            library_ms=None, timed="one group, scales 0-2 at 4096², σ_b 1",
+            ops_per_pixel_scale=BIL_OPS, expf_ops=EXPF_OPS,
+            library="none: PyTorch has no bilateral filter"))
+
+        # kernel G: one step per scale, 3-9 at 4096² (B1's tail)
+        xg = bil_frame((4096, 4096), b=1)
+        rg = torch.zeros_like(xg)
+        g_k = g_p = 0.0
+        for s in range(3, 10):
+            kw = dict(sf=B3SPLINE, scale=s, var_factor=1.0, weight=1.0,
+                      soft=True, masked=False)
+            tk = timed(lambda: hopper_deep.deep_bilateral_whiten_step(
+                xg, zero1, recon=rg, **kw), torch)
+            tp = timed(lambda: hopper_deep.deep_bilateral_whiten_step_plain(
+                xg, zero1, recon=rg, **kw), torch)
+            g_k += tk
+            g_p += tp
+            print(f"  kernel G 4096² s={s}: {tk:.3f} ms, plain {tp:.3f} ms")
+        # per step: read carry and recon; write white, c_next, recon
+        b_g = bound_ms(7 * 5 * plane_bytes,
+                       7 * 4096 * 4096 * (BIL_OPS + BIL_WHITEN_OPS))
+        kernels_out.append(dict(
+            name="bilateral_step", route="cuda",
+            source="wavelets_tpu_torch/csrc/bilateral_step.cu",
+            replaces="wavelets_tpu/ops/pallas_deep.py:1455",
+            launches=launches.get("bilateral_step", 0),
+            max_abs_err=err_g["white"], carry_max_abs_err=err_g["carry"],
+            ms=g_k, plain_ms=g_p, bound_ms=b_g[0], bound_by=b_g[1],
+            library_ms=None, timed="scales 3-9 at 4096², one step each",
+            ops_per_pixel_scale=BIL_OPS + BIL_WHITEN_OPS, expf_ops=EXPF_OPS,
+            library="none: PyTorch has no bilateral filter"))
+        del xf, xg, rg
 
     # ---- 6. where the time goes ----------------------------------------
     with Phase("profile"):

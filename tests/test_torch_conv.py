@@ -143,8 +143,6 @@ def test_atrous_transform(rng, cls):
 
 def test_atrous_transform_options_outside_the_slice():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tapi.AtrousTransform(bilateral=1.0)(np.zeros((8, 8)), 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         tapi.AtrousTransform()(np.zeros((8, 8)), 2, recursive=True)
     with pytest.raises(ValueError):
         tapi.AtrousTransform()(np.zeros((2, 2, 2, 2)), 1)

@@ -9,7 +9,9 @@ the last place of its magnitude (the folds are rounded step by step in
 both versions, so bitwise is expected); kernel C's details and carry and
 kernel E's carry bitwise; whitened planes, ``acc``, the gamma sum and the
 reconstruction within ``5e-6·max(|ref|, 1)`` (``erff`` against
-``torch.erf``); kernel B bitwise."""
+``torch.erf``); kernel B bitwise; kernels F and G (the bilateral chain,
+rounded step by step in both versions) within ``5e-6·max(|ref|, 1)``
+(``expf`` against ``torch.exp``)."""
 
 import numpy as np
 import pytest
@@ -17,8 +19,8 @@ import torch
 
 from tests.torch_parity import assert_close_scaled, to_np
 from wavelets_tpu_torch import wow
-from wavelets_tpu_torch.ops import (_build, hopper_conv, hopper_deep,
-                                    hopper_stats, hopper_wow)
+from wavelets_tpu_torch.ops import (_build, hopper_bilateral, hopper_conv,
+                                    hopper_deep, hopper_stats, hopper_wow)
 from wavelets_tpu_torch.ops.filters import B3SPLINE, TRIANGLE
 
 pytestmark = pytest.mark.cuda
@@ -137,8 +139,10 @@ def test_wow_pair_route_on_the_card(dev, shape, launched):
                                   "wow-coefficients"])
 def test_paths_launch_only_kernels(dev, path):
     import wavelets_tpu_torch as wt
-    x = torch.from_numpy(np.random.default_rng(6).normal(size=(128, 192))
-                         .astype(np.float32) * 3 + 10).to(dev)
+    x = np.random.default_rng(6).normal(size=(128, 192)) * 3
+    if "bilateral" not in path:
+        x = x + 10   # zero mean keeps the bilateral chain well conditioned
+    x = torch.from_numpy(x.astype(np.float32)).to(dev)
     runs = {
         "atrous": (lambda f: wt.AtrousTransform()(x, 5).data
                    if f else wt.decompose(x, 5, wt.B3SPLINE, fuse=False),
@@ -153,6 +157,17 @@ def test_paths_launch_only_kernels(dev, path):
         "wow-coefficients": (lambda f: wow(wt.AtrousTransform()(x, 5),
                                            fuse=f)[0],
                              {"decompose_group", "whiten_plane"}),
+        "atrous-bilateral": (
+            lambda f: wt.AtrousTransform(bilateral=1)(x, 5).data if f
+            else wt.decompose(x, 5, wt.B3SPLINE, bilateral=(1.0,) * 6,
+                              fuse=False),
+            {"bilateral_group"}),
+        "denoise-bilateral": (lambda f: wt.denoise(x, [3, 3, 3], bilateral=1,
+                                                   fuse=f),
+                              {"bilateral_group", "median_select"}),
+        "wow-bilateral-coefficients": (
+            lambda f: wow(wt.AtrousTransform(bilateral=1)(x, 5), fuse=f)[0],
+            {"bilateral_group", "whiten_plane"}),
     }
     run, kernels = runs[path]
     _build.reset_counters()
@@ -282,3 +297,89 @@ def test_pair_gate_refuses_and_the_kernel_raises(dev):
         hopper_deep.deep_whiten_step2(x, None, torch.zeros(2, device=dev),
                                       sf=B3SPLINE, scale=3,
                                       weights=(1.0, 1.0))
+
+
+@pytest.mark.parametrize("shape", [(64, 96), (37, 70), (2, 40, 56)])
+@pytest.mark.parametrize("g,offset", [(1, 0), (3, 0), (3, 2)])
+@pytest.mark.parametrize("scaling", [False, True])
+def test_bilateral_group_kernel_vs_plain(dev, shape, g, offset, scaling):
+    x = torch.from_numpy(np.random.default_rng(g).normal(size=shape)
+                         .astype(np.float32)).to(dev)
+    variances = (1.0, 2.25, 0.25)[:g]
+    got = hopper_bilateral.fused_bilateral_group(x, g, B3SPLINE, variances,
+                                                 offset, scaling)
+    want = hopper_bilateral.fused_bilateral_group_plain(
+        x, g, B3SPLINE, variances, offset, scaling)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (g + 1,) + shape
+    assert_close_scaled(got, want, 5e-6)
+
+
+@pytest.mark.parametrize("sf", [B3SPLINE, TRIANGLE], ids=["b3", "tri"])
+def test_bilateral_group_kernel_large_mean(dev, sf):
+    # m2 - mean*mean cancels at a mean of 1000: any contraction into an
+    # FMA would move every range weight
+    x = torch.from_numpy((np.random.default_rng(7).normal(size=(48, 64))
+                          + 1000).astype(np.float32)).to(dev)
+    got = hopper_bilateral.fused_bilateral_group(x, 3, sf, (1.0,) * 3)
+    want = hopper_bilateral.fused_bilateral_group_plain(x, 3, sf, (1.0,) * 3)
+    torch.cuda.synchronize()
+    assert_close_scaled(got, want, 5e-6)
+
+
+@pytest.mark.parametrize("shape,s", [((1, 64, 96), 0), ((2, 40, 56), 2),
+                                     ((1, 37, 70), 5)])
+@pytest.mark.parametrize("mode", ["soft", "hard", "unmasked"])
+@pytest.mark.parametrize("scaling", [False, True])
+def test_bilateral_step_kernel_vs_plain(dev, shape, s, mode, scaling):
+    rng = np.random.default_rng(s)
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+    recon = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    recon = recon.to(dev)
+    thr = torch.tensor([0.3, 0.0][:shape[0]], device=dev)
+    kw = dict(sf=B3SPLINE, scale=s, var_factor=2.25, weight=1.5,
+              soft=mode == "soft", masked=mode != "unmasked",
+              bilateral_scaling=scaling)
+    r_k, r_p = recon.clone(), recon.clone()
+    w_k, c_k = hopper_deep.deep_bilateral_whiten_step(x, thr, recon=r_k,
+                                                      **kw)
+    w_p, c_p = hopper_deep.deep_bilateral_whiten_step_plain(x, thr,
+                                                            recon=r_p, **kw)
+    torch.cuda.synchronize()
+    assert_close_scaled(c_k, c_p, 5e-6)
+    assert_close_scaled(w_k, w_p, 5e-6)
+    assert_close_scaled(r_k, r_p, 5e-6)
+
+
+def test_bilateral_wow_path_vs_plain(dev):
+    x = torch.from_numpy(np.random.default_rng(8).normal(size=(512, 512))
+                         .astype(np.float32) * 3).to(dev)
+    kw = dict(n_scales=6, bilateral=1, denoise_coefficients=[5, 2],
+              noise=1.0)
+    _build.reset_counters()
+    r_k, c_k = wow(x, **kw)
+    torch.cuda.synchronize()
+    launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+    # kernel F for scales 0-2, kernel D whitens them, kernel G takes 3-5
+    assert launches == {"bilateral_group": 1, "whiten_plane": 3,
+                        "bilateral_step": 3}
+    assert plain == {}
+    r_p, c_p = wow(x, fuse=False, **kw)
+    assert r_k.is_cuda and bool(torch.isfinite(r_k).all())
+    scale = float(r_p.abs().max())
+    assert_close_scaled(r_k, r_p, 5e-6)
+    for k in range(len(c_p)):
+        assert_close_scaled(c_k[k], c_p[k], 5e-6, scale)
+
+
+def test_bilateral_wrappers_refuse_what_the_kernels_cannot_take(dev):
+    x = torch.zeros(1, 16, 16, dtype=torch.float64, device=dev)
+    with pytest.raises(TypeError):
+        hopper_bilateral.fused_bilateral_group(x, 1, B3SPLINE, (1.0,))
+    with pytest.raises(TypeError):
+        hopper_deep.deep_bilateral_whiten_step(
+            x, torch.zeros(1, device=dev), sf=B3SPLINE, scale=0,
+            var_factor=1.0, weight=1.0)
+    with pytest.raises(ValueError):
+        hopper_bilateral.fused_bilateral_group(
+            torch.zeros(16, 16, device=dev), 2, B3SPLINE, (1.0,))

@@ -146,12 +146,8 @@ def test_volume_route_is_the_plain_chain():
 
 def test_decompose_options_outside_the_slice_raise():
     x = torch.zeros(16, 16)
-    with pytest.raises(NotImplementedError, match="queue A: bilateral"):
-        ttransform.decompose(x, 2, B3SPLINE, bilateral=(1.0, 1.0, 1.0))
     with pytest.raises(NotImplementedError, match="transform options"):
         ttransform.decompose(x, 2, B3SPLINE, recursive_borders=True)
-    with pytest.raises(NotImplementedError, match="queue A: bilateral"):
-        ttransform.decompose_pieces(x, 2, B3SPLINE, bilateral=(1.0,) * 3)
 
 
 def test_fused_group_rejects_bad_arguments():

@@ -145,7 +145,3 @@ def test_apply_denoise(coeffs_pair, soft):
     assert_rel(got, np.asarray(ref), 1e-12)
     assert np.array_equal(to_np(got)[3:], planes[3:])
 
-
-def test_denoise_bilateral_raises():
-    with pytest.raises(NotImplementedError, match="queue A: bilateral"):
-        T.denoise(np.zeros((32, 32)), [3], bilateral=1.0, device="cpu")

@@ -144,8 +144,9 @@ def test_build_helper(tmp_path, monkeypatch):
     # every kernel source of the package is present and named in the
     # build, and the library name follows the source and header hash
     names = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
-    assert names == ["decompose_group", "median_select", "whiten_pair",
-                     "whiten_plane", "whiten_step"]
+    assert names == ["bilateral_group", "bilateral_step", "decompose_group",
+                     "median_select", "whiten_pair", "whiten_plane",
+                     "whiten_step"]
     p1 = _build._library_path("whiten_step")
     assert p1.parent == _build.BUILD_DIR and p1.suffix == ".so"
     src = tmp_path / "whiten_step.cu"

@@ -300,22 +300,13 @@ def test_normalize_wow_params(case):
     assert [str(m.message) for m in tw] == [str(m.message) for m in jw]
 
 
-@pytest.mark.parametrize("option", [
-    "bilateral", "bfloat16", "3d", "wow_stack", "denoise-bilateral",
-    "bilateral-coefficients",
-])
+@pytest.mark.parametrize("option", ["bfloat16", "3d", "wow_stack"])
 def test_options_outside_the_slice_raise(option):
-    x = np.zeros((32, 32), np.float32)
     cpu = dict(device="cpu")
-    bil = T.AtrousTransform()(x, 2, **cpu)
-    bil.bilateral = 1.0
     calls = {
-        "bilateral": lambda: T.wow(x, bilateral=1.0, **cpu),
         "bfloat16": lambda: T.wow(torch.zeros(32, 32, dtype=torch.bfloat16)),
         "3d": lambda: T.wow(np.zeros((2, 32, 32), np.float32), **cpu),
         "wow_stack": lambda: twow.wow_stack(np.zeros((2, 32, 32))),
-        "denoise-bilateral": lambda: T.denoise(x, [3], bilateral=1.0, **cpu),
-        "bilateral-coefficients": lambda: T.wow(bil),
     }
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
         calls[option]()
@@ -333,6 +324,7 @@ def test_import_loads_no_jax():
                "wavelets_tpu_torch.core.transform",
                "wavelets_tpu_torch.models.denoise",
                "wavelets_tpu_torch.models.wow",
+               "wavelets_tpu_torch.ops.hopper_bilateral",
                "wavelets_tpu_torch.ops.hopper_conv",
                "wavelets_tpu_torch.ops.hopper_deep",
                "wavelets_tpu_torch.ops.hopper_stats",

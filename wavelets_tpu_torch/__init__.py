@@ -2,11 +2,12 @@
 
 The port of ``wavelets_tpu`` (JAX on a TPU), module by module, to
 PyTorch with hand-written CUDA kernels for the H100.  The ported slice:
-the standard à trous decomposition and synthesis (1-D, 2-D frames and
-stacks, 3-D volumes), ``denoise``, and standard WOW on one 2-D float32
-or float64 frame with all its options but bilateral (denoising with lazy
-MAD noise, ``preserve_variance``, the gamma blend, ``whitening=False``
-and the ``wow(Coefficients)`` reuse entry).  The kernels live in
+the à trous decomposition and synthesis, standard and bilateral (1-D,
+2-D frames and stacks, 3-D volumes), ``denoise`` (bilateral too), and
+WOW on one 2-D float32 or float64 frame with all its options (bilateral
+with ``bilateral_scaling``, denoising with lazy MAD noise,
+``preserve_variance``, the gamma blend, ``whitening=False`` and the
+``wow(Coefficients)`` reuse entry).  The kernels live in
 ``csrc/`` and are built with ``nvcc`` on first use (``ops/_build.py``); a
 CPU tensor runs each kernel's plain PyTorch version.  Array input goes
 to the card unless the caller passes ``device="cpu"`` or a CPU tensor.

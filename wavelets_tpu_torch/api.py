@@ -1,7 +1,7 @@
 """watroo-compatible object façade over the functional core.
 
 Counterpart of ``wavelets_tpu/api.py`` for the ported slice:
-``AtrousTransform`` (standard algorithm), ``B3spline``/``Triangle``
+``AtrousTransform`` (standard and bilateral), ``B3spline``/``Triangle``
 (classes instantiated with ``n_dim``) and ``Coefficients`` (per-scale
 rows or a cube, ``noise``, ``get_noise``, ``significance``, ``denoise``,
 item assignment, ``__array__``).
@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .core.transform import decompose
+from .core.transform import decompose, normalize_bilateral
 from .ops import stats as _stats
 from .ops.filters import B3SPLINE, TRIANGLE, ScalingFunction
 from .ops.layout import stack_planes
@@ -256,8 +256,9 @@ class Coefficients:
 
 
 class AtrousTransform:
-    """À trous transform engine (watroo/wavelets.py:290-328), standard
-    algorithm."""
+    """À trous transform engine (watroo/wavelets.py:290-328), standard or
+    bilateral (``bilateral``: per-scale σ_b, a scalar or a list, padded
+    to ``level+1`` entries at each call as the reference pads it)."""
 
     def __init__(self, scaling_function_class=B3spline, bilateral=None,
                  bilateral_scaling=False):
@@ -268,12 +269,8 @@ class AtrousTransform:
     def __call__(self, arr, level, recursive=False, device=DEFAULT_DEVICE):
         """Decompose ``arr`` over ``level`` scales → ``Coefficients`` with
         ``level+1`` planes, through :func:`~.core.transform.decompose`
-        (kernel C on the card for float32).  A tensor stays on its device;
-        other input goes to ``device``."""
-        if self.bilateral is not None:
-            raise NotImplementedError(
-                "the bilateral transform is not ported yet "
-                "(ROADMAP.md queue A: bilateral)")
+        (kernel C on the card for float32, kernel F when bilateral).  A
+        tensor stays on its device; other input goes to ``device``."""
         if recursive:
             raise NotImplementedError(
                 "recursive=True is not ported yet "
@@ -282,7 +279,10 @@ class AtrousTransform:
             raise ValueError("Unsupported number of dimensions")
         arr = _as_tensor(arr, device)
         sf_compat = self.scaling_function_class(arr.ndim)
-        planes = decompose(arr, level, sf_compat.spec)
+        planes = decompose(arr, level, sf_compat.spec,
+                           bilateral=normalize_bilateral(self.bilateral,
+                                                         level),
+                           bilateral_scaling=self.bilateral_scaling)
         return Coefficients(planes, sf_compat, self.bilateral)
 
     def atrous_standard(self, arr, level, scaling_function=None,

@@ -1,19 +1,23 @@
-"""The à trous transform: standard decomposition and synthesis.
+"""The à trous transform: decomposition and synthesis, standard and
+bilateral.
 
-Counterpart of ``wavelets_tpu/core/transform.py`` for the standard
-(non-bilateral) algorithm (watroo/wavelets.py:408-444): chained
-smoothing with dilation ``2^s``; plane ``s`` is ``smooth_s −
-smooth_{s+1}`` and plane ``level`` the residual, so synthesis is a plain
-sum and exact by construction.
+Counterpart of ``wavelets_tpu/core/transform.py`` (watroo/wavelets.py:
+408-444): chained smoothing with dilation ``2^s``; plane ``s`` is
+``smooth_s − smooth_{s+1}`` and plane ``level`` the residual, so
+synthesis is a plain sum and exact by construction.  With ``bilateral``
+(per-scale σ_b, normalized to ``level+1`` entries) each smooth is the
+bilateral one (``ops/conv.py::bilateral_smooth``, the JAX ``_smooth_step``).
 
 Dispatch is by a documented rule, not a fallback: a float32 2-D frame or
 ``(B, H, W)`` stack (spatial axes the last two) goes through kernel C's
-wrapper (``ops/hopper_conv.fused_decompose``), a float32 3-D volume
-through the volume path (``fused_volume_decompose``: plain axial pass,
-kernel C in-plane); float64, 1-D and ``fuse=False`` run the plain chain,
-as the JAX package sends them to XLA (``fuse=False`` is its
+wrapper (``ops/hopper_conv.fused_decompose``), or kernel F's
+(``ops/hopper_bilateral.fused_bilateral_pieces``) when bilateral; a
+float32 3-D volume through the volume path (``fused_volume_decompose``:
+plain axial pass, kernel C in-plane).  Float64, 1-D, ``fuse=False`` and
+bilateral 3-D volumes run the plain chain, as the JAX package runs them
+in XLA (no Pallas kernel takes them; ``fuse=False`` is its
 ``use_pallas=False``).  Each wrapper runs its kernel on a CUDA tensor and
-its plain version on a CPU tensor; all routes give the same bits.
+its plain version on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -22,8 +26,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..ops import hopper_conv
-from ..ops.conv import boundary_for_ndim, smooth
+from ..ops import hopper_bilateral, hopper_conv
+from ..ops.conv import bilateral_smooth, boundary_for_ndim, smooth
 from ..ops.filters import ScalingFunction
 from ..ops.layout import stack_planes
 
@@ -61,11 +65,20 @@ def _axes_and_boundary(x, axes, boundary):
     return axes, boundary
 
 
-def _check_options(bilateral, recursive_borders):
-    if bilateral is not None:
-        raise _not_ported("the bilateral transform", "bilateral")
+def _check_options(recursive_borders):
     if recursive_borders:
         raise _not_ported("recursive_borders=True", "transform options")
+
+
+def _smooth_step(c, s, sf, axes, boundary, bilateral, bilateral_scaling):
+    """One scale of the chained smoothing (watroo/wavelets.py:429-440):
+    the separable smooth, or the bilateral one with ``σ_b[s]``.  The
+    local variance takes the dimension's ``boundary``; the range-weighted
+    taps always the symmetric map, as the reference does."""
+    if bilateral is None:
+        return smooth(c, sf, s, axes=axes, boundary=boundary)
+    return bilateral_smooth(c, sf, s, float(bilateral[s]) ** 2,
+                            bilateral_scaling, axes=axes, boundary=boundary)
 
 
 def _can_fuse(x, level, axes, boundary) -> bool:
@@ -100,20 +113,28 @@ def decompose(
     """À trous decomposition → coefficient cube ``(level+1, *x.shape)``.
 
     ``axes`` selects the spatial axes (default: all); leading non-spatial
-    axes are a batch.  ``scale_offset`` starts the dilation ladder at
-    ``2^offset``.  ``fuse=False`` runs the plain chain.  ``bilateral``
-    and ``recursive_borders`` raise ``NotImplementedError``."""
-    _check_options(bilateral, recursive_borders)
+    axes are a batch.  ``bilateral`` is the per-scale σ_b, already
+    normalized to ``level+1`` entries (:func:`normalize_bilateral`).
+    ``scale_offset`` starts the dilation ladder at ``2^offset``.
+    ``fuse=False`` runs the plain chain.  ``recursive_borders`` raises
+    ``NotImplementedError``."""
+    _check_options(recursive_borders)
     axes, boundary = _axes_and_boundary(x, axes, boundary)
     if fuse and scale_offset == 0:
         if _can_fuse(x, level, axes, boundary):
+            if bilateral is not None:
+                pieces, layout, _ = hopper_bilateral.fused_bilateral_pieces(
+                    x, level, sf, bilateral, bilateral_scaling)
+                return assemble_pieces(pieces, [layout[s]
+                                                for s in range(level + 1)])
             return hopper_conv.fused_decompose(x, level, sf)
-        if _can_fuse_volume(x, level, axes, boundary):
+        if bilateral is None and _can_fuse_volume(x, level, axes, boundary):
             return hopper_conv.fused_volume_decompose(x, level, sf)
     planes = []
     c = x
     for s in range(level):
-        c_next = smooth(c, sf, s + scale_offset, axes=axes, boundary=boundary)
+        c_next = _smooth_step(c, s + scale_offset, sf, axes, boundary,
+                              bilateral, bilateral_scaling)
         planes.append(c - c_next)
         c = c_next
     planes.append(c)
@@ -141,18 +162,25 @@ def decompose_pieces(
     kernel C's route the scales past the first group are left uncomputed
     and ``tail = (carry, n_tail)`` hands the smooth carry to the consumer
     (None when every scale was computed; ``layout`` then covers
-    ``level + 1`` entries)."""
-    _check_options(bilateral, recursive_borders=False)
+    ``level + 1`` entries).  A bilateral decomposition takes kernel F's
+    route (``fused_bilateral_pieces``), a standard one kernel C's."""
     axes, boundary = _axes_and_boundary(x, axes, boundary)
     if fuse and _can_fuse(x, level, axes, boundary):
-        pieces, layout, tail = hopper_conv.fused_decompose_pieces(
-            x, level, sf, defer_tail=defer_tail)
+        if bilateral is not None:
+            pieces, layout, tail = hopper_bilateral.fused_bilateral_pieces(
+                x, level, sf, bilateral, bilateral_scaling,
+                defer_tail=defer_tail)
+        else:
+            pieces, layout, tail = hopper_conv.fused_decompose_pieces(
+                x, level, sf, defer_tail=defer_tail)
         n_done = level + 1 - (tail[1] + 1 if tail is not None else 0)
         layout = tuple(layout[s] for s in range(n_done))
         if defer_tail:
             return tuple(pieces), layout, tail
         return tuple(pieces), layout
-    planes = decompose(x, level, sf, axes=axes, boundary=boundary, fuse=fuse)
+    planes = decompose(x, level, sf, axes=axes, bilateral=bilateral,
+                       bilateral_scaling=bilateral_scaling,
+                       boundary=boundary, fuse=fuse)
     layout = tuple((0, s) for s in range(level + 1))
     if defer_tail:
         return (planes,), layout, None

@@ -23,8 +23,8 @@
 // Each thread owns one output pixel and reads its taps at stride D
 // through the periodic symmetric index map (numpy's 'symmetric' pad for
 // any width), so any H, W and D work: no W%128, H%2^s or single-bounce
-// gates.  Offsets are 64-bit.  The folds, index map and epilogue are
-// shared with kernels C and D (wt_common.cuh).
+// gates.  Offsets are 64-bit.  The folds, index map and epilogue (pass 4,
+// wt::cols_whiten) are shared with kernels C, D and G (wt_common.cuh).
 //
 // Bound: by design device memory.  A scale moves about 11 images (reads:
 // carry x2, tmp x2, detail x2, acc; writes: tmp x2, c_next, detail,
@@ -63,25 +63,6 @@ __global__ void cols_detail(const float* __restrict__ tmp,
   }
 }
 
-__global__ void cols_whiten(const float* __restrict__ tmp,
-                            const float* __restrict__ detail,
-                            float* __restrict__ white, float* __restrict__ acc,
-                            int acc_mode, const float* __restrict__ thr,
-                            float fac, int masked, int soft, Taps taps,
-                            long long B, long long H, long long W,
-                            long long D) {
-  WT_FOR_EACH_PIXEL {
-    long long row = (b * H + h) * W, i = row + w;
-    float wc;
-    float v = wt::whiten_value(detail[i],
-                               wt::fold_cols(tmp + row, taps, w, W, D), fac,
-                               masked ? thr + b : nullptr, soft, &wc);
-    if (white) white[i] = v;
-    if (acc_mode == 1) acc[i] = v;
-    else if (acc_mode == 2) acc[i] = __fadd_rn(acc[i], v);
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -115,8 +96,9 @@ int wt_whiten_step_f32(const float* carry, float* c_next, float* detail,
   WT_CHECK_LAUNCH();
   wt::rows_pass<true><<<grid, block, 0, s>>>(detail, tmp, tp, B, H, W, D);
   WT_CHECK_LAUNCH();
-  cols_whiten<<<grid, block, 0, s>>>(tmp, detail, white, acc, acc_mode, thr,
-                                     fac, masked, soft, tp, B, H, W, D);
+  wt::cols_whiten<<<grid, block, 0, s>>>(tmp, detail, white, acc, acc_mode,
+                                         thr, fac, masked, soft, tp, B, H, W,
+                                         D);
   return static_cast<int>(cudaGetLastError());
 }
 

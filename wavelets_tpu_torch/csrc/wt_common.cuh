@@ -1,7 +1,8 @@
 // Device helpers shared by the per-pixel kernels (whiten_step.cu,
-// decompose_group.cu, whiten_plane.cu): the symmetric taps, numpy's
-// periodic 'symmetric' index map, and the dilated 1-D folds rounded step
-// by step in the JAX package's order
+// decompose_group.cu, whiten_plane.cu, bilateral_step.cu): the symmetric
+// taps, numpy's periodic 'symmetric' index map, the whitening epilogue,
+// and the dilated 1-D folds rounded step by step in the JAX package's
+// order
 //   x*t_c + sum_j t_{c+j}*(x<-jD + x->jD),
 // with __fmul_rn/__fadd_rn, which nvcc never contracts into FMAs, so a
 // fold is bitwise equal to the plain PyTorch version on the same card.
@@ -108,6 +109,27 @@ __global__ void rows_pass(const float* __restrict__ src,
   WT_FOR_EACH_PIXEL {
     const float* plane = src + b * H * W;
     dst[(b * H + h) * W + w] = fold_rows<SQUARE>(plane, taps, h, w, H, W, D);
+  }
+}
+
+// Power-smooth cols pass with the whitening epilogue (kernels A and G):
+// lp = fold of tmp (the rows pass of detail^2), white = whiten_value(...),
+// optionally written; acc_mode 1 sets acc = white, 2 adds acc += white.
+__global__ void cols_whiten(const float* __restrict__ tmp,
+                            const float* __restrict__ detail,
+                            float* __restrict__ white, float* __restrict__ acc,
+                            int acc_mode, const float* __restrict__ thr,
+                            float fac, int masked, int soft, Taps taps,
+                            long long B, long long H, long long W,
+                            long long D) {
+  WT_FOR_EACH_PIXEL {
+    long long row = (b * H + h) * W, i = row + w;
+    float wc;
+    float v = whiten_value(detail[i], fold_cols(tmp + row, taps, w, W, D),
+                           fac, masked ? thr + b : nullptr, soft, &wc);
+    if (white) white[i] = v;
+    if (acc_mode == 1) acc[i] = v;
+    else if (acc_mode == 2) acc[i] = __fadd_rn(acc[i], v);
   }
 }
 

@@ -1,11 +1,11 @@
 """Wavelet denoising (reference: ``denoise``, watroo/utils.py:83-102).
 
 Counterpart of ``wavelets_tpu/models/denoise.py``: decomposition (kernel C
-on the card for float32, :func:`~..core.transform.decompose`), MAD noise
-from the finest plane (kernel B), erf or hard significance per scale,
-synthesis, and the optional generalized Anscombe transform around it.
-``fuse=False`` runs the plain versions.  ``bilateral=`` raises
-``NotImplementedError``.
+on the card for float32, kernel F when ``bilateral`` is given,
+:func:`~..core.transform.decompose`), MAD noise from the finest plane
+(kernel B) with the σ_e table of the transform, erf or hard significance
+per scale, synthesis, and the optional generalized Anscombe transform
+around it.  ``fuse=False`` runs the plain versions.
 """
 
 from __future__ import annotations
@@ -37,15 +37,13 @@ def denoise_core(
     """The denoise pipeline with the JAX package's signature plus
     ``fuse``; ``has_noise=False`` estimates the noise by MAD on the
     data's device."""
-    if bilateral is not None:
-        raise NotImplementedError(
-            "bilateral denoise is not ported to wavelets_tpu_torch yet "
-            "(ROADMAP.md queue A: bilateral)")
     if anscombe:
         data = generalized_anscombe(data)
     level = len(weights)
-    planes = decompose(data, level, sf, axes=axes, fuse=fuse)
-    sigma_e = sf.sigma_e(len(axes) if axes is not None else data.ndim, False)
+    planes = decompose(data, level, sf, axes=axes, bilateral=bilateral,
+                       fuse=fuse)
+    sigma_e = sf.sigma_e(len(axes) if axes is not None else data.ndim,
+                         bilateral is not None)
     if not has_noise:
         noise = mad_noise(planes[0], float(sigma_e[0]), fuse=fuse)
     out_planes = apply_denoise(
@@ -69,7 +67,7 @@ def denoise(data, weights, scaling_function=B3spline, noise=None,
         number of scales is ``len(weights)``
     :param scaling_function: scaling function (class, instance, or spec)
     :param noise: known noise level (scalar or array); ``None`` → MAD
-    :param bilateral: not ported (raises ``NotImplementedError``)
+    :param bilateral: per-scale bilateral σ (scalar or list) or ``None``
     :param soft_threshold: erf-based soft masking vs hard thresholding
     :param anscombe: apply the generalized Anscombe transform around the
         pipeline

@@ -1,7 +1,7 @@
 """WOW — Wavelets Optimized Whitening (reference: watroo/utils.py:105-219).
 
-Counterpart of ``wavelets_tpu/models/wow.py`` for standard (non-bilateral)
-WOW on one 2-D float32 or float64 frame, with three bodies:
+Counterpart of ``wavelets_tpu/models/wow.py`` for WOW, standard and
+bilateral, on one 2-D float32 or float64 frame, with three bodies:
 
 * ``_wow_body_merged`` — standard WOW (whitening, ``h == 0``, no
   ``preserve_variance``), the main path: lazy MAD noise from ``w0 = data
@@ -11,16 +11,19 @@ WOW on one 2-D float32 or float64 frame, with three bodies:
   ``_deep_tail_scales``: a pair ``deep_whiten_step2`` (kernel E) where
   ``H >> s ≤ 32`` and kernel E's gate admits it, else one
   ``deep_whiten_step`` (kernel A) per scale;
-* ``_wow_body_fused`` — the materialized-plane route of
+* ``_wow_body_fused`` — the materialized-plane route of bilateral WOW,
   ``preserve_variance``, the gamma blend (``0 < h < 1``) and the
-  ``wow(Coefficients)`` reuse entry: decomposition by kernel C, the
-  scales ``[0, N_FAST)`` whitened from the pieces by
-  ``fused_whiten_pieces`` and the deeper materialized ones by
+  ``wow(Coefficients)`` reuse entry: decomposition by kernel C, or by
+  kernel F when bilateral, the scales ``[0, N_FAST)`` whitened from the
+  pieces by ``fused_whiten_pieces`` and the deeper materialized ones by
   ``deep_whiten_plane`` (both kernel D, with a device factor table and
-  the gamma sum), a deferred tail by ``_deep_tail_scales``;
+  the gamma sum), a deferred tail by ``_deep_tail_scales`` (bilateral
+  WOW with ``h == 0`` and no ``preserve_variance``: one
+  ``deep_bilateral_whiten_step``, kernel G, per scale past the first
+  group, the JAX package's route, wavelets_tpu/models/wow.py:961-987);
 * ``_wow_body`` — the plain per-scale loop: ``whitening=False``,
-  ``h ≥ 1`` (decomposition by kernel C on the card) and the plain route
-  of the options above.
+  ``h ≥ 1`` (decomposition by kernel C or F on the card) and the plain
+  route of the options above.
 
 Every body ends with the residual divided by its population std (clamped
 ``≤0 → 1e-15``), the sum of the planes and, for ``h > 0``, the gamma
@@ -28,8 +31,10 @@ blend.  Dispatch is by a documented rule, not a fallback: ``fuse=True``
 on a float32 tensor goes through the kernels' wrappers (the kernels on a
 CUDA tensor, their plain versions on a CPU tensor); ``fuse=False`` or a
 float64 tensor runs the plain versions, as the JAX package sends float64
-to XLA.  Options outside this slice raise ``NotImplementedError`` on
-every device.
+to XLA.  The bilateral σ_e table is read wherever the transform is
+bilateral; the power smooth stays plain either way (watroo/utils.py:194).
+Options outside this slice raise ``NotImplementedError`` on every
+device.
 
 Paper: Auchère et al. 2023, A&A 670, A66 (reference README.md:111).
 """
@@ -109,11 +114,9 @@ def _not_ported(what: str, item: str):
         f"(ROADMAP.md queue A: {item})")
 
 
-def _check_slice(data, bilateral, axes):
+def _check_slice(data, axes):
     """Raise for every option outside the ported slice, on every device:
     no option may run without its kernel."""
-    if bilateral is not None:
-        raise _not_ported("bilateral WOW", "bilateral")
     if data.ndim != 2 or axes not in (None, (0, 1), (-2, -1)):
         raise _not_ported("WOW of 3-D volumes and frame stacks",
                           "volumes and wow_stack")
@@ -136,19 +139,25 @@ def _threshold_fn(noise, sigma_e, denoise_coefficients):
 
 def _deep_tail_scales(carry, recon, thr_of, sf, start, n_scales, weights,
                       denoise_coefficients, soft_threshold, kernels,
-                      write_planes=True):
+                      write_planes=True, bilateral=None,
+                      bilateral_scaling=False):
     """Whiten scales ``start .. n_scales−1`` from the smooth ``carry``
-    (one frame), adding into ``recon`` in place.  A pair ``(s, s+1)``
-    runs as one ``deep_whiten_step2`` (kernel E) where ``H >> s ≤ 32``
-    and kernel E's gate admits the shape; elsewhere, and where the gate
-    refuses, each scale is one ``deep_whiten_step`` (kernel A), the JAX
-    package's rule when ``can_deep2`` is false
+    (one frame), adding into ``recon`` in place.  A bilateral chain takes
+    one ``deep_bilateral_whiten_step`` (kernel G) per scale: the pair and
+    kernel A refuse bilateral, as ``can_deep2``/``can_deep`` do in the JAX
+    package (wavelets_tpu/models/wow.py:272-294).  Otherwise a pair
+    ``(s, s+1)`` runs as one ``deep_whiten_step2`` (kernel E) where ``H >>
+    s ≤ 32`` and kernel E's gate admits the shape; elsewhere, and where
+    the gate refuses, each scale is one ``deep_whiten_step`` (kernel A),
+    the JAX package's rule when ``can_deep2`` is false
     (wavelets_tpu/ops/pallas_deep.py:688-710).  ``kernels`` selects the
     wrappers over their plain versions.  Returns ``(rows, residual)``."""
     step = (hopper_deep.deep_whiten_step if kernels
             else hopper_deep.deep_whiten_step_plain)
     pair = (hopper_deep.deep_whiten_step2 if kernels
             else hopper_deep.deep_whiten_step2_plain)
+    bil_step = (hopper_deep.deep_bilateral_whiten_step if kernels
+                else hopper_deep.deep_bilateral_whiten_step_plain)
     rows, carry, acc = [], carry[None], recon[None]
 
     def masked(k):
@@ -156,6 +165,17 @@ def _deep_tail_scales(carry, recon, thr_of, sf, start, n_scales, weights,
 
     s = start
     while s < n_scales:
+        if bilateral is not None:
+            white, carry = bil_step(
+                carry, thr_of(s).reshape(1), sf=sf, scale=s,
+                var_factor=float(bilateral[s]) ** 2, weight=weights[s],
+                soft=soft_threshold, masked=masked(s),
+                bilateral_scaling=bilateral_scaling, recon=acc,
+                write_plane=write_planes)
+            if write_planes:
+                rows.append(white[0])
+            s += 1
+            continue
         if (s + 1 < n_scales
                 and (carry.shape[-2] >> s) <= PAIR_MAX_CLASS_ROWS
                 and hopper_deep.can_deep2(carry, sf, s)):
@@ -237,6 +257,7 @@ def _wow_body_merged(data, noise, has_noise, sf, n_scales, weights,
 
 def _wow_body_fused(pieces, layout, tail, noise, has_noise, sf, n_scales,
                     weights, denoise_coefficients, soft_threshold,
+                    bilateral=None, bilateral_scaling=False,
                     preserve_variance=False, h=0.0, gamma=3.2,
                     gamma_min=None, gamma_max=None, need_planes=True,
                     planes_layout="cube"):
@@ -249,7 +270,9 @@ def _wow_body_fused(pieces, layout, tail, noise, has_noise, sf, n_scales,
     kernel's gamma output).  Scales past the pieces arrive deferred,
     ``tail = (carry, n_tail)``, and run ``_deep_tail_scales`` without
     materializing their detail planes; ``preserve_variance`` and the
-    gamma blend need every plane, so they take no tail."""
+    gamma blend need every plane, so they take no tail.  ``bilateral``
+    (the σ_b tuple, or None) selects the bilateral σ_e table and the
+    bilateral chain of the tail."""
     def plane(s):
         k, r = layout[s]
         return pieces[k][r]
@@ -258,7 +281,7 @@ def _wow_body_fused(pieces, layout, tail, noise, has_noise, sf, n_scales,
     if tail is not None and (preserve_variance or h > 0):
         raise ValueError("preserve_variance and the gamma blend need every "
                          "plane materialized (no deferred tail)")
-    sigma_e = sf.sigma_e(2, False)
+    sigma_e = sf.sigma_e(2, bilateral is not None)
     if not has_noise and any(
         d != 0 for d in denoise_coefficients[:n_scales]
     ):
@@ -297,7 +320,8 @@ def _wow_body_fused(pieces, layout, tail, noise, has_noise, sf, n_scales,
     if tail is not None:
         deep_rows, residual = _deep_tail_scales(
             tail[0], recon, thr_of, sf, tail_start, n_scales, weights,
-            denoise_coefficients, soft_threshold, True, need_planes)
+            denoise_coefficients, soft_threshold, True, need_planes,
+            bilateral, bilateral_scaling)
         out_rows.extend(deep_rows)
     else:
         residual = plane(n_scales)
@@ -319,11 +343,13 @@ def _wow_body_fused(pieces, layout, tail, noise, has_noise, sf, n_scales,
 
 def _wow_body(planes, noise, has_noise, sf, n_scales, weights, whitening,
               denoise_coefficients, soft_threshold, preserve_variance, gamma,
-              gamma_min, gamma_max, h, fuse=True, planes_layout="cube"):
+              gamma_min, gamma_max, h, fuse=True, planes_layout="cube",
+              bilateral=False):
     """The per-scale whitening loop (watroo/utils.py:157-219) over the
     coefficient cube ``(n_scales+1, H, W)`` in plain PyTorch; the lazy
-    MAD noise goes through kernel B's wrapper unless ``fuse=False``."""
-    sigma_e = sf.sigma_e(planes.ndim - 1, False)
+    MAD noise goes through kernel B's wrapper unless ``fuse=False``.
+    ``bilateral`` is a flag: it selects the bilateral σ_e table."""
+    sigma_e = sf.sigma_e(planes.ndim - 1, bilateral)
     if not has_noise and any(
         d != 0 for d in denoise_coefficients[:n_scales]
     ):
@@ -402,33 +428,40 @@ def wow_core(
     stacked cube.
 
     Dispatch (wavelets_tpu/models/wow.py:961-1003): standard WOW takes
-    ``_wow_body_merged``; ``preserve_variance`` or ``0 < h < 1`` on the
-    kernels' route take ``_wow_body_fused`` over kernel C's pieces;
-    ``whitening=False``, ``h ≥ 1`` and the plain route of those options
-    take ``_wow_body`` over the decomposition."""
-    _check_slice(data, bilateral, axes)
+    ``_wow_body_merged``; bilateral WOW, ``preserve_variance`` or ``0 < h
+    < 1`` on the kernels' route take ``_wow_body_fused`` over kernel C's
+    or kernel F's pieces, bilateral WOW with ``h == 0`` and no
+    ``preserve_variance`` with the scales past the first group deferred
+    to kernel G; ``whitening=False``, ``h ≥ 1`` and the plain route of
+    those options take ``_wow_body`` over the decomposition."""
+    _check_slice(data, axes)
     kernels = bool(fuse) and data.dtype == torch.float32
-    if whitening and h == 0 and not preserve_variance:
+    bil = dict(bilateral=bilateral, bilateral_scaling=bilateral_scaling)
+    if whitening and h == 0 and not preserve_variance and bilateral is None:
         recon, rows = _wow_body_merged(
             data, noise, has_noise, sf, n_scales, weights,
             denoise_coefficients, soft_threshold, kernels,
             need_planes=need_planes)
         out = rows if planes_layout == "rows" else stack_planes(rows)
     elif kernels and whitening and h < 1:
-        pieces, layout = decompose_pieces(data, n_scales, sf)
+        # preserve_variance and the gamma blend need every plane: no tail
+        defer = h == 0 and not preserve_variance
+        out = decompose_pieces(data, n_scales, sf, defer_tail=defer, **bil)
+        pieces, layout, tail = out if defer else (*out, None)
         recon, out = _wow_body_fused(
-            pieces, layout, None, noise, has_noise, sf, n_scales, weights,
-            denoise_coefficients, soft_threshold,
+            pieces, layout, tail, noise, has_noise, sf, n_scales, weights,
+            denoise_coefficients, soft_threshold, **bil,
             preserve_variance=preserve_variance, h=h, gamma=gamma,
             gamma_min=gamma_min, gamma_max=gamma_max,
             need_planes=need_planes, planes_layout=planes_layout)
     else:
-        pieces, layout = decompose_pieces(data, n_scales, sf, fuse=kernels)
+        pieces, layout = decompose_pieces(data, n_scales, sf, fuse=kernels,
+                                          **bil)
         recon, out = _wow_body(
             assemble_pieces(pieces, layout), noise, has_noise, sf, n_scales,
             weights, whitening, denoise_coefficients, soft_threshold,
             preserve_variance, gamma, gamma_min, gamma_max, h, fuse=kernels,
-            planes_layout=planes_layout)
+            planes_layout=planes_layout, bilateral=bilateral is not None)
     if not need_planes:
         return recon, None
     return recon, (tuple(out) if planes_layout == "rows" else out)
@@ -437,7 +470,7 @@ def wow_core(
 def _wow_from_planes_core(planes, noise, *, sf, n_scales, weights, whitening,
                           denoise_coefficients, soft_threshold,
                           preserve_variance, gamma, gamma_min, gamma_max, h,
-                          has_noise, fuse=True):
+                          has_noise, fuse=True, bilateral=False):
     """Whitening from a precomputed coefficient set (the
     ``wow(Coefficients)`` reuse entry, watroo/utils.py:128-133,152-155).
     ``planes`` is the ``(n_scales+1, H, W)`` cube or a tuple of
@@ -446,7 +479,9 @@ def _wow_from_planes_core(planes, noise, *, sf, n_scales, weights, whitening,
     ``h < 1`` rides ``_wow_body_fused`` with the planes as decompose
     pieces (the cube is one piece with ``layout[s] = (0, s)``; rows are
     one piece each, ``layout[s] = (s, 0)``); everything else runs
-    ``_wow_body``."""
+    ``_wow_body``.  ``bilateral`` is only a flag here (the chain is
+    already decomposed): it selects the bilateral σ_e table, through a
+    placeholder σ tuple on the fused body as in the JAX package."""
     rows = planes if isinstance(planes, tuple) else None
     first = rows[0] if rows is not None else planes[0]
     if fuse and whitening and h < 1 and first.dtype == torch.float32:
@@ -459,6 +494,7 @@ def _wow_from_planes_core(planes, noise, *, sf, n_scales, weights, whitening,
         return _wow_body_fused(
             pieces, layout, None, noise, has_noise, sf, n_scales, weights,
             denoise_coefficients, soft_threshold,
+            bilateral=(1.0,) * (n_scales + 1) if bilateral else None,
             preserve_variance=preserve_variance, h=h, gamma=gamma,
             gamma_min=gamma_min, gamma_max=gamma_max, planes_layout="rows")
     cube = stack_planes(list(planes)) if rows is not None else planes
@@ -466,7 +502,8 @@ def _wow_from_planes_core(planes, noise, *, sf, n_scales, weights, whitening,
         cube, noise, has_noise, sf, n_scales, weights, whitening,
         denoise_coefficients, soft_threshold, preserve_variance, gamma,
         gamma_min, gamma_max, h, fuse=fuse and first.dtype == torch.float32,
-        planes_layout="rows" if rows is not None else "cube")
+        planes_layout="rows" if rows is not None else "cube",
+        bilateral=bilateral)
 
 
 def wow(data,
@@ -500,9 +537,7 @@ def wow(data,
     if from_coefficients:
         n_scales = len(data) - 1
         first = data[0]
-        if data.bilateral is not None:
-            raise _not_ported("wow of bilateral coefficients", "bilateral")
-        _check_slice(first, None, None)
+        _check_slice(first, None)
         n_dims = first.ndim
         scaling_function = data.scaling_function.__class__
         min_extent = None
@@ -550,7 +585,8 @@ def wow(data,
                                       device=first.device))
         if data.noise is not None:
             static["has_noise"] = True
-        recon, out_planes = _wow_from_planes_core(planes, noise_arr, **static)
+        recon, out_planes = _wow_from_planes_core(
+            planes, noise_arr, bilateral=data.bilateral is not None, **static)
         coeffs = Coefficients(out_planes, data.scaling_function,
                               data.bilateral)
         coeffs.noise = data.noise

@@ -39,7 +39,7 @@ from .conv import separable_smooth_axis, smooth
 from .filters import ScalingFunction
 from .layout import stack_planes
 
-__all__ = ["N_FAST", "fused_group", "fused_group_plain",
+__all__ = ["N_FAST", "fused_group", "fused_group_plain", "group_pieces",
            "fused_decompose_pieces", "fused_decompose",
            "fused_volume_decompose", "fused_wow_group",
            "fused_wow_group_plain", "whiten_scale_plain",
@@ -288,6 +288,27 @@ def fused_group(x: torch.Tensor, level: int, sf: ScalingFunction,
     return out
 
 
+def group_pieces(x: torch.Tensor, level: int, run_group,
+                 defer_tail: bool = False):
+    """``(pieces, layout, tail)`` of a decomposition run as groups of
+    :data:`N_FAST` scales: ``run_group(carry, g, offset)`` returns the
+    ``(g+1, *x.shape)`` cube of one group (details, then the carry).
+    Shared by the standard (kernel C) and bilateral (kernel F) pieces."""
+    pieces, layout, cur = [], {}, x
+    last = min(level, N_FAST) if defer_tail else level
+    for offset in range(0, last, N_FAST):
+        g = min(N_FAST, last - offset)
+        planes = run_group(cur, g, offset)
+        for s in range(g):
+            layout[offset + s] = (len(pieces), s)
+        pieces.append(planes)
+        cur = planes[g]
+    if last < level:
+        return pieces, layout, (cur, level - last)
+    layout[level] = (len(pieces) - 1, g)
+    return pieces, layout, None
+
+
 def fused_decompose_pieces(x: torch.Tensor, level: int, sf: ScalingFunction,
                            *, defer_tail: bool = False):
     """Multi-scale decomposition as ``(pieces, layout, tail)`` with no
@@ -300,19 +321,9 @@ def fused_decompose_pieces(x: torch.Tensor, level: int, sf: ScalingFunction,
     which whitens them from the carry without materializing their detail
     planes (``models/wow.py::_deep_tail_scales``).  ``tail`` is None when
     every scale was computed.  ``x``: ``(H, W)`` or ``(B, H, W)``."""
-    pieces, layout, cur = [], {}, x
-    last = min(level, N_FAST) if defer_tail else level
-    for offset in range(0, last, N_FAST):
-        g = min(N_FAST, last - offset)
-        planes = fused_group(cur, g, sf, offset=offset)
-        for s in range(g):
-            layout[offset + s] = (len(pieces), s)
-        pieces.append(planes)
-        cur = planes[g]
-    if last < level:
-        return pieces, layout, (cur, level - last)
-    layout[level] = (len(pieces) - 1, g)
-    return pieces, layout, None
+    return group_pieces(
+        x, level, lambda cur, g, offset: fused_group(cur, g, sf, offset),
+        defer_tail)
 
 
 def fused_decompose(x: torch.Tensor, level: int,

@@ -16,6 +16,11 @@ Counterpart of ``wavelets_tpu/ops/pallas_deep.py`` (signatures minus
 * :func:`deep_whiten_plane` — whiten one materialized deep plane, on
   kernel D (``csrc/whiten_plane.cu``), with a runtime factor and an
   optional gamma sum.
+* :func:`deep_bilateral_whiten_step` — one deep *bilateral* scale from the
+  carry on kernel G (``csrc/bilateral_step.cu``): kernel F's bilateral
+  chain smooth, then kernel A's power smooth and whitening.
+  :func:`can_deep_bilateral` is the port's own gate (dtype, rank and
+  taps only: the kernel takes any H, W and dilation).
 
 A CPU tensor runs each kernel's plain version; a CUDA tensor runs the
 kernel or raises.
@@ -29,7 +34,9 @@ from typing import Optional
 import torch
 
 from . import _build
+from .conv import bilateral_smooth
 from .filters import ScalingFunction
+from .hopper_bilateral import MAX_HW, kernel_weights
 from .hopper_conv import (KERNEL, _ptr, check_kernel_input,
                           launch_whiten_step, whiten_detail_plain,
                           whiten_scale_plain)
@@ -38,22 +45,25 @@ from .hopper_wow import launch_whiten_plane
 
 __all__ = ["deep_whiten_step", "deep_whiten_step_plain", "can_deep2",
            "deep_whiten_step2", "deep_whiten_step2_plain",
-           "deep_whiten_plane", "deep_whiten_plane_plain"]
+           "deep_whiten_plane", "deep_whiten_plane_plain",
+           "can_deep_bilateral", "deep_bilateral_whiten_step",
+           "deep_bilateral_whiten_step_plain"]
 
 PAIR_KERNEL = "whiten_pair"
+BILATERAL_KERNEL = "bilateral_step"
 
 #: shared memory one block may opt in to on an H100 (227 KB); kernel E
 #: holds four float32 copies of its 2M × 2N torus (csrc/whiten_pair.cu)
 PAIR_SMEM_BYTES = 232448
 
 
-def _check_args(carry, recon, write_plane):
+def _check_args(carry, recon, write_plane, what="deep_whiten_step"):
     if carry.ndim != 3:
-        raise ValueError("deep_whiten_step takes a (B, H, W) carry")
+        raise ValueError(f"{what} takes a (B, H, W) carry")
     if recon is None and not write_plane:
-        raise ValueError("deep_whiten_step: recon=None needs write_plane")
+        raise ValueError(f"{what}: recon=None needs write_plane")
     if recon is not None and recon.shape != carry.shape:
-        raise ValueError("deep_whiten_step: recon must match the carry")
+        raise ValueError(f"{what}: recon must match the carry")
 
 
 def deep_whiten_step_plain(carry: torch.Tensor,
@@ -271,3 +281,113 @@ def deep_whiten_plane(plane: torch.Tensor, threshold, *,
                         0 if gamma is None else 2, fac,
                         thr if masked else None, soft, sf, scale)
     return white
+
+
+# ---------------------------------------------------------------------
+# Kernel G: one deep bilateral scale
+# ---------------------------------------------------------------------
+
+def can_deep_bilateral(carry: torch.Tensor, sf: ScalingFunction,
+                       scale: int) -> bool:
+    """Kernel G's gate: a float32 ``(H, W)`` or ``(B, H, W)`` carry and
+    symmetric taps of half width 1..``MAX_HW``.  It depends on dtype,
+    rank and taps only: the kernel reads every tap through the periodic
+    symmetric index map, so any H, W and ``scale`` work (the TPU gates,
+    ``W % 128``, ``Rc ≥ 32``, one reflection, ``H % D``, are not needed)."""
+    return (carry.dtype == torch.float32 and carry.ndim in (2, 3)
+            and scale >= 0 and sf.is_symmetric
+            and 1 <= sf.half_width <= MAX_HW)
+
+
+def _lib_bilateral():
+    lib = _build.load(BILATERAL_KERNEL)
+    fn = lib.wt_bilateral_step_f32
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_float] + [ctypes.c_int] * 2
+                   + [ctypes.c_float] * 2 + [ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p] + [ctypes.c_longlong] * 4
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _bilateral_args(carry, threshold, recon, write_plane):
+    _check_args(carry, recon, write_plane, "deep_bilateral_whiten_step")
+    thr = torch.as_tensor(threshold, dtype=carry.dtype,
+                          device=carry.device).reshape(-1)
+    return thr.expand(carry.shape[0])
+
+
+def deep_bilateral_whiten_step_plain(
+        carry: torch.Tensor, threshold, *, sf: ScalingFunction, scale: int,
+        var_factor: float, weight: float, soft: bool = True,
+        masked: bool = False, bilateral_scaling: bool = False,
+        recon: Optional[torch.Tensor] = None, write_plane: bool = True):
+    """Plain PyTorch version of :func:`deep_bilateral_whiten_step` (any
+    dtype or device): the JAX package's XLA deferred-tail step
+    (``_smooth_step``, the difference, the power smooth and the
+    whitening); like the kernel it adds into ``recon`` in place."""
+    _build.PLAIN_CALLS[BILATERAL_KERNEL] += 1
+    thr = _bilateral_args(carry, threshold, recon, write_plane)
+    c_next = bilateral_smooth(carry, sf, scale, float(var_factor),
+                              bilateral_scaling, axes=(-2, -1),
+                              boundary="symmetric")
+    white, _ = whiten_detail_plain(carry - c_next, float(weight),
+                                   thr[:, None, None], sf, scale, soft,
+                                   masked)
+    if recon is not None:
+        recon.add_(white)
+    return (white if write_plane else None), c_next
+
+
+def deep_bilateral_whiten_step(
+        carry: torch.Tensor, threshold, *, sf: ScalingFunction, scale: int,
+        var_factor: float, weight: float, soft: bool = True,
+        masked: bool = False, bilateral_scaling: bool = False,
+        recon: Optional[torch.Tensor] = None, write_plane: bool = True):
+    """One deferred-tail *bilateral* WOW scale at dilation ``2^scale``:
+    returns ``(white, c_next)``.
+
+    The chain smooth is the bilateral one (local variance × ``var_factor
+    = σ_b[scale]²``, × ``scale+1`` under ``bilateral_scaling``, then the
+    range-weighted taps); the power smooth stays plain
+    (watroo/utils.py:194).  ``carry``: ``(B, H, W)``; ``threshold``:
+    ``(B,)`` per-frame significance threshold (read only when
+    ``masked``).  ``recon`` (or None) is accumulated in place, ``recon +=
+    white``, as ``deep_whiten_step`` does; ``white`` is None when
+    ``write_plane=False`` (then ``recon`` is required).  A CPU carry runs
+    :func:`deep_bilateral_whiten_step_plain`; a CUDA carry runs kernel G
+    (``csrc/bilateral_step.cu``) or raises."""
+    if not carry.is_cuda:
+        return deep_bilateral_whiten_step_plain(
+            carry, threshold, sf=sf, scale=scale, var_factor=var_factor,
+            weight=weight, soft=soft, masked=masked,
+            bilateral_scaling=bilateral_scaling, recon=recon,
+            write_plane=write_plane)
+    check_kernel_input(carry, sf, "deep_bilateral_whiten_step")
+    if not can_deep_bilateral(carry, sf, scale):
+        raise ValueError("deep_bilateral_whiten_step: kernel G does not take "
+                         "this carry or scaling function (use "
+                         "can_deep_bilateral before dispatch)")
+    thr = _bilateral_args(carry, threshold, recon, write_plane).contiguous()
+    if recon is not None:
+        check_kernel_input(recon, sf, "deep_bilateral_whiten_step")
+    B, H, W = carry.shape
+    c_next = torch.empty_like(carry)
+    white = torch.empty_like(carry) if write_plane else None
+    # scratch held by name until the launch is queued (see
+    # hopper_bilateral.fused_bilateral_group)
+    detail, tm, tq = torch.empty((3, B, H, W), dtype=carry.dtype,
+                                 device=carry.device)
+    lib = _lib_bilateral()
+    taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
+    code = lib.wt_bilateral_step_f32(
+        _ptr(carry), _ptr(c_next), _ptr(detail), _ptr(tm), _ptr(tq),
+        _ptr(white), _ptr(recon), 0 if recon is None else 2, _ptr(thr),
+        float(weight), int(bool(masked)), int(bool(soft)), float(var_factor),
+        float(scale + 1) if bilateral_scaling else 1.0, taps, len(sf.taps),
+        kernel_weights(sf), B, H, W, 1 << scale,
+        _build.stream_ptr(carry.device))
+    _build.check(lib, code, "bilateral_step")
+    _build.LAUNCHES[BILATERAL_KERNEL] += 1
+    return white, c_next
