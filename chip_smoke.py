@@ -11,9 +11,11 @@ CUDA toolkit.  It
    ``build/kernels`` (one ``nvcc`` per source, all at once) and prints the
    build seconds;
 3. holds each kernel against its plain PyTorch version on the card at the
-   paths' shapes: kernel A (4096² at s ∈ {0, 3, 6, 9}, masked soft, hard
-   and unmasked, plus 1000×1536 and 257×513, where s = 9 reflects more
-   than once), kernel B (even and odd n, heavy ties; bitwise, and bitwise
+   paths' shapes: kernel A's deep step (4096² at s ∈ {0, 3, 6, 9}, masked
+   soft, hard and unmasked, plus 1000×1536 and 257×513, where s = 9
+   reflects more than once) and its group (scales 0-2 at the same shapes,
+   also offset 1 at 257×513, ``need_cube`` on and off, one launch each),
+   carries bitwise, kernel B (even and odd n, heavy ties; bitwise, and bitwise
    to ``np.median``), kernel C (groups at 4096², 1000×1536 and 257×513,
    ``smooth_only``; bitwise), kernel D (4096², s ∈ {0, 1, 2, 5}, factors
    from a device table, gamma on) and kernel E (the pairs (7, 8) at 4096²
@@ -63,9 +65,6 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
-#: carry (c_next): the folds round step by step in both versions, so
-#: bitwise is expected; allowed: 1 unit in the last place of its magnitude
-CARRY_ULPS = 1
 #: whitened planes / acc / recon: erff against torch.erf (a last-place
 #: difference in the mask), the standard of the JAX package's kernels
 WHITE_RTOL = 5e-6
@@ -109,13 +108,6 @@ def check_white(got, ref, what, scale=None):
     err = max_err(got, ref)
     require(err <= WHITE_RTOL * max(scale, 1.0),
             f"{what}: max abs err {err} > {WHITE_RTOL} * {scale}")
-    return err
-
-
-def check_carry(got, ref, what):
-    err = max_err(got, ref)
-    ulp = float(np.spacing(np.float32(float(ref.abs().max()))))
-    require(err <= CARRY_ULPS * ulp, f"{what}: carry err {err} > {ulp}")
     return err
 
 
@@ -223,13 +215,17 @@ def main():
 
     # ---- 3a. kernel A against its plain version ------------------------
     errs_a = {"white": 0.0, "carry": 0.0}
+    errs_grp = {"white": 0.0, "carry": 0.0}
     with Phase("kernel A checks"):
-        n_checks = 0
+        n_checks = n_group = 0
+        thr3 = torch.tensor([9.0 * float(sig[k]) for k in range(3)],
+                            device=dev)
         for shape, scales in [((4096, 4096), (0, 3, 6, 9)),
                               ((1000, 1536), (0, 3, 6, 9)),
                               ((257, 513), (0, 3, 6, 9))]:
             x = frame(shape, b=1)
             recon = frame(shape, b=1)
+            # the deep form: two launches per scale
             for s in scales:
                 thr = torch.tensor([3.0 * 3.0 * float(sig[s])], device=dev)
                 for mode in ("soft", "hard", "unmasked"):
@@ -241,36 +237,47 @@ def main():
                     w_p, _, c_p = hopper_deep.deep_whiten_step_plain(
                         x, r_p, thr, **kw)
                     torch.cuda.synchronize()
-                    what = f"kernel A {shape} s={s} {mode}"
+                    what = f"kernel A step {shape} s={s} {mode}"
                     e_w = check_white(w_k, w_p, what)
                     check_white(r_k, r_p, what + " recon")
-                    e_c = check_carry(c_k, c_p, what)
+                    check_bitwise(c_k, c_p, what + " carry")
                     if shape == (4096, 4096):
                         errs_a["white"] = max(errs_a["white"], e_w)
-                        errs_a["carry"] = max(errs_a["carry"], e_c)
+                        errs_a["carry"] = max(errs_a["carry"],
+                                              max_err(c_k, c_p))
                     n_checks += 1
+            # the group form: one launch for scales offset .. offset+2
+            offsets = (0, 1) if shape == (257, 513) else (0,)
+            for offset in offsets:
+                for need_cube in (True, False):
+                    args = ([1.0, 2.0, 0.5], thr3, 3, B3SPLINE)
+                    kw = dict(offset=offset, soft=True,
+                              masked=(True, True, False), need_cube=need_cube)
+                    n0 = _build.LAUNCHES["whiten_group"]
+                    rows_k, acc_k = hopper_conv.fused_wow_group(x[0], *args,
+                                                                **kw)
+                    rows_p, acc_p = hopper_conv.fused_wow_group_plain(
+                        x[0], *args, **kw)
+                    torch.cuda.synchronize()
+                    what = (f"kernel A group {shape} offset={offset} "
+                            f"need_cube={need_cube}")
+                    require(_build.LAUNCHES["whiten_group"] == n0 + 1,
+                            what + ": not one launch")
+                    require(len(rows_k) == len(rows_p), what + " row count")
+                    for a, b in zip(rows_k[:-1], rows_p[:-1]):
+                        e = check_white(a, b, what + " plane")
+                        if shape == (4096, 4096):
+                            errs_grp["white"] = max(errs_grp["white"], e)
+                    check_bitwise(rows_k[-1], rows_p[-1], what + " carry")
+                    if shape == (4096, 4096):
+                        errs_grp["carry"] = max(
+                            errs_grp["carry"], max_err(rows_k[-1], rows_p[-1]))
+                    check_white(acc_k, acc_p, what + " acc")
+                    n_group += 1
             del x, recon
-        x = frame((4096, 4096))
-        thr3 = torch.tensor([9.0 * float(sig[k]) for k in range(3)],
-                            device=dev)
-        for need_cube in (True, False):
-            args = ([1.0, 2.0, 0.5], thr3, 3, B3SPLINE)
-            kw = dict(offset=0, soft=True, masked=(True, True, False),
-                      need_cube=need_cube)
-            rows_k, acc_k = hopper_conv.fused_wow_group(x, *args, **kw)
-            rows_p, acc_p = hopper_conv.fused_wow_group_plain(x, *args, **kw)
-            torch.cuda.synchronize()
-            require(len(rows_k) == len(rows_p), "group row count")
-            for a, b in zip(rows_k[:-1], rows_p[:-1]):
-                errs_a["white"] = max(errs_a["white"],
-                                      check_white(a, b, "group plane"))
-            errs_a["carry"] = max(errs_a["carry"],
-                                  check_carry(rows_k[-1], rows_p[-1],
-                                              "group"))
-            check_white(acc_k, acc_p, "group acc")
-            n_checks += 1
-        print(f"kernel A: {n_checks} checks passed; 4096² max abs err "
-              f"white {errs_a['white']:.3e} carry {errs_a['carry']:.3e}")
+        print(f"kernel A: {n_checks} deep-step and {n_group} group checks "
+              f"passed, carries bitwise; 4096² max abs err white: step "
+              f"{errs_a['white']:.3e}, group {errs_grp['white']:.3e}")
 
     # ---- 3b. kernel B: bitwise ------------------------------------------
     with Phase("kernel B checks"):
@@ -297,6 +304,7 @@ def main():
                   "np.median")
 
     # ---- 3c. kernel C: bitwise ------------------------------------------
+    err_c = 0.0
     with Phase("kernel C checks"):
         n_c = 0
         for shape, groups in [((4096, 4096), ((3, 0), (3, 3))),
@@ -312,6 +320,8 @@ def main():
                     torch.cuda.synchronize()
                     check_bitwise(got, want, f"kernel C {shape} g={g} "
                                   f"offset={off} smooth_only={smooth_only}")
+                    if shape == (4096, 4096):
+                        err_c = max(err_c, max_err(got, want))
                     n_c += 1
         print(f"kernel C: {n_c} checks passed, details and carry bitwise")
 
@@ -386,6 +396,7 @@ def main():
                 e = max(check_white(w1, p1, what), check_white(w2, p2, what),
                         check_white(r_k, r_p, what + " recon"))
                 err_e["white"] = max(err_e["white"], e)
+                err_e["carry"] = max(err_e["carry"], max_err(c_k, c_p))
         print(f"kernel E: carry bitwise to two plain steps, everything "
               f"bitwise to two kernel A steps; whites vs plain max abs err "
               f"{err_e['white']:.3e}")
@@ -521,21 +532,30 @@ def main():
     x4k = frame((4096, 4096))
     paths = {}
 
-    # the main path
+    # the main path: kernel A's group takes scales 0-2, its deep step the
+    # single deeper scales, kernel E the pair where H >> s <= 32
     configs = {
         "4096² L10 (auto), denoise [5, 2], lazy noise":
-            (x4k, dict(denoise_coefficients=[5, 2]), 10),
+            (x4k, dict(denoise_coefficients=[5, 2]), 10,
+             {"whiten_group": 1, "whiten_step": 5, "whiten_pair": 1,
+              "median_select": 1}),
         "512² L6, denoise [5, 2], lazy noise":
             (frame((512, 512)), dict(n_scales=6,
-                                     denoise_coefficients=[5, 2]), 6),
+                                     denoise_coefficients=[5, 2]), 6,
+             {"whiten_group": 1, "whiten_step": 1, "whiten_pair": 1,
+              "median_select": 1}),
     }
+    main_launches = {}
     with Phase("main path"):
-        for what, (x, kw, n_scales) in configs.items():
+        for what, (x, kw, n_scales, expect) in configs.items():
             (recon, coeffs), run = drive(
-                f"main path {what}", lambda: wt.wow(x, **kw),
-                ("whiten_step", "median_select", "whiten_pair"))
-            # one kernel A launch per single scale, one kernel E per pair
-            covered = run.get("whiten_step", 0) + 2 * run.get("whiten_pair", 0)
+                f"main path {what}", lambda: wt.wow(x, **kw), expect)
+            for name, n in run.items():
+                main_launches[name] = main_launches.get(name, 0) + n
+            # a group launch covers N_FAST scales, a step one, a pair two
+            covered = (hopper_conv.N_FAST * run.get("whiten_group", 0)
+                       + run.get("whiten_step", 0)
+                       + 2 * run.get("whiten_pair", 0))
             require(covered == n_scales,
                     f"main path {what}: launches cover {covered} scales")
             r_p, c_p = wt.wow(x, fuse=False, **kw)
@@ -726,7 +746,7 @@ def main():
     print(f"timings on {card}: median of {N_TIMED} runs, CUDA events")
     e2e = {}
     with Phase("timings: paths"):
-        for what, (x, kw, _) in configs.items():
+        for what, (x, kw, _, _) in configs.items():
             t_k = timed(lambda: wt.wow(x, **kw), torch)
             t_p = timed(lambda: wt.wow(x, fuse=False, **kw), torch)
             e2e[what] = (t_k, t_p)
@@ -741,12 +761,46 @@ def main():
 
     kernels_out = []
     with Phase("timings: kernels"):
-        # kernel A: one step per scale, 0-9 at 4096²
+        # kernel A, group form: scales 0-2 at 4096², need_cube on and off
+        x = frame((4096, 4096))
+        thr3 = torch.tensor([1.0, 1.0, 0.0], device=dev)
+        grp = {}
+        for need_cube in (True, False):
+            gkw = dict(masked=(True, True, False), need_cube=need_cube)
+            grp[need_cube] = timed(lambda: hopper_conv.fused_wow_group(
+                x, [1.0] * 3, thr3, 3, B3SPLINE, **gkw), torch)
+        grp_p = timed(lambda: hopper_conv.fused_wow_group_plain(
+            x, [1.0] * 3, thr3, 3, B3SPLINE, masked=(True, True, False)),
+            torch)
+        print(f"  kernel A group 4096² g=3: {grp[True]:.3f} ms, need_cube "
+              f"off {grp[False]:.3f} ms, plain {grp_p:.3f} ms")
+        # read x; write 3 whites, the carry, acc
+        b_grp = bound_ms(6 * plane_bytes,
+                         3 * 4096 * 4096 * (4 * FOLD_OPS + 8))
+        kernels_out.append(dict(
+            name="whiten_group", route="cuda",
+            source="wavelets_tpu_torch/csrc/whiten_group.cu",
+            replaces="wavelets_tpu/ops/pallas_conv.py:607",
+            launches=launches.get("whiten_group", 0),
+            main_path_launches=main_launches.get("whiten_group", 0),
+            max_abs_err=errs_grp["white"],
+            carry_max_abs_err=errs_grp["carry"],
+            ms=grp[True], plain_ms=grp_p, bound_ms=b_grp[0],
+            bound_by=b_grp[1], library_ms=None,
+            ms_need_cube_off=grp[False],
+            bound_ms_need_cube_off=bound_ms(
+                3 * plane_bytes, 3 * 4096 * 4096 * (4 * FOLD_OPS + 8))[0],
+            timed="one group, scales 0-2 at 4096², need_cube on",
+            library="none: PyTorch has no numpy-symmetric pad or dilated "
+                    "smooth in one call"))
+
+        # kernel A, deep form: one step per scale, 0-9 at 4096²
         x = frame((4096, 4096), b=1)
         recon = torch.zeros_like(x)
         zero1 = torch.zeros(1, device=dev)
         thr1 = torch.tensor([1.0], device=dev)
         step_k = step_p = 0.0
+        per_scale = {}
         for s in range(10):
             kw = dict(sf=B3SPLINE, scale=s, weight=1.0, soft=True,
                       masked=s < 2)
@@ -755,23 +809,25 @@ def main():
                                                             **kw), torch)
             tp = timed(lambda: hopper_deep.deep_whiten_step_plain(
                 x, recon, t, **kw), torch)
-            step_k += tk
-            step_p += tp
-            print(f"  kernel A 4096² s={s}: {tk:.3f} ms, plain {tp:.3f} ms")
+            per_scale[s] = tk
+            if s >= 3:
+                step_k += tk
+                step_p += tp
+            print(f"  kernel A step 4096² s={s}: {tk:.3f} ms, plain "
+                  f"{tp:.3f} ms")
         # per step: read carry and recon, write white, c_next, recon
-        b_a = bound_ms(10 * 5 * plane_bytes,
-                       10 * 4096 * 4096 * (4 * FOLD_OPS + 8))
+        b_a = bound_ms(7 * 5 * plane_bytes,
+                       7 * 4096 * 4096 * (4 * FOLD_OPS + 8))
         kernels_out.append(dict(
             name="whiten_step", route="cuda",
             source="wavelets_tpu_torch/csrc/whiten_step.cu",
-            replaces="wavelets_tpu/ops/pallas_conv.py:607",
-            also_replaces="wavelets_tpu/ops/pallas_deep.py:514",
+            replaces="wavelets_tpu/ops/pallas_deep.py:514",
             launches=launches.get("whiten_step", 0),
-            max_abs_err=errs_a["white"],
-            carry_max_abs_err=errs_a["carry"],
+            main_path_launches=main_launches.get("whiten_step", 0),
+            max_abs_err=errs_a["white"], carry_max_abs_err=errs_a["carry"],
             ms=step_k, plain_ms=step_p, bound_ms=b_a[0], bound_by=b_a[1],
-            library_ms=None,
-            timed="scales 0-9 at 4096², one step each",
+            library_ms=None, per_scale_ms=per_scale,
+            timed="scales 3-9 at 4096², one step each",
             library="none: PyTorch has no numpy-symmetric pad or dilated "
                     "smooth in one call"))
 
@@ -788,7 +844,9 @@ def main():
             name="median_select", route="cuda",
             source="wavelets_tpu_torch/csrc/median_select.cu",
             replaces="wavelets_tpu/ops/pallas_stats.py:129",
-            launches=launches.get("median_select", 0), max_abs_err=err_b,
+            launches=launches.get("median_select", 0),
+            main_path_launches=main_launches.get("median_select", 0),
+            max_abs_err=err_b,
             ms=med_k, plain_ms=med_p, bound_ms=b_b[0], bound_by=b_b[1],
             library_ms=med_l, timed="median(|x|) of a 4096² frame",
             library="torch.quantile(x.abs(), 0.5) (takes 2^24 elements)"))
@@ -803,7 +861,9 @@ def main():
             name="decompose_group", route="cuda",
             source="wavelets_tpu_torch/csrc/decompose_group.cu",
             replaces="wavelets_tpu/ops/pallas_conv.py:542",
-            launches=launches.get("decompose_group", 0), max_abs_err=0.0,
+            launches=launches.get("decompose_group", 0),
+            main_path_launches=main_launches.get("decompose_group", 0),
+            max_abs_err=err_c,
             ms=c_k, plain_ms=c_p, bound_ms=b_c[0], bound_by=b_c[1],
             library_ms=None, timed="one group, scales 0-2 at 4096²",
             library="none: PyTorch has no numpy-symmetric pad"))
@@ -826,7 +886,9 @@ def main():
             source="wavelets_tpu_torch/csrc/whiten_plane.cu",
             replaces="wavelets_tpu/ops/pallas_wow.py:300",
             also_replaces="wavelets_tpu/ops/pallas_deep.py:1161",
-            launches=launches.get("whiten_plane", 0), max_abs_err=err_d,
+            launches=launches.get("whiten_plane", 0),
+            main_path_launches=main_launches.get("whiten_plane", 0),
+            max_abs_err=err_d,
             ms=d_k, plain_ms=d_p, bound_ms=b_d[0], bound_by=b_d[1],
             library_ms=None,
             timed="fused_whiten_pieces, scales 0-2 at 4096², gamma on",
@@ -866,7 +928,8 @@ def main():
             source="wavelets_tpu_torch/csrc/whiten_pair.cu",
             replaces="wavelets_tpu/ops/pallas_deep.py:929",
             launches=launches.get("whiten_pair", 0),
-            max_abs_err=err_e["white"], carry_max_abs_err=0.0,
+            main_path_launches=main_launches.get("whiten_pair", 0),
+            max_abs_err=err_e["white"], carry_max_abs_err=err_e["carry"],
             ms=e_k, plain_ms=e_p, bound_ms=b_e[0], bound_by=b_e[1],
             library_ms=None, timed="the pair (7, 8) at 4096²",
             two_kernel_a_steps_ms={k: v[1] for k, v in pair_ab.items()},
@@ -886,7 +949,9 @@ def main():
             name="bilateral_group", route="cuda",
             source="wavelets_tpu_torch/csrc/bilateral_group.cu",
             replaces="wavelets_tpu/ops/pallas_bilateral.py:341",
-            launches=launches.get("bilateral_group", 0), max_abs_err=err_f,
+            launches=launches.get("bilateral_group", 0),
+            main_path_launches=main_launches.get("bilateral_group", 0),
+            max_abs_err=err_f,
             ms=f_k, plain_ms=f_p, bound_ms=b_f[0], bound_by=b_f[1],
             library_ms=None, timed="one group, scales 0-2 at 4096², σ_b 1",
             ops_per_pixel_scale=BIL_OPS, expf_ops=EXPF_OPS,
@@ -914,6 +979,7 @@ def main():
             source="wavelets_tpu_torch/csrc/bilateral_step.cu",
             replaces="wavelets_tpu/ops/pallas_deep.py:1455",
             launches=launches.get("bilateral_step", 0),
+            main_path_launches=main_launches.get("bilateral_step", 0),
             max_abs_err=err_g["white"], carry_max_abs_err=err_g["carry"],
             ms=g_k, plain_ms=g_p, bound_ms=b_g[0], bound_by=b_g[1],
             library_ms=None, timed="scales 3-9 at 4096², one step each",
@@ -927,7 +993,7 @@ def main():
         from torch.profiler import ProfilerActivity, profile
 
         routes = {what: wt_run for what, (wt_run, _) in paths.items()}
-        for what, (x, kw, _) in configs.items():
+        for what, (x, kw, _, _) in configs.items():
             routes[what] = lambda x=x, kw=kw: wt.wow(x, **kw)
         for what, run in routes.items():
             run()

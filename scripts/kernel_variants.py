@@ -1,0 +1,201 @@
+#!/usr/bin/env python3
+"""Where kernels A and E of ``wavelets_tpu_torch`` spend their time, on
+one NVIDIA GPU: times variants of their current sources, each with one
+part changed or cut out, at the main path's shapes.
+
+    python3 scripts/kernel_variants.py
+
+Run from the repository root on a machine with a CUDA device and the
+CUDA toolkit.  A variant is either a build of the unmodified source with
+one ``-DWT_VARIANT_<NAME>`` hook defined (the hooks are listed in the
+sources' notes and in ``csrc/wt_tile.cuh``; ``nvcc`` writes them under
+the git-ignored ``build/variants/``), or another launch plan of the
+production build (a 64-row group tile, a pair cluster of one block).
+Either way the port's own wrappers launch it, so the arguments are the
+production ones.  Variants that cut a part out compute wrong values and
+are only timed.
+
+* kernel E (``whiten_pair.cu``), the pair (7, 8) at 4096²: as built;
+  one block a class with no cluster (4-byte accesses D floats apart);
+  the wrap by remainder (no compare-and-add); the taps' half width at run
+  time (no unrolled tap loop); the load and store phases alone; the
+  compute passes alone;
+* kernel A's deep step (``whiten_step.cu``), s = 3, 6, 9 at 4096²: as
+  built; the taps at run time;
+* kernel A's group (``whiten_group.cu``), scales 0-2 at 4096²: as built
+  (32-row tile); a 64-row tile; the taps at run time; no whitening
+  epilogue; one fold a lane at a time (no four-way overlap).
+
+Each wall time is the median of 20 runs after 3 warm-ups (CUDA events
+around the wrapper, so the host's launch work is in it); each device
+time the kernels' own time from ``torch.profiler``, per call over 5
+calls.  The variants run in two rounds, so the spread shows.  The card's
+name and power limit are printed first.
+"""
+
+import contextlib
+import ctypes
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+
+#: name -> (kernel, -DWT_VARIANT_ hooks, launch plan change or None)
+VARIANTS = {
+    "pair": ("whiten_pair", (), None),
+    "pair, no cluster": ("whiten_pair", (), "cluster 1"),
+    "pair, wrap by remainder": ("whiten_pair", ("WRAP_REM",), None),
+    "pair, taps at run time": ("whiten_pair", ("RUNTIME_TAPS",), None),
+    "pair, load and store only": ("whiten_pair", ("NO_COMPUTE",), None),
+    "pair, compute only": ("whiten_pair", ("NO_MEMORY",), None),
+    "step": ("whiten_step", (), None),
+    "step, taps at run time": ("whiten_step", ("RUNTIME_TAPS",), None),
+    "group": ("whiten_group", (), None),
+    "group, 64-row tile": ("whiten_group", (), "tile 64"),
+    "group, taps at run time": ("whiten_group", ("RUNTIME_TAPS",), None),
+    "group, no whitening epilogue": ("whiten_group", ("NO_EPILOGUE",),
+                                     None),
+    "group, one fold a lane": ("whiten_group", ("ONE_FOLD",), None),
+}
+
+
+def build_variants(_build):
+    """One ``nvcc`` per variant with hooks, all at once; name → CDLL."""
+    out_dir = ROOT / "build" / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for i, (name, (kernel, hooks, _)) in enumerate(VARIANTS.items()):
+        if not hooks:
+            continue
+        so = out_dir / f"v{i}.so"
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS,
+               *(f"-DWT_VARIANT_{h}" for h in hooks), "-o", str(so),
+               str(_build.CSRC_DIR / f"{kernel}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       so)
+    libs = {}
+    for name, (proc, so) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise SystemExit(f"{name}: nvcc failed\n{log}")
+        lib = ctypes.CDLL(str(so))
+        lib.wt_error_string.argtypes = [ctypes.c_int]
+        lib.wt_error_string.restype = ctypes.c_char_p
+        libs[name] = lib
+    return libs
+
+
+@contextlib.contextmanager
+def replaced(module, attr, value):
+    old = getattr(module, attr)
+    setattr(module, attr, value)
+    try:
+        yield
+    finally:
+        setattr(module, attr, old)
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_variants: no CUDA device")
+    sys.path.insert(0, str(ROOT))
+    from wavelets_tpu_torch.ops import _build, hopper_conv, hopper_deep
+    from wavelets_tpu_torch.ops.filters import B3SPLINE
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(card)
+    libs = build_variants(_build)
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def timed(fn, n=20):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(n):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+        dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA) / 5e3
+        return float(np.median(ms)), dev_ms
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(1, 4096, 4096)).astype(np.float32)
+                         * 3 + 10).to(dev)
+    recon = torch.zeros_like(x)
+    thr2 = torch.full((2, 1), 0.5, device=dev)
+    thr3 = torch.tensor([1.0, 1.0, 0.0], device=dev)
+    zero1 = torch.zeros(1, device=dev)
+    group_plan, pair_plan = hopper_conv.group_plan, hopper_deep.pair_plan
+
+    def tile64(*a):
+        p = group_plan(*a)
+        return dataclasses.replace(
+            p, tile_h=64, grid=(p.grid[0], -(-a[1] // 64), p.grid[2]),
+            smem_bytes=hopper_conv._group_smem(64, p.halo, p.halo_cols))
+
+    plans = {
+        "tile 64": (hopper_conv, "group_plan", tile64),
+        "cluster 1": (hopper_deep, "pair_plan", lambda *a: dataclasses
+                      .replace(pair_plan(*a), cluster=1)),
+    }
+
+    def runs(kernel):
+        if kernel == "whiten_pair":
+            yield "(7, 8)", lambda: hopper_deep.deep_whiten_step2(
+                x, recon, thr2, sf=B3SPLINE, scale=7, weights=(1.0, 1.0),
+                masked=(True, False))
+        elif kernel == "whiten_step":
+            for s in (3, 6, 9):
+                yield f"s={s}", lambda s=s: hopper_deep.deep_whiten_step(
+                    x, recon, zero1, sf=B3SPLINE, scale=s, weight=1.0)
+        else:
+            yield "scales 0-2", lambda: hopper_conv.fused_wow_group(
+                x[0], [1.0] * 3, thr3, 3, B3SPLINE,
+                masked=(True, True, False))
+
+    load = _build.load
+    print(f"ms at 4096², two rounds, on {card}: wall (median of 20) and "
+          "device (profiler)")
+    for rnd in range(2):
+        for name, (kernel, _, plan) in VARIANTS.items():
+            lib = libs.get(name)
+            with contextlib.ExitStack() as stack:
+                if lib is not None:
+                    stack.enter_context(replaced(
+                        _build, "load", lambda n, k=kernel, lib=lib:
+                        lib if n == k else load(n)))
+                if plan is not None:
+                    stack.enter_context(replaced(*plans[plan]))
+                for what, fn in runs(kernel):
+                    wall, dev_ms = timed(fn)
+                    print(f"  round {rnd}: {name:32s} {what:14s} "
+                          f"wall {wall:.3f} device {dev_ms:.3f}")
+            sys.stdout.flush()
+
+
+if __name__ == "__main__":
+    main()

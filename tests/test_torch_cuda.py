@@ -13,6 +13,8 @@ reconstruction within ``5e-6·max(|ref|, 1)`` (``erff`` against
 rounded step by step in both versions) within ``5e-6·max(|ref|, 1)``
 (``expf`` against ``torch.exp``)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -79,6 +81,190 @@ def test_group_kernel_vs_plain(dev, sf, need_cube):
     assert_close_scaled(acc_k, acc_p, 5e-6)
 
 
+@pytest.mark.parametrize("shape", [(80, 72), (37, 70), (2, 130, 70),
+                                   (16, 16), (3, 64, 64)])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("sf", [B3SPLINE, TRIANGLE], ids=["b3", "tri"])
+@pytest.mark.parametrize("need_cube", [True, False])
+def test_group_tile_kernel_vs_plain(dev, shape, offset, sf, need_cube):
+    # ragged tile edges, W not a multiple of 4 (no 16-byte fill), a frame
+    # smaller than the halo, frame stacks; one launch, carry bitwise
+    x = torch.from_numpy(np.random.default_rng(offset).normal(size=shape)
+                         .astype(np.float32) * 3 + 10).to(dev)
+    B = shape[0] if len(shape) == 3 else 1
+    thr = torch.tensor([[0.3] * B, [0.0] * B, [0.01] * B], device=dev)
+    args = ([2.0, 1.0, 0.5], thr, 3, sf)
+    kw = dict(offset=offset, soft=True, masked=(True, True, False),
+              need_cube=need_cube)
+    _build.reset_counters()
+    rows_k, acc_k = hopper_conv.fused_wow_group(x, *args, **kw)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"whiten_group": 1}
+    rows_p, acc_p = hopper_conv.fused_wow_group_plain(x, *args, **kw)
+    assert len(rows_k) == len(rows_p) == (4 if need_cube else 1)
+    for a, b in zip(rows_k[:-1], rows_p[:-1]):
+        assert_close_scaled(a, b, 5e-6)
+    assert torch.equal(rows_k[-1], rows_p[-1])
+    assert_close_scaled(acc_k, acc_p, 5e-6)
+
+
+def test_group_without_a_tile_launches_deep_steps(dev):
+    x = torch.from_numpy(np.random.default_rng(9).normal(size=(1, 64, 96))
+                         .astype(np.float32)).to(dev)
+    args = ([1.0, 1.0, 1.0], torch.tensor([0.2, 0.0, 0.1], device=dev), 3,
+            B3SPLINE)
+    _build.reset_counters()
+    rows_k, acc_k = hopper_conv.fused_wow_group(x, *args, offset=2)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"whiten_step": 3}
+    rows_p, acc_p = hopper_conv.fused_wow_group_plain(x, *args, offset=2)
+    assert torch.equal(rows_k[-1], rows_p[-1])
+    assert_close_scaled(acc_k, acc_p, 5e-6)
+
+
+@pytest.mark.parametrize("shape", [(1, 37, 70), (2, 257, 96)])
+@pytest.mark.parametrize("s", list(range(10)))
+def test_deep_step_every_dilation_bitwise(dev, shape, s):
+    # D up to 512 on 37 x 70: the taps reflect many times
+    rng = np.random.default_rng(s)
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32) * 3
+                         + 10).to(dev)
+    recon = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    recon = recon.to(dev)
+    thr = torch.tensor([0.5] * shape[0], device=dev)
+    kw = dict(sf=B3SPLINE, scale=s, weight=1.5, soft=True, masked=True)
+    r_k, r_p = recon.clone(), recon.clone()
+    w_k, _, c_k = hopper_deep.deep_whiten_step(x, r_k, thr, **kw)
+    w_p, _, c_p = hopper_deep.deep_whiten_step_plain(x, r_p, thr, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(c_k, c_p)
+    assert_close_scaled(w_k, w_p, 5e-6)
+    assert_close_scaled(r_k, r_p, 5e-6)
+
+
+@pytest.mark.parametrize("shape,s", [((1, 3, 30000), 0), ((1, 5, 29057), 3),
+                                     ((2, 4, 33001), 6)])
+def test_deep_step_row_segments(dev, shape, s):
+    # rows too long for shared memory: segments with an hw*D halo
+    assert hopper_conv.step_plan(*shape, 1 << s, 2).seg > 0
+    x = torch.from_numpy(np.random.default_rng(s).normal(size=shape)
+                         .astype(np.float32)).to(dev)
+    thr = torch.zeros(shape[0], device=dev)
+    kw = dict(sf=B3SPLINE, scale=s, weight=1.0)
+    w_k, _, c_k = hopper_deep.deep_whiten_step(x, None, thr, **kw)
+    w_p, _, c_p = hopper_deep.deep_whiten_step_plain(x, None, thr, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(c_k, c_p)
+    assert_close_scaled(w_k, w_p, 5e-6)
+
+
+@pytest.mark.parametrize("shape,s", [((1, 256, 256), 4), ((1, 512, 512), 7),
+                                     ((2, 64, 128), 3), ((1, 1024, 512), 6),
+                                     ((1, 16, 32), 4)])
+def test_pair_cluster_bitwise_to_two_steps(dev, shape, s):
+    # a cluster of 8 blocks (D = 16, 64, 128) and one narrowed to 4 (D = 8);
+    # at 16 x 32, s = 4, the torus is 2 x 4, shorter than the taps' reach,
+    # and the wrap takes its remainder form
+    rng = np.random.default_rng(s)
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32) * 3 + 10)
+    x = x.to(dev)
+    recon = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    recon = recon.to(dev)
+    B = shape[0]
+    thr = torch.tensor([[0.2] * B, [0.05] * B], device=dev)
+    plan = hopper_deep.pair_plan(*shape, s)
+    assert plan.cluster == min(8, (1 << s) // 2)
+    r_k, r_a = recon.clone(), recon.clone()
+    w1, w2, _, c_k = hopper_deep.deep_whiten_step2(
+        x, r_k, thr, sf=B3SPLINE, scale=s, weights=(1.5, 0.5),
+        masked=(True, True))
+    a1, _, mid = hopper_deep.deep_whiten_step(
+        x, r_a, thr[0], sf=B3SPLINE, scale=s, weight=1.5, masked=True)
+    a2, _, c_a = hopper_deep.deep_whiten_step(
+        mid, r_a, thr[1], sf=B3SPLINE, scale=s + 1, weight=0.5, masked=True)
+    torch.cuda.synchronize()
+    assert torch.equal(c_k, c_a) and torch.equal(w1, a1)
+    assert torch.equal(w2, a2) and torch.equal(r_k, r_a)
+
+
+def _replan(monkeypatch, module, name, **change):
+    plan = getattr(module, name)
+    monkeypatch.setattr(module, name, lambda *a: dataclasses.replace(
+        plan(*a), **change))
+
+
+def _tensors(out):
+    for t in out:
+        if isinstance(t, tuple):
+            yield from t
+        elif t is not None:
+            yield t
+
+
+@pytest.mark.parametrize("variant", ["tile 64 rows", "cluster 1",
+                                     "cluster 2"])
+def test_plan_variants_run_and_keep_the_bits(dev, monkeypatch, variant):
+    # the kernels launch the wrapper's plan as given: another legal plan
+    # (a 64-row tile, a narrower cluster) gives the same bits
+    x = torch.from_numpy(np.random.default_rng(5).normal(size=(1, 128, 128))
+                         .astype(np.float32) * 3 + 10).to(dev)
+    thr = torch.tensor([[0.2], [0.05], [0.1]], device=dev)
+    if variant.startswith("tile"):
+        p = hopper_conv.group_plan(1, 128, 128, 3, 2, 0)
+        change = dict(tile_h=64, grid=(p.grid[0], 2, 1),
+                      smem_bytes=hopper_conv._group_smem(64, p.halo,
+                                                         p.halo_cols))
+        module, name = hopper_conv, "group_plan"
+
+        def run():
+            return hopper_conv.fused_wow_group(
+                x, [1.5, 0.5, 1.0], thr, 3, B3SPLINE,
+                masked=(True, True, False))
+    else:
+        change = dict(cluster=int(variant.split()[1]))
+        module, name = hopper_deep, "pair_plan"
+
+        def run():
+            return hopper_deep.deep_whiten_step2(
+                x, None, thr[:2], sf=B3SPLINE, scale=4, weights=(1.5, 0.5),
+                masked=(True, False))
+    want = list(_tensors(run()))
+    _replan(monkeypatch, module, name, **change)
+    got = list(_tensors(run()))
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("kernel,change", [
+    ("group", dict(grid=(1, 4, 1))), ("group", dict(smem_bytes=4096)),
+    ("step", dict(grid=(100, 1, 1))), ("step", dict(smem_bytes=64)),
+    ("pair", dict(cluster=3)), ("pair", dict(grid=(8, 4, 1)))])
+def test_a_plan_the_kernel_cannot_run_is_refused(dev, monkeypatch, kernel,
+                                                 change):
+    # the C entry checks the plan it is given and refuses it before any
+    # launch
+    x = torch.from_numpy(np.random.default_rng(6).normal(size=(1, 128, 128))
+                         .astype(np.float32)).to(dev)
+    thr = torch.zeros((3, 1), device=dev)
+    runs = {
+        "group": (hopper_conv, "group_plan", lambda: hopper_conv
+                  .fused_wow_group(x, [1.0] * 3, thr, 3, B3SPLINE)),
+        "step": (hopper_conv, "step_plan", lambda: hopper_deep
+                 .deep_whiten_step(x, None, thr[0], sf=B3SPLINE, scale=3,
+                                   weight=1.0)),
+        "pair": (hopper_deep, "pair_plan", lambda: hopper_deep
+                 .deep_whiten_step2(x, None, thr[:2], sf=B3SPLINE, scale=4,
+                                    weights=(1.0, 1.0))),
+    }
+    module, name, run = runs[kernel]
+    _replan(monkeypatch, module, name, **change)
+    _build.reset_counters()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        run()
+    assert not _build.LAUNCHES
+
+
 @pytest.mark.parametrize("n", [1, 2, 1001, 65536])
 @pytest.mark.parametrize("kind", ["normal", "ties"])
 def test_median_kernel_bitwise(dev, n, kind):
@@ -103,11 +289,11 @@ def test_wow_kernel_path_vs_plain(dev):
     torch.cuda.synchronize()
     launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
     r_p, c_p = wow(x, n_scales=6, denoise_coefficients=[5, 2], fuse=False)
-    # kernel A for scales 0-2 and 5, kernel E for the pair (3, 4): 256 >> 3
-    # = 32 rows per residue class
+    # kernel A's group for scales 0-2, its deep step for 5, kernel E for
+    # the pair (3, 4): 256 >> 3 = 32 rows per residue class
     assert len(c_k) == 7
-    assert launches == {"whiten_step": 4, "whiten_pair": 1,
-                        "median_select": 1}
+    assert launches == {"whiten_group": 1, "whiten_step": 1,
+                        "whiten_pair": 1, "median_select": 1}
     assert plain == {}
     assert r_k.device.type == "cuda" and bool(torch.isfinite(r_k).all())
     scale = float(r_p.abs().max())
@@ -117,9 +303,9 @@ def test_wow_kernel_path_vs_plain(dev):
 
 
 @pytest.mark.parametrize("shape,launched", [
-    ((512, 512), {"whiten_step": 4, "whiten_pair": 1}),
+    ((512, 512), {"whiten_group": 1, "whiten_step": 1, "whiten_pair": 1}),
     # 8 does not divide 250: kernel E's gate refuses, two kernel A steps
-    ((250, 256), {"whiten_step": 6}),
+    ((250, 256), {"whiten_group": 1, "whiten_step": 3}),
 ])
 def test_wow_pair_route_on_the_card(dev, shape, launched):
     x = torch.from_numpy(np.random.default_rng(5).normal(size=shape)

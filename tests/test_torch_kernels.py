@@ -122,7 +122,8 @@ def test_cpu_wrappers_take_the_plain_versions(frame):
         weight=1.0)
     assert r2 is recon and torch.equal(recon, white)
     hopper_stats.median_bits2(x.view(torch.int32), (5, 6))
-    assert _build.PLAIN_CALLS == {"whiten_step": 3, "median_select": 1}
+    assert _build.PLAIN_CALLS == {"whiten_group": 2, "whiten_step": 1,
+                                  "median_select": 1}
     assert sum(_build.LAUNCHES.values()) == 0
 
 
@@ -145,8 +146,8 @@ def test_build_helper(tmp_path, monkeypatch):
     # build, and the library name follows the source and header hash
     names = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
     assert names == ["bilateral_group", "bilateral_step", "decompose_group",
-                     "median_select", "whiten_pair", "whiten_plane",
-                     "whiten_step"]
+                     "median_select", "whiten_group", "whiten_pair",
+                     "whiten_plane", "whiten_step"]
     p1 = _build._library_path("whiten_step")
     assert p1.parent == _build.BUILD_DIR and p1.suffix == ".so"
     src = tmp_path / "whiten_step.cu"

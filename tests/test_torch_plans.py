@@ -1,0 +1,284 @@
+"""The host-side launch plans of kernel A (group and deep forms) and
+kernel E, and the index arithmetic of their CUDA kernels replayed in
+numpy on the CPU.  Each wrapper passes its plan's grid, shared-memory
+bytes (and cluster width, offset width) to the kernel's C entry, which
+checks it and launches it as given, so these plans are what runs.
+
+* ``hopper_conv.group_plan`` against the JAX package's
+  ``pallas_conv._wow_group_halo``: the tile's halo is the group's reach,
+  the tile fits the H100's 232448 bytes of opt-in shared memory (the
+  main path's two blocks to an SM), and the tiles cover the frame.
+* ``csrc/whiten_group.cu``'s tile algorithm (fill through the symmetric
+  index map, then per scale the margins ``M_k = max(2hd, M_(k+1) + hd)``
+  with plain offsets) replayed in float32 numpy, one IEEE operation at a
+  time as the kernel rounds: the carry is bitwise the plain version's and
+  the whites and ``acc`` within ``5e-6·max`` (``torch.erf``, the same
+  function on both sides here).
+* ``hopper_conv.step_plan``: whole rows or segments, and the residue-
+  class row order visits every row once.
+* ``hopper_deep.pair_plan`` and ``csrc/whiten_pair.cu``'s sector
+  mapping: every torus point of every block of a cluster is loaded once,
+  from the image point the torus names, in sector-complete runs of
+  contiguous columns.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tests.torch_parity import assert_close_scaled
+from wavelets_tpu.ops import pallas_conv
+from wavelets_tpu_torch.ops import _build, hopper_conv, hopper_deep
+from wavelets_tpu_torch.ops.filters import B3SPLINE, TRIANGLE
+
+SFS = {"b3": B3SPLINE, "tri": TRIANGLE}
+
+
+def _reach(hw, offset, g):
+    """The carry margin the group's scales need, by the kernel's rule."""
+    m = 0
+    for k in reversed(range(g)):
+        hd = hw << (offset + k)
+        m = max(2 * hd, m + hd)
+    return m
+
+
+@pytest.mark.parametrize("sf", list(SFS), ids=list(SFS))
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("g", list(range(1, hopper_conv.N_FAST + 1)))
+def test_group_plan_halo_and_shared_memory(sf, offset, g):
+    hw = SFS[sf].half_width
+    plan = hopper_conv.group_plan(1, 4096, 4096, g, hw, offset)
+    halo = pallas_conv._wow_group_halo(hw, offset, g)
+    assert hopper_conv.group_halo(hw, offset, g) == halo
+    assert halo >= _reach(hw, offset, g)
+    if plan is None:
+        # no tile of 16 rows fits: the scales run as deep steps
+        sw = 64 + 2 * (-(-halo // 4) * 4)
+        assert 4 * (2 * (16 + 2 * halo) * sw + 8 * sw) > hopper_conv.SMEM_OPTIN
+        return
+    assert plan.halo == halo
+    assert plan.halo_cols >= halo and plan.halo_cols % 4 == 0
+    sw = hopper_conv.GROUP_TILE_W + 2 * plan.halo_cols
+    assert plan.smem_bytes == 4 * (2 * (plan.tile_h + 2 * halo) * sw + 8 * sw)
+    assert plan.smem_bytes <= hopper_conv.SMEM_OPTIN == 232448
+    # blocks to an SM: 228 KB per SM, 1 KB of it reserved per block
+    per_sm = (228 * 1024) // (plan.smem_bytes + 1024)
+    assert per_sm >= 1
+    if (g, offset) == (hopper_conv.N_FAST, 0):
+        # the main path's group: at least two blocks to an SM
+        assert per_sm >= 2 and plan.tile_h == 32
+    if plan.tile_h != 32:
+        # taller or shorter only where the 32-row tile does not fit two
+        assert hopper_conv._group_smem(32, halo, plan.halo_cols) > (
+            hopper_conv.SMEM_TWO_PER_SM)
+
+
+@pytest.mark.parametrize("shape", [(1, 4096, 4096), (1, 1000, 1536),
+                                   (1, 257, 513), (3, 16, 16), (2, 37, 70)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_group_plan_covers_the_frame(shape, offset):
+    B, H, W = shape
+    plan = hopper_conv.group_plan(B, H, W, 3, 2, offset)
+    gx, gy, gz = plan.grid
+    tw = hopper_conv.GROUP_TILE_W
+    assert gz == B
+    assert gx * tw >= W > (gx - 1) * tw
+    assert gy * plan.tile_h >= H > (gy - 1) * plan.tile_h
+
+
+def _fold(a, taps, axis, d, lo, hi, other):
+    """x*t0 + sum_j t_j*(l + r) along ``axis`` of ``a`` (float32, one
+    rounding per operation) for the points lo..hi-1 of that axis (an
+    offset into ``a``) and the slice ``other`` of the other axis."""
+    hw = (len(taps) - 1) // 2
+    t = np.asarray(taps[hw:], np.float32)
+
+    def take(s):
+        idx = slice(lo + s, hi + s)
+        return a[idx, other] if axis == 0 else a[other, idx]
+
+    out = take(0) * t[0]
+    for j in range(1, hw + 1):
+        out = out + t[j] * (take(-j * d) + take(j * d))
+    return out
+
+
+def _whiten(c, lp, fac, thr, masked):
+    lp = np.sqrt(np.where(lp <= 0, np.float32(1e-15), lp))
+    if masked and thr != 0:
+        c = c * torch.erf(torch.from_numpy(np.abs(c / thr))).numpy()
+    return c * (np.float32(fac) / lp)
+
+
+def _emulate_group(x, plan, g, taps, offset, facs, thrs, masked):
+    """whiten_group.cu's per-tile algorithm on one (H, W) frame."""
+    H, W = x.shape
+    hw = (len(taps) - 1) // 2
+    TH, R, Rc = plan.tile_h, plan.halo, plan.halo_cols
+    TW = hopper_conv.GROUP_TILE_W
+
+    def sym(k, n):   # numpy's periodic symmetric index map
+        p = np.mod(k, 2 * n)
+        return np.where(p < n, p, 2 * n - 1 - p)
+
+    whites = [np.zeros((H, W), np.float32) for _ in range(g)]
+    carry = np.zeros((H, W), np.float32)
+    acc = np.zeros((H, W), np.float32)
+    for h0 in range(0, H, TH):
+        for w0 in range(0, W, TW):
+            rows = sym(np.arange(h0 - R, h0 + TH + R), H)
+            cols = sym(np.arange(w0 - Rc, w0 + TW + Rc), W)
+            X = x[np.ix_(rows, cols)].astype(np.float32)
+            a = None
+            for k in range(g):
+                d = 1 << (offset + k)
+                hd = hw * d
+                cm = max(hd, _reach(hw, offset + k + 1, g - k - 1))
+                mk = cm + hd
+                # chain smooth: rows fold on rows [-cm, TH+cm), columns
+                # [-mk, TW+mk); cols fold on [-cm, TW+cm)
+                T = np.zeros_like(X)
+                T[R - cm:R + TH + cm, Rc - mk:Rc + TW + mk] = _fold(
+                    X, taps, 0, d, R - cm, R + TH + cm,
+                    slice(Rc - mk, Rc + TW + mk))
+                C = np.zeros_like(X)
+                C[R - cm:R + TH + cm, Rc - cm:Rc + TW + cm] = _fold(
+                    T, taps, 1, d, Rc - cm, Rc + TW + cm,
+                    slice(R - cm, R + TH + cm))
+                Dt = X.copy()
+                sl = (slice(R - hd, R + TH + hd), slice(Rc - hd, Rc + TW + hd))
+                Dt[sl] = X[sl] - C[sl]
+                sq = Dt * Dt
+                P = np.zeros_like(X)
+                P[R:R + TH, Rc - hd:Rc + TW + hd] = _fold(
+                    sq, taps, 0, d, R, R + TH, slice(Rc - hd, Rc + TW + hd))
+                lp = _fold(P, taps, 1, d, Rc, Rc + TW, slice(R, R + TH))
+                v = _whiten(Dt[R:R + TH, Rc:Rc + TW], lp, facs[k], thrs[k],
+                            masked[k])
+                a = v if a is None else a + v
+                hh, ww = min(TH, H - h0), min(TW, W - w0)
+                whites[k][h0:h0 + hh, w0:w0 + ww] = v[:hh, :ww]
+                X = C
+            carry[h0:h0 + hh, w0:w0 + ww] = X[R:R + hh, Rc:Rc + ww]
+            acc[h0:h0 + hh, w0:w0 + ww] = a[:hh, :ww]
+    return whites, carry, acc
+
+
+@pytest.mark.parametrize("shape,offset,sf", [
+    ((37, 70), 0, "b3"),     # ragged tiles, W not a multiple of 4
+    ((16, 16), 0, "b3"),     # a frame smaller than the halo of 22
+    ((80, 72), 1, "tri"),
+    ((70, 130), 1, "b3"),    # one block to an SM, halo 44
+])
+def test_group_tile_algorithm_replayed(shape, offset, sf):
+    spec = SFS[sf]
+    x = (np.random.default_rng(11).normal(size=shape) * 3 + 10).astype(
+        np.float32)
+    facs, masked = (2.0, 1.0, 0.5), (True, True, False)
+    thrs = (0.3, 0.0, 0.01)
+    plan = hopper_conv.group_plan(1, *shape, 3, spec.half_width, offset)
+    whites, carry, acc = _emulate_group(x, plan, 3, spec.taps, offset, facs,
+                                        thrs, masked)
+    rows, acc_p = hopper_conv.fused_wow_group_plain(
+        torch.from_numpy(x), list(facs), torch.tensor(thrs), 3, spec,
+        offset=offset, masked=masked)
+    assert np.array_equal(carry, rows[3].numpy())
+    for k in range(3):
+        assert_close_scaled(torch.from_numpy(whites[k]), rows[k], 5e-6)
+    assert_close_scaled(torch.from_numpy(acc), acc_p, 5e-6)
+
+
+@pytest.mark.parametrize("need_cube", [True, False])
+def test_group_without_a_tile_runs_deep_steps(need_cube):
+    # the B3spline at offset 2, g = 3: no tile fits, so the wrapper runs
+    # one deep step per scale, on the CPU as on the card
+    x = torch.from_numpy(np.random.default_rng(2).normal(size=(2, 48, 40))
+                         .astype(np.float32))
+    assert hopper_conv.group_plan(2, 48, 40, 3, 2, 2) is None
+    args = ([1.0, 2.0, 0.5], torch.tensor([[0.3, 0.1], [0.0, 0.0],
+                                          [0.2, 0.05]]), 3, B3SPLINE)
+    kw = dict(offset=2, soft=False, masked=(True, False, True),
+              need_cube=need_cube)
+    _build.reset_counters()
+    rows, acc = hopper_conv.fused_wow_group(x, *args, **kw)
+    assert dict(_build.PLAIN_CALLS) == {"whiten_step": 3}
+    ref, ref_acc = hopper_conv.fused_wow_group_plain(x, *args, **kw)
+    assert len(rows) == len(ref)
+    assert all(torch.equal(a, b) for a, b in zip(rows, ref))
+    assert torch.equal(acc, ref_acc)
+    assert all(acc.data_ptr() != r.data_ptr() for r in rows)
+
+
+@pytest.mark.parametrize("W,D,hw,seg", [
+    (4096, 512, 2, 0), (513, 512, 2, 0), (29056, 1, 2, 0),
+    (29057, 4, 2, hopper_conv.STEP_SEG), (60000, 4096, 1,
+                                          hopper_conv.STEP_SEG)])
+def test_step_plan(W, D, hw, seg):
+    plan = hopper_conv.step_plan(1, 5, W, D, hw)
+    assert plan.seg == seg
+    assert plan.smem_bytes <= hopper_conv.SMEM_OPTIN
+    if seg:
+        assert plan.smem_bytes == 4 * (2 * seg + 2 * hw * D)
+        assert plan.grid[1] * seg >= W > (plan.grid[1] - 1) * seg
+    assert plan.index_bits == 32
+
+
+def test_step_plan_refuses_a_halo_beyond_the_shared_memory():
+    with pytest.raises(ValueError, match="shared memory"):
+        hopper_conv.step_plan(1, 8, 40000, 1 << 14, 2)
+    assert hopper_conv.step_plan(3000, 1000, 1000, 1, 2).index_bits == 64
+
+
+@pytest.mark.parametrize("H,D", [(4096, 8), (4096, 512), (257, 8),
+                                 (257, 512), (250, 256), (7, 1), (40, 16)])
+def test_step_rows_in_residue_class_order_cover_every_row(H, D):
+    plan = hopper_conv.step_plan(1, H, 64, D, 2)
+    seen = []
+    for i in range(plan.grid[0]):
+        if D < H:
+            P = -(-H // D)
+            h = (i % P) * D + i // P
+        else:
+            h = i
+        if h < H:
+            seen.append(h)
+    assert sorted(seen) == list(range(H))
+
+
+def _torus_pos(u, M, r, D):
+    return r + u * D if u < M else (D - 1 - r) + (2 * M - 1 - u) * D
+
+
+@pytest.mark.parametrize("H,W,s", [(4096, 4096, 7), (512, 512, 4),
+                                   (64, 96, 3), (40, 56, 2), (16, 24, 0),
+                                   (16, 32, 1), (128, 256, 4), (64, 64, 5)])
+def test_pair_cluster_sectors(H, W, s):
+    plan = hopper_deep.pair_plan(1, H, W, s)
+    D = 1 << s
+    assert plan.cluster == min(8, max(1, D // 2))
+    assert plan.smem_bytes == 16 * (2 * H // D) * (2 * W // D) <= 232448
+    assert plan.grid[0] % plan.cluster == 0
+    assert hopper_deep.can_deep2(torch.zeros(1, H, W), B3SPLINE, s)
+    cw, M, N = plan.cluster, H // D, W // D
+    Lc, items, per = 2 * N, 4 * M * N, 256 // cw
+    r = plan.grid[1] - 1           # the last row class pair
+    for q0 in range(0, plan.grid[0], cw):
+        written = np.zeros((cw, 2 * M, 2 * N), int)
+        for rank in range(cw):
+            for slot in range(per):
+                for it in range(rank * per + slot, items, cw * per):
+                    u, v = divmod(it, Lc)
+                    base = (q0 + v * D if v < N else
+                            (D - q0 - cw) + (2 * N - 1 - v) * D)
+                    cols = [base + e for e in range(cw)]
+                    if cw == 8:   # one whole, aligned 32-byte sector
+                        assert base % 8 == 0
+                    for e, col in enumerate(cols):
+                        owner = e if v < N else cw - 1 - e
+                        q = q0 + owner
+                        assert col == _torus_pos(v, N, q, D)
+                        written[owner, u, v] += 1
+                        assert 0 <= col < W
+                        assert 0 <= _torus_pos(u, M, r, D) < H
+        assert (written == 1).all()

@@ -98,7 +98,7 @@ def test_wow_fuse_false_is_the_same_on_cpu(frames):
     # pair for scales 3 and 4 (200 >> 3 = 25 rows per residue class, and
     # 8 divides 200 and 328), one median; nothing launches
     assert len(c1) - 1 == twow.N_FAST + 2
-    assert counts == {"whiten_step": 1, "whiten_pair": 1,
+    assert counts == {"whiten_group": 1, "whiten_pair": 1,
                       "median_select": 1}
     assert sum(_build.LAUNCHES.values()) == 0
 
@@ -203,7 +203,7 @@ def test_main_path_takes_the_pair(shape, pairs, steps):
     _build.reset_counters()
     rt, ct = T.wow(x, n_scales=6, denoise_coefficients=[5, 2], device="cpu")
     assert _build.PLAIN_CALLS == {
-        "whiten_step": 1 + steps, "median_select": 1,
+        "whiten_group": 1, "whiten_step": steps, "median_select": 1,
         **({"whiten_pair": pairs} if pairs else {})}
     rj, cj = J.wow(x, n_scales=6, denoise_coefficients=[5, 2])
     _assert_wow_close(rt, ct, rj, cj, np.float32)

@@ -1,12 +1,12 @@
 """The group kernels of the transform: decompose (kernel C) and merged
-decompose + whiten (kernel A).
+decompose + whiten (kernel A, group form).
 
 Counterpart of ``wavelets_tpu/ops/pallas_conv.py``: ``_fused_group`` is
 :func:`fused_group` (kernel C, ``csrc/decompose_group.cu``), with the
 pieces decomposition built on it (:func:`fused_decompose_pieces`,
 :func:`fused_decompose`, :func:`fused_volume_decompose`); groups are of
 :data:`N_FAST` scales and every scale runs on the kernel, which takes any
-dilation, so there is no plain tail and no tile planner.
+dilation, so there is no plain tail.
 
 ``_fused_wow_group`` is :func:`fused_wow_group`, with its signature and
 return contract.  Per scale ``s = offset + k``:
@@ -20,17 +20,22 @@ return contract.  Per scale ``s = offset + k``:
 5. multiply by ``factor/lp``;
 6. accumulate into ``acc``.
 
-On a CUDA tensor each scale is one call of the hand-written kernel
-``csrc/whiten_step.cu`` (four launches; see the source's note for its
-design and bound); on a CPU tensor the plain PyTorch version below runs.
-There is no fallback between the two: a CUDA tensor the kernel cannot
-take raises.  The same holds for kernel C.
+On a CUDA tensor the whole group is one launch of the hand-written
+kernel ``csrc/whiten_group.cu`` (counter ``whiten_group``) on the
+shared-memory tile that :func:`group_plan` sizes; where no tile fits (a
+rule on the shape, scale offset and taps alone), each scale is one deep
+step of kernel A's deep form, ``csrc/whiten_step.cu`` (counter
+``whiten_step``, two launches sized by :func:`step_plan`).  On a CPU
+tensor the plain PyTorch versions below run, along the same route.
+There is no fallback between kernel and plain version: a CUDA tensor the
+kernel cannot take raises.  The same holds for kernel C.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from dataclasses import dataclass
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -43,29 +48,140 @@ __all__ = ["N_FAST", "fused_group", "fused_group_plain", "group_pieces",
            "fused_decompose_pieces", "fused_decompose",
            "fused_volume_decompose", "fused_wow_group",
            "fused_wow_group_plain", "whiten_scale_plain",
-           "whiten_detail_plain"]
+           "whiten_detail_plain", "GroupPlan", "group_halo", "group_plan",
+           "StepPlan", "step_plan", "SMEM_OPTIN"]
 
 KERNEL = "whiten_step"
+GROUP_KERNEL = "whiten_group"
 DECOMPOSE_KERNEL = "decompose_group"
 
 #: scales per group: the decompose groups (kernel C), the merged WOW
-#: group (kernel A) and the whitening of decompose pieces (kernel D) take
-#: scales ``[0, N_FAST)`` together, the deeper ones one scale or one pair
-#: at a time.  The kernels take any dilation, so the split changes no
-#: number; it marks the scales whose whitening reach
-#: ``hw·(3·2^(g−1)−1)`` (22 pixels for the B3spline at g = 3) fits a
-#: shared-memory tile with a 32-pixel halo, the group a later fused
-#: kernel takes.
+#: group (kernel A's group form) and the whitening of decompose pieces
+#: (kernel D) take scales ``[0, N_FAST)`` together, the deeper ones one
+#: scale or one pair at a time.  For the WOW group the split is a tile:
+#: the whitening reach of g scales, ``hw·2^offset·(3·2^(g−1)−1)`` (22
+#: pixels for the B3spline at g = 3, offset 0), is the halo of the
+#: shared-memory tile of ``csrc/whiten_group.cu``, whose 32 × 64 output
+#: tile then takes 70 KB, at least two blocks to an SM
+#: (:func:`group_plan`).
 N_FAST = 3
+
+#: shared memory one block may opt in to on an H100 (227 KB)
+SMEM_OPTIN = 232448
+#: the most one block may take so that two fit on an SM (228 KB per SM,
+#: 1 KB of it reserved per block)
+SMEM_TWO_PER_SM = 115712
+#: the group kernel's output tile: 64 columns, a row of the tile per warp
+GROUP_TILE_W = 64
+GROUP_TILE_HS = (64, 32, 16)
+GROUP_WARPS = 8
+#: deep step: whole rows while a row buffer and the centre row fit, else
+#: segments of this many columns with an ``hw·D`` halo
+STEP_SEG = 4096
+
+
+def group_halo(hw: int, offset: int, g: int) -> int:
+    """The reach of a whitening group of ``g`` scales from dilation
+    ``2^offset`` (the JAX ``_wow_group_halo``)."""
+    return hw * (1 << offset) * (3 * (1 << (g - 1)) - 1)
+
+
+@dataclass(frozen=True)
+class GroupPlan:
+    """The group kernel's launch, passed to ``csrc/whiten_group.cu`` as
+    it stands (the kernel checks it and launches it): a ``tile_h ×``
+    :data:`GROUP_TILE_W` output tile per block with ``halo`` rows and
+    ``halo_cols`` columns of halo (rounded up to 4 for 16-byte copies),
+    ``smem_bytes`` of shared memory, ``grid = (column tiles, row tiles,
+    frames)``."""
+    tile_h: int
+    halo: int
+    halo_cols: int
+    smem_bytes: int
+    grid: Tuple[int, int, int]
+
+
+def _group_smem(tile_h: int, halo: int, halo_cols: int) -> int:
+    # two (tile_h + 2·halo) × (64 + 2·halo_cols) planes, a row buffer a warp
+    sw = GROUP_TILE_W + 2 * halo_cols
+    return 4 * (2 * (tile_h + 2 * halo) * sw + GROUP_WARPS * sw)
+
+
+def group_plan(B: int, H: int, W: int, g: int, hw: int,
+               offset: int) -> Optional[GroupPlan]:
+    """The tile of :func:`fused_wow_group` on the card, from the shape,
+    group depth, half width of the taps and scale offset alone: a 32-row
+    tile where two blocks fit an SM, else the tallest tile of 64, 32 or
+    16 rows that fits the opt-in shared memory, else None (the scales
+    then run as deep steps).  At offset 0, g = 3 the 32-row tile ran a
+    few percent faster than the 64-row one on an H100
+    (``scripts/kernel_variants.py``): more blocks in flight outweigh its
+    larger halo share.  A 16-row tile is never taken for the second
+    block on an SM: its halo would be recomputed 5-6 times."""
+    if g < 1:
+        raise ValueError("a group needs at least one scale")
+    if offset + g > 20:
+        return None
+    halo = group_halo(hw, offset, g)
+    halo_cols = -(-halo // 4) * 4
+    for th, limit in ((32, SMEM_TWO_PER_SM),
+                      *((t, SMEM_OPTIN) for t in GROUP_TILE_HS)):
+        smem = _group_smem(th, halo, halo_cols)
+        if smem <= limit:
+            grid = (-(-W // GROUP_TILE_W), -(-H // th), B)
+            return GroupPlan(th, halo, halo_cols, smem, grid)
+    return None
+
+
+@dataclass(frozen=True)
+class StepPlan:
+    """The deep step's launch, passed to ``csrc/whiten_step.cu`` as it
+    stands (the kernel checks it and launches it): whole rows (``seg ==
+    0``) or segments of ``seg`` columns, ``smem_bytes`` per block,
+    ``grid = (rows in residue-class order, segments, frames)``, 32- or
+    64-bit offsets."""
+    seg: int
+    smem_bytes: int
+    grid: Tuple[int, int, int]
+    index_bits: int
+
+
+def step_plan(B: int, H: int, W: int, D: int, hw: int) -> StepPlan:
+    """The deep step's launch on the card, from the shape, dilation and
+    half width of the taps; raises where not even a segment with its
+    ``hw·D`` halo fits the shared memory (``hw·D`` > 24960)."""
+    if 8 * W <= SMEM_OPTIN:
+        seg, smem = 0, 8 * W
+    else:
+        seg = STEP_SEG
+        smem = 4 * (2 * seg + 2 * hw * D)
+        if smem > SMEM_OPTIN:
+            raise ValueError(
+                f"deep step: the {2 * hw * D}-column halo of a row segment "
+                "does not fit the shared memory")
+    rows = H if D >= H else D * -(-H // D)
+    grid = (rows, 1 if seg == 0 else -(-W // seg), B)
+    return StepPlan(seg, smem, grid, 32 if B * H * W < 2 ** 31 else 64)
 
 
 def _lib():
     lib = _build.load(KERNEL)
     fn = lib.wt_whiten_step_f32
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p,
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int] + [ctypes.c_longlong] * 4
-                   + [ctypes.c_void_p])
+                   ctypes.c_void_p, ctypes.c_int] + [ctypes.c_longlong] * 8
+                   + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _lib_group():
+    lib = _build.load(GROUP_KERNEL)
+    fn = lib.wt_whiten_group_f32
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p, ctypes.c_int]
+                   + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3
+                   + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
@@ -88,17 +204,21 @@ def check_kernel_input(x: torch.Tensor, sf: ScalingFunction,
                          "of half width <= 8")
 
 
-def launch_whiten_step(carry, c_next, detail, tmp, white, acc, acc_mode,
-                       thr, fac, masked, soft, sf, scale) -> None:
-    """One scale of kernel A on ``(B, H, W)`` float32 CUDA tensors; the
-    launch counter is incremented here and nowhere else."""
+def launch_whiten_step(carry, c_next, detail, white, acc, acc_mode, thr,
+                       fac, masked, soft, sf, scale) -> None:
+    """One scale of kernel A's deep form (two launches) on ``(B, H, W)``
+    float32 CUDA tensors; ``detail`` is scratch that the caller holds by
+    name until the launches are queued.  The launch counter is
+    incremented here and nowhere else."""
     lib = _lib()
     B, H, W = carry.shape
+    plan = step_plan(B, H, W, 1 << scale, sf.half_width)
     taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
     code = lib.wt_whiten_step_f32(
-        _ptr(carry), _ptr(c_next), _ptr(detail), _ptr(tmp), _ptr(white),
-        _ptr(acc), int(acc_mode), _ptr(thr), float(fac), int(bool(masked)),
-        int(bool(soft)), taps, len(sf.taps), B, H, W, 1 << scale,
+        _ptr(carry), _ptr(c_next), _ptr(detail), _ptr(white), _ptr(acc),
+        int(acc_mode), _ptr(thr), float(fac), int(bool(masked)),
+        int(bool(soft)), taps, len(sf.taps), B, H, W, 1 << scale, plan.seg,
+        plan.grid[0], plan.grid[1], plan.smem_bytes, plan.index_bits,
         _build.stream_ptr(carry.device))
     _build.check(lib, code, "whiten_step")
     _build.LAUNCHES[KERNEL] += 1
@@ -162,7 +282,7 @@ def fused_wow_group_plain(x: torch.Tensor, factors: Sequence[float],
                           need_cube: bool = True):
     """Plain PyTorch version of :func:`fused_wow_group` (any dtype or
     device)."""
-    _build.PLAIN_CALLS[KERNEL] += 1
+    _build.PLAIN_CALLS[GROUP_KERNEL] += 1
     batched, xb, factors, masked, thr = _group_args(
         x, factors, thresholds, g, masked)
     rows, acc, cur = [], None, xb
@@ -193,28 +313,53 @@ def fused_wow_group(x: torch.Tensor, factors: Sequence[float], thresholds,
     ``x`` is ``(H, W)`` or a frame stack ``(B, H, W)``; ``factors`` are
     ``g`` host floats (the per-scale weights); ``thresholds`` is a tensor
     of shape ``(g,)`` or ``(g, B)`` on ``x``'s device, used for the scales
-    with ``masked[k]``.  A CPU ``x`` runs :func:`fused_wow_group_plain`;
-    a CUDA ``x`` runs kernel A once per scale or raises."""
-    if not x.is_cuda:
-        return fused_wow_group_plain(x, factors, thresholds, g, sf, offset,
-                                     soft, masked, need_cube)
-    check_kernel_input(x, sf, "fused_wow_group")
+    with ``masked[k]``.
+
+    Route, by :func:`group_plan` (shape, ``g``, taps and ``offset``
+    only): where a tile fits, one launch of ``csrc/whiten_group.cu`` on a
+    CUDA ``x`` (:func:`fused_wow_group_plain` on a CPU ``x``); where none
+    fits (the B3spline from offset 2 at g = 3), one
+    :func:`~.hopper_deep.deep_whiten_step` per scale (kernel A's deep
+    form on a CUDA ``x``, its plain version on a CPU ``x``).  A CUDA
+    ``x`` the kernels cannot take raises."""
+    from .hopper_deep import deep_whiten_step
     batched, xb, factors, masked, thr = _group_args(
         x, factors, thresholds, g, masked)
-    thr = thr.contiguous()
-    detail = torch.empty_like(xb)
-    tmp = torch.empty_like(xb)
-    acc = torch.empty_like(xb)
-    rows, cur = [], xb
-    for k in range(g):
-        white = torch.empty_like(xb) if need_cube else None
-        c_next = torch.empty_like(xb)
-        launch_whiten_step(cur, c_next, detail, tmp, white, acc,
-                           1 if k == 0 else 2, thr[k], factors[k],
-                           masked[k], soft, sf, offset + k)
-        if need_cube:
-            rows.append(white)
-        cur = c_next
+    B, H, W = xb.shape
+    plan = group_plan(B, H, W, g, sf.half_width, offset)
+    if plan is None:
+        rows, acc, cur = [], None, xb
+        for k in range(g):
+            white, acc, cur = deep_whiten_step(
+                cur, acc, thr[k], sf=sf, scale=offset + k,
+                weight=factors[k], soft=soft, masked=masked[k],
+                write_plane=need_cube or k == 0)
+            if k == 0:
+                # acc starts as scale 0's white, in a tensor of its own
+                acc = white.clone() if need_cube else white
+            if need_cube:
+                rows.append(white)
+    elif not x.is_cuda:
+        return fused_wow_group_plain(x, factors, thresholds, g, sf, offset,
+                                     soft, masked, need_cube)
+    else:
+        check_kernel_input(x, sf, "fused_wow_group")
+        thr = thr.contiguous()
+        acc = torch.empty_like(xb)
+        cur = torch.empty_like(xb)
+        rows = [torch.empty_like(xb) for _ in range(g)] if need_cube else []
+        lib = _lib_group()
+        taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
+        code = lib.wt_whiten_group_f32(
+            _ptr(xb), (ctypes.c_void_p * g)(*[r.data_ptr() for r in rows])
+            if need_cube else None, _ptr(cur), _ptr(acc), _ptr(thr),
+            (ctypes.c_float * g)(*factors),
+            (ctypes.c_int * g)(*[int(m) for m in masked]), int(bool(soft)),
+            g, offset, taps, len(sf.taps), B, H, W, plan.tile_h, plan.halo,
+            plan.halo_cols, plan.grid[0], plan.grid[1], plan.smem_bytes,
+            _build.stream_ptr(x.device))
+        _build.check(lib, code, "whiten_group")
+        _build.LAUNCHES[GROUP_KERNEL] += 1
     rows.append(cur)
     if not batched:
         return tuple(r[0] for r in rows), acc[0]

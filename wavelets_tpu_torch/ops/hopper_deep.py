@@ -3,16 +3,21 @@
 Counterpart of ``wavelets_tpu/ops/pallas_deep.py`` (signatures minus
 ``interpret`` and ``halo``):
 
-* :func:`deep_whiten_step` — one scale from the carry.  The TPU needs a
-  separate deep kernel because its group tiles cannot hold the halo of a
-  deep scale; on the card the same per-scale kernel A as the shallow
-  group (``csrc/whiten_step.cu``) serves every dilation.
+* :func:`deep_whiten_step` — one scale from the carry, on kernel A's
+  deep form (``csrc/whiten_step.cu``): two launches, each a rows fold
+  into a shared-memory row buffer and a cols fold out of it, the first
+  writing ``c_next`` and the detail, the second the white and ``recon``
+  (launch sizes: :func:`~.hopper_conv.step_plan`).  The shallow scales'
+  group tile (``csrc/whiten_group.cu``) cannot hold a deep scale's halo,
+  as on the TPU.
 * :func:`deep_whiten_step2` — scales ``(s, s+1)`` from the carry in one
   launch of kernel E (``csrc/whiten_pair.cu``), the middle carry kept in
-  shared memory.  :func:`can_deep2` is kernel E's own gate; where it
-  refuses, the caller takes two :func:`deep_whiten_step` calls, the JAX
-  package's rule when ``can_deep2`` is false (the two are numerically
-  identical, pallas_deep.py:950-952).
+  shared memory, the torus loaded and stored in whole 32-byte sectors by
+  a cluster of ``min(8, D/2)`` blocks (:func:`pair_plan`).
+  :func:`can_deep2` is kernel E's own gate; where it refuses, the caller
+  takes two :func:`deep_whiten_step` calls, the JAX package's rule when
+  ``can_deep2`` is false (the two are numerically identical,
+  pallas_deep.py:950-952).
 * :func:`deep_whiten_plane` — whiten one materialized deep plane, on
   kernel D (``csrc/whiten_plane.cu``), with a runtime factor and an
   optional gamma sum.
@@ -29,7 +34,8 @@ kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
@@ -37,13 +43,14 @@ from . import _build
 from .conv import bilateral_smooth
 from .filters import ScalingFunction
 from .hopper_bilateral import MAX_HW, kernel_weights
-from .hopper_conv import (KERNEL, _ptr, check_kernel_input,
+from .hopper_conv import (KERNEL, SMEM_OPTIN, _ptr, check_kernel_input,
                           launch_whiten_step, whiten_detail_plain,
                           whiten_scale_plain)
 from .hopper_wow import KERNEL as PLANE_KERNEL
 from .hopper_wow import launch_whiten_plane
 
 __all__ = ["deep_whiten_step", "deep_whiten_step_plain", "can_deep2",
+           "PairPlan", "pair_plan",
            "deep_whiten_step2", "deep_whiten_step2_plain",
            "deep_whiten_plane", "deep_whiten_plane_plain",
            "can_deep_bilateral", "deep_bilateral_whiten_step",
@@ -51,10 +58,6 @@ __all__ = ["deep_whiten_step", "deep_whiten_step_plain", "can_deep2",
 
 PAIR_KERNEL = "whiten_pair"
 BILATERAL_KERNEL = "bilateral_step"
-
-#: shared memory one block may opt in to on an H100 (227 KB); kernel E
-#: holds four float32 copies of its 2M × 2N torus (csrc/whiten_pair.cu)
-PAIR_SMEM_BYTES = 232448
 
 
 def _check_args(carry, recon, write_plane, what="deep_whiten_step"):
@@ -113,8 +116,9 @@ def deep_whiten_step(carry: torch.Tensor, recon: Optional[torch.Tensor],
     thr = thr.expand(carry.shape[0]).contiguous()
     white = torch.empty_like(carry) if write_plane else None
     c_next = torch.empty_like(carry)
-    launch_whiten_step(carry, c_next, torch.empty_like(carry),
-                       torch.empty_like(carry), white, recon,
+    # scratch held by name until the launches are queued
+    detail = torch.empty_like(carry)
+    launch_whiten_step(carry, c_next, detail, white, recon,
                        0 if recon is None else 2, thr, weight, masked, soft,
                        sf, scale)
     return white, recon, c_next
@@ -124,18 +128,45 @@ def deep_whiten_step(carry: torch.Tensor, recon: Optional[torch.Tensor],
 # Kernel E: two deep scales per launch
 # ---------------------------------------------------------------------
 
+@dataclass(frozen=True)
+class PairPlan:
+    """Kernel E's launch, passed to ``csrc/whiten_pair.cu`` as it stands
+    (the kernel checks it and launches it): one block per (column class,
+    row class pair, frame), ``grid``; ``cluster`` adjacent column classes
+    per thread-block cluster, which load and store whole sectors
+    together; ``smem_bytes`` per block (four ``2M × 2N`` float32 tori)."""
+    cluster: int
+    smem_bytes: int
+    grid: Tuple[int, int, int]
+
+
+def pair_plan(B: int, H: int, W: int, scale: int) -> Optional[PairPlan]:
+    """Kernel E's launch for the pair ``(scale, scale+1)`` from the shape
+    alone, or None where ``D = 2^scale`` does not divide ``H`` and ``W``
+    or the tori do not fit the shared memory.  The cluster is 8 blocks
+    (one 32-byte sector of column classes) and narrows to ``D/2`` below
+    ``D = 16``."""
+    D = 1 << scale
+    if H % D or W % D:
+        return None
+    smem = 16 * (2 * H // D) * (2 * W // D)  # four float32 tori
+    if smem > SMEM_OPTIN:
+        return None
+    classes = max(1, D // 2)
+    return PairPlan(min(8, classes), smem, (classes, classes, B))
+
+
 def can_deep2(carry: torch.Tensor, sf: ScalingFunction, scale: int) -> bool:
     """Kernel E's gate for the pair ``(scale, scale+1)`` on a ``(B, H, W)``
     carry: ``D = 2^scale`` divides ``H`` and ``W`` (every tap and
     reflection then stays in a pair of residue classes per axis) and the
-    block's four ``2H/D × 2W/D`` float32 buffers fit the shared memory.
-    It depends on the shape only, so the plain versions dispatch as the
-    kernels do."""
-    H, W = carry.shape[-2:]
-    D = 1 << scale
-    if H % D or W % D or not sf.is_symmetric or sf.half_width > 8:
+    block's four ``2H/D × 2W/D`` float32 buffers fit the shared memory
+    (:func:`pair_plan`).  It depends on the shape only, so the plain
+    versions dispatch as the kernels do."""
+    if not sf.is_symmetric or sf.half_width > 8:
         return False
-    return 16 * (2 * H // D) * (2 * W // D) <= PAIR_SMEM_BYTES
+    B = carry.shape[0] if carry.ndim == 3 else 1
+    return pair_plan(B, *carry.shape[-2:], scale) is not None
 
 
 def _lib_pair():
@@ -143,7 +174,8 @@ def _lib_pair():
     fn = lib.wt_whiten_pair_f32
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_float] * 2
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int]
-                   + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
+                   + [ctypes.c_longlong] * 6 + [ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
@@ -201,10 +233,11 @@ def deep_whiten_step2(carry: torch.Tensor, recon: Optional[torch.Tensor],
     thr = _pair_args(carry, recon, thresholds, weights, masked, write_plane)
     if recon is not None:
         check_kernel_input(recon, sf, "deep_whiten_step2")
-    if not can_deep2(carry, sf, scale):
+    B, H, W = carry.shape
+    plan = pair_plan(B, H, W, scale)
+    if plan is None:
         raise ValueError("deep_whiten_step2: kernel E does not take this "
                          "shape (use can_deep2 before dispatch)")
-    B, H, W = carry.shape
     c_next = torch.empty_like(carry)
     w1 = torch.empty_like(carry) if write_plane else None
     w2 = torch.empty_like(carry) if write_plane else None
@@ -214,7 +247,8 @@ def deep_whiten_step2(carry: torch.Tensor, recon: Optional[torch.Tensor],
         _ptr(carry), _ptr(c_next), _ptr(w1), _ptr(w2), _ptr(recon), _ptr(thr),
         float(weights[0]), float(weights[1]), int(bool(masked[0])),
         int(bool(masked[1])), int(bool(soft)), taps, len(sf.taps), B, H, W,
-        1 << scale, _build.stream_ptr(carry.device))
+        1 << scale, plan.grid[0], plan.grid[1], plan.cluster,
+        plan.smem_bytes, _build.stream_ptr(carry.device))
     _build.check(lib, code, "whiten_pair")
     _build.LAUNCHES[PAIR_KERNEL] += 1
     return w1, w2, recon, c_next
