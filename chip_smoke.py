@@ -15,14 +15,18 @@ CUDA toolkit.  It
    soft, hard and unmasked, plus 1000×1536 and 257×513, where s = 9
    reflects more than once) and its group (scales 0-2 at the same shapes,
    also offset 1 at 257×513, ``need_cube`` on and off, one launch each),
-   carries bitwise, kernel B (even and odd n, heavy ties; bitwise, and bitwise
-   to ``np.median``), kernel C (groups at 4096², 1000×1536 and 257×513,
+   carries bitwise, kernel B (even and odd n, heavy ties, and at 4096² and
+   512² all equal, zeros, subnormals, ties straddling a bin of each digit,
+   patterns off a 16-byte boundary; bitwise, and bitwise to
+   ``np.median``), kernel C (groups at 4096², 1000×1536 and 257×513,
    ``smooth_only``; bitwise), kernel D (4096², s ∈ {0, 1, 2, 5}, factors
    from a device table, gamma on) and kernel E (the pairs (7, 8) at 4096²
    and (4, 5) at 512² against two plain steps, carry bitwise, and against
    two kernel A steps, bitwise), kernel F (bilateral groups at 4096²,
    1000×1536 and 257×513, offsets 0, 3 and 6, σ scalar and a list,
-   scaling on and off, and a mean of 1000) and kernel G (deep bilateral
+   scaling on and off, and a mean of 1000; and bitwise to the same scales
+   run through kernel G's three-pass chain at offsets 0-6, a width that
+   needs row segments and a mean of 1000) and kernel G (deep bilateral
    scales 3, 6, 9 at 4096² and 8 at 257×513, masked soft, hard and
    unmasked);
 4. drives every ported path with the launch counters reset just before
@@ -45,7 +49,9 @@ CUDA toolkit.  It
    beside the kernel's bound: the larger of its bytes (each input read
    once, each output written once) over 3.35 TB/s and its float32
    operations over 67 TFLOP/s, the H100 SXM's published peaks (an
-   ``expf`` counted as :data:`EXPF_OPS` instructions);
+   ``expf`` counted as :data:`EXPF_OPS` instructions); kernel B at 4096²
+   and 512² (and the device kernels of one call, profiled: at most 4),
+   kernel F per group at offsets 0 and 3;
 6. traces each path's kernel route with ``torch.profiler`` over 5 runs:
    device-busy ms per run, the idle share against the CUDA-event time,
    and the kernels that take the most device time.
@@ -88,6 +94,14 @@ EXPF_OPS = 8
 #: taps of 7 operations and one expf, 3 to finish (centre, division,
 #: detail)
 BIL_OPS = 19 + 20 + 24 * (7 + EXPF_OPS) + 3
+#: the H100 SXM's float32 instruction issue (an FMA counts two of the
+#: 67 TFLOP/s; the bilateral kernels have none) and special-function
+#: pipe (16 ex2 a clock on each of 132 SMs at 1.98 GHz): kernel F's
+#: computed instruction and special-function floors, printed apart from
+#: the measured numbers
+PEAK_F32_INSTR = PEAK_F32 / 2
+PEAK_SFU = 132 * 16 * 1.98e9
+BIL_TAPS = 24
 #: kernel G's power smooth (two folds, five squares) and whitening
 #: epilogue (clamp, sqrt, mask, division, product, recon add)
 BIL_WHITEN_OPS = 2 * FOLD_OPS + 5 + 12
@@ -302,6 +316,38 @@ def main():
             err_b = max(err_b, abs(float(got_h) - float(want)))
             print(f"kernel B {what}: {float(got_h)!r} bitwise == plain == "
                   "np.median")
+        # the adversarial cases: ties past the candidate cap (the later
+        # digits read the plane), the middle pair in two bins of each
+        # digit, and patterns off a 16-byte boundary (the scalar head)
+        n_adv = 0
+        for side in (4096, 512):
+            n = side * side
+            i = np.arange(n + 3)
+            adv = {
+                "all equal": np.full(n + 3, -1.75),
+                "zeros": np.where(rng.random(n + 3) < 0.5, 0.0, -0.0),
+                "subnormals": rng.integers(-2 ** 23, 2 ** 23, n + 3)
+                * 2.0 ** -149,
+                "straddle digit 1": np.where(i < (n + 3) // 2, 0.5, -3.0),
+                "straddle digit 2": np.where(i < (n + 3) // 2, 1.0,
+                                             1.0 + 2.0 ** -12),
+                "straddle digit 3": np.where(
+                    i < (n + 3) // 2, 1.0,
+                    float(np.nextafter(np.float32(1), np.float32(2)))),
+            }
+            for what, host in adv.items():
+                host = host.astype(np.float32)
+                xt = torch.from_numpy(host).to(dev)
+                for head in (0, 3):
+                    got = hopper_stats.median_abs(xt[head:head + n])
+                    want = np.median(np.abs(host[head:head + n]))
+                    got_h = got.cpu().numpy()
+                    require(got_h.tobytes() == want.tobytes(),
+                            f"kernel B {side}² {what} head {head}: "
+                            f"{got_h!r} np.median {want!r}")
+                    n_adv += 1
+        print(f"kernel B: {n_adv} adversarial cases at 4096² and 512² "
+              "bitwise to np.median")
 
     # ---- 3c. kernel C: bitwise ------------------------------------------
     err_c = 0.0
@@ -439,6 +485,38 @@ def main():
             del x
         print(f"kernel F: {n_f} checks passed; 4096² max abs err "
               f"{err_f:.3e}")
+
+        def g_chain(x, sig2, offset, scaling):
+            # the same scales through kernel G's three passes
+            cur, rows = x[None], []
+            for k, var in enumerate(sig2):
+                _, c_next = hopper_deep.deep_bilateral_whiten_step(
+                    cur, torch.zeros(1, device=dev), sf=B3SPLINE,
+                    scale=offset + k, var_factor=var, weight=1.0,
+                    bilateral_scaling=scaling)
+                rows.append(cur - c_next)
+                cur = c_next
+            rows.append(cur)
+            return torch.stack(rows)[:, 0]
+
+        n_fg = 0
+        for shape, offsets, mean in [((4096, 4096), (0, 3), 0.0),
+                                     ((257, 513), range(7), 0.0),
+                                     ((6, 9000), (0, 5), 0.0),
+                                     ((4096, 4096), (0,), 1000.0)]:
+            x = frame(shape, mean=mean)
+            for off in offsets:
+                sig2, scaling = (2.25, 1.0, 0.25), off % 2 == 1
+                got = hopper_bilateral.fused_bilateral_group(
+                    x, 3, B3SPLINE, sig2, off, scaling)
+                want = g_chain(x, sig2, off, scaling)
+                torch.cuda.synchronize()
+                check_bitwise(got, want, f"kernel F {shape} offset={off} "
+                              f"mean {mean} vs kernel G's chain")
+                n_fg += 1
+            del x
+        print(f"kernel F: {n_fg} groups bitwise to kernel G's chain "
+              "(details and carry)")
 
     # ---- 3g. kernel G ---------------------------------------------------
     err_g = {"white": 0.0, "carry": 0.0}
@@ -832,13 +910,36 @@ def main():
                     "smooth in one call"))
 
         # kernel B
-        x = frame((4096, 4096))
-        med_k = timed(lambda: hopper_stats.median_abs(x), torch)
-        med_p = timed(lambda: hopper_stats.median_abs(
-            x, hopper_stats.median_bits2_plain), torch)
-        med_l = timed(lambda: torch.quantile(x.abs(), 0.5), torch)
-        print(f"  kernel B 4096²: {med_k:.3f} ms, plain {med_p:.3f} ms, "
-              f"torch.quantile {med_l:.3f} ms")
+        med = {}
+        for side in (4096, 512):
+            x = frame((side, side))
+            med[side] = (
+                timed(lambda: hopper_stats.median_abs(x), torch),
+                timed(lambda: hopper_stats.median_abs(
+                    x, hopper_stats.median_bits2_plain), torch),
+                timed(lambda: torch.quantile(x.abs(), 0.5), torch),
+                bound_ms(side * side * 4, side * side * 2)[0])
+            print(f"  kernel B {side}²: {med[side][0]:.3f} ms, plain "
+                  f"{med[side][1]:.3f} ms, torch.quantile "
+                  f"{med[side][2]:.3f} ms, bound {med[side][3]:.4f} ms")
+        med_k, med_p, med_l, _ = med[4096]
+        # the device kernels of one call: the plan's launches, at most 4
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        bits = frame((4096, 4096)).reshape(-1).view(torch.int32)
+        ks = hopper_stats.middle_ranks(bits.numel())
+        hopper_stats.median_bits2(bits, ks)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            hopper_stats.median_bits2(bits, ks)
+            torch.cuda.synchronize()
+        b_per_call = sum(e.count for e in prof.key_averages()
+                         if e.device_type == DeviceType.CUDA)
+        require(1 <= b_per_call <= 4,
+                f"kernel B: {b_per_call} device kernels in one call")
+        print(f"  kernel B: {b_per_call} device kernels in one call")
+        del bits
         b_b = bound_ms(plane_bytes, 4096 * 4096 * 2)
         kernels_out.append(dict(
             name="median_select", route="cuda",
@@ -849,7 +950,11 @@ def main():
             max_abs_err=err_b,
             ms=med_k, plain_ms=med_p, bound_ms=b_b[0], bound_by=b_b[1],
             library_ms=med_l, timed="median(|x|) of a 4096² frame",
+            ms_512=med[512][0], plain_ms_512=med[512][1],
+            library_ms_512=med[512][2], bound_ms_512=med[512][3],
+            launches_per_call=b_per_call,
             library="torch.quantile(x.abs(), 0.5) (takes 2^24 elements)"))
+        x = frame((4096, 4096))
 
         # kernel C: one group of 3 scales at 4096²
         c_k = timed(lambda: hopper_conv.fused_group(x, 3, B3SPLINE), torch)
@@ -938,13 +1043,23 @@ def main():
 
         # kernel F: one bilateral group of 3 scales at 4096²
         xf = bil_frame((4096, 4096))
-        f_k = timed(lambda: hopper_bilateral.fused_bilateral_group(
-            xf, 3, B3SPLINE, (1.0,) * 3), torch)
-        f_p = timed(lambda: hopper_bilateral.fused_bilateral_group_plain(
-            xf, 3, B3SPLINE, (1.0,) * 3), torch)
-        print(f"  kernel F 4096² g=3: {f_k:.3f} ms, plain {f_p:.3f} ms")
+        f_t = {}
+        for off in (0, 3):
+            f_t[off] = (
+                timed(lambda: hopper_bilateral.fused_bilateral_group(
+                    xf, 3, B3SPLINE, (1.0,) * 3, off), torch),
+                timed(lambda: hopper_bilateral.fused_bilateral_group_plain(
+                    xf, 3, B3SPLINE, (1.0,) * 3, off), torch))
+            print(f"  kernel F 4096² g=3 offset {off}: {f_t[off][0]:.3f} ms, "
+                  f"plain {f_t[off][1]:.3f} ms")
+        f_k, f_p = f_t[0]
         # read x; write 3 details and the carry
         b_f = bound_ms(5 * plane_bytes, 3 * 4096 * 4096 * BIL_OPS)
+        px3 = 3 * 4096 * 4096
+        print(f"  kernel F computed floors, not measured: instruction "
+              f"issue {px3 * BIL_OPS / PEAK_F32_INSTR * 1e3:.3f} ms, "
+              f"special-function pipe {px3 * BIL_TAPS / PEAK_SFU * 1e3:.3f}"
+              " ms a group of 3 at 4096²")
         kernels_out.append(dict(
             name="bilateral_group", route="cuda",
             source="wavelets_tpu_torch/csrc/bilateral_group.cu",
@@ -954,6 +1069,7 @@ def main():
             max_abs_err=err_f,
             ms=f_k, plain_ms=f_p, bound_ms=b_f[0], bound_by=b_f[1],
             library_ms=None, timed="one group, scales 0-2 at 4096², σ_b 1",
+            ms_offset3=f_t[3][0], plain_ms_offset3=f_t[3][1],
             ops_per_pixel_scale=BIL_OPS, expf_ops=EXPF_OPS,
             library="none: PyTorch has no bilateral filter"))
 

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Where kernels A and E of ``wavelets_tpu_torch`` spend their time, on
-one NVIDIA GPU: times variants of their current sources, each with one
-part changed or cut out, at the main path's shapes.
+"""Where kernels A, B, E and F of ``wavelets_tpu_torch`` spend their
+time, on one NVIDIA GPU: times variants of their current sources, each
+with one part changed or cut out, at the main path's shapes.
 
-    python3 scripts/kernel_variants.py
+    python3 scripts/kernel_variants.py [KERNEL ...]
+
+(``KERNEL``: source names such as ``median_select``; default all.)
 
 Run from the repository root on a machine with a CUDA device and the
 CUDA toolkit.  A variant is either a build of the unmodified source with
@@ -24,7 +26,13 @@ are only timed.
   built; the taps at run time;
 * kernel A's group (``whiten_group.cu``), scales 0-2 at 4096²: as built
   (32-row tile); a 64-row tile; the taps at run time; no whitening
-  epilogue; one fold a lane at a time (no four-way overlap).
+  epilogue; one fold a lane at a time (no four-way overlap);
+* kernel B (``median_select.cu``), median(|x|) at 4096² and 512²: as
+  built, with the device time of each of its four launches;
+* kernel F (``bilateral_group.cu``, ``wt_ring.cuh``), a group of 3 at
+  4096², offsets 0 and 3: as built; segments of 2048 columns (more
+  blocks to an SM); and the instruction counts of its B3spline instance
+  (``cuobjdump -sass``).
 
 Each wall time is the median of 20 runs after 3 warm-ups (CUDA events
 around the wrapper, so the host's launch work is in it); each device
@@ -33,9 +41,11 @@ calls.  The variants run in two rounds, so the spread shows.  The card's
 name and power limit are printed first.
 """
 
+import collections
 import contextlib
 import ctypes
 import dataclasses
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -60,16 +70,21 @@ VARIANTS = {
     "group, no whitening epilogue": ("whiten_group", ("NO_EPILOGUE",),
                                      None),
     "group, one fold a lane": ("whiten_group", ("ONE_FOLD",), None),
+    "median": ("median_select", (), None),
+    "bilateral group": ("bilateral_group", (), None),
+    "bilateral group, 2048-column segments": ("bilateral_group", (),
+                                              "seg 2048"),
 }
 
 
-def build_variants(_build):
-    """One ``nvcc`` per variant with hooks, all at once; name → CDLL."""
+def build_variants(_build, kernels):
+    """One ``nvcc`` per variant with hooks of ``kernels``, all at once;
+    name → CDLL."""
     out_dir = ROOT / "build" / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for i, (name, (kernel, hooks, _)) in enumerate(VARIANTS.items()):
-        if not hooks:
+        if not hooks or kernel not in kernels:
             continue
         so = out_dir / f"v{i}.so"
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS,
@@ -90,6 +105,34 @@ def build_variants(_build):
     return libs
 
 
+def sass_counts(_build, so, function):
+    """Instructions of each function of ``so`` whose name holds
+    ``function``, from ``cuobjdump -sass`` (beside ``nvcc``): the total
+    and those of a few opcodes (MUFU: the special-function pipe)."""
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(cuobjdump), "-sass", str(so)],
+                         capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            if function not in name:
+                name = None
+            else:
+                counts[name] = collections.Counter()
+        elif name and re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            op = line.split("*/")[1].split()
+            op = op[1] if op and op[0].startswith("@") else (op[0] if op
+                                                              else "")
+            c = counts[name]
+            c["all"] += 1
+            for key in ("MUFU", "BRA", "FSEL", "SEL", "LDS", "FMUL", "FADD",
+                        "FFMA"):
+                if op.split(".")[0] == key:
+                    c[key] += 1
+    return counts
+
+
 @contextlib.contextmanager
 def replaced(module, attr, value):
     old = getattr(module, attr)
@@ -106,7 +149,9 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: no CUDA device")
     sys.path.insert(0, str(ROOT))
-    from wavelets_tpu_torch.ops import _build, hopper_conv, hopper_deep
+    from wavelets_tpu_torch.ops import (_build, hopper_bilateral,
+                                        hopper_conv, hopper_deep,
+                                        hopper_stats)
     from wavelets_tpu_torch.ops.filters import B3SPLINE
 
     card = subprocess.run(
@@ -114,7 +159,14 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card)
-    libs = build_variants(_build)
+    kernels = set(sys.argv[1:]) or {k for k, _, _ in VARIANTS.values()}
+    libs = build_variants(_build, kernels)
+    if "bilateral_group" in kernels:
+        # what the compiler made of the ring kernel (B3spline, 32-bit)
+        for fn, c in sass_counts(_build, _build._build("bilateral_group"),
+                                 "bilateral_ring").items():
+            if "ILi2EiLb0EE" in fn:
+                print(f"  SASS {fn}: {dict(c)}")
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -137,9 +189,13 @@ def main():
             for _ in range(5):
                 fn()
             torch.cuda.synchronize()
-        dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                     if e.device_type == DeviceType.CUDA) / 5e3
-        return float(np.median(ms)), dev_ms
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        dev_ms = sum(e.self_device_time_total for e in kern) / 5e3
+        parts = {e.key.replace("(anonymous namespace)::", "")
+                 .split("(")[0][:24]: e.self_device_time_total / 5e3
+                 for e in kern}
+        return float(np.median(ms)), dev_ms, parts
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -157,14 +213,37 @@ def main():
             p, tile_h=64, grid=(p.grid[0], -(-a[1] // 64), p.grid[2]),
             smem_bytes=hopper_conv._group_smem(64, p.halo, p.halo_cols))
 
+    bil_plan = hopper_bilateral.bilateral_plan
+
+    def seg2048(B, H, W, D, hw):
+        p = bil_plan(B, H, W, D, hw)
+        seg = min(2048, W)
+        return dataclasses.replace(
+            p, seg=seg, grid=(p.grid[0], -(-W // seg), B),
+            smem_bytes=hopper_bilateral.ring_smem(hw, D, seg))
+
     plans = {
+        "seg 2048": (hopper_bilateral, "bilateral_plan", seg2048),
         "tile 64": (hopper_conv, "group_plan", tile64),
         "cluster 1": (hopper_deep, "pair_plan", lambda *a: dataclasses
                       .replace(pair_plan(*a), cluster=1)),
     }
 
+    x512 = torch.from_numpy(rng.normal(size=(512, 512)).astype(np.float32)
+                            ).to(dev)
+    xb = torch.from_numpy(rng.normal(size=(4096, 4096)).astype(np.float32)
+                          * 3).to(dev)
+
     def runs(kernel):
-        if kernel == "whiten_pair":
+        if kernel == "median_select":
+            yield "4096²", lambda: hopper_stats.median_abs(x[0])
+            yield "512²", lambda: hopper_stats.median_abs(x512)
+        elif kernel == "bilateral_group":
+            for off in (0, 3):
+                yield f"offset {off}", lambda off=off: (
+                    hopper_bilateral.fused_bilateral_group(
+                        xb, 3, B3SPLINE, (1.0,) * 3, off))
+        elif kernel == "whiten_pair":
             yield "(7, 8)", lambda: hopper_deep.deep_whiten_step2(
                 x, recon, thr2, sf=B3SPLINE, scale=7, weights=(1.0, 1.0),
                 masked=(True, False))
@@ -182,6 +261,8 @@ def main():
           "device (profiler)")
     for rnd in range(2):
         for name, (kernel, _, plan) in VARIANTS.items():
+            if kernel not in kernels:
+                continue
             lib = libs.get(name)
             with contextlib.ExitStack() as stack:
                 if lib is not None:
@@ -191,9 +272,12 @@ def main():
                 if plan is not None:
                     stack.enter_context(replaced(*plans[plan]))
                 for what, fn in runs(kernel):
-                    wall, dev_ms = timed(fn)
+                    wall, dev_ms, parts = timed(fn)
                     print(f"  round {rnd}: {name:32s} {what:14s} "
                           f"wall {wall:.3f} device {dev_ms:.3f}")
+                    if kernel == "median_select":
+                        print("      " + ", ".join(
+                            f"{k} {v:.4f}" for k, v in parts.items()))
             sys.stdout.flush()
 
 

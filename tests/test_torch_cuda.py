@@ -11,7 +11,8 @@ kernel E's carry bitwise; whitened planes, ``acc``, the gamma sum and the
 reconstruction within ``5e-6·max(|ref|, 1)`` (``erff`` against
 ``torch.erf``); kernel B bitwise; kernels F and G (the bilateral chain,
 rounded step by step in both versions) within ``5e-6·max(|ref|, 1)``
-(``expf`` against ``torch.exp``)."""
+(``expf`` against ``torch.exp``), and kernel F bitwise to the same scales
+run through kernel G's three-pass chain (``expf`` on both sides)."""
 
 import dataclasses
 
@@ -239,7 +240,11 @@ def test_plan_variants_run_and_keep_the_bits(dev, monkeypatch, variant):
 @pytest.mark.parametrize("kernel,change", [
     ("group", dict(grid=(1, 4, 1))), ("group", dict(smem_bytes=4096)),
     ("step", dict(grid=(100, 1, 1))), ("step", dict(smem_bytes=64)),
-    ("pair", dict(cluster=3)), ("pair", dict(grid=(8, 4, 1)))])
+    ("pair", dict(cluster=3)), ("pair", dict(grid=(8, 4, 1))),
+    ("select", dict(scratch_bytes=1024)), ("select", dict(blocks=0)),
+    ("select", dict(cap=1 << 20)),
+    ("bilateral", dict(smem_bytes=1024)), ("bilateral", dict(rows=0)),
+    ("bilateral", dict(grid=(1, 1, 1)))])
 def test_a_plan_the_kernel_cannot_run_is_refused(dev, monkeypatch, kernel,
                                                  change):
     # the C entry checks the plan it is given and refuses it before any
@@ -256,6 +261,11 @@ def test_a_plan_the_kernel_cannot_run_is_refused(dev, monkeypatch, kernel,
         "pair": (hopper_deep, "pair_plan", lambda: hopper_deep
                  .deep_whiten_step2(x, None, thr[:2], sf=B3SPLINE, scale=4,
                                     weights=(1.0, 1.0))),
+        "select": (hopper_stats, "select_plan",
+                   lambda: hopper_stats.median_abs(x)),
+        "bilateral": (hopper_bilateral, "bilateral_plan", lambda:
+                      hopper_bilateral.fused_bilateral_group(
+                          x, 2, B3SPLINE, (1.0, 1.0))),
     }
     module, name, run = runs[kernel]
     _replan(monkeypatch, module, name, **change)
@@ -569,3 +579,149 @@ def test_bilateral_wrappers_refuse_what_the_kernels_cannot_take(dev):
     with pytest.raises(ValueError):
         hopper_bilateral.fused_bilateral_group(
             torch.zeros(16, 16, device=dev), 2, B3SPLINE, (1.0,))
+
+
+def _select_case(kind, n, rng):
+    i = np.arange(n)
+    if kind == "normal":
+        return rng.normal(size=n)
+    if kind == "equal":
+        return np.full(n, -1.75)
+    if kind == "zeros":
+        return np.where(rng.random(n) < 0.5, 0.0, -0.0)
+    if kind == "subnormal":
+        return rng.integers(-2 ** 23, 2 ** 23, n) * 2.0 ** -149
+    if kind == "ties":
+        return rng.choice([-2.0, 0.0, 1.0, 2.5], size=n)
+    if kind == "straddle1":   # the middle pair in two first-digit bins
+        return np.where(i < n // 2, 0.5, -3.0)
+    if kind == "straddle2":   # ... in two second-digit bins
+        return np.where(i < n // 2, 1.0, 1.0 + 2.0 ** -12)
+    # ... in two last-digit bins
+    return np.where(i < n // 2, 1.0,
+                    float(np.nextafter(np.float32(1), np.float32(2))))
+
+
+@pytest.mark.parametrize("side", [512, 4096])
+@pytest.mark.parametrize("kind", ["normal", "equal", "zeros", "subnormal",
+                                  "ties", "straddle1", "straddle2",
+                                  "straddle3"])
+@pytest.mark.parametrize("head", [0, 3])
+def test_median_kernel_adversarial_bitwise(dev, side, kind, head):
+    # ties past the candidate cap read the plane again; ``head`` patterns
+    # before the first 16-byte boundary take the scalar head path
+    n = side * side + (1 if side == 512 else 0)
+    x = _select_case(kind, n + head, np.random.default_rng(side))
+    x = x.astype(np.float32)
+    xt = torch.from_numpy(x).to(dev)[head:]
+    _build.reset_counters()
+    got = hopper_stats.median_abs(xt)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"median_select": 1}
+    assert to_np(got).tobytes() == np.median(np.abs(x[head:])).tobytes()
+
+
+@pytest.mark.parametrize("cap", [1, None])
+def test_median_kernel_either_route_keeps_the_bits(dev, monkeypatch, cap):
+    # a cap of one candidate sends every digit after the first to the
+    # plane; the answer is the same
+    x = np.random.default_rng(4).normal(size=300001).astype(np.float32)
+    if cap is not None:
+        _replan(monkeypatch, hopper_stats, "select_plan", cap=cap)
+    got = hopper_stats.median_abs(torch.from_numpy(x).to(dev))
+    assert to_np(got).tobytes() == np.median(np.abs(x)).tobytes()
+
+
+def _g_chain(x, sf, variances, offset, scaling):
+    """The same bilateral scales through kernel G's three-pass chain
+    (wt_bilateral.cuh): details, then the carry."""
+    cur = x if x.ndim == 3 else x[None]
+    rows = []
+    for k, var in enumerate(variances):
+        _, c_next = hopper_deep.deep_bilateral_whiten_step(
+            cur, torch.zeros(cur.shape[0], device=cur.device), sf=sf,
+            scale=offset + k, var_factor=var, weight=1.0,
+            bilateral_scaling=scaling)
+        rows.append(cur - c_next)
+        cur = c_next
+    rows.append(cur)
+    out = torch.stack(rows)
+    return out if x.ndim == 3 else out[:, 0]
+
+
+@pytest.mark.parametrize("shape", [(37, 70), (2, 257, 96), (6, 9000)])
+@pytest.mark.parametrize("offset", list(range(7)))
+@pytest.mark.parametrize("sf", [B3SPLINE, TRIANGLE], ids=["b3", "tri"])
+def test_bilateral_ring_bitwise_to_kernel_g_chain(dev, shape, offset, sf):
+    # every offset 0-6, odd shapes (H, W below hw·D from offset 4), a width
+    # that needs row segments
+    x = torch.from_numpy(np.random.default_rng(offset).normal(size=shape)
+                         .astype(np.float32)).to(dev)
+    variances, scaling = (2.25, 1.0, 0.25), offset % 2 == 1
+    _build.reset_counters()
+    got = hopper_bilateral.fused_bilateral_group(x, 3, sf, variances, offset,
+                                                 scaling)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"bilateral_group": 1}
+    want = _g_chain(x, sf, variances, offset, scaling)
+    assert torch.equal(got, want)
+    assert_close_scaled(got, hopper_bilateral.fused_bilateral_group_plain(
+        x, 3, sf, variances, offset, scaling), 5e-6)
+
+
+def test_bilateral_ring_bitwise_at_mean_1000(dev):
+    x = torch.from_numpy((np.random.default_rng(7).normal(size=(257, 513))
+                          + 1000).astype(np.float32)).to(dev)
+    got = hopper_bilateral.fused_bilateral_group(x, 3, B3SPLINE, (1.0,) * 3)
+    assert torch.equal(got, _g_chain(x, B3SPLINE, (1.0,) * 3, 0, False))
+
+
+@pytest.mark.parametrize("seg", [256, 1024])
+def test_bilateral_plan_variants_keep_the_bits(dev, monkeypatch, seg):
+    # narrower segments (the windows layout where D >= seg) launch the
+    # same arithmetic
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=(64, 2048))
+                         .astype(np.float32)).to(dev)
+    want = hopper_bilateral.fused_bilateral_group(x, 3, B3SPLINE, (1.0,) * 3,
+                                                  6)
+    plan = hopper_bilateral.bilateral_plan
+
+    def narrower(B, H, W, D, hw):
+        p = plan(B, H, W, D, hw)
+        return dataclasses.replace(
+            p, seg=seg, grid=(p.grid[0], -(-W // seg), B),
+            smem_bytes=hopper_bilateral.ring_smem(hw, D, seg))
+
+    monkeypatch.setattr(hopper_bilateral, "bilateral_plan", narrower)
+    got = hopper_bilateral.fused_bilateral_group(x, 3, B3SPLINE, (1.0,) * 3,
+                                                 6)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shift", [1, 2])
+def test_bilateral_ring_off_a_16_byte_boundary(dev, shift):
+    # a frame that starts off a 16-byte boundary: the ring rows' in-frame
+    # columns go in 4-byte copies, the bits stay
+    H, W = 64, 1024
+    buf = torch.from_numpy(np.random.default_rng(shift).normal(
+        size=H * W + shift).astype(np.float32)).to(dev)
+    x = buf[shift:].view(H, W)
+    assert x.data_ptr() % 16 != 0
+    got = hopper_bilateral.fused_bilateral_group(x, 3, B3SPLINE, (1.0,) * 3)
+    assert torch.equal(got, _g_chain(x.clone(), B3SPLINE, (1.0,) * 3, 0,
+                                     False))
+
+
+@pytest.mark.parametrize("offset", [7, 27, 30, 58])
+def test_bilateral_ring_past_the_maps_period(dev, offset):
+    # dilations of 2H and beyond run as their remainder mod 2H, 2W: at
+    # 64 x 64 every one from 2^7 on names the same taps
+    x = torch.from_numpy(np.random.default_rng(offset).normal(size=(2, 64, 64))
+                         .astype(np.float32)).to(dev)
+    variances = (2.25, 1.0, 0.25)
+    got = hopper_bilateral.fused_bilateral_group(x, 3, B3SPLINE, variances,
+                                                 offset)
+    assert torch.equal(got, hopper_bilateral.fused_bilateral_group(
+        x, 3, B3SPLINE, variances, 7))
+    assert_close_scaled(got, hopper_bilateral.fused_bilateral_group_plain(
+        x, 3, B3SPLINE, variances, offset), 5e-6)

@@ -20,6 +20,14 @@ checks it and launches it as given, so these plans are what runs.
   mapping: every torus point of every block of a cluster is loaded once,
   from the image point the torus names, in sector-complete runs of
   contiguous columns.
+* ``hopper_bilateral.bilateral_plan`` (kernel F): the ring and its
+  ``tm``, ``tq`` rows within the shared memory, residue-class chunks
+  covering every row once, segments covering every column and their
+  layout holding every tap's column, dilations past the symmetric map's
+  period taken modulo it; and ``csrc/wt_ring.cuh``'s ring algorithm
+  replayed in float32 torch, one operation at a time as the kernel
+  rounds (``torch.exp`` on both sides here): bitwise the plain version's
+  details and carry.
 """
 
 import numpy as np
@@ -28,7 +36,8 @@ import torch
 
 from tests.torch_parity import assert_close_scaled
 from wavelets_tpu.ops import pallas_conv
-from wavelets_tpu_torch.ops import _build, hopper_conv, hopper_deep
+from wavelets_tpu_torch.ops import (_build, hopper_bilateral, hopper_conv,
+                                    hopper_deep)
 from wavelets_tpu_torch.ops.filters import B3SPLINE, TRIANGLE
 
 SFS = {"b3": B3SPLINE, "tri": TRIANGLE}
@@ -282,3 +291,287 @@ def test_pair_cluster_sectors(H, W, s):
                         assert 0 <= col < W
                         assert 0 <= _torus_pos(u, M, r, D) < H
         assert (written == 1).all()
+
+
+def _sym(k, n):
+    p = np.mod(k, 2 * n)
+    return np.where(p < n, p, 2 * n - 1 - p)
+
+
+def _ring_columns(plan, by, D, hw, W):
+    """The image column each shared index of a ring row holds (before and
+    after the symmetric map), as wt_ring.cuh's load_row lays them out for
+    the true dilation ``D``."""
+    D = hopper_bilateral.map_step(D, W)
+    S = min(D, plan.seg)
+    v = np.arange(hopper_bilateral.ring_span(hw, D, plan.seg))
+    q = v // S
+    raw = by * plan.seg + (q - hw) * D + (v - q * S)
+    return raw, _sym(raw, W)
+
+
+def _ring_blocks(plan, H, D):
+    """(class, first row index, end) of every block row of the grid that
+    has rows, as bilateral_ring picks them for the true dilation ``D``."""
+    n_cls = min(D, H)
+    D = hopper_bilateral.map_step(D, H)
+    for bx in range(plan.grid[0]):
+        cls, i0 = bx % n_cls, (bx // n_cls) * plan.rows
+        P = -(-(H - cls) // D)
+        if i0 < P:
+            yield cls, i0, min(i0 + plan.rows, P)
+
+
+@pytest.mark.parametrize("shape", [(1, 4096, 4096), (1, 512, 512),
+                                   (2, 37, 70), (1, 8, 9000), (1, 257, 513),
+                                   (3, 5, 3)])
+@pytest.mark.parametrize("s", [0, 1, 3, 4, 6, 9, 12])
+@pytest.mark.parametrize("hw", [1, 2, 4])
+def test_bilateral_plan(shape, s, hw):
+    B, H, W = shape
+    D = 1 << s
+    plan = hopper_bilateral.bilateral_plan(B, H, W, D, hw)
+    span = hopper_bilateral.ring_span(hw, D, plan.seg)
+    assert plan.smem_bytes == hopper_bilateral.ring_smem(hw, D, plan.seg)
+    # 2hw+1 slots, each a span started up to 3 floats in on a 16-byte
+    # boundary, then the tm and tq rows
+    assert plan.smem_bytes >= 4 * ((2 * hw + 1) * (span + 3) + 2 * span)
+    assert plan.smem_bytes % 16 == 8 * span % 16
+    assert plan.smem_bytes <= hopper_conv.SMEM_OPTIN == 232448
+    # narrower only where no wider segment fits two blocks to an SM
+    wider = [w for w in ((W,) if W <= 4096 else ()) + (4096, 2048, 1024, 512,
+                                                      256)
+             if plan.seg < w <= W]
+    assert all(hopper_bilateral.ring_smem(hw, D, w)
+               > hopper_conv.SMEM_TWO_PER_SM for w in wider)
+    assert plan.grid[2] == B
+    assert plan.index_bits == 32
+    # every row once, in chunks of one residue class
+    Dr = hopper_bilateral.map_step(D, H)
+    rows = [cls + i * Dr for cls, i0, i1 in _ring_blocks(plan, H, D)
+            for i in range(i0, i1)]
+    assert sorted(rows) == list(range(H))
+    assert 1 <= plan.rows <= hopper_bilateral.RING_ROWS
+    # every column once, and each tap's column in the segment's layout
+    gy = plan.grid[1]
+    assert gy * plan.seg >= W > (gy - 1) * plan.seg
+    S = min(D, plan.seg)
+    for by in {0, gy - 1}:
+        raw, mapped = _ring_columns(plan, by, D, hw, W)
+        assert ((0 <= mapped) & (mapped < W)).all()
+        u = np.arange(min(plan.seg, W - by * plan.seg))
+        for dx in range(-hw, hw + 1):
+            want = _sym(by * plan.seg + u + dx * D, W)
+            assert (mapped[(dx + hw) * S + u] == want).all()
+
+
+@pytest.mark.parametrize("n", [1, 2, 5, 37, 4096])
+@pytest.mark.parametrize("s", [0, 3, 12, 13, 27, 40, 62])
+def test_map_step_names_the_same_taps(n, s):
+    # the symmetric map's period is 2n: the kernel's dilation names the
+    # true one's taps, residue classes and segment layout in 32 bits
+    D = 1 << s
+    step = hopper_bilateral.map_step(D, n)
+    assert step == D if D < 2 * n else 2 * n <= step < 4 * n
+    k = np.arange(-3 * n, 4 * n).astype(object)   # Python ints: no overflow
+    for j in range(-4, 5):
+        assert (_sym(k + j * step, n) == _sym(k + j * D, n)).all()
+    assert min(step, n) == min(D, n)          # the residue classes
+    if D >= n:                                # one row a class
+        assert (-(-(n - np.arange(n)) // step) == 1).all()
+    for seg in {1, n // 2 + 1, n}:            # the segment layout's S
+        assert min(step, seg) == min(D, seg)
+
+
+def _load_span(d_off, g_off, c0, length, W):
+    """wt_ring.cuh's load_span on float offsets mod 16 bytes: ``d_off``
+    of ``dst``, ``g_off`` of ``row`` → (column each index gets, copies of
+    each index, shared offsets of the 16-byte copies, their global
+    offsets)."""
+    lo = min(max(-c0, 0), length)
+    hi = max(min(W - c0, length), lo)
+    col = np.full(length, -1)
+    hits = np.zeros(length, int)
+    for v in range(lo + length - hi):         # reflected, one by one
+        u = v if v < lo else hi + (v - lo)
+        col[u] = _sym(c0 + u, W)
+        hits[u] += 1
+    d, g, n = d_off + lo, g_off + c0 + lo, hi - lo
+    head, n4 = n, 0
+    if (d - g) % 4 == 0:
+        head = min(n, (4 - d % 4) % 4)
+        n4 = (n - head) // 4
+    starts = lo + head + 4 * np.arange(n4)
+    for u0 in starts:                          # 16 bytes a copy
+        col[u0:u0 + 4] = c0 + np.arange(u0, u0 + 4)
+        hits[u0:u0 + 4] += 1
+    for v in range(n - 4 * n4):                # the head and the tail
+        u = lo + (v if v < head else v + 4 * n4)
+        col[u] = c0 + u
+        hits[u] += 1
+    return col, hits, d_off + starts, g_off + c0 + starts
+
+
+@pytest.mark.parametrize("c0,length,W", [
+    (-2, 4100, 4096), (-8, 4112, 4096), (0, 2048, 4096), (-8, 70, 9),
+    (5, 16, 70), (60, 16, 70), (-100, 16, 13), (-3, 40, 37)])
+@pytest.mark.parametrize("d_off,g_off", [(0, 0), (2, 2), (1, 3), (3, 0)])
+def test_ring_load_span(c0, length, W, d_off, g_off):
+    col, hits, d16, g16 = _load_span(d_off, g_off, c0, length, W)
+    assert (hits == 1).all()
+    assert (col == _sym(c0 + np.arange(length), W)).all()
+    assert (d16 % 4 == 0).all() and (g16 % 4 == 0).all()
+    # where index 0's shared and global addresses agree mod 16 bytes, at
+    # most 3 + 3 of the frame's columns go one by one
+    inside = int(((c0 + np.arange(length) >= 0)
+                  & (c0 + np.arange(length) < W)).sum())
+    if (d_off - g_off - c0) % 4 == 0:
+        assert inside - 4 * len(d16) <= 6
+
+
+@pytest.mark.parametrize("W", [4096, 512, 9000])
+@pytest.mark.parametrize("s", [0, 1, 2, 3, 7, 12])
+def test_ring_rows_start_where_the_frame_is_16_byte_aligned(W, s):
+    # a ring row starts c0 mod 4 floats past a 16-byte boundary, so on a
+    # frame of rows a multiple of 16 bytes every block's in-frame columns
+    # copy 16 bytes at a time
+    hw = 2
+    D = 1 << s
+    plan = hopper_bilateral.bilateral_plan(1, 64, W, D, hw)
+    span = hopper_bilateral.ring_span(hw, D, plan.seg)
+    stride = -(-(span + 3) // 4) * 4
+    for by in range(plan.grid[1]):
+        w0 = by * plan.seg
+        c0 = w0 - hw * hopper_bilateral.map_step(D, W)
+        pad = c0 % 4
+        for slot in range(2 * hw + 1):
+            base = slot * stride + pad
+            assert base + span <= (slot + 1) * stride
+            if D < plan.seg:
+                pieces = [(base, c0, span)]
+            else:
+                pieces = [(base + q * plan.seg, w0 + (q - hw) * D, plan.seg)
+                          for q in range(2 * hw + 1)]
+            for d_off, c, n in pieces:
+                assert (d_off - c) % 4 == 0   # the row itself is aligned
+                col, hits, _, _ = _load_span(d_off % 4, 0, c, n, W)
+                assert (hits == 1).all()
+
+
+def test_bilateral_plan_refuses_what_the_kernel_cannot_take():
+    with pytest.raises(ValueError, match="half width"):
+        hopper_bilateral.bilateral_plan(1, 64, 64, 1, 5)
+    with pytest.raises(ValueError, match="dilation"):
+        hopper_bilateral.bilateral_plan(1, 64, 64, 1 << 63, 2)
+    with pytest.raises(ValueError, match="32-bit"):
+        hopper_bilateral.bilateral_plan(1, 1 << 29, 1, 1 << 29, 2)
+    # the scale does not bound the plan: a dilation past the map's period
+    # runs as its remainder
+    assert (hopper_bilateral.bilateral_plan(1, 64, 64, 1 << 40, 2)
+            == hopper_bilateral.bilateral_plan(1, 64, 64, 256, 2))
+    assert hopper_bilateral.bilateral_plan(3000, 1000, 1000, 1,
+                                           2).index_bits == 64
+
+
+def _replay_ring_scale(carry, sf, D, sig2, scl, plan):
+    """wt_ring.cuh's bilateral_ring on one (H, W) float32 frame, block by
+    block and row by row, each step one float32 torch operation in the
+    kernel's order → (c_next, detail)."""
+    H, W = carry.shape
+    hw = sf.half_width
+    N = 2 * hw + 1
+    f32 = torch.float32
+    t = [torch.tensor(sf.taps[hw + j], dtype=f32) for j in range(hw + 1)]
+    kern = torch.from_numpy(sf.kernel_nd(2)).to(f32)
+    sig2 = torch.tensor(sig2, dtype=f32)
+    scl = torch.tensor(scl, dtype=f32)
+    S = min(D, plan.seg)
+    c_next = torch.full_like(carry, float("nan"))
+    detail = torch.full_like(carry, float("nan"))
+    written = np.zeros((H, W), int)
+    for cls, i0, i1 in _ring_blocks(plan, H, D):
+        for by in range(plan.grid[1]):
+            w0 = by * plan.seg
+            u = torch.arange(min(plan.seg, W - w0))
+            cols = torch.from_numpy(_ring_columns(plan, by, D, hw, W)[1])
+            Dr = hopper_bilateral.map_step(D, H)
+            h = cls + i0 * Dr
+            ring = [carry[int(_sym(h + (j - hw) * Dr, H))][cols]
+                    for j in range(N)]
+            slot0 = 0
+            for i in range(i0, i1):
+                ro = [ring[(slot0 + j) % N] for j in range(N)]
+                c = ro[hw]
+                m, q = c * t[0], (c * c) * t[0]
+                for j in range(1, hw + 1):
+                    lo, hi = ro[hw - j], ro[hw + j]
+                    m = m + t[j] * (lo + hi)
+                    q = q + t[j] * (lo * lo + hi * hi)
+                vc = hw * S + u
+                mean, m2 = m[vc] * t[0], q[vc] * t[0]
+                for j in range(1, hw + 1):
+                    mean = mean + t[j] * (m[vc - j * S] + m[vc + j * S])
+                    m2 = m2 + t[j] * (q[vc - j * S] + q[vc + j * S])
+                vari = m2 - mean * mean
+                vari = torch.where(vari <= 0, torch.tensor(1e-20, dtype=f32),
+                                   vari)
+                iv = torch.div(torch.tensor(0.5, dtype=f32),
+                               (vari * sig2) * scl)
+                cc = c[vc]
+                acc = cc * kern[hw, hw]
+                nrm = torch.full_like(cc, float(kern[hw, hw]))
+                for ty in range(N):
+                    for tx in range(N):
+                        k = kern[N - 1 - ty, N - 1 - tx]
+                        if (ty, tx) == (hw, hw) or float(k) == 0.0:
+                            continue
+                        sh = ro[N - 1 - ty][(N - 1 - tx) * S + u]
+                        diff = cc - sh
+                        w = k * torch.exp(-(diff * diff) * iv)
+                        nrm = nrm + w
+                        acc = acc + w * sh
+                cn = acc / nrm
+                c_next[h, w0 + u] = cn
+                detail[h, w0 + u] = cc - cn
+                written[h, w0 + u.numpy()] += 1
+                if i + 1 < i1:
+                    ring[slot0] = carry[int(_sym(h + (hw + 1) * Dr, H))][cols]
+                    slot0 = (slot0 + 1) % N
+                    h += Dr
+    assert (written == 1).all()
+    return c_next, detail
+
+
+@pytest.mark.parametrize("shape,offset,seg", [
+    ((37, 70), 0, None), ((37, 70), 1, None), ((37, 70), 2, None),
+    ((37, 70), 3, 16),       # segments with a contiguous halo, then windows
+    ((37, 70), 4, None), ((37, 70), 5, 24), ((37, 70), 6, None),
+    ((9, 13), 2, 4),         # H, W below hw·D: the taps reflect many times
+    ((20, 33), 0, 8),
+    ((9, 13), 27, None),     # dilations past the map's period, 2H and 2W
+    ((20, 33), 30, 8), ((37, 70), 58, None),
+])
+@pytest.mark.parametrize("sf", ["b3", "tri"])
+def test_ring_algorithm_replayed(shape, offset, seg, sf):
+    spec = SFS[sf]
+    x = torch.from_numpy(np.random.default_rng(offset).normal(size=shape)
+                         .astype(np.float32))
+    variances, scaling = (2.25, 1.0, 0.25), offset % 2 == 1
+    cur, rows = x, []
+    for k in range(3):
+        D = 1 << (offset + k)
+        plan = hopper_bilateral.bilateral_plan(1, *shape, D, spec.half_width)
+        if seg is not None:
+            plan = hopper_bilateral.BilateralPlan(
+                plan.rows, seg, plan.smem_bytes,
+                (plan.grid[0], -(-shape[1] // seg), 1), plan.index_bits)
+        cur_next, det = _replay_ring_scale(
+            cur, spec, D, variances[k],
+            float(offset + k + 1) if scaling else 1.0, plan)
+        rows.append(det)
+        cur = cur_next
+    rows.append(cur)
+    want = hopper_bilateral.fused_bilateral_group_plain(
+        x, 3, spec, variances, offset, scaling)
+    got = torch.stack(rows)
+    assert torch.equal(got, want)

@@ -16,16 +16,18 @@ tail)`` contract.  Per scale ``s = offset + k`` of a group:
 
 This is the JAX package's XLA order (``ops/conv.py::local_variance``,
 ``atrous_conv_nd``; the TPU kernel regroups ``(0.5/σ²)/vari``), which the
-plain version :func:`~.conv.bilateral_smooth` follows too.  Groups are of
-:data:`~.hopper_conv.N_FAST` scales; the kernel takes any dilation, so the
-split groups launches and changes no number: there is no tile planner
-and no plain tail.  A CPU tensor runs the plain version; a CUDA tensor
-runs kernel F or raises.
+plain version :func:`~.conv.bilateral_smooth` follows too.  On the card
+each scale is one launch of the ring kernel (``csrc/wt_ring.cuh``) that
+:func:`bilateral_plan` sizes.  Groups are of :data:`~.hopper_conv.N_FAST`
+scales; the kernel takes any dilation, so the split groups launches and
+changes no number: there is no tile planner and no plain tail.  A CPU
+tensor runs the plain version; a CUDA tensor runs kernel F or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Sequence, Tuple
 
 import torch
@@ -33,17 +35,107 @@ import torch
 from . import _build
 from .conv import bilateral_smooth
 from .filters import ScalingFunction
-from .hopper_conv import _ptr, check_kernel_input, group_pieces
+from .hopper_conv import (SMEM_OPTIN, SMEM_TWO_PER_SM, _ptr,
+                          check_kernel_input, group_pieces)
 from .layout import stack_planes
 
 __all__ = ["fused_bilateral_group", "fused_bilateral_group_plain",
-           "fused_bilateral_pieces", "kernel_weights", "MAX_HW"]
+           "fused_bilateral_pieces", "kernel_weights", "MAX_HW",
+           "BilateralPlan", "bilateral_plan", "ring_span", "ring_smem",
+           "map_step"]
 
 KERNEL = "bilateral_group"
 
 #: largest half width the bilateral kernels take (WT_BIL_MAX_HW, a 9×9
 #: dense kernel); the B3spline has 2, the triangle 1
 MAX_HW = 4
+
+#: output rows of a residue class a block walks on its ring, at most: the
+#: ring's warm-up loads 2·hw more rows per chunk; fewer rows a chunk
+#: where the frame would give fewer than :data:`RING_BLOCKS` blocks
+RING_ROWS = 16
+RING_MIN_ROWS = 4
+#: blocks a launch should give the card: two to each of the H100's 132 SMs
+RING_BLOCKS = 264
+#: output columns of a block: whole rows up to the first, else segments
+#: of the first of these that fits (two blocks to an SM where one does)
+RING_SEGS = (4096, 2048, 1024, 512, 256)
+
+
+def ring_span(hw: int, D: int, seg: int) -> int:
+    """Floats of one ring row of kernel F's block: ``seg`` output columns
+    and the taps' reach, ``2·hw·min(D, seg)`` (``csrc/wt_ring.cuh``'s
+    segment layout: a contiguous ``hw·D`` halo where ``D < seg``, else the
+    ``2hw+1`` windows of the taps side by side)."""
+    return 2 * hw * min(D, seg) + seg
+
+
+def ring_smem(hw: int, D: int, seg: int) -> int:
+    """Shared bytes of kernel F's block: ``2hw+1`` ring slots, each the
+    span with room to start it up to 3 floats in (so that in-frame
+    columns copy 16 bytes at a time), rounded to 16 bytes, then the
+    ``tm`` and ``tq`` rows."""
+    span = ring_span(hw, D, seg)
+    return 4 * ((2 * hw + 1) * (-(-(span + 3) // 4) * 4) + 2 * span)
+
+
+def map_step(D: int, n: int) -> int:
+    """The dilation kernel F takes on an axis of ``n`` for a true
+    dilation ``D``: ``D``, or from ``2n`` on (the symmetric index map's
+    period) ``2n + D mod 2n``, which names the same taps, residue classes
+    and segment layout in 32-bit index math."""
+    return D if D < 2 * n else 2 * n + D % (2 * n)
+
+
+@dataclass(frozen=True)
+class BilateralPlan:
+    """Kernel F's launch for one scale, passed to
+    ``csrc/bilateral_group.cu`` as it stands (the C entry checks it and
+    launches it): ``rows`` output rows of a residue class per block,
+    segments of ``seg`` columns, ``smem_bytes`` of shared memory (the
+    ``2hw+1`` ring rows and the ``tm``, ``tq`` rows), ``grid = (classes ×
+    chunks, segments, frames)``, 32- or 64-bit offsets."""
+    rows: int
+    seg: int
+    smem_bytes: int
+    grid: Tuple[int, int, int]
+    index_bits: int
+
+
+def bilateral_plan(B: int, H: int, W: int, D: int, hw: int) -> BilateralPlan:
+    """Kernel F's launch at dilation ``D`` on a ``(B, H, W)`` stack with
+    taps of half width ``hw``: whole rows where they fit, else the widest
+    segment of :data:`RING_SEGS`, two blocks to an SM where any fits so;
+    raises where not even the narrowest segment fits the shared memory,
+    or where the taps' reach (:func:`map_step`) passes 32-bit index
+    math."""
+    if not 1 <= hw <= MAX_HW:
+        raise ValueError(f"bilateral_plan: half width {hw} not in "
+                         f"1..{MAX_HW}")
+    if not 1 <= D < 2 ** 63:
+        raise ValueError(f"bilateral_plan: dilation {D} not in 1..2^62")
+    segs = ([W] if W <= RING_SEGS[0] else []) + [s for s in RING_SEGS
+                                                  if s < W]
+    for limit in (SMEM_TWO_PER_SM, SMEM_OPTIN):
+        for seg in segs:
+            smem = ring_smem(hw, D, seg)
+            if smem <= limit:
+                if max(H + (hw + 1) * map_step(D, H),
+                       W + seg + hw * map_step(D, W)) >= 2 ** 31:
+                    raise ValueError(
+                        f"bilateral_plan: the taps of a {H}x{W} frame at "
+                        f"dilation {D} reach past 32-bit index math "
+                        "(2^31)")
+                n_cls, P = min(D, H), -(-H // D)
+                n_segs = -(-W // seg)
+                rows = min(RING_ROWS, P, max(
+                    RING_MIN_ROWS, -(-n_cls * P * n_segs * B // RING_BLOCKS)))
+                grid = (n_cls * -(-P // rows), n_segs, B)
+                return BilateralPlan(rows, seg, smem, grid,
+                                     32 if B * H * W < 2 ** 31 else 64)
+    raise ValueError(f"bilateral_plan: the ring of a {segs[-1]}-column "
+                     f"segment at dilation {D} does not fit the shared "
+                     "memory")
 
 
 def _check_input(x: torch.Tensor, sf: ScalingFunction) -> None:
@@ -66,9 +158,10 @@ def kernel_weights(sf: ScalingFunction):
 def _lib():
     lib = _build.load(KERNEL)
     fn = lib.wt_bilateral_group_f32
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
                    + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
-                   + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
+                   + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 5
+                   + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
@@ -113,7 +206,8 @@ def fused_bilateral_group(x: torch.Tensor, level: int, sf: ScalingFunction,
     keeps the XLA chain's two roundings).  ``x`` is ``(H, W)`` or a frame
     stack ``(B, H, W)``.  A CPU ``x`` runs
     :func:`fused_bilateral_group_plain`; a CUDA ``x`` runs kernel F
-    (``csrc/bilateral_group.cu``) or raises."""
+    (``csrc/bilateral_group.cu``, one launch per scale as
+    :func:`bilateral_plan` says) or raises."""
     if not x.is_cuda:
         return fused_bilateral_group_plain(x, level, sf, variances, offset,
                                            bilateral_scaling)
@@ -130,15 +224,23 @@ def fused_bilateral_group(x: torch.Tensor, level: int, sf: ScalingFunction,
         float(offset + k + 1) if bilateral_scaling else 1.0
         for k in range(level)])
     taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
+    plans = [bilateral_plan(B, H, W, 1 << (offset + k), sf.half_width)
+             for k in range(level)]
+
+    def per_scale(field):
+        return (ctypes.c_longlong * level)(*[field(p) for p in plans])
+
     # scratch held by name until the launch is queued: a tensor made
     # inline for _ptr() is freed at once and its block handed to the next
-    tm, tq, spare = torch.empty((3,) + tuple(x.shape), dtype=x.dtype,
-                                device=x.device)
+    spare = torch.empty_like(x)
     lib = _lib()
     code = lib.wt_bilateral_group_f32(
-        _ptr(x), _ptr(out), _ptr(tm), _ptr(tq), _ptr(spare), int(level),
-        int(offset), sig2, scl, taps, len(sf.taps), kernel_weights(sf), B, H,
-        W, _build.stream_ptr(x.device))
+        _ptr(x), _ptr(out), _ptr(spare), int(level), int(offset), sig2, scl,
+        taps, len(sf.taps), kernel_weights(sf), B, H, W,
+        per_scale(lambda p: p.rows), per_scale(lambda p: p.seg),
+        per_scale(lambda p: p.grid[0]), per_scale(lambda p: p.grid[1]),
+        per_scale(lambda p: p.smem_bytes), plans[0].index_bits,
+        _build.stream_ptr(x.device))
     _build.check(lib, code, "bilateral_group")
     _build.LAUNCHES[KERNEL] += 1
     return out

@@ -4,25 +4,77 @@ Counterpart of ``wavelets_tpu/ops/pallas_stats.py::median_bits2`` and of
 ``wavelets_tpu/ops/stats.py::_median_nonneg_pallas``.  On a CUDA tensor
 the order statistics come from the hand-written radix select
 ``csrc/median_select.cu`` (see the source's note for its design and
-bound); on a CPU tensor the plain version sorts.  Either way the result
-is bitwise numpy's median: the mean of the two middle values for an
-even count.
+bound), launched as :func:`select_plan` says; on a CPU tensor the plain
+version sorts.  Either way the result is bitwise numpy's median: the
+mean of the two middle values for an even count.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 from typing import Callable, Sequence
 
 import torch
 
 from . import _build
 
-__all__ = ["median_bits2", "median_bits2_plain", "median_abs", "middle_ranks"]
+__all__ = ["median_bits2", "median_bits2_plain", "median_abs", "middle_ranks",
+           "SelectPlan", "select_plan"]
 
 KERNEL = "median_select"
 
 _ABS = 0x7FFFFFFF
+
+#: the first digit's histogram pass takes about this many patterns a
+#: block; the grid is capped at 4 blocks an SM (the per-block histogram
+#: table of the compaction offsets grows with the grid)
+SELECT_PER_BLOCK = 4096
+SELECT_BLOCKS_PER_SM = 4
+#: the first digit's chosen bin is compacted into scratch where it holds
+#: at most ``ceil(n / SELECT_CAP_DIV)`` patterns (a normal frame's median
+#: bin holds about 8%); beyond, as for heavy ties, the later digits read
+#: the plane again
+SELECT_CAP_DIV = 4
+#: the kernel's scratch besides the candidates: its state, and its three
+#: global histograms (the radix digits of the 31-bit |x| pattern, bits
+#: 20-30, 10-19 and 0-9, are the kernel's constants), each 64-bit; then 8
+#: bytes a block of offsets and, a block, the first digit's 2048 32-bit
+#: counters
+_STATE_BYTES = 64
+_HIST_BINS = 2048 + 1024 + 1024
+_FIRST_BINS = 2048
+
+
+@dataclass(frozen=True)
+class SelectPlan:
+    """Kernel B's launch, passed to ``csrc/median_select.cu`` as it
+    stands (the C entry checks it and launches it): ``blocks`` blocks for
+    each of its three histogram launches, at most ``cap`` compacted
+    candidates, ``scratch_bytes`` of device scratch (state, three
+    histograms, the per-block offsets and digit-1 histograms, the
+    candidates)."""
+    blocks: int
+    cap: int
+    scratch_bytes: int
+
+
+def select_plan(n: int, n_sms: int) -> SelectPlan:
+    """Kernel B's launch for ``n`` patterns on a card of ``n_sms`` SMs."""
+    if n < 1 or n_sms < 1:
+        raise ValueError(f"select_plan: n = {n}, n_sms = {n_sms}")
+    blocks = max(1, min(-(-n // SELECT_PER_BLOCK),
+                        SELECT_BLOCKS_PER_SM * n_sms))
+    cap = -(-n // SELECT_CAP_DIV)
+    scratch = (_STATE_BYTES + 8 * _HIST_BINS + 16 * -(-blocks // 2)
+               + 4 * _FIRST_BINS * blocks + 4 * cap)
+    return SelectPlan(blocks, cap, scratch)
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def middle_ranks(n: int):
@@ -33,12 +85,10 @@ def middle_ranks(n: int):
 def _lib():
     lib = _build.load(KERNEL)
     fn = lib.wt_median_select
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 3
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    lib.wt_median_scratch_bytes.argtypes = []
-    lib.wt_median_scratch_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -64,8 +114,9 @@ def median_bits2(bits: torch.Tensor, ks: Sequence[int]) -> torch.Tensor:
     patterns are ``bits`` (any shape; the sign bit is ignored, so
     non-negative patterns as the TPU kernel takes them work unchanged).
     Returns a ``(2,)`` int32 tensor on ``bits``' device.  A CPU tensor
-    runs :func:`median_bits2_plain`; a CUDA tensor runs kernel B or
-    raises."""
+    runs :func:`median_bits2_plain` (any ranks); a CUDA tensor runs
+    kernel B, which takes neighbouring ranks (``k_hi <= k_lo + 1``, as
+    every median asks), or raises."""
     if not bits.is_cuda:
         return median_bits2_plain(bits, ks)
     if bits.dtype != torch.int32:
@@ -76,15 +127,22 @@ def median_bits2(bits: torch.Tensor, ks: Sequence[int]) -> torch.Tensor:
                          "tensor")
     n = bits.numel()
     k_lo, k_hi = _check_ks(n, ks)
+    if k_hi > k_lo + 1:
+        raise ValueError(f"median_bits2: the CUDA kernel takes neighbouring "
+                         f"ranks, got {ks}")
+    plan = select_plan(n, _n_sms(bits.device.index
+                                 if bits.device.index is not None
+                                 else torch.cuda.current_device()))
     lib = _lib()
-    scratch = torch.empty(-(-lib.wt_median_scratch_bytes() // 8),
-                          dtype=torch.int64, device=bits.device)
+    # scratch held by name until the launches are queued
+    scratch = torch.empty(-(-plan.scratch_bytes // 8), dtype=torch.int64,
+                          device=bits.device)
     out = torch.empty(2, dtype=torch.int32, device=bits.device)
-    n_sms = torch.cuda.get_device_properties(bits.device).multi_processor_count
     code = lib.wt_median_select(
         ctypes.c_void_p(bits.data_ptr()), n, k_lo, k_hi,
         ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(scratch.data_ptr()),
-        n_sms, _build.stream_ptr(bits.device))
+        plan.scratch_bytes, plan.blocks, plan.cap,
+        _build.stream_ptr(bits.device))
     _build.check(lib, code, "median_select")
     _build.LAUNCHES[KERNEL] += 1
     return out
