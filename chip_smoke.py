@@ -18,17 +18,22 @@ CUDA toolkit.  It
    carries bitwise, kernel B (even and odd n, heavy ties, and at 4096² and
    512² all equal, zeros, subnormals, ties straddling a bin of each digit,
    patterns off a 16-byte boundary; bitwise, and bitwise to
-   ``np.median``), kernel C (groups at 4096², 1000×1536 and 257×513,
-   ``smooth_only``; bitwise), kernel D (4096², s ∈ {0, 1, 2, 5}, factors
-   from a device table, gamma on) and kernel E (the pairs (7, 8) at 4096²
-   and (4, 5) at 512² against two plain steps, carry bitwise, and against
-   two kernel A steps, bitwise), kernel F (bilateral groups at 4096²,
-   1000×1536 and 257×513, offsets 0, 3 and 6, σ scalar and a list,
-   scaling on and off, and a mean of 1000; and bitwise to the same scales
-   run through kernel G's three-pass chain at offsets 0-6, a width that
+   ``np.median``), kernel C (groups at 4096², 1000×1536, 257×513, a
+   batch of 3, 5×40000 (rows in segments) and a dilation past the map's
+   period, and the volume's one-scale pass at 64×1024², ``smooth_only``
+   on and off; bitwise, inputs unchanged), kernel D (4096², s ∈ {0, 1,
+   2, 5}, factors from a device table, gamma on) and kernel E (the pairs
+   (7, 8) at 4096² and (4, 5) at 512² against two plain steps, carry
+   bitwise, and against two kernel A steps, bitwise), kernel F
+   (bilateral groups at 4096², 1000×1536 and 257×513, offsets 0, 3 and
+   6, σ scalar and a list, scaling on and off, and a mean of 1000; and
+   bitwise to the same scales run through kernel G's earlier three-pass
+   chain, the check-only reference entry, at offsets 0-6, a width that
    needs row segments and a mean of 1000) and kernel G (deep bilateral
-   scales 3, 6, 9 at 4096² and 8 at 257×513, masked soft, hard and
-   unmasked);
+   scales 3, 6, 8, 9 at 4096², 8 at 257×513, 9 on a batch of 3 and 13 at
+   2×3×40000, masked soft, hard, unmasked and with bilateral scaling;
+   c_next, white and recon bitwise to the reference entry, the earlier
+   five launches);
 4. drives every ported path with the launch counters reset just before
    and read just after — the main path (``wow`` 4096² auto 10 scales and
    512² L6, denoise [5, 2], lazy noise), P1 ``AtrousTransform()(x, 6)``,
@@ -51,7 +56,8 @@ CUDA toolkit.  It
    operations over 67 TFLOP/s, the H100 SXM's published peaks (an
    ``expf`` counted as :data:`EXPF_OPS` instructions); kernel B at 4096²
    and 512² (and the device kernels of one call, profiled: at most 4),
-   kernel F per group at offsets 0 and 3;
+   kernels C and F per group at offsets 0 and 3, kernel C's one-scale
+   volume pass at 64×1024², kernel G per scale s = 3..9;
 6. traces each path's kernel route with ``torch.profiler`` over 5 runs:
    device-busy ms per run, the idle share against the CUDA-event time,
    and the kernels that take the most device time.
@@ -353,10 +359,17 @@ def main():
     err_c = 0.0
     with Phase("kernel C checks"):
         n_c = 0
+        # a batch, W not a multiple of 4, rows in segments (contiguous
+        # halo, then tap windows past 4096 columns), a dilation past the
+        # map's period, and the volume's in-plane pass (batch = depth)
         for shape, groups in [((4096, 4096), ((3, 0), (3, 3))),
                               ((1000, 1536), ((3, 0), (3, 6))),
-                              ((257, 513), ((3, 0), (3, 6)))]:
+                              ((257, 513), ((3, 0), (3, 3), (3, 6), (2, 40))),
+                              ((3, 257, 513), ((3, 0), (3, 3))),
+                              ((5, 40000), ((3, 0), (3, 11))),
+                              ((64, 1024, 1024), ((1, 0), (1, 1), (1, 2)))]:
             x = frame(shape)
+            x0 = x.clone()
             for g, off in groups:
                 for smooth_only in (False, True):
                     got = hopper_conv.fused_group(x, g, B3SPLINE, off,
@@ -369,7 +382,11 @@ def main():
                     if shape == (4096, 4096):
                         err_c = max(err_c, max_err(got, want))
                     n_c += 1
-        print(f"kernel C: {n_c} checks passed, details and carry bitwise")
+                    del got, want
+            check_bitwise(x, x0, f"kernel C {shape}: its input")
+            del x, x0
+        print(f"kernel C: {n_c} checks passed, details and carry bitwise, "
+              "inputs unchanged")
 
     # ---- 3d. kernel D ---------------------------------------------------
     err_d = 0.0
@@ -487,10 +504,11 @@ def main():
               f"{err_f:.3e}")
 
         def g_chain(x, sig2, offset, scaling):
-            # the same scales through kernel G's three passes
+            # the same scales through kernel G's earlier three passes (the
+            # check-only reference entry)
             cur, rows = x[None], []
             for k, var in enumerate(sig2):
-                _, c_next = hopper_deep.deep_bilateral_whiten_step(
+                _, c_next = hopper_deep.deep_bilateral_whiten_step_ref(
                     cur, torch.zeros(1, device=dev), sf=B3SPLINE,
                     scale=offset + k, var_factor=var, weight=1.0,
                     bilateral_scaling=scaling)
@@ -512,33 +530,44 @@ def main():
                 want = g_chain(x, sig2, off, scaling)
                 torch.cuda.synchronize()
                 check_bitwise(got, want, f"kernel F {shape} offset={off} "
-                              f"mean {mean} vs kernel G's chain")
+                              f"mean {mean} vs kernel G's reference chain")
                 n_fg += 1
             del x
-        print(f"kernel F: {n_fg} groups bitwise to kernel G's chain "
-              "(details and carry)")
+        print(f"kernel F: {n_fg} groups bitwise to kernel G's reference "
+              "chain (details and carry)")
 
     # ---- 3g. kernel G ---------------------------------------------------
     err_g = {"white": 0.0, "carry": 0.0}
     with Phase("kernel G checks"):
         n_g = 0
-        for shape, scales in [((4096, 4096), (3, 6, 9)), ((257, 513), (8,))]:
-            x = bil_frame(shape, b=1)
-            recon = bil_frame(shape, b=1)
+        # against the plain version, and bitwise against the earlier five
+        # per-pixel launches (the check-only reference entry); a batch and
+        # rows in segments of tap windows too
+        for shape, scales in [((4096, 4096), (3, 6, 8, 9)),
+                              ((257, 513), (8,)), ((3, 96, 1000), (9,)),
+                              ((2, 3, 40000), (13,))]:
+            x = bil_frame(shape[-2:], b=shape[0] if len(shape) == 3 else 1)
+            recon = bil_frame(shape[-2:], b=x.shape[0])
             for s in scales:
-                thr = torch.tensor([3.0 * float(sig[s])], device=dev)
-                for mode in ("soft", "hard", "unmasked"):
+                thr = torch.full((x.shape[0],), 3.0 * float(sig[min(s, 9)]),
+                                 device=dev)
+                for mode in ("soft", "hard", "unmasked", "scaling"):
                     kw = dict(sf=B3SPLINE, scale=s, var_factor=2.25,
-                              weight=1.5, soft=mode == "soft",
-                              masked=mode != "unmasked",
-                              bilateral_scaling=mode == "hard")
-                    r_k, r_p = recon.clone(), recon.clone()
+                              weight=1.5, soft=mode != "hard",
+                              masked=mode in ("soft", "hard"),
+                              bilateral_scaling=mode == "scaling")
+                    r_k, r_p, r_r = recon.clone(), recon.clone(), recon.clone()
                     w_k, c_k = hopper_deep.deep_bilateral_whiten_step(
                         x, thr, recon=r_k, **kw)
+                    w_r, c_r = hopper_deep.deep_bilateral_whiten_step_ref(
+                        x, thr, recon=r_r, **kw)
                     w_p, c_p = hopper_deep.deep_bilateral_whiten_step_plain(
                         x, thr, recon=r_p, **kw)
                     torch.cuda.synchronize()
                     what = f"kernel G {shape} s={s} {mode}"
+                    check_bitwise(c_k, c_r, what + " carry vs reference")
+                    check_bitwise(w_k, w_r, what + " white vs reference")
+                    check_bitwise(r_k, r_r, what + " recon vs reference")
                     e_c = check_white(c_k, c_p, what + " carry")
                     e_w = check_white(w_k, w_p, what)
                     check_white(r_k, r_p, what + " recon")
@@ -547,8 +576,9 @@ def main():
                         err_g["carry"] = max(err_g["carry"], e_c)
                     n_g += 1
             del x, recon
-        print(f"kernel G: {n_g} checks passed; 4096² max abs err white "
-              f"{err_g['white']:.3e} carry {err_g['carry']:.3e}")
+        print(f"kernel G: {n_g} checks passed, c_next, white and recon "
+              "bitwise to the five-launch reference; vs plain 4096² max abs "
+              f"err white {err_g['white']:.3e} carry {err_g['carry']:.3e}")
 
     # ---- 4. the paths ----------------------------------------------------
     launches = {}
@@ -956,11 +986,28 @@ def main():
             library="torch.quantile(x.abs(), 0.5) (takes 2^24 elements)"))
         x = frame((4096, 4096))
 
-        # kernel C: one group of 3 scales at 4096²
-        c_k = timed(lambda: hopper_conv.fused_group(x, 3, B3SPLINE), torch)
-        c_p = timed(lambda: hopper_conv.fused_group_plain(x, 3, B3SPLINE),
-                    torch)
-        print(f"  kernel C 4096² g=3: {c_k:.3f} ms, plain {c_p:.3f} ms")
+        # kernel C: one group of 3 scales at 4096², offsets 0 and 3, and
+        # the volume path's in-plane pass (one scale, smooth_only, the
+        # depth as the batch) at 64×1024²
+        c_t = {}
+        for off in (0, 3):
+            c_t[off] = (
+                timed(lambda: hopper_conv.fused_group(x, 3, B3SPLINE, off),
+                      torch),
+                timed(lambda: hopper_conv.fused_group_plain(
+                    x, 3, B3SPLINE, off), torch))
+            print(f"  kernel C 4096² g=3 offset {off}: {c_t[off][0]:.3f} ms, "
+                  f"plain {c_t[off][1]:.3f} ms")
+        xv = frame((64, 1024, 1024))
+        c_vol = (timed(lambda: hopper_conv.fused_group(
+                     xv, 1, B3SPLINE, 0, smooth_only=True), torch),
+                 timed(lambda: hopper_conv.fused_group_plain(
+                     xv, 1, B3SPLINE, 0, smooth_only=True), torch))
+        print(f"  kernel C 64×1024² one scale smooth_only: {c_vol[0]:.3f} "
+              f"ms, plain {c_vol[1]:.3f} ms")
+        del xv
+        c_k, c_p = c_t[0]
+        # read x; write 3 details and the carry
         b_c = bound_ms(5 * plane_bytes, 3 * 4096 * 4096 * (2 * FOLD_OPS + 1))
         kernels_out.append(dict(
             name="decompose_group", route="cuda",
@@ -971,6 +1018,12 @@ def main():
             max_abs_err=err_c,
             ms=c_k, plain_ms=c_p, bound_ms=b_c[0], bound_by=b_c[1],
             library_ms=None, timed="one group, scales 0-2 at 4096²",
+            ms_offset3=c_t[3][0], plain_ms_offset3=c_t[3][1],
+            ms_volume_pass=c_vol[0], plain_ms_volume_pass=c_vol[1],
+            # read the plane, write the carry
+            bound_ms_volume_pass=bound_ms(
+                2 * 64 * 1024 * 1024 * 4,
+                64 * 1024 * 1024 * 2 * FOLD_OPS)[0],
             library="none: PyTorch has no numpy-symmetric pad"))
 
         # kernel D: the pieces of scales 0-2 at 4096², planes and gamma
@@ -1077,6 +1130,7 @@ def main():
         xg = bil_frame((4096, 4096), b=1)
         rg = torch.zeros_like(xg)
         g_k = g_p = 0.0
+        g_scale = {}
         for s in range(3, 10):
             kw = dict(sf=B3SPLINE, scale=s, var_factor=1.0, weight=1.0,
                       soft=True, masked=False)
@@ -1086,6 +1140,7 @@ def main():
                 xg, zero1, recon=rg, **kw), torch)
             g_k += tk
             g_p += tp
+            g_scale[s] = tk
             print(f"  kernel G 4096² s={s}: {tk:.3f} ms, plain {tp:.3f} ms")
         # per step: read carry and recon; write white, c_next, recon
         b_g = bound_ms(7 * 5 * plane_bytes,
@@ -1099,6 +1154,7 @@ def main():
             max_abs_err=err_g["white"], carry_max_abs_err=err_g["carry"],
             ms=g_k, plain_ms=g_p, bound_ms=b_g[0], bound_by=b_g[1],
             library_ms=None, timed="scales 3-9 at 4096², one step each",
+            per_scale_ms=g_scale,
             ops_per_pixel_scale=BIL_OPS + BIL_WHITEN_OPS, expf_ops=EXPF_OPS,
             library="none: PyTorch has no bilateral filter"))
         del xf, xg, rg

@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""Where kernels A, B, E and F of ``wavelets_tpu_torch`` spend their
-time, on one NVIDIA GPU: times variants of their current sources, each
-with one part changed or cut out, at the main path's shapes.
+"""Where kernels A, B, C, E, F and G of ``wavelets_tpu_torch`` spend
+their time, on one NVIDIA GPU: times variants of their current sources,
+each with one part changed or cut out, at the main path's shapes.
 
-    python3 scripts/kernel_variants.py [KERNEL ...]
+    python3 scripts/kernel_variants.py [--root DIR] [KERNEL ...]
 
-(``KERNEL``: source names such as ``median_select``; default all.)
+(``KERNEL``: source names such as ``median_select``; default all.  With
+``--root DIR`` the package of another checkout, such as a parent commit
+unpacked with ``git archive``, is imported and timed as built, with no
+variant: its wrappers take the same arguments.)
 
 Run from the repository root on a machine with a CUDA device and the
 CUDA toolkit.  A variant is either a build of the unmodified source with
@@ -32,7 +35,13 @@ are only timed.
 * kernel F (``bilateral_group.cu``, ``wt_ring.cuh``), a group of 3 at
   4096², offsets 0 and 3: as built; segments of 2048 columns (more
   blocks to an SM); and the instruction counts of its B3spline instance
-  (``cuobjdump -sass``).
+  (``cuobjdump -sass``);
+* kernel C (``decompose_group.cu``), a group of 3 at 4096², offsets 0
+  and 3, and the volume path's one-scale ``smooth_only`` pass at
+  64×1024²: as built (a row-buffer launch a scale), its bits held
+  against the plain version;
+* kernel G (``bilateral_step.cu``), one scale each of s = 3..9 at
+  4096²: as built, the device time of its two launches apart.
 
 Each wall time is the median of 20 runs after 3 warm-ups (CUDA events
 around the wrapper, so the host's launch work is in it); each device
@@ -74,7 +83,11 @@ VARIANTS = {
     "bilateral group": ("bilateral_group", (), None),
     "bilateral group, 2048-column segments": ("bilateral_group", (),
                                               "seg 2048"),
+    "decompose group": ("decompose_group", (), None),
+    "bilateral step": ("bilateral_step", (), None),
 }
+#: kernels whose device time is printed launch by launch
+PARTS = {"median_select", "decompose_group", "bilateral_step"}
 
 
 def build_variants(_build, kernels):
@@ -148,7 +161,15 @@ def main():
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: no CUDA device")
-    sys.path.insert(0, str(ROOT))
+    args = sys.argv[1:]
+    root = ROOT
+    if args[:1] == ["--root"]:
+        root = Path(args[1]).resolve()
+        args = args[2:]
+        for name in [n for n, (_, hooks, plan) in VARIANTS.items()
+                     if hooks or plan]:
+            del VARIANTS[name]
+    sys.path.insert(0, str(root))
     from wavelets_tpu_torch.ops import (_build, hopper_bilateral,
                                         hopper_conv, hopper_deep,
                                         hopper_stats)
@@ -159,7 +180,8 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card)
-    kernels = set(sys.argv[1:]) or {k for k, _, _ in VARIANTS.values()}
+    print(f"package: {root / 'wavelets_tpu_torch'}")
+    kernels = set(args) or {k for k, _, _ in VARIANTS.values()}
     libs = build_variants(_build, kernels)
     if "bilateral_group" in kernels:
         # what the compiler made of the ring kernel (B3spline, 32-bit)
@@ -234,8 +256,23 @@ def main():
     xb = torch.from_numpy(rng.normal(size=(4096, 4096)).astype(np.float32)
                           * 3).to(dev)
 
+    xv = torch.from_numpy(rng.normal(size=(64, 1024, 1024))
+                          .astype(np.float32) * 3 + 10).to(dev)
+
     def runs(kernel):
-        if kernel == "median_select":
+        if kernel == "decompose_group":
+            for off in (0, 3):
+                yield f"g=3 offset {off}", lambda off=off: (
+                    hopper_conv.fused_group(x[0], 3, B3SPLINE, off))
+            yield "volume pass", lambda: hopper_conv.fused_group(
+                xv, 1, B3SPLINE, 0, smooth_only=True)
+        elif kernel == "bilateral_step":
+            for s in range(3, 10):
+                yield f"s={s}", lambda s=s: (
+                    hopper_deep.deep_bilateral_whiten_step(
+                        xb[None], zero1, sf=B3SPLINE, scale=s,
+                        var_factor=1.0, weight=1.0, recon=recon))
+        elif kernel == "median_select":
             yield "4096²", lambda: hopper_stats.median_abs(x[0])
             yield "512²", lambda: hopper_stats.median_abs(x512)
         elif kernel == "bilateral_group":
@@ -275,9 +312,17 @@ def main():
                     wall, dev_ms, parts = timed(fn)
                     print(f"  round {rnd}: {name:32s} {what:14s} "
                           f"wall {wall:.3f} device {dev_ms:.3f}")
-                    if kernel == "median_select":
+                    if kernel in PARTS:
                         print("      " + ", ".join(
                             f"{k} {v:.4f}" for k, v in parts.items()))
+                    if kernel == "decompose_group" and rnd == 0:
+                        off, g, so = ((0, 1, True) if what == "volume pass"
+                                      else (int(what[-1]), 3, False))
+                        src = xv if so else x[0]
+                        same = torch.equal(fn(), hopper_conv
+                                           .fused_group_plain(
+                                               src, g, B3SPLINE, off, so))
+                        print(f"      bitwise to the plain version: {same}")
             sys.stdout.flush()
 
 

@@ -11,8 +11,10 @@ kernel E's carry bitwise; whitened planes, ``acc``, the gamma sum and the
 reconstruction within ``5e-6·max(|ref|, 1)`` (``erff`` against
 ``torch.erf``); kernel B bitwise; kernels F and G (the bilateral chain,
 rounded step by step in both versions) within ``5e-6·max(|ref|, 1)``
-(``expf`` against ``torch.exp``), and kernel F bitwise to the same scales
-run through kernel G's three-pass chain (``expf`` on both sides)."""
+(``expf`` against ``torch.exp``), and kernels F and G bitwise to the same
+scales run through kernel G's earlier five per-pixel launches, the
+check-only ``deep_bilateral_whiten_step_ref`` (``expf`` and ``erff`` on
+both sides)."""
 
 import dataclasses
 
@@ -244,7 +246,9 @@ def test_plan_variants_run_and_keep_the_bits(dev, monkeypatch, variant):
     ("select", dict(scratch_bytes=1024)), ("select", dict(blocks=0)),
     ("select", dict(cap=1 << 20)),
     ("bilateral", dict(smem_bytes=1024)), ("bilateral", dict(rows=0)),
-    ("bilateral", dict(grid=(1, 1, 1)))])
+    ("bilateral", dict(grid=(1, 1, 1))), ("decompose", dict(smem_bytes=64)),
+    ("decompose", dict(grid=(1, 1, 1))), ("bilateral step", dict(seg=64)),
+    ("bilateral step", dict(grid=(100, 1, 1)))])
 def test_a_plan_the_kernel_cannot_run_is_refused(dev, monkeypatch, kernel,
                                                  change):
     # the C entry checks the plan it is given and refuses it before any
@@ -266,6 +270,12 @@ def test_a_plan_the_kernel_cannot_run_is_refused(dev, monkeypatch, kernel,
         "bilateral": (hopper_bilateral, "bilateral_plan", lambda:
                       hopper_bilateral.fused_bilateral_group(
                           x, 2, B3SPLINE, (1.0, 1.0))),
+        "decompose": (hopper_conv, "step_plan", lambda: hopper_conv
+                      .fused_group(x, 3, B3SPLINE)),
+        "bilateral step": (hopper_deep, "step_plan", lambda: hopper_deep
+                           .deep_bilateral_whiten_step(
+                               x, thr[0], sf=B3SPLINE, scale=3,
+                               var_factor=1.0, weight=1.0)),
     }
     module, name, run = runs[kernel]
     _replan(monkeypatch, module, name, **change)
@@ -389,16 +399,42 @@ def test_wrappers_refuse_what_the_kernel_cannot_take(dev):
     assert r.device.type == "cuda" and not _build.LAUNCHES
 
 
-@pytest.mark.parametrize("shape", [(64, 96), (37, 70), (2, 40, 56)])
-@pytest.mark.parametrize("g,offset", [(1, 0), (3, 0), (3, 2)])
+@pytest.mark.parametrize("shape", [(64, 96), (37, 70), (2, 40, 56),
+                                   (3, 37, 70)])
+@pytest.mark.parametrize("g,offset", [(1, 0), (3, 0), (3, 2), (3, 3),
+                                      (2, 1)])
 @pytest.mark.parametrize("smooth_only", [False, True])
 def test_decompose_group_kernel_bitwise(dev, shape, g, offset, smooth_only):
+    # one row-buffer launch a scale, c_next alternating between the carry
+    # row and a spare plane; W = 70 is not a multiple of 4
     x = torch.from_numpy(np.random.default_rng(g).normal(size=shape)
+                         .astype(np.float32)).to(dev)
+    x0 = x.clone()
+    _build.reset_counters()
+    got = hopper_conv.fused_group(x, g, B3SPLINE, offset, smooth_only)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"decompose_group": 1}
+    want = hopper_conv.fused_group_plain(x, g, B3SPLINE, offset, smooth_only)
+    assert got.shape == want.shape == ((1 if smooth_only else g + 1),) + shape
+    assert torch.equal(got, want)
+    assert torch.equal(x, x0)
+
+
+@pytest.mark.parametrize("shape,g,offset", [
+    ((1, 3, 30001), 3, 0),       # row segments, contiguous halo
+    ((2, 5, 40000), 3, 11),      # segments of tap windows (Dc > 4096)
+    ((1, 4, 33001), 1, 14),
+    ((2, 37, 70), 3, 40),        # dilations past the map's period
+    ((65537, 2, 3), 2, 0),       # more frames than the grid's z
+])
+@pytest.mark.parametrize("smooth_only", [False, True])
+def test_decompose_group_kernel_coverage(dev, shape, g, offset,
+                                         smooth_only):
+    x = torch.from_numpy(np.random.default_rng(offset).normal(size=shape)
                          .astype(np.float32)).to(dev)
     got = hopper_conv.fused_group(x, g, B3SPLINE, offset, smooth_only)
     want = hopper_conv.fused_group_plain(x, g, B3SPLINE, offset, smooth_only)
     torch.cuda.synchronize()
-    assert got.shape == want.shape == ((1 if smooth_only else g + 1),) + shape
     assert torch.equal(got, want)
 
 
@@ -547,6 +583,41 @@ def test_bilateral_step_kernel_vs_plain(dev, shape, s, mode, scaling):
     assert_close_scaled(r_k, r_p, 5e-6)
 
 
+@pytest.mark.parametrize("shape,s", [
+    ((1, 64, 96), 0), ((2, 40, 56), 2), ((1, 37, 70), 5), ((1, 257, 513), 8),
+    ((1, 96, 1000), 9),
+    ((2, 3, 30001), 13),         # second pass in segments of tap windows
+    ((1, 16, 16), 40),           # a dilation past the map's period
+    ((65537, 2, 3), 1),          # more frames than the grid's z
+])
+@pytest.mark.parametrize("mode", ["soft", "hard", "unmasked", "scaling"])
+def test_bilateral_step_bitwise_to_reference(dev, shape, s, mode):
+    # the ring and the row-buffer second pass against the earlier five
+    # per-pixel launches: c_next, white and recon bitwise
+    rng = np.random.default_rng(s)
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+    recon = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    recon = recon.to(dev)
+    thr = torch.full((shape[0],), 0.3, device=dev)
+    kw = dict(sf=B3SPLINE, scale=s, var_factor=2.25, weight=1.5,
+              soft=mode != "hard", masked=mode in ("soft", "hard"),
+              bilateral_scaling=mode == "scaling")
+    r_k, r_r = recon.clone(), recon.clone()
+    _build.reset_counters()
+    w_k, c_k = hopper_deep.deep_bilateral_whiten_step(x, thr, recon=r_k,
+                                                      **kw)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"bilateral_step": 1}
+    w_r, c_r = hopper_deep.deep_bilateral_whiten_step_ref(x, thr, recon=r_r,
+                                                          **kw)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"bilateral_step": 1,
+                                     "bilateral_step_ref": 1}
+    assert torch.equal(c_k, c_r)
+    assert torch.equal(w_k, w_r)
+    assert torch.equal(r_k, r_r)
+
+
 def test_bilateral_wow_path_vs_plain(dev):
     x = torch.from_numpy(np.random.default_rng(8).normal(size=(512, 512))
                          .astype(np.float32) * 3).to(dev)
@@ -633,12 +704,13 @@ def test_median_kernel_either_route_keeps_the_bits(dev, monkeypatch, cap):
 
 
 def _g_chain(x, sf, variances, offset, scaling):
-    """The same bilateral scales through kernel G's three-pass chain
-    (wt_bilateral.cuh): details, then the carry."""
+    """The same bilateral scales through kernel G's earlier three-pass
+    chain (wt_bilateral.cuh, the check-only reference entry): details,
+    then the carry."""
     cur = x if x.ndim == 3 else x[None]
     rows = []
     for k, var in enumerate(variances):
-        _, c_next = hopper_deep.deep_bilateral_whiten_step(
+        _, c_next = hopper_deep.deep_bilateral_whiten_step_ref(
             cur, torch.zeros(cur.shape[0], device=cur.device), sf=sf,
             scale=offset + k, var_factor=var, weight=1.0,
             bilateral_scaling=scaling)

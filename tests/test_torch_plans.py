@@ -221,8 +221,8 @@ def test_group_without_a_tile_runs_deep_steps(need_cube):
 
 @pytest.mark.parametrize("W,D,hw,seg", [
     (4096, 512, 2, 0), (513, 512, 2, 0), (29056, 1, 2, 0),
-    (29057, 4, 2, hopper_conv.STEP_SEG), (60000, 4096, 1,
-                                          hopper_conv.STEP_SEG)])
+    (29057, 4, 2, hopper_conv.STEP_SEGS[0]), (60000, 4096, 1,
+                                          hopper_conv.STEP_SEGS[0])])
 def test_step_plan(W, D, hw, seg):
     plan = hopper_conv.step_plan(1, 5, W, D, hw)
     assert plan.seg == seg
@@ -234,8 +234,18 @@ def test_step_plan(W, D, hw, seg):
 
 
 def test_step_plan_refuses_a_halo_beyond_the_shared_memory():
-    with pytest.raises(ValueError, match="shared memory"):
-        hopper_conv.step_plan(1, 8, 40000, 1 << 14, 2)
+    # a contiguous hw·D halo of 65536 columns passes the shared memory:
+    # the segment's buffer then holds the 2hw+1 tap windows side by side,
+    # which always fit; what the plan refuses is a reach past 32-bit
+    # index math
+    plan = hopper_conv.step_plan(1, 8, 40000, 1 << 14, 2)
+    assert 4 * (2 * plan.seg + 2 * 2 * (1 << 14)) > hopper_conv.SMEM_OPTIN
+    assert plan.seg == 4096
+    assert plan.smem_bytes == 4 * (2 + 2 * 2) * 4096 <= hopper_conv.SMEM_OPTIN
+    with pytest.raises(ValueError, match="32-bit"):
+        hopper_conv.step_plan(1, 2 ** 29, 8, 2 ** 29, 4)
+    with pytest.raises(ValueError, match="32-bit"):
+        hopper_conv.step_plan(1, 2 ** 30, 1, 1, 2)
     assert hopper_conv.step_plan(3000, 1000, 1000, 1, 2).index_bits == 64
 
 
@@ -575,3 +585,231 @@ def test_ring_algorithm_replayed(shape, offset, seg, sf):
         x, 3, spec, variances, offset, scaling)
     got = torch.stack(rows)
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------
+# The row-buffer pass (csrc/wt_step.cuh) of kernels A, C and G, kernel
+# C's buffers and kernel G's two plans
+# ---------------------------------------------------------------------
+
+def _step_plan_ok(p, hw, B, H, W, D):
+    """csrc/wt_step.cuh::step_plan_ok: what the C entries of kernels A, C
+    and G check before they launch a row-buffer pass."""
+    if not (H < 2 ** 30 and W < 2 ** 30 and (p.seg == 0 or p.seg < W)):
+        return False
+    Dr, Dc = hopper_conv.map_step(D, H), hopper_conv.map_step(D, W)
+    S = Dc if p.seg == 0 else min(Dc, p.seg)
+    need = 8 * W if p.seg == 0 else 4 * (2 * p.seg + 2 * hw * S)
+    frames = min(B, 65535)
+    return (H + hw * Dr < 2 ** 31 and W + p.seg + hw * Dc < 2 ** 31
+            and p.grid[0] == (H if Dr >= H else Dr * -(-H // Dr))
+            and p.grid[1] == (1 if p.seg == 0 else -(-W // p.seg))
+            and p.grid[1] <= 65535 and p.grid[2] == frames
+            and need <= p.smem_bytes <= hopper_conv.SMEM_OPTIN
+            and (p.index_bits == 64 or frames * H * W < 2 ** 31))
+
+
+def _ring_plan_ok(p, hw, H, W, D):
+    """csrc/wt_ring.cuh::ring_plan_ok plus the frames and offset width
+    that kernel G's C entry checks."""
+    n_cls, P = min(D, H), -(-H // D)
+    return (H < 2 ** 30 and W < 2 ** 30 and 1 <= p.rows <= P
+            and 1 <= p.seg <= W
+            and p.grid[0] == n_cls * -(-P // p.rows) < 2 ** 31
+            and p.grid[1] == -(-W // p.seg) <= 65535
+            and hopper_bilateral.ring_smem(hw, D, p.seg) <= p.smem_bytes
+            <= hopper_conv.SMEM_OPTIN
+            and H + (hw + 1) * hopper_conv.map_step(D, H) < 2 ** 31
+            and W + p.seg + hw * hopper_conv.map_step(D, W) < 2 ** 31)
+
+
+def _step_rows(plan, H, D):
+    """The image row of every block row of the grid, in launch order, as
+    step_pass picks it (residue classes of the rows' dilation)."""
+    Dr = hopper_conv.map_step(D, H)
+    P = -(-H // Dr)
+    for bx in range(plan.grid[0]):
+        h = (bx % P) * Dr + bx // P if Dr < H else bx
+        if h < H:
+            yield h
+
+
+@pytest.mark.parametrize("level", [1, 2, 3])
+@pytest.mark.parametrize("smooth_only", [False, True])
+def test_decompose_buffers(level, smooth_only):
+    # kernel C's buffer choice, as its C entry checks it and as the rows
+    # fold needs it: no scale writes what it reads, x is only read, the
+    # last scale lands in the carry row, no written detail is written
+    # again, one spare plane from g = 2 on
+    bufs = hopper_conv.decompose_buffers(level, smooth_only)
+    carry = 0 if smooth_only else level
+    assert len(bufs) == level
+    assert bufs[0][0] == "x" and bufs[-1][1] == carry
+    written = set()
+    for k, (src, dst, det) in enumerate(bufs):
+        assert src != dst and dst != "x" and det != "x"
+        assert det is None if smooth_only else det == k
+        assert det not in (src, dst)
+        if k:
+            assert src == bufs[k - 1][1]
+        assert dst not in written and det not in written
+        if det is not None:
+            written.add(det)
+    assert any("spare" in b for b in bufs) == (level > 1)
+
+
+@pytest.mark.parametrize("level", [1, 2, 3])
+@pytest.mark.parametrize("smooth_only", [False, True])
+@pytest.mark.parametrize("offset", [0, 3])
+def test_decompose_buffers_replayed(level, smooth_only, offset):
+    # the chain through the named buffers, each scale's source read whole
+    # before its outputs are stored, as a launch's blocks may: the cube is
+    # bitwise the plain version's and x is unchanged
+    x = torch.from_numpy(np.random.default_rng(level).normal(size=(2, 19, 23))
+                         .astype(np.float32))
+    x0 = x.clone()
+    n_rows = 1 if smooth_only else level + 1
+    out = torch.full((n_rows,) + tuple(x.shape), float("nan"))
+    spare = torch.full_like(x, float("nan"))
+
+    def buf(name):
+        return x if name == "x" else spare if name == "spare" else out[name]
+
+    for k, (src, dst, det) in enumerate(
+            hopper_conv.decompose_buffers(level, smooth_only)):
+        cur = buf(src).clone()
+        c_next = hopper_conv.smooth(cur, B3SPLINE, scale=offset + k,
+                                    axes=(-2, -1))
+        buf(dst).copy_(c_next)
+        if det is not None:
+            buf(det).copy_(cur - c_next)
+    want = hopper_conv.fused_group_plain(x, level, B3SPLINE, offset,
+                                         smooth_only)
+    assert torch.equal(out, want)
+    assert torch.equal(x, x0)
+
+
+def _replay_step_pass(x, taps, D, seg, second):
+    """wt_step.cuh's step_pass on one (H, W) float32 frame, row by row and
+    segment by segment, each step one float32 numpy operation in the
+    kernel's order: FIRST → (c_next, detail), SECOND → lp (the power
+    smooth of x²)."""
+    H, W = x.shape
+    hw = (len(taps) - 1) // 2
+    t = np.asarray(taps[hw:], np.float32)
+    Dr = hopper_conv.map_step(D, H)
+    Dc = hopper_conv.map_step(D, W)
+    out = np.full((H, W), np.nan, np.float32)
+    det = np.full((H, W), np.nan, np.float32)
+    segs = [(0, W, Dc, False)] if seg == 0 else [
+        (w0, min(seg, W - w0), min(Dc, seg), min(Dc, seg) < Dc)
+        for w0 in range(0, W, seg)]
+    for h in range(H):
+        rows = [x[int(_sym(h + j * Dr, H))] for j in range(-hw, hw + 1)]
+        if second:
+            rows = [r * r for r in rows]
+        for w0, n_out, S, windows in segs:
+            if seg == 0:
+                cols = np.arange(W)
+            elif windows:
+                v = np.arange(2 * hw * S + seg)
+                cols = _sym(w0 + (v // S - hw) * Dc + v % S, W)
+            else:
+                cols = _sym(w0 - hw * S + np.arange(2 * hw * S + n_out), W)
+            T = rows[hw][cols] * t[0]
+            for j in range(1, hw + 1):
+                T = T + t[j] * (rows[hw - j][cols] + rows[hw + j][cols])
+            o = np.arange(n_out)
+            if seg == 0:
+                v, lv, rv = o, None, None
+                f = T[v] * t[0]
+                for j in range(1, hw + 1):
+                    f = f + t[j] * (T[_sym(o - j * Dc, W)]
+                                    + T[_sym(o + j * Dc, W)])
+            else:
+                v = o + hw * S
+                f = T[v] * t[0]
+                for j in range(1, hw + 1):
+                    f = f + t[j] * (T[v - j * S] + T[v + j * S])
+            out[h, w0 + o] = f
+            det[h, w0 + o] = x[h, w0 + o] - f
+    return out if second else (out, det)
+
+
+@pytest.mark.parametrize("shape,seg", [
+    ((9, 70), 16), ((9, 70), 0), ((5, 37), 8), ((7, 13), 4)])
+@pytest.mark.parametrize("scale", [0, 1, 2, 3, 4, 5, 6, 8, 40])
+@pytest.mark.parametrize("sf", ["b3", "tri"])
+def test_step_pass_layout_replayed(shape, seg, scale, sf):
+    # whole rows, and segments whose buffer is a contiguous hw·Dc halo
+    # (Dc <= seg) or the 2hw+1 tap windows side by side (Dc > seg), at
+    # dilations past the frame and past the symmetric map's period: the
+    # first pass is bitwise the plain smooth and its detail, the second
+    # pass's lp bitwise the plain power smooth
+    spec = SFS[sf]
+    x = (np.random.default_rng(scale).normal(size=shape) * 3 + 10).astype(
+        np.float32)
+    D = 1 << scale
+    c_next, det = _replay_step_pass(x, spec.taps, D, seg, False)
+    xt = torch.from_numpy(x)
+    want = hopper_conv.smooth(xt, spec, scale=scale, axes=(-2, -1))
+    assert np.array_equal(c_next, want.numpy())
+    assert np.array_equal(det, (xt - want).numpy())
+    lp = _replay_step_pass(det, spec.taps, D, seg, True)
+    dt = torch.from_numpy(det)
+    assert np.array_equal(lp, hopper_conv.smooth(dt * dt, spec, scale=scale,
+                                                 axes=(-2, -1)).numpy())
+
+
+@pytest.mark.parametrize("shape,scales", [((4096, 4096), range(3, 10)),
+                                          ((257, 513), (8,))])
+def test_bilateral_step_plans(shape, scales):
+    # kernel G's two launches a scale: the ring at one scale (kernel F's
+    # plan) and the row-buffer second pass, each checked as its C entry
+    # checks it, each covering every row once
+    H, W = shape
+    for s in scales:
+        D = 1 << s
+        ring = hopper_bilateral.bilateral_plan(1, H, W, D, 2)
+        step = hopper_conv.step_plan(1, H, W, D, 2)
+        assert _ring_plan_ok(ring, 2, H, W, D)
+        assert _step_plan_ok(step, 2, 1, H, W, D)
+        assert step.seg == 0 and step.smem_bytes == 8 * W
+        assert ring.index_bits == step.index_bits == 32
+        assert ring.grid[2] == step.grid[2] == 1
+        Dr = hopper_conv.map_step(D, H)
+        assert sorted(cls + i * Dr for cls, i0, i1 in _ring_blocks(ring, H, D)
+                      for i in range(i0, i1)) == list(range(H))
+        assert sorted(_step_rows(step, H, D)) == list(range(H))
+
+
+# shapes and scales the earlier per-pixel kernels C and G took (any B, H,
+# W; C any offset + g <= 62, G any scale); sides past 2^28 columns are
+# left out (see step_plan)
+COVER_SHAPES = [(1, 4096, 4096), (1, 257, 513), (3, 37, 70), (1, 1, 1),
+                (2, 1, 9), (1, 9, 1), (70000, 4, 5), (65536, 1, 3),
+                (1, 3, 29057), (2, 5, 40000), (1, 2, 1 << 20),
+                (1, 1 << 20, 3)]
+
+
+@pytest.mark.parametrize("shape", COVER_SHAPES,
+                         ids=["x".join(map(str, s)) for s in COVER_SHAPES])
+@pytest.mark.parametrize("scale", [0, 3, 9, 12, 15, 20, 27, 40, 61])
+@pytest.mark.parametrize("kernel", ["C", "G"])
+def test_new_plans_take_what_the_old_kernels_took(shape, scale, kernel):
+    # kernel C's row-buffer launches (half widths up to 8) and kernel G's
+    # ring and second pass (half widths 1..4) at every shape and scale;
+    # a batch past 65535 frames runs as launches of 65535 and the rest
+    B, H, W = shape
+    D = 1 << scale
+    for hw in ((1, 2, 8) if kernel == "C" else (1, 2, 4)):
+        step = hopper_conv.step_plan(B, H, W, D, hw)
+        assert _step_plan_ok(step, hw, B, H, W, D)
+        if kernel == "G":
+            ring = hopper_bilateral.bilateral_plan(step.grid[2], H, W, D, hw)
+            assert _ring_plan_ok(ring, hw, H, W, D)
+            assert ring.grid[2] == step.grid[2]
+            assert ring.index_bits == step.index_bits
+    frames = step.grid[2]
+    chunks = [min(frames, B - b0) for b0 in range(0, B, frames)]
+    assert sum(chunks) == B and max(chunks) <= 65535

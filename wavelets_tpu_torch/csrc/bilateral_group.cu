@@ -23,7 +23,7 @@
 // fit) laid out so that every tap is a plain offset at any dilation
 // (wt_ring.cuh), so any H, W and dilation work and there is no route back
 // to the three passes; a dilation past the symmetric map's period is
-// taken modulo it (wt_ring.cuh::map_step), so any scale up to 2^62 runs.
+// taken modulo it (wt_tile.cuh::map_step), so any scale up to 2^62 runs.
 // The taps read neighbours of the carry across blocks, so c_next cannot
 // overwrite it: two carry buffers (the output cube's carry row and one
 // spare plane) alternate, chosen so that the last scale lands in the
@@ -81,20 +81,10 @@ int wt_bilateral_group_f32(const float* x, float* out, float* spare, int g,
       B > 65535 || H < 1 || W < 1 || H >= (1ll << 30) || W >= (1ll << 30) ||
       !(index_bits == 64 || (index_bits == 32 && B * H * W < (1ll << 31))))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int hw = a.taps.hw;
-  // the plans: every row of every residue class in one chunk, every
-  // column in one segment, the ring and the tm, tq rows in the shared
-  // memory, the taps' reach in 32-bit index math
+  // the plans (wt::ring_plan_ok)
   for (int k = 0; k < g; ++k) {
-    const long long D = 1ll << (offset + k);
-    const long long n_cls = D < H ? D : H, P = (H + D - 1) / D;
-    if (rows[k] < 1 || rows[k] > P || seg[k] < 1 || seg[k] > W ||
-        grid_x[k] != n_cls * ((P + rows[k] - 1) / rows[k]) ||
-        grid_x[k] > 0x7fffffffll ||
-        grid_y[k] != (W + seg[k] - 1) / seg[k] || grid_y[k] > 65535 ||
-        smem[k] < wt::ring_smem(hw, D, seg[k]) || smem[k] > (1ll << 30) ||
-        H + (hw + 1ll) * wt::map_step(D, H) >= (1ll << 31) ||
-        W + seg[k] + hw * wt::map_step(D, W) >= (1ll << 31))
+    const wt::RingPlan p = {rows[k], seg[k], grid_x[k], grid_y[k], smem[k]};
+    if (!wt::ring_plan_ok(p, a.taps.hw, H, W, 1ll << (offset + k)))
       return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

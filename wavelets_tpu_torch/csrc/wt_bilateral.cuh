@@ -1,5 +1,8 @@
-// Device code of the bilateral chain smooth, shared by kernels F
-// (bilateral_group.cu) and G (bilateral_step.cu).  One scale at dilation D
+// The bilateral chain smooth one pixel a thread: the dense tap weights
+// (BilKernel) that the ring of kernels F and G reads (wt_ring.cuh), and
+// the three launches of kernel G's check-only reference entry
+// (bilateral_step.cu, wt_bilateral_step_ref_f32), an independent
+// reference on the card for the ring's bits.  One scale at dilation D
 // is three launches, each thread owning one output pixel:
 //   1. rows_moments: the rows folds of x and of x*x        -> tm, tq
 //   2. cols_range:   the cols folds of both (mean, m2), then the range

@@ -1,8 +1,8 @@
-// Device helpers shared by the per-pixel kernels (whiten_step.cu,
-// decompose_group.cu, whiten_plane.cu, bilateral_step.cu): the symmetric
-// taps, numpy's periodic 'symmetric' index map, the whitening epilogue,
-// and the dilated 1-D folds rounded step by step in the JAX package's
-// order
+// Device helpers shared by every kernel: the symmetric taps, numpy's
+// periodic 'symmetric' index map, the whitening epilogue, and the
+// per-pixel passes (whiten_plane.cu, the reference entry of
+// bilateral_step.cu) with the dilated 1-D folds rounded step by step in
+// the JAX package's order
 //   x*t_c + sum_j t_{c+j}*(x<-jD + x->jD),
 // with __fmul_rn/__fadd_rn, which nvcc never contracts into FMAs, so a
 // fold is bitwise equal to the plain PyTorch version on the same card.
@@ -112,7 +112,8 @@ __global__ void rows_pass(const float* __restrict__ src,
   }
 }
 
-// Power-smooth cols pass with the whitening epilogue (kernels A and G):
+// Power-smooth cols pass with the whitening epilogue (kernel G's
+// reference entry):
 // lp = fold of tmp (the rows pass of detail^2), white = whiten_value(...),
 // optionally written; acc_mode 1 sets acc = white, 2 adds acc += white.
 __global__ void cols_whiten(const float* __restrict__ tmp,

@@ -1,5 +1,6 @@
 // Device code of the bilateral chain smooth on a ring of carry rows in
-// shared memory, one launch per scale: kernel F (bilateral_group.cu).
+// shared memory, one launch per scale: kernels F (bilateral_group.cu) and
+// G (bilateral_step.cu).
 //
 // A block owns a chunk of output rows of one residue class mod D (h,
 // h+D, h+2D, ...) and one column segment.  The 2HW+1 carry rows h + jD
@@ -105,12 +106,29 @@ __host__ __device__ inline long long ring_smem(int hw, long long D,
   return 4 * ((2ll * hw + 1) * ring_stride(span) + 2 * span);
 }
 
-// The dilation the kernel takes on an axis of n for a true dilation D:
-// D, or from 2n on (the symmetric map's period) 2n + D mod 2n, which
-// names the same columns, residue classes and segment layout
-// (ops/hopper_bilateral.py::map_step).
-__host__ inline long long map_step(long long D, long long n) {
-  return D < 2 * n ? D : 2 * n + D % (2 * n);
+// The plan of one ring launch (ops/hopper_bilateral.py::BilateralPlan),
+// as the C entries receive it.
+struct RingPlan {
+  long long rows, seg, grid_x, grid_y, smem;
+};
+
+// Whether bilateral_ring runs `p` on (H, W) frames at the true dilation
+// D with taps of half width hw: every row of every residue class in one
+// chunk, every column in one segment, the ring and the tm, tq rows in
+// the shared memory, the taps' reach in 32-bit index math.  (The frames
+// and the offset width are the caller's to check.)
+inline bool ring_plan_ok(const RingPlan& p, int hw, long long H, long long W,
+                         long long D) {
+  if (H < 1 || W < 1 || D < 1 || H >= (1ll << 30) || W >= (1ll << 30))
+    return false;
+  const long long n_cls = D < H ? D : H, P = (H + D - 1) / D;
+  return p.rows >= 1 && p.rows <= P && p.seg >= 1 && p.seg <= W &&
+         p.grid_x == n_cls * ((P + p.rows - 1) / p.rows) &&
+         p.grid_x <= 0x7fffffffll && p.grid_y == (W + p.seg - 1) / p.seg &&
+         p.grid_y <= 65535 && p.smem >= ring_smem(hw, D, p.seg) &&
+         p.smem <= (1ll << 30) &&
+         H + (hw + 1ll) * map_step(D, H) < (1ll << 31) &&
+         W + p.seg + hw * map_step(D, W) < (1ll << 31);
 }
 
 // Columns c0 .. c0+len-1 of `row` into dst[0..len), through the symmetric

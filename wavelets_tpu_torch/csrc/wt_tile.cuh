@@ -1,10 +1,12 @@
 // Device helpers of the shared-memory kernels (whiten_group.cu,
-// whiten_step.cu, whiten_pair.cu): numpy's periodic 'symmetric' index
-// map in 32-bit arithmetic with an in-range fast path, and 16-byte
-// cp.async copies from device memory into shared memory.  The folds keep
-// the JAX package's order and rounding (wt_common.cuh): x*t_0 first, then
-// t_j*(l + r) added for j = 1 .. hw, every step one __fmul_rn/__fadd_rn.
-// Host side: the once-per-device shared-memory opt-in of a kernel.
+// whiten_pair.cu, wt_step.cuh, wt_ring.cuh): numpy's periodic
+// 'symmetric' index map in 32-bit arithmetic with an in-range fast path,
+// and 16-byte cp.async copies from device memory into shared memory.
+// The folds keep the JAX package's order and rounding (wt_common.cuh):
+// x*t_0 first, then t_j*(l + r) added for j = 1 .. hw, every step one
+// __fmul_rn/__fadd_rn.
+// Host side: the once-per-device shared-memory opt-in of a kernel, and
+// the dilation taken modulo the symmetric map's period (map_step).
 //
 // Variant builds.  scripts/kernel_variants.py compiles these sources with
 // -DWT_VARIANT_<NAME> to time a kernel with one part changed or cut out;
@@ -68,6 +70,14 @@ inline cudaError_t smem_optin(K kernel, int bytes, std::atomic<int>* done) {
     }
   }
   return err;
+}
+
+// The dilation a kernel takes on an axis of n for a true dilation D: D,
+// or from 2n on (the symmetric map's period) 2n + D mod 2n, which names
+// the same taps, residue classes and segment layout in 32-bit index math
+// (ops/hopper_conv.py::map_step).
+__host__ inline long long map_step(long long D, long long n) {
+  return D < 2 * n ? D : 2 * n + D % (2 * n);
 }
 
 // numpy's symmetric extension of an axis of n points, any k (it may

@@ -36,7 +36,7 @@ from . import _build
 from .conv import bilateral_smooth
 from .filters import ScalingFunction
 from .hopper_conv import (SMEM_OPTIN, SMEM_TWO_PER_SM, _ptr,
-                          check_kernel_input, group_pieces)
+                          check_kernel_input, group_pieces, map_step)
 from .layout import stack_planes
 
 __all__ = ["fused_bilateral_group", "fused_bilateral_group_plain",
@@ -77,14 +77,6 @@ def ring_smem(hw: int, D: int, seg: int) -> int:
     ``tm`` and ``tq`` rows."""
     span = ring_span(hw, D, seg)
     return 4 * ((2 * hw + 1) * (-(-(span + 3) // 4) * 4) + 2 * span)
-
-
-def map_step(D: int, n: int) -> int:
-    """The dilation kernel F takes on an axis of ``n`` for a true
-    dilation ``D``: ``D``, or from ``2n`` on (the symmetric index map's
-    period) ``2n + D mod 2n``, which names the same taps, residue classes
-    and segment layout in 32-bit index math."""
-    return D if D < 2 * n else 2 * n + D % (2 * n)
 
 
 @dataclass(frozen=True)

@@ -49,7 +49,8 @@ __all__ = ["N_FAST", "fused_group", "fused_group_plain", "group_pieces",
            "fused_volume_decompose", "fused_wow_group",
            "fused_wow_group_plain", "whiten_scale_plain",
            "whiten_detail_plain", "GroupPlan", "group_halo", "group_plan",
-           "StepPlan", "step_plan", "SMEM_OPTIN"]
+           "StepPlan", "step_plan", "step_smem", "map_step", "MAX_FRAMES",
+           "decompose_buffers", "SMEM_OPTIN"]
 
 KERNEL = "whiten_step"
 GROUP_KERNEL = "whiten_group"
@@ -75,9 +76,13 @@ SMEM_TWO_PER_SM = 115712
 GROUP_TILE_W = 64
 GROUP_TILE_HS = (64, 32, 16)
 GROUP_WARPS = 8
-#: deep step: whole rows while a row buffer and the centre row fit, else
-#: segments of this many columns with an ``hw·D`` halo
-STEP_SEG = 4096
+#: the row-buffer pass (kernel A's deep step, kernels C and G): whole
+#: rows while a row buffer and the centre row fit, else segments of the
+#: first of these widths whose buffer fits
+STEP_SEGS = (4096, 2048, 1024, 512, 256)
+#: frames one launch takes (the grid's z); a larger batch runs as
+#: several launches over consecutive frames
+MAX_FRAMES = 65535
 
 
 def group_halo(hw: int, offset: int, g: int) -> int:
@@ -133,35 +138,70 @@ def group_plan(B: int, H: int, W: int, g: int, hw: int,
     return None
 
 
+def map_step(D: int, n: int) -> int:
+    """The dilation a kernel takes on an axis of ``n`` for a true
+    dilation ``D``: ``D``, or from ``2n`` on (the symmetric index map's
+    period) ``2n + D mod 2n``, which names the same taps, residue classes
+    and segment layout in 32-bit index math (``csrc/wt_tile.cuh``)."""
+    return D if D < 2 * n else 2 * n + D % (2 * n)
+
+
 @dataclass(frozen=True)
 class StepPlan:
-    """The deep step's launch, passed to ``csrc/whiten_step.cu`` as it
-    stands (the kernel checks it and launches it): whole rows (``seg ==
-    0``) or segments of ``seg`` columns, ``smem_bytes`` per block,
-    ``grid = (rows in residue-class order, segments, frames)``, 32- or
-    64-bit offsets."""
+    """The row-buffer pass's launch (``csrc/wt_step.cuh``), passed to the
+    C entries of kernels A, C and G as it stands (they check it and
+    launch it): whole rows (``seg == 0``) or segments of ``seg`` columns,
+    ``smem_bytes`` per block, ``grid = (rows in residue-class order,
+    segments, frames a launch)`` (a batch of more frames runs as several
+    launches), 32- or 64-bit offsets."""
     seg: int
     smem_bytes: int
     grid: Tuple[int, int, int]
     index_bits: int
 
 
+def step_smem(W: int, D: int, hw: int, seg: int) -> int:
+    """Shared bytes of a row-buffer block: two rows of floats, or for a
+    segment of ``seg`` columns its row buffer, ``2hw·min(Dc, seg) + seg``
+    floats (a contiguous ``hw·Dc`` halo, or the ``2hw+1`` tap windows side
+    by side where the columns' dilation ``Dc`` passes the segment), and
+    its centre row."""
+    if seg == 0:
+        return 8 * W
+    return 4 * (2 * seg + 2 * hw * min(map_step(D, W), seg))
+
+
 def step_plan(B: int, H: int, W: int, D: int, hw: int) -> StepPlan:
-    """The deep step's launch on the card, from the shape, dilation and
-    half width of the taps; raises where not even a segment with its
-    ``hw·D`` halo fits the shared memory (``hw·D`` > 24960)."""
+    """The row-buffer pass's launch on the card, from the shape, the true
+    dilation and the half width of the taps: whole rows where two rows
+    fit the shared memory (``W ≤ 29056``), else the widest segment of
+    :data:`STEP_SEGS` whose buffer fits (at any dilation: past the
+    segment the buffer holds the tap windows only); raises where the
+    taps' reach (:func:`map_step`) passes 32-bit index math, a side
+    reaches 2^30 or a row more than 65535 segments (2^28 columns)."""
+    if not 1 <= D < 2 ** 63:
+        raise ValueError(f"step_plan: dilation {D} not in 1..2^62")
+    if max(H, W) >= 2 ** 30:
+        raise ValueError(f"step_plan: a {H}x{W} frame passes 32-bit "
+                         "index math (2^30 a side)")
     if 8 * W <= SMEM_OPTIN:
-        seg, smem = 0, 8 * W
+        seg = 0
     else:
-        seg = STEP_SEG
-        smem = 4 * (2 * seg + 2 * hw * D)
-        if smem > SMEM_OPTIN:
-            raise ValueError(
-                f"deep step: the {2 * hw * D}-column halo of a row segment "
-                "does not fit the shared memory")
-    rows = H if D >= H else D * -(-H // D)
-    grid = (rows, 1 if seg == 0 else -(-W // seg), B)
-    return StepPlan(seg, smem, grid, 32 if B * H * W < 2 ** 31 else 64)
+        seg = next(s for s in STEP_SEGS
+                   if step_smem(W, D, hw, s) <= SMEM_OPTIN)
+    Dr, Dc = map_step(D, H), map_step(D, W)
+    if max(H + hw * Dr, W + seg + hw * Dc) >= 2 ** 31:
+        raise ValueError(f"step_plan: the taps of a {H}x{W} frame at "
+                         f"dilation {D} reach past 32-bit index math "
+                         "(2^31)")
+    rows = H if Dr >= H else Dr * -(-H // Dr)
+    frames = min(B, MAX_FRAMES)
+    grid = (rows, 1 if seg == 0 else -(-W // seg), frames)
+    if grid[1] > 65535:
+        raise ValueError(f"step_plan: {grid[1]} segments of a {W}-column "
+                         "row pass the grid's 65535")
+    return StepPlan(seg, step_smem(W, D, hw, seg), grid,
+                    32 if frames * H * W < 2 ** 31 else 64)
 
 
 def _lib():
@@ -169,7 +209,7 @@ def _lib():
     fn = lib.wt_whiten_step_f32
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int] + [ctypes.c_longlong] * 8
+                   ctypes.c_void_p, ctypes.c_int] + [ctypes.c_longlong] * 9
                    + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
@@ -218,8 +258,8 @@ def launch_whiten_step(carry, c_next, detail, white, acc, acc_mode, thr,
         _ptr(carry), _ptr(c_next), _ptr(detail), _ptr(white), _ptr(acc),
         int(acc_mode), _ptr(thr), float(fac), int(bool(masked)),
         int(bool(soft)), taps, len(sf.taps), B, H, W, 1 << scale, plan.seg,
-        plan.grid[0], plan.grid[1], plan.smem_bytes, plan.index_bits,
-        _build.stream_ptr(carry.device))
+        plan.grid[0], plan.grid[1], plan.grid[2], plan.smem_bytes,
+        plan.index_bits, _build.stream_ptr(carry.device))
     _build.check(lib, code, "whiten_step")
     _build.LAUNCHES[KERNEL] += 1
 
@@ -373,9 +413,11 @@ def fused_wow_group(x: torch.Tensor, factors: Sequence[float], thresholds,
 def _lib_decompose():
     lib = _build.load(DECOMPOSE_KERNEL)
     fn = lib.wt_decompose_group_f32
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
                    + [ctypes.c_void_p, ctypes.c_int]
-                   + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
+                   + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 3
+                   + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
@@ -384,6 +426,26 @@ def _group_rows(level: int, smooth_only: bool) -> int:
     if level < 1:
         raise ValueError("a decompose group needs at least one scale")
     return 1 if smooth_only else level + 1
+
+
+def decompose_buffers(level: int, smooth_only: bool = False):
+    """Kernel C's buffers, scale by scale: ``(source, c_next, detail)``,
+    each ``"x"`` (the input), ``"spare"`` (a scratch plane) or a row of
+    the output cube (``detail`` None with ``smooth_only``).  The rows fold
+    reads carry rows that belong to other blocks, so no scale writes its
+    own source: ``c_next`` alternates between the cube's carry row and the
+    spare, the last scale in the carry row, and ``x`` is only read.  No
+    cube row can be the spare: the last scale reads the carry of the one
+    before while it writes its detail and the carry row, and the rows
+    before hold earlier details.  So one scale needs no spare and ``g ≥
+    2`` one plane."""
+    carry = _group_rows(level, smooth_only) - 1
+    out, src = [], "x"
+    for k in range(level):
+        dst = carry if (level - 1 - k) % 2 == 0 else "spare"
+        out.append((src, dst, None if smooth_only else k))
+        src = dst
+    return out
 
 
 def fused_group_plain(x: torch.Tensor, level: int, sf: ScalingFunction,
@@ -411,7 +473,9 @@ def fused_group(x: torch.Tensor, level: int, sf: ScalingFunction,
     scales ``offset .. offset+level−1``, then the carry, or with
     ``smooth_only`` the carry alone, ``(1, *x.shape)`` (the 3-D volume
     path's in-plane pass).  A CPU ``x`` runs :func:`fused_group_plain`; a
-    CUDA ``x`` runs kernel C (``csrc/decompose_group.cu``) or raises."""
+    CUDA ``x`` runs kernel C (``csrc/decompose_group.cu``: one row-buffer
+    launch a scale, each sized by :func:`step_plan`, in the buffers of
+    :func:`decompose_buffers`) or raises."""
     if not x.is_cuda:
         return fused_group_plain(x, level, sf, offset, smooth_only)
     check_kernel_input(x, sf, "fused_group")
@@ -422,12 +486,30 @@ def fused_group(x: torch.Tensor, level: int, sf: ScalingFunction,
                       device=x.device)
     B = x.shape[0] if x.ndim == 3 else 1
     H, W = x.shape[-2:]
+    plans = [step_plan(B, H, W, 1 << (offset + k), sf.half_width)
+             for k in range(level)]
+    bufs = decompose_buffers(level, smooth_only)
+    # scratch held by name until the launches are queued
+    spare = torch.empty_like(x) if level > 1 else None
+
+    def ptrs(i):
+        names = [b[i] for b in bufs]
+        return (ctypes.c_void_p * level)(*[
+            0 if n is None else x.data_ptr() if n == "x"
+            else spare.data_ptr() if n == "spare" else out[n].data_ptr()
+            for n in names])
+
+    def per_scale(field):
+        return (ctypes.c_longlong * level)(*[field(p) for p in plans])
+
     lib = _lib_decompose()
     taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
     code = lib.wt_decompose_group_f32(
-        _ptr(x), _ptr(out), _ptr(torch.empty_like(x)), int(level),
-        int(offset), int(bool(smooth_only)), taps, len(sf.taps), B, H, W,
-        _build.stream_ptr(x.device))
+        ptrs(0), ptrs(1), ptrs(2), int(level), int(offset), taps,
+        len(sf.taps), B, H, W, per_scale(lambda p: p.seg),
+        per_scale(lambda p: p.grid[0]), per_scale(lambda p: p.grid[1]),
+        plans[0].grid[2], per_scale(lambda p: p.smem_bytes),
+        plans[0].index_bits, _build.stream_ptr(x.device))
     _build.check(lib, code, "decompose_group")
     _build.LAUNCHES[DECOMPOSE_KERNEL] += 1
     return out

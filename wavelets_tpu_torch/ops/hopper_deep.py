@@ -22,10 +22,15 @@ Counterpart of ``wavelets_tpu/ops/pallas_deep.py`` (signatures minus
   kernel D (``csrc/whiten_plane.cu``), with a runtime factor and an
   optional gamma sum.
 * :func:`deep_bilateral_whiten_step` — one deep *bilateral* scale from the
-  carry on kernel G (``csrc/bilateral_step.cu``): kernel F's bilateral
-  chain smooth, then kernel A's power smooth and whitening.
-  :func:`can_deep_bilateral` is the port's own gate (dtype, rank and
-  taps only: the kernel takes any H, W and dilation).
+  carry on kernel G (``csrc/bilateral_step.cu``), two launches: kernel
+  F's ring at one scale (``c_next`` and the detail, sized by
+  :func:`~.hopper_bilateral.bilateral_plan`), then the second pass of
+  kernel A's deep step (the power smooth and whitening, sized by
+  :func:`~.hopper_conv.step_plan`).  :func:`can_deep_bilateral` is the
+  port's own gate (dtype, rank and taps only: the kernel takes any H, W
+  and dilation).  :func:`deep_bilateral_whiten_step_ref` runs kernel G's
+  earlier five per-pixel launches, an independent reference on the card
+  for kernels F and G that no path calls.
 
 A CPU tensor runs each kernel's plain version; a CUDA tensor runs the
 kernel or raises.
@@ -42,9 +47,9 @@ import torch
 from . import _build
 from .conv import bilateral_smooth
 from .filters import ScalingFunction
-from .hopper_bilateral import MAX_HW, kernel_weights
+from .hopper_bilateral import MAX_HW, bilateral_plan, kernel_weights
 from .hopper_conv import (KERNEL, SMEM_OPTIN, _ptr, check_kernel_input,
-                          launch_whiten_step, whiten_detail_plain,
+                          launch_whiten_step, step_plan, whiten_detail_plain,
                           whiten_scale_plain)
 from .hopper_wow import KERNEL as PLANE_KERNEL
 from .hopper_wow import launch_whiten_plane
@@ -54,10 +59,13 @@ __all__ = ["deep_whiten_step", "deep_whiten_step_plain", "can_deep2",
            "deep_whiten_step2", "deep_whiten_step2_plain",
            "deep_whiten_plane", "deep_whiten_plane_plain",
            "can_deep_bilateral", "deep_bilateral_whiten_step",
-           "deep_bilateral_whiten_step_plain"]
+           "deep_bilateral_whiten_step_plain",
+           "deep_bilateral_whiten_step_ref"]
 
 PAIR_KERNEL = "whiten_pair"
 BILATERAL_KERNEL = "bilateral_step"
+#: the launch counter of kernel G's check-only reference entry
+BILATERAL_REF = "bilateral_step_ref"
 
 
 def _check_args(carry, recon, write_plane, what="deep_whiten_step"):
@@ -336,12 +344,19 @@ def can_deep_bilateral(carry: torch.Tensor, sf: ScalingFunction,
 def _lib_bilateral():
     lib = _build.load(BILATERAL_KERNEL)
     fn = lib.wt_bilateral_step_f32
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p,
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_float] + [ctypes.c_int] * 2
                    + [ctypes.c_float] * 2 + [ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p] + [ctypes.c_longlong] * 4
-                   + [ctypes.c_void_p])
+                   ctypes.c_void_p] + [ctypes.c_longlong] * 14
+                   + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    ref = lib.wt_bilateral_step_ref_f32
+    ref.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p,
+                    ctypes.c_float] + [ctypes.c_int] * 2
+                    + [ctypes.c_float] * 2 + [ctypes.c_void_p, ctypes.c_int,
+                    ctypes.c_void_p] + [ctypes.c_longlong] * 4
+                    + [ctypes.c_void_p])
+    ref.restype = ctypes.c_int
     return lib
 
 
@@ -350,6 +365,21 @@ def _bilateral_args(carry, threshold, recon, write_plane):
     thr = torch.as_tensor(threshold, dtype=carry.dtype,
                           device=carry.device).reshape(-1)
     return thr.expand(carry.shape[0])
+
+
+def _bilateral_kernel_args(carry, threshold, sf, scale, recon, write_plane,
+                           what):
+    """Check a CUDA carry (and recon) for kernel G's entries → the
+    contiguous per-frame thresholds."""
+    check_kernel_input(carry, sf, what)
+    if not can_deep_bilateral(carry, sf, scale):
+        raise ValueError(f"{what}: kernel G does not take this carry or "
+                         "scaling function (use can_deep_bilateral before "
+                         "dispatch)")
+    thr = _bilateral_args(carry, threshold, recon, write_plane).contiguous()
+    if recon is not None:
+        check_kernel_input(recon, sf, what)
+    return thr
 
 
 def deep_bilateral_whiten_step_plain(
@@ -398,30 +428,65 @@ def deep_bilateral_whiten_step(
             weight=weight, soft=soft, masked=masked,
             bilateral_scaling=bilateral_scaling, recon=recon,
             write_plane=write_plane)
-    check_kernel_input(carry, sf, "deep_bilateral_whiten_step")
-    if not can_deep_bilateral(carry, sf, scale):
-        raise ValueError("deep_bilateral_whiten_step: kernel G does not take "
-                         "this carry or scaling function (use "
-                         "can_deep_bilateral before dispatch)")
-    thr = _bilateral_args(carry, threshold, recon, write_plane).contiguous()
-    if recon is not None:
-        check_kernel_input(recon, sf, "deep_bilateral_whiten_step")
+    thr = _bilateral_kernel_args(carry, threshold, sf, scale, recon,
+                                 write_plane, "deep_bilateral_whiten_step")
+    B, H, W = carry.shape
+    D, hw = 1 << scale, sf.half_width
+    step = step_plan(B, H, W, D, hw)
+    ring = bilateral_plan(step.grid[2], H, W, D, hw)
+    c_next = torch.empty_like(carry)
+    white = torch.empty_like(carry) if write_plane else None
+    # scratch held by name until the launches are queued (see
+    # hopper_bilateral.fused_bilateral_group)
+    detail = torch.empty_like(carry)
+    lib = _lib_bilateral()
+    taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
+    code = lib.wt_bilateral_step_f32(
+        _ptr(carry), _ptr(c_next), _ptr(detail), _ptr(white), _ptr(recon),
+        0 if recon is None else 2, _ptr(thr), float(weight),
+        int(bool(masked)), int(bool(soft)), float(var_factor),
+        float(scale + 1) if bilateral_scaling else 1.0, taps, len(sf.taps),
+        kernel_weights(sf), B, H, W, D, ring.rows, ring.seg, ring.grid[0],
+        ring.grid[1], ring.smem_bytes, step.seg, step.grid[0], step.grid[1],
+        step.smem_bytes, step.grid[2], step.index_bits,
+        _build.stream_ptr(carry.device))
+    _build.check(lib, code, "bilateral_step")
+    _build.LAUNCHES[BILATERAL_KERNEL] += 1
+    return white, c_next
+
+
+def deep_bilateral_whiten_step_ref(
+        carry: torch.Tensor, threshold, *, sf: ScalingFunction, scale: int,
+        var_factor: float, weight: float, soft: bool = True,
+        masked: bool = False, bilateral_scaling: bool = False,
+        recon: Optional[torch.Tensor] = None, write_plane: bool = True):
+    """Check-only: :func:`deep_bilateral_whiten_step` through kernel G's
+    earlier five per-pixel launches on the card (``csrc/bilateral_step.cu``
+    ``wt_bilateral_step_ref_f32``: the three passes of
+    ``wt_bilateral.cuh``, every tap through the symmetric index map, then
+    the power smooth and whitening one pixel a thread).  An independent
+    reference for the bits of kernels F and G; no path calls it.  Takes a
+    CUDA carry only; counted under :data:`BILATERAL_REF`."""
+    if not carry.is_cuda:
+        raise ValueError("deep_bilateral_whiten_step_ref: a check on the "
+                         "card; it takes a CUDA carry")
+    thr = _bilateral_kernel_args(carry, threshold, sf, scale, recon,
+                                 write_plane, "deep_bilateral_whiten_step_ref")
     B, H, W = carry.shape
     c_next = torch.empty_like(carry)
     white = torch.empty_like(carry) if write_plane else None
-    # scratch held by name until the launch is queued (see
-    # hopper_bilateral.fused_bilateral_group)
+    # scratch held by name until the launches are queued
     detail, tm, tq = torch.empty((3, B, H, W), dtype=carry.dtype,
                                  device=carry.device)
     lib = _lib_bilateral()
     taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
-    code = lib.wt_bilateral_step_f32(
+    code = lib.wt_bilateral_step_ref_f32(
         _ptr(carry), _ptr(c_next), _ptr(detail), _ptr(tm), _ptr(tq),
         _ptr(white), _ptr(recon), 0 if recon is None else 2, _ptr(thr),
         float(weight), int(bool(masked)), int(bool(soft)), float(var_factor),
         float(scale + 1) if bilateral_scaling else 1.0, taps, len(sf.taps),
         kernel_weights(sf), B, H, W, 1 << scale,
         _build.stream_ptr(carry.device))
-    _build.check(lib, code, "bilateral_step")
-    _build.LAUNCHES[BILATERAL_KERNEL] += 1
+    _build.check(lib, code, "bilateral_step_ref")
+    _build.LAUNCHES[BILATERAL_REF] += 1
     return white, c_next
