@@ -21,8 +21,14 @@ CUDA toolkit.  It
    ``np.median``), kernel C (groups at 4096², 1000×1536, 257×513, a
    batch of 3, 5×40000 (rows in segments) and a dilation past the map's
    period, and the volume's one-scale pass at 64×1024², ``smooth_only``
-   on and off; bitwise, inputs unchanged), kernel D (4096², s ∈ {0, 1,
-   2, 5}, factors from a device table, gamma on) and kernel E (the pairs
+   on and off; bitwise, inputs unchanged), kernel D (the pieces form,
+   scales 0-2 in one launch, at 4096², a batch of 3 and 2×3×40000 (rows
+   in segments), soft, hard and unmasked, whites and gamma on and off,
+   per-frame factors computed on the card; the deep-plane form at s =
+   3..9 on 4096², 8 on 257×513, 5 and 9 on a batch and 13 on 2×3×40000,
+   with white, ``recon +=`` and gamma, or ``recon +=`` alone; bitwise to
+   the first-port design, the check-only reference entry, inputs
+   unchanged) and kernel E (the pairs
    (7, 8) at 4096² and (4, 5) at 512² against two plain steps, carry
    bitwise, and against two kernel A steps, bitwise), kernel F
    (bilateral groups at 4096², 1000×1536 and 257×513, offsets 0, 3 and
@@ -57,7 +63,9 @@ CUDA toolkit.  It
    ``expf`` counted as :data:`EXPF_OPS` instructions); kernel B at 4096²
    and 512² (and the device kernels of one call, profiled: at most 4),
    kernels C and F per group at offsets 0 and 3, kernel C's one-scale
-   volume pass at 64×1024², kernel G per scale s = 3..9;
+   volume pass at 64×1024², kernel D's pieces form (scales 0-2) and its
+   deep plane per scale s = 3..9, each beside the first-port reference
+   entry, kernel G per scale s = 3..9;
 6. traces each path's kernel route with ``torch.profiler`` over 5 runs:
    device-busy ms per run, the idle share against the CUDA-event time,
    and the kernels that take the most device time.
@@ -391,39 +399,105 @@ def main():
     # ---- 3d. kernel D ---------------------------------------------------
     err_d = 0.0
     with Phase("kernel D checks"):
-        x = frame((4096, 4096))
-        cube = hopper_conv.fused_group(x, 6, B3SPLINE)
-        pieces = (cube[:, None],)
-        layout = tuple((0, s) for s in range(3))
-        # preserve_variance's factors, computed on the card
-        fac = torch.stack([w * torch.sqrt(torch.mean(cube[s] ** 2))
-                           for s, w in enumerate((1.0, 2.0, 0.5))])
-        thr = torch.tensor([9.0 * float(sig[k]) for k in range(3)],
-                           device=dev)
-        args = (pieces, fac, thr, B3SPLINE, 3, layout)
-        got = hopper_wow.fused_whiten_pieces(*args, write_gamma=True)
-        want = hopper_wow.fused_whiten_pieces_plain(*args, write_gamma=True)
-        torch.cuda.synchronize()
-        scale = float(want[1].abs().max())
-        for s in range(3):
-            err_d = max(err_d, check_white(got[0][s], want[0][s],
-                                           f"kernel D s={s}", scale))
-        err_d = max(err_d, check_white(got[1], want[1], "kernel D recon"))
-        check_white(got[2], want[2], "kernel D gamma")
-        g_k, g_p = got[2].clone(), want[2].clone()
-        w5 = fac[1] * 0.5
-        kw = dict(sf=B3SPLINE, scale=5, weight=w5.reshape(1), masked=True)
-        t5 = torch.tensor([2.0 * float(sig[5])], device=dev)
-        d_k = hopper_deep.deep_whiten_plane(cube[5][None], t5, gamma=g_k,
-                                            **kw)
-        d_p = hopper_deep.deep_whiten_plane_plain(cube[5][None], t5,
-                                                  gamma=g_p, **kw)
-        torch.cuda.synchronize()
-        err_d = max(err_d, check_white(d_k, d_p, "kernel D s=5"))
-        check_white(g_k, g_p, "kernel D gamma after s=5")
-        print(f"kernel D: 4096² s=0,1,2 (pieces) and s=5 (plane) with "
-              f"device factors and gamma, max abs err {err_d:.3e}")
-        del cube, pieces
+        n_d = 0
+
+        def check_d(got, ref, plain, what, scale=None):
+            """Bitwise to the first-port reference entry, within 5e-6·max
+            of the plain version; returns the max abs error."""
+            e = 0.0
+            for k, (a, r, p) in enumerate(zip(got, ref, plain)):
+                require((a is None) == (r is None) == (p is None),
+                        f"{what}: output {k} present in one version only")
+                if a is not None:
+                    check_bitwise(a, r, f"{what} output {k} vs reference")
+                    e = max(e, check_white(a, p, f"{what} output {k}",
+                                           scale))
+            return e
+
+        # the pieces form: scales 0-2 of a decomposition at 4096² (and a
+        # batch, and rows in segments), preserve_variance's factors
+        # computed on the card, gamma and the whites on and off
+        for shape in ((4096, 4096), (3, 96, 1000), (2, 3, 40000)):
+            x = frame(shape)
+            cube = hopper_conv.fused_group(x, 3, B3SPLINE)
+            cube = cube if x.ndim == 3 else cube[:, None]
+            cube0 = cube.clone()
+            pieces = (cube[:1], cube[1:])
+            layout = ((0, 0), (1, 0), (1, 1))
+            B = cube.shape[1]
+            fac = torch.stack([w * torch.sqrt(torch.mean(
+                cube[s] ** 2, dim=(-2, -1))) for s, w in
+                enumerate((1.0, 2.0, 0.5))])
+            for mode in ("soft", "hard", "unmasked"):
+                t = (0.0 if mode == "unmasked" else 1.0)
+                thr = torch.tensor([[t * 9.0 * float(sig[k])] * B
+                                    for k in range(3)], device=dev)
+                for planes_on, gamma_on in ((True, True), (False, False),
+                                            (True, False), (False, True)):
+                    if shape != (4096, 4096) and not planes_on:
+                        continue
+                    args = (pieces, fac, thr, B3SPLINE, 3, layout)
+                    kw = dict(soft=mode != "hard", write_planes=planes_on,
+                              write_gamma=gamma_on)
+                    got = hopper_wow.fused_whiten_pieces(*args, **kw)
+                    ref = hopper_wow.fused_whiten_pieces_ref(*args, **kw)
+                    plain = hopper_wow.fused_whiten_pieces_plain(*args, **kw)
+                    torch.cuda.synchronize()
+                    what = (f"kernel D pieces {shape} {mode} planes "
+                            f"{planes_on} gamma {gamma_on}")
+                    scale = float(plain[1].abs().max())
+                    e = check_d(got, ref, plain, what, scale)
+                    if shape == (4096, 4096):
+                        err_d = max(err_d, e)
+                    n_d += 1
+                    del got, ref, plain
+            check_bitwise(cube, cube0, f"kernel D pieces {shape}: input")
+            del x, cube, cube0, pieces
+
+        # the deep-plane form: s = 3..9 at 4096² (soft, hard, unmasked in
+        # turn), with white, recon += and gamma +=, or recon += alone
+        # (write_plane=False); 257×513 at s = 8, a batch, rows in segments
+        # of tap windows at s = 13
+        for shape, scales in (((4096, 4096), range(3, 10)),
+                              ((257, 513), (8,)), ((3, 96, 1000), (5, 9)),
+                              ((2, 3, 40000), (13,))):
+            x = frame(shape, b=None if len(shape) == 3 else 1)
+            x0 = x.clone()
+            B = x.shape[0]
+            recon, gamma = frame(x.shape), frame(x.shape)
+            fac = torch.sqrt(torch.mean(x ** 2, dim=(-2, -1))) * 0.5
+            for s in scales:
+                thr = torch.full((B,), 2.0 * float(sig[min(s, 9)]),
+                                 device=dev)
+                for k, mode in enumerate(("soft", "hard", "unmasked")):
+                    if shape == (4096, 4096) and k != s % 3:
+                        continue
+                    for outputs in ("all", "recon"):
+                        kw = dict(sf=B3SPLINE, scale=s, weight=fac,
+                                  soft=mode == "soft",
+                                  masked=mode != "unmasked",
+                                  write_plane=outputs == "all")
+                        rs = [recon.clone() for _ in range(3)]
+                        gs = ([gamma.clone() for _ in range(3)]
+                              if outputs == "all" else [None] * 3)
+                        w_k = hopper_deep.deep_whiten_plane(
+                            x, thr, recon=rs[0], gamma=gs[0], **kw)
+                        w_r = hopper_deep.deep_whiten_plane_ref(
+                            x, thr, recon=rs[1], gamma=gs[1], **kw)
+                        w_p = hopper_deep.deep_whiten_plane_plain(
+                            x, thr, recon=rs[2], gamma=gs[2], **kw)
+                        torch.cuda.synchronize()
+                        what = f"kernel D plane {shape} s={s} {mode} {outputs}"
+                        e = check_d((w_k, rs[0], gs[0]), (w_r, rs[1], gs[1]),
+                                    (w_p, rs[2], gs[2]), what)
+                        if shape == (4096, 4096):
+                            err_d = max(err_d, e)
+                        n_d += 1
+                        del rs, gs, w_k, w_r, w_p
+            check_bitwise(x, x0, f"kernel D plane {shape}: input")
+            del x, x0, recon, gamma
+        print(f"kernel D: {n_d} checks passed, bitwise to the first-port "
+              f"reference; vs plain 4096² max abs err {err_d:.3e}")
 
     # ---- 3e. kernel E ---------------------------------------------------
     err_e = {"white": 0.0, "carry": 0.0}
@@ -736,7 +810,7 @@ def main():
     with Phase(what):
         (recon, coeffs), _ = drive(
             what, lambda: wt.wow(wt.AtrousTransform()(x4k, 10)),
-            ("decompose_group", "whiten_plane"))
+            {"decompose_group": 4, "whiten_plane": 8})
         planes = wt.AtrousTransform()(x4k, 10)
         r_p, c_p = wt.wow(planes, fuse=False)
         torch.cuda.synchronize()
@@ -779,12 +853,12 @@ def main():
     b1 = {
         "B1 wow 4096² L10 bilateral=1, denoise [5, 2], noise 1.0":
             (dict(bilateral=1, denoise_coefficients=[5, 2], noise=1.0),
-             {"bilateral_group": 1, "whiten_plane": 3,
+             {"bilateral_group": 1, "whiten_plane": 1,
               "bilateral_step": 7}),
         "B1-lazy wow 4096² L10 bilateral=1 scaling, denoise [5, 2]":
             (dict(bilateral=1, bilateral_scaling=True,
                   denoise_coefficients=[5, 2]),
-             {"bilateral_group": 1, "whiten_plane": 3, "bilateral_step": 7,
+             {"bilateral_group": 1, "whiten_plane": 1, "bilateral_step": 7,
               "median_select": 1}),
     }
     for what, (kw, expect) in b1.items():
@@ -837,10 +911,10 @@ def main():
     what = "B4 wow(AtrousTransform(bilateral=1)(x4096, 10))"
     with Phase(what):
         # four kernel F groups (3, 3, 3, 1 scales); kernel D whitens
-        # scales 0-2 from the pieces and 3-9 one plane each
+        # scales 0-2 from the pieces in one launch and 3-9 one plane each
         (recon, coeffs), _ = drive(
             what, lambda: wt.wow(wt.AtrousTransform(bilateral=1)(xb4k, 10)),
-            {"bilateral_group": 4, "whiten_plane": 10})
+            {"bilateral_group": 4, "whiten_plane": 8})
         bplanes = wt.AtrousTransform(bilateral=1)(xb4k, 10)
         r_p, c_p = wt.wow(bplanes, fuse=False)
         torch.cuda.synchronize()
@@ -1027,18 +1101,41 @@ def main():
             library="none: PyTorch has no numpy-symmetric pad"))
 
         # kernel D: the pieces of scales 0-2 at 4096², planes and gamma
+        # (one launch), and one deep plane each of s = 3..9 with recon +=
+        # (one launch a scale); the first-port reference entry beside them
         cube = hopper_conv.fused_group(x, 3, B3SPLINE)
         args = ((cube[:, None],), torch.ones(3, device=dev),
                 torch.full((3,), 0.5, device=dev), B3SPLINE, 3,
                 ((0, 0), (0, 1), (0, 2)))
         d_k = timed(lambda: hopper_wow.fused_whiten_pieces(
             *args, write_gamma=True), torch)
+        d_r = timed(lambda: hopper_wow.fused_whiten_pieces_ref(
+            *args, write_gamma=True), torch)
         d_p = timed(lambda: hopper_wow.fused_whiten_pieces_plain(
             *args, write_gamma=True), torch)
-        print(f"  kernel D 4096² scales 0-2 with gamma: {d_k:.3f} ms, "
-              f"plain {d_p:.3f} ms")
-        # read 3 planes; write 3 whites, recon, gamma
+        print(f"  kernel D 4096² pieces, scales 0-2 with gamma: {d_k:.3f} ms, "
+              f"first-port reference {d_r:.3f} ms, plain {d_p:.3f} ms")
+        del cube, args
+        xd = frame((4096, 4096), b=1)
+        rd = torch.zeros_like(xd)
+        one1 = torch.ones(1, device=dev)
+        dp_k, dp_r, dp_p = {}, {}, {}
+        for s in range(3, 10):
+            kw = dict(sf=B3SPLINE, scale=s, weight=one1, masked=True)
+            dp_k[s] = timed(lambda: hopper_deep.deep_whiten_plane(
+                xd, thr1, recon=rd, **kw), torch)
+            dp_r[s] = timed(lambda: hopper_deep.deep_whiten_plane_ref(
+                xd, thr1, recon=rd, **kw), torch)
+            dp_p[s] = timed(lambda: hopper_deep.deep_whiten_plane_plain(
+                xd, thr1, recon=rd, **kw), torch)
+            print(f"  kernel D 4096² plane s={s} with recon +=: "
+                  f"{dp_k[s]:.3f} ms, first-port reference {dp_r[s]:.3f} "
+                  f"ms, plain {dp_p[s]:.3f} ms")
+        del xd, rd
+        # pieces: read 3 planes; write 3 whites, recon, gamma
         b_d = bound_ms(8 * plane_bytes, 3 * 4096 * 4096 * (FOLD_OPS * 2 + 12))
+        # a deep plane: read it and recon; write the white and recon
+        b_dp = bound_ms(4 * plane_bytes, 4096 * 4096 * (FOLD_OPS * 2 + 12))
         kernels_out.append(dict(
             name="whiten_plane", route="cuda",
             source="wavelets_tpu_torch/csrc/whiten_plane.cu",
@@ -1048,10 +1145,13 @@ def main():
             main_path_launches=main_launches.get("whiten_plane", 0),
             max_abs_err=err_d,
             ms=d_k, plain_ms=d_p, bound_ms=b_d[0], bound_by=b_d[1],
-            library_ms=None,
+            library_ms=None, reference_ms=d_r,
             timed="fused_whiten_pieces, scales 0-2 at 4096², gamma on",
+            deep_plane_per_scale_ms=dp_k,
+            deep_plane_reference_per_scale_ms=dp_r,
+            deep_plane_plain_per_scale_ms=dp_p,
+            deep_plane_bound_ms=b_dp[0], deep_plane_bound_by=b_dp[1],
             library="none: PyTorch has no numpy-symmetric pad"))
-        del cube, args
 
         # kernel E: the pairs against their plain versions and against two
         # kernel A steps

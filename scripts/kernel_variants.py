@@ -1,6 +1,5 @@
 #!/usr/bin/env python3
-"""Where kernels A, B, C, E, F and G of ``wavelets_tpu_torch`` spend
-their time, on one NVIDIA GPU: times variants of their current sources,
+"""Where kernels A-G of ``wavelets_tpu_torch`` spend their time, on one NVIDIA GPU: times variants of their current sources,
 each with one part changed or cut out, at the main path's shapes.
 
     python3 scripts/kernel_variants.py [--root DIR] [KERNEL ...]
@@ -41,7 +40,15 @@ are only timed.
   64×1024²: as built (a row-buffer launch a scale), its bits held
   against the plain version;
 * kernel G (``bilateral_step.cu``), one scale each of s = 3..9 at
-  4096²: as built, the device time of its two launches apart.
+  4096²: as built, the device time of its two launches apart;
+* kernel D (``whiten_plane.cu``), the pieces form (scales 0-2 at 4096²,
+  per-frame factors, gamma on) and one deep plane each of s = 3..9 at
+  4096² with ``recon +=``: as built (one launch for the pieces, its bits
+  held against the check-only first-port reference); the pieces as three
+  deep-form launches (set, +=, +=); the pieces in whole rows (two 98 KB
+  blocks to an SM against the plan's four of 2048-column segments).  With ``--root`` on a checkout
+  whose ``deep_whiten_plane`` has no ``recon``, the deep plane's time
+  includes the ``recon.add_`` that its caller ran.
 
 Each wall time is the median of 20 runs after 3 warm-ups (CUDA events
 around the wrapper, so the host's launch work is in it); each device
@@ -54,6 +61,7 @@ import collections
 import contextlib
 import ctypes
 import dataclasses
+import inspect
 import re
 import subprocess
 import sys
@@ -85,9 +93,15 @@ VARIANTS = {
                                               "seg 2048"),
     "decompose group": ("decompose_group", (), None),
     "bilateral step": ("bilateral_step", (), None),
+    "whiten plane": ("whiten_plane", (), None),
+    "whiten plane, pieces as three deep-form launches": (
+        "whiten_plane", (), "three launches"),
+    "whiten plane, pieces in whole rows": ("whiten_plane", (),
+                                           "pieces whole rows"),
 }
 #: kernels whose device time is printed launch by launch
-PARTS = {"median_select", "decompose_group", "bilateral_step"}
+PARTS = {"median_select", "decompose_group", "bilateral_step",
+         "whiten_plane"}
 
 
 def build_variants(_build, kernels):
@@ -172,7 +186,7 @@ def main():
     sys.path.insert(0, str(root))
     from wavelets_tpu_torch.ops import (_build, hopper_bilateral,
                                         hopper_conv, hopper_deep,
-                                        hopper_stats)
+                                        hopper_stats, hopper_wow)
     from wavelets_tpu_torch.ops.filters import B3SPLINE
 
     card = subprocess.run(
@@ -244,7 +258,33 @@ def main():
             p, seg=seg, grid=(p.grid[0], -(-W // seg), B),
             smem_bytes=hopper_bilateral.ring_smem(hw, D, seg))
 
+    def three_launches(pieces, factors, thresholds, sf, n, layout,
+                       write_planes=True, write_gamma=False, **_):
+        # the pieces form as n deep-form launches: set, then +=
+        B, H, W = pieces[0].shape[1:]
+        planes = torch.empty((n, B, H, W), device=dev)
+        recon = torch.empty((B, H, W), device=dev)
+        gamma = torch.empty_like(recon)
+        for s in range(n):
+            k, r = layout[s]
+            mode = 1 if s == 0 else 2
+            hopper_wow.launch_whiten_plane(
+                pieces[k][r], planes[s] if write_planes else None, recon,
+                mode, gamma, mode if write_gamma else 0, factors[s],
+                thresholds[s], True, sf, s)
+        return planes, recon, gamma
+
+    pieces_plan = getattr(hopper_wow, "pieces_plan", None)
+
+    def pieces_whole(B, H, W, n, hw):
+        p = pieces_plan(B, H, W, n, hw)
+        return dataclasses.replace(p, seg=0, grid=(H, 1, p.grid[2]),
+                                   smem_bytes=8 * n * W)
+
     plans = {
+        "three launches": (hopper_wow, "fused_whiten_pieces",
+                           three_launches),
+        "pieces whole rows": (hopper_wow, "pieces_plan", pieces_whole),
         "seg 2048": (hopper_bilateral, "bilateral_plan", seg2048),
         "tile 64": (hopper_conv, "group_plan", tile64),
         "cluster 1": (hopper_deep, "pair_plan", lambda *a: dataclasses
@@ -259,8 +299,31 @@ def main():
     xv = torch.from_numpy(rng.normal(size=(64, 1024, 1024))
                           .astype(np.float32) * 3 + 10).to(dev)
 
+    # kernel D: scales 0-2 of a decomposition, per-frame factors as
+    # preserve_variance's, the thresholds of denoise [5, 2]
+    cube = hopper_conv.fused_group_plain(x[0], 3, B3SPLINE)[:, None]
+    fac3 = torch.stack([w * torch.sqrt(torch.mean(cube[s] ** 2))
+                        for s, w in enumerate((1.0, 2.0, 0.5))])[:, None]
+    thr3d = torch.tensor([[1.0], [0.5], [0.0]], device=dev)
+    pieces_args = ((cube,), fac3, thr3d, B3SPLINE, 3,
+                   ((0, 0), (0, 1), (0, 2)))
+    has_recon = "recon" in inspect.signature(
+        hopper_deep.deep_whiten_plane).parameters
+
+    def deep_plane(s):
+        kw = dict(sf=B3SPLINE, scale=s, weight=fac3[0], masked=True)
+        if has_recon:
+            return hopper_deep.deep_whiten_plane(x, thr3d[1], recon=recon,
+                                                 **kw)
+        return recon.add_(hopper_deep.deep_whiten_plane(x, thr3d[1], **kw))
+
     def runs(kernel):
-        if kernel == "decompose_group":
+        if kernel == "whiten_plane":
+            yield "pieces 0-2", lambda: hopper_wow.fused_whiten_pieces(
+                *pieces_args, write_gamma=True)
+            for s in range(3, 10):
+                yield f"plane s={s}", lambda s=s: deep_plane(s)
+        elif kernel == "decompose_group":
             for off in (0, 3):
                 yield f"g=3 offset {off}", lambda off=off: (
                     hopper_conv.fused_group(x[0], 3, B3SPLINE, off))
@@ -323,6 +386,16 @@ def main():
                                            .fused_group_plain(
                                                src, g, B3SPLINE, off, so))
                         print(f"      bitwise to the plain version: {same}")
+                    if (kernel == "whiten_plane" and rnd == 0
+                            and what.startswith("pieces")
+                            and hasattr(hopper_wow,
+                                        "fused_whiten_pieces_ref")):
+                        ref = hopper_wow.fused_whiten_pieces_ref(
+                            *pieces_args, write_gamma=True)
+                        same = all(torch.equal(a, b)
+                                   for a, b in zip(fn(), ref))
+                        print("      bitwise to the first-port reference: "
+                              f"{same}")
             sys.stdout.flush()
 
 

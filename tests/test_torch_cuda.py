@@ -248,7 +248,10 @@ def test_plan_variants_run_and_keep_the_bits(dev, monkeypatch, variant):
     ("bilateral", dict(smem_bytes=1024)), ("bilateral", dict(rows=0)),
     ("bilateral", dict(grid=(1, 1, 1))), ("decompose", dict(smem_bytes=64)),
     ("decompose", dict(grid=(1, 1, 1))), ("bilateral step", dict(seg=64)),
-    ("bilateral step", dict(grid=(100, 1, 1)))])
+    ("bilateral step", dict(grid=(100, 1, 1))), ("plane", dict(seg=64)),
+    ("plane", dict(grid=(100, 1, 1))), ("pieces", dict(smem_bytes=64)),
+    ("pieces", dict(grid=(1, 1, 1))),
+    ("pieces", dict(seg=1, grid=(128, 128, 1)))])
 def test_a_plan_the_kernel_cannot_run_is_refused(dev, monkeypatch, kernel,
                                                  change):
     # the C entry checks the plan it is given and refuses it before any
@@ -276,6 +279,14 @@ def test_a_plan_the_kernel_cannot_run_is_refused(dev, monkeypatch, kernel,
                            .deep_bilateral_whiten_step(
                                x, thr[0], sf=B3SPLINE, scale=3,
                                var_factor=1.0, weight=1.0)),
+        "plane": (hopper_wow, "step_plan", lambda: hopper_deep
+                  .deep_whiten_plane(x, thr[0], sf=B3SPLINE, scale=3,
+                                     weight=1.0)),
+        # seg 1 < Dc = 4 at scale 2: the segment's halo is not contiguous
+        "pieces": (hopper_wow, "pieces_plan", lambda: hopper_wow
+                   .fused_whiten_pieces((x[None],) * 3, torch.ones(3),
+                                        thr, B3SPLINE, 3,
+                                        ((0, 0), (1, 0), (2, 0)))),
     }
     module, name, run = runs[kernel]
     _replan(monkeypatch, module, name, **change)
@@ -380,6 +391,9 @@ def test_paths_launch_only_kernels(dev, path):
     got = run(True)
     torch.cuda.synchronize()
     assert set(_build.LAUNCHES) == kernels and not _build.PLAIN_CALLS
+    if "whiten_plane" in kernels:
+        # 5 scales: one pieces launch for 0-2, one a deep plane for 3, 4
+        assert _build.LAUNCHES["whiten_plane"] == 3
     assert got.is_cuda and bool(torch.isfinite(got).all())
     assert_close_scaled(got, run(False), 5e-6)
 
@@ -481,6 +495,124 @@ def test_deep_plane_kernel_vs_plain(dev, s, mode):
     torch.cuda.synchronize()
     assert_close_scaled(w_k, w_p, 5e-6)
     assert_close_scaled(g_k, g_p, 5e-6)
+
+
+# kernel D against its first-port design (two per-pixel launches through
+# a scratch plane, the check-only reference): odd widths, a dilation past
+# the frame and past the map's period, rows in segments, frames past
+# 65535 (several launches)
+PLANE_CASES = [((1, 64, 96), 3), ((2, 37, 70), 5), ((1, 257, 513), 8),
+               ((2, 3, 30001), 13), ((1, 16, 16), 40), ((65537, 2, 3), 1)]
+PIECES_CASES = [((2, 64, 80), 3), ((1, 37, 70), 2), ((3, 20, 9700), 3),
+                ((1, 5, 40001), 3), ((65537, 2, 3), 3), ((1, 9, 7), 1)]
+
+
+def _frames(shape, seed, mean=0.0):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.normal(size=shape) * 3 + mean)
+                            .astype(np.float32))
+
+
+@pytest.mark.parametrize("case", range(len(PLANE_CASES) + len(PIECES_CASES)))
+@pytest.mark.parametrize("mode", ["soft", "hard", "unmasked"])
+@pytest.mark.parametrize("outputs", ["all", "some"])
+def test_whiten_plane_bitwise_to_reference(dev, case, mode, outputs):
+    # "all": white, recon += and gamma += (pieces: whites, recon and
+    # gamma); "some": write_plane=False with recon, no gamma (pieces: no
+    # whites, no gamma)
+    _build.reset_counters()
+    if case < len(PLANE_CASES):
+        shape, s = PLANE_CASES[case]
+        c = _frames(shape, s).to(dev)
+        recon = _frames(shape, s + 1).to(dev)
+        gamma = _frames(shape, s + 2).to(dev)
+        thr = torch.full((shape[0],), 1.5, device=dev)
+        fac = torch.linspace(0.5, 2.0, shape[0], device=dev)
+        kw = dict(sf=B3SPLINE, scale=s, weight=fac, soft=mode == "soft",
+                  masked=mode != "unmasked", write_plane=outputs == "all")
+        r_k, r_r, r_p = recon.clone(), recon.clone(), recon.clone()
+        g_k, g_r, g_p = ((gamma.clone(), gamma.clone(), gamma.clone())
+                         if outputs == "all" else (None, None, None))
+        w_k = hopper_deep.deep_whiten_plane(c, thr, recon=r_k, gamma=g_k,
+                                            **kw)
+        torch.cuda.synchronize()
+        assert dict(_build.LAUNCHES) == {"whiten_plane": 1}
+        w_r = hopper_deep.deep_whiten_plane_ref(c, thr, recon=r_r,
+                                                gamma=g_r, **kw)
+        w_p = hopper_deep.deep_whiten_plane_plain(c, thr, recon=r_p,
+                                                  gamma=g_p, **kw)
+        torch.cuda.synchronize()
+        got, want, plain = (w_k, r_k, g_k), (w_r, r_r, g_r), (w_p, r_p, g_p)
+    else:
+        shape, n = PIECES_CASES[case - len(PLANE_CASES)]
+        B = shape[0]
+        cube = _frames((n,) + shape, n).to(dev)
+        rows = (cube[:1], cube[1:])       # two pieces, as decompose gives
+        layout = ((0, 0),) + tuple((1, k) for k in range(n - 1))
+        fac = torch.linspace(0.5, 2.0, n * B, device=dev).reshape(n, B)
+        thr = torch.full((n, B), 1.5, device=dev)
+        if mode == "unmasked":
+            thr.zero_()
+        args = (rows, fac, thr, B3SPLINE, n, layout)
+        kw = dict(soft=mode != "hard", write_planes=outputs == "all",
+                  write_gamma=outputs == "all")
+        got = hopper_wow.fused_whiten_pieces(*args, **kw)
+        torch.cuda.synchronize()
+        assert dict(_build.LAUNCHES) == {"whiten_plane": 1}
+        want = hopper_wow.fused_whiten_pieces_ref(*args, **kw)
+        plain = hopper_wow.fused_whiten_pieces_plain(*args, **kw)
+        torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES)["whiten_plane_ref"] >= 1
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a, b)
+    for a, b in zip(got, plain):
+        if b is not None:
+            assert_close_scaled(a, b, 5e-6)
+
+
+@pytest.mark.parametrize("kernel", ["step", "decompose", "plane", "pieces"])
+def test_row_buffer_passes_at_their_whole_row_limit(dev, kernel):
+    # the widest rows each plan takes whole: the row-buffer pass's
+    # dynamic shared memory and its static tap-row table share the 227 KB
+    # opt-in (the pieces form takes whole rows while four blocks fit an
+    # SM)
+    W = {"pieces": 2372}.get(kernel, 29038)
+    x = _frames((1, 3, W), 11, 10.0).to(dev)
+    thr = torch.full((3, 1), 0.5, device=dev)
+    if kernel != "pieces":
+        assert hopper_conv.step_plan(1, 3, W, 1, 2).seg == 0
+        assert hopper_conv.step_plan(1, 3, W + 1, 1, 2).seg > 0
+    if kernel == "step":
+        got = hopper_deep.deep_whiten_step(x, None, thr[0], sf=B3SPLINE,
+                                           scale=0, weight=1.0)
+        want = hopper_deep.deep_whiten_step_plain(x, None, thr[0],
+                                                  sf=B3SPLINE, scale=0,
+                                                  weight=1.0)
+    elif kernel == "decompose":
+        got = (hopper_conv.fused_group(x, 1, B3SPLINE),)
+        want = (hopper_conv.fused_group_plain(x, 1, B3SPLINE),)
+    elif kernel == "plane":
+        got = (hopper_deep.deep_whiten_plane(x, thr[0], sf=B3SPLINE,
+                                             scale=0, weight=1.0),)
+        want = (hopper_deep.deep_whiten_plane_ref(x, thr[0], sf=B3SPLINE,
+                                                  scale=0, weight=1.0),)
+    else:
+        assert hopper_wow.pieces_plan(1, 3, W, 3, 2).seg == 0
+        assert hopper_wow.pieces_plan(1, 3, W + 1, 3, 2).seg > 0
+        args = ((x[None].expand(3, 1, 3, W).contiguous(),), torch.ones(3),
+                thr, B3SPLINE, 3, ((0, 0), (0, 1), (0, 2)))
+        got = hopper_wow.fused_whiten_pieces(*args, write_gamma=True)
+        want = hopper_wow.fused_whiten_pieces_ref(*args, write_gamma=True)
+    torch.cuda.synchronize()
+    if kernel == "step":
+        assert torch.equal(got[2], want[2])
+        assert_close_scaled(got[0], want[0], 5e-6)
+        return
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("shape,s", [((1, 64, 96), 3), ((2, 40, 56), 2),
@@ -627,8 +759,9 @@ def test_bilateral_wow_path_vs_plain(dev):
     r_k, c_k = wow(x, **kw)
     torch.cuda.synchronize()
     launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
-    # kernel F for scales 0-2, kernel D whitens them, kernel G takes 3-5
-    assert launches == {"bilateral_group": 1, "whiten_plane": 3,
+    # kernel F for scales 0-2, kernel D whitens them in one launch,
+    # kernel G takes 3-5
+    assert launches == {"bilateral_group": 1, "whiten_plane": 1,
                         "bilateral_step": 3}
     assert plain == {}
     r_p, c_p = wow(x, fuse=False, **kw)

@@ -37,7 +37,7 @@ import torch
 from tests.torch_parity import assert_close_scaled
 from wavelets_tpu.ops import pallas_conv
 from wavelets_tpu_torch.ops import (_build, hopper_bilateral, hopper_conv,
-                                    hopper_deep)
+                                    hopper_deep, hopper_wow)
 from wavelets_tpu_torch.ops.filters import B3SPLINE, TRIANGLE
 
 SFS = {"b3": B3SPLINE, "tri": TRIANGLE}
@@ -220,13 +220,16 @@ def test_group_without_a_tile_runs_deep_steps(need_cube):
 
 
 @pytest.mark.parametrize("W,D,hw,seg", [
-    (4096, 512, 2, 0), (513, 512, 2, 0), (29056, 1, 2, 0),
+    (4096, 512, 2, 0), (513, 512, 2, 0), (29038, 1, 2, 0),
+    (29039, 1, 2, hopper_conv.STEP_SEGS[0]),
     (29057, 4, 2, hopper_conv.STEP_SEGS[0]), (60000, 4096, 1,
                                           hopper_conv.STEP_SEGS[0])])
 def test_step_plan(W, D, hw, seg):
     plan = hopper_conv.step_plan(1, 5, W, D, hw)
     assert plan.seg == seg
-    assert plan.smem_bytes <= hopper_conv.SMEM_OPTIN
+    # the dynamic bytes leave room for the kernel's static tap-row table
+    assert (plan.smem_bytes + hopper_conv.STEP_STATIC_SMEM
+            <= hopper_conv.SMEM_OPTIN)
     if seg:
         assert plan.smem_bytes == 4 * (2 * seg + 2 * hw * D)
         assert plan.grid[1] * seg >= W > (plan.grid[1] - 1) * seg
@@ -605,7 +608,8 @@ def _step_plan_ok(p, hw, B, H, W, D):
             and p.grid[0] == (H if Dr >= H else Dr * -(-H // Dr))
             and p.grid[1] == (1 if p.seg == 0 else -(-W // p.seg))
             and p.grid[1] <= 65535 and p.grid[2] == frames
-            and need <= p.smem_bytes <= hopper_conv.SMEM_OPTIN
+            and need <= p.smem_bytes
+            <= hopper_conv.SMEM_OPTIN - hopper_conv.STEP_STATIC_SMEM
             and (p.index_bits == 64 or frames * H * W < 2 ** 31))
 
 
@@ -810,6 +814,174 @@ def test_new_plans_take_what_the_old_kernels_took(shape, scale, kernel):
             assert _ring_plan_ok(ring, hw, H, W, D)
             assert ring.grid[2] == step.grid[2]
             assert ring.index_bits == step.index_bits
+    frames = step.grid[2]
+    chunks = [min(frames, B - b0) for b0 in range(0, B, frames)]
+    assert sum(chunks) == B and max(chunks) <= 65535
+
+
+# ---------------------------------------------------------------------
+# Kernel D (csrc/whiten_plane.cu): the deep-plane form runs step_plan,
+# the pieces form pieces_plan
+# ---------------------------------------------------------------------
+
+def _pieces_plan_ok(p, hw, n, B, H, W):
+    """csrc/whiten_plane.cu::pieces_plan_ok: what the pieces entry checks
+    before it launches."""
+    if not (1 <= n <= 3 and H < 2 ** 30 and W < 2 ** 30
+            and (p.seg == 0 or p.seg < W)):
+        return False
+    for s in range(n):
+        Dr = hopper_conv.map_step(1 << s, H)
+        Dc = hopper_conv.map_step(1 << s, W)
+        if (H + hw * Dr >= 2 ** 31 or W + p.seg + hw * Dc >= 2 ** 31
+                or (p.seg and Dc > p.seg)):
+            return False
+    frames = min(B, 65535)
+    return (p.grid[0] == H
+            and p.grid[1] == (1 if p.seg == 0 else -(-W // p.seg))
+            and p.grid[1] <= 65535 and p.grid[2] == frames
+            and hopper_wow.pieces_smem(n, hw, W, p.seg) <= p.smem_bytes
+            and (p.index_bits == 64 or frames * H * W < 2 ** 31))
+
+
+@pytest.mark.parametrize("W", [70, 2372, 2373, 4096, 9700, 40000, 1 << 20])
+@pytest.mark.parametrize("n", [1, 2, 3])
+@pytest.mark.parametrize("hw", [1, 2, 8])
+def test_pieces_plan(W, n, hw):
+    # whole rows while the 2n rows of floats let four blocks share an SM
+    # beside the kernel's static tap-row table (W <= 2372 at n = 3), else
+    # segments of 2048 covering every column with their contiguous halos
+    plan = hopper_wow.pieces_plan(2, 5, W, n, hw)
+    assert _pieces_plan_ok(plan, hw, n, 2, 5, W)
+    per_block = (plan.smem_bytes + hopper_wow.PIECES_STATIC_SMEM + 1024)
+    assert 4 * per_block <= 233472
+    assert plan.smem_bytes + hopper_wow.PIECES_STATIC_SMEM <= \
+        hopper_conv.SMEM_OPTIN
+    assert (plan.seg == 0) == (8 * n * W <= hopper_wow.PIECES_SMEM)
+    if n == 3 and W in (2372, 2373):
+        assert (plan.seg == 0) == (W == 2372)
+    if plan.seg:
+        assert plan.seg == next(
+            sg for sg in hopper_conv.STEP_SEGS
+            if hopper_wow.pieces_smem(n, hw, W, sg) <= hopper_wow.PIECES_SMEM)
+        assert plan.seg == 2048 or n < 3
+        assert plan.grid[1] * plan.seg >= W > (plan.grid[1] - 1) * plan.seg
+        assert plan.smem_bytes == 4 * sum(
+            2 * plan.seg + 2 * hw * (1 << s) for s in range(n))
+    else:
+        assert plan.grid[1] == 1 and plan.smem_bytes == 8 * n * W
+    assert plan.grid == (5, plan.grid[1], 2) and plan.index_bits == 32
+    with pytest.raises(ValueError):
+        hopper_wow.pieces_plan(1, 5, W, 4, hw)
+
+
+def _replay_pieces_pass(planes, taps, seg, facs, thrs, soft):
+    """whiten_plane.cu's pieces_pass on n (H, W) float32 planes (scale s
+    at dilation 2^s), row by row and segment by segment, each step one
+    float32 operation in the kernel's order (torch.sqrt and torch.erf for
+    the square root and erff: the plain version's functions, as the
+    comparison is on the CPU) → the whites, recon = (w0 + w1) + w2 and
+    gamma = (wc0 + wc1) + wc2."""
+    n = len(planes)
+    H, W = planes[0].shape
+    hw = (len(taps) - 1) // 2
+    t = np.asarray(taps[hw:], np.float32)
+    whites = np.full((n, H, W), np.nan, np.float32)
+    recon = np.full((H, W), np.nan, np.float32)
+    gamma = np.full((H, W), np.nan, np.float32)
+    segs = [(0, W)] if seg == 0 else [(w0, min(seg, W - w0))
+                                      for w0 in range(0, W, seg)]
+    for h in range(H):
+        for w0, n_out in segs:
+            o = np.arange(n_out)
+            rec = gam = None
+            for s in range(n):
+                x = planes[s]
+                Dr = hopper_conv.map_step(1 << s, H)
+                Dc = hopper_conv.map_step(1 << s, W)
+                rows = [x[int(_sym(h + j * Dr, H))] for j in range(-hw, hw + 1)]
+                if seg == 0:
+                    cols = np.arange(W)
+                else:
+                    cols = _sym(w0 - hw * Dc + np.arange(2 * hw * Dc + n_out),
+                                W)
+                sq = [r[cols] * r[cols] for r in rows]
+                T = sq[hw] * t[0]
+                for j in range(1, hw + 1):
+                    T = T + t[j] * (sq[hw - j] + sq[hw + j])
+                if seg == 0:
+                    f = T[o] * t[0]
+                    for j in range(1, hw + 1):
+                        f = f + t[j] * (T[_sym(o - j * Dc, W)]
+                                        + T[_sym(o + j * Dc, W)])
+                else:
+                    v = o + hw * Dc
+                    f = T[v] * t[0]
+                    for j in range(1, hw + 1):
+                        f = f + t[j] * (T[v - j * Dc] + T[v + j * Dc])
+                lp = torch.sqrt(torch.from_numpy(
+                    np.where(f <= 0, np.float32(1e-15), f))).numpy()
+                wc = x[h, w0 + o]
+                thr = np.float32(thrs[s])
+                if thr != 0:
+                    if soft:
+                        m = torch.erf(torch.from_numpy(
+                            np.abs(wc / thr))).numpy()
+                    else:
+                        m = (np.abs(wc) > thr).astype(np.float32)
+                    wc = wc * m
+                white = wc * (np.float32(facs[s]) / lp)
+                whites[s, h, w0 + o] = white
+                rec = white if rec is None else rec + white
+                gam = wc if gam is None else gam + wc
+            recon[h, w0 + o] = rec
+            gamma[h, w0 + o] = gam
+    return whites, recon, gamma
+
+
+@pytest.mark.parametrize("shape,seg", [
+    ((9, 70), 0), ((9, 70), 16), ((5, 37), 8), ((3, 13), 4), ((2, 3), 0)])
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("mode", ["soft", "hard"])
+@pytest.mark.parametrize("sf", ["b3", "tri"])
+def test_pieces_pass_replayed(shape, seg, n, mode, sf):
+    # whole rows and segments with a contiguous hw·2^s halo, scales at
+    # dilations past the frame (2^2 > 3 rows): the whites, recon and gamma
+    # bitwise to the plain version (whiten_detail_plain's folds, the
+    # set/+=/+= sums)
+    spec = SFS[sf]
+    rng = np.random.default_rng(len(shape) + seg + n)
+    planes = (rng.normal(size=(n,) + shape) * 3).astype(np.float32)
+    facs = np.float32([1.5, 0.5, 2.0])[:n]
+    thrs = np.float32([2.0, 0.0, 1.0])[:n]
+    whites, recon, gamma = _replay_pieces_pass(
+        list(planes), spec.taps, seg, facs, thrs, mode == "soft")
+    pieces = (torch.from_numpy(planes)[:, None],)
+    want = hopper_wow.fused_whiten_pieces_plain(
+        pieces, torch.from_numpy(facs), torch.from_numpy(thrs), spec, n,
+        tuple((0, s) for s in range(n)), soft=mode == "soft",
+        write_gamma=True)
+    assert np.array_equal(whites, want[0][:, 0].numpy())
+    assert np.array_equal(recon, want[1][0].numpy())
+    assert np.array_equal(gamma, want[2][0].numpy())
+
+
+@pytest.mark.parametrize("shape", COVER_SHAPES,
+                         ids=["x".join(map(str, s)) for s in COVER_SHAPES])
+@pytest.mark.parametrize("scale", [0, 3, 9, 12, 15, 20, 27, 40, 61])
+def test_new_plans_take_what_the_old_kernel_took(shape, scale):
+    # the per-pixel kernel D took any (B, H, W): a deep plane at any
+    # scale (now step_plan's one launch) and the pieces of scales 0..n-1
+    # (now pieces_plan's), taps of half width up to 8; a batch past 65535
+    # frames runs as launches of 65535 and the rest
+    B, H, W = shape
+    for hw in (1, 2, 8):
+        step = hopper_conv.step_plan(B, H, W, 1 << scale, hw)
+        assert _step_plan_ok(step, hw, B, H, W, 1 << scale)
+        for n in range(1, 4):
+            pieces = hopper_wow.pieces_plan(B, H, W, n, hw)
+            assert _pieces_plan_ok(pieces, hw, n, B, H, W)
+            assert pieces.grid[2] == step.grid[2]
     frames = step.grid[2]
     chunks = [min(frames, B - b0) for b0 in range(0, B, frames)]
     assert sum(chunks) == B and max(chunks) <= 65535

@@ -103,6 +103,42 @@ def test_deep_plane_plain_vs_pallas(s, mode):
     assert_close_scaled(got, ref, 5e-6)
 
 
+@pytest.mark.parametrize("mode", ["soft", "hard", "unmasked"])
+@pytest.mark.parametrize("write_plane", [True, False])
+def test_deep_plane_recon_vs_pallas(mode, write_plane):
+    # the recon add in the kernel's epilogue: recon += white in place,
+    # white written or not; the white against the interpret-mode kernel,
+    # the recon it was added to bitwise the out-of-place sum of the same
+    # white
+    rng = np.random.default_rng(13)
+    c = rng.normal(size=(2, 256, 256)).astype(np.float32)
+    recon0 = rng.normal(size=(2, 256, 256)).astype(np.float32)
+    thr = np.asarray([0.8, 0.0], np.float32)
+    kw = dict(scale=4, weight=1.5, soft=mode == "soft",
+              masked=mode != "unmasked")
+    ref = pallas_deep.deep_whiten_plane(jnp.asarray(c), jnp.asarray(thr),
+                                        sf=JB3, interpret=True, **kw)
+    recon = torch.from_numpy(recon0.copy())
+    _build.reset_counters()
+    got = hopper_deep.deep_whiten_plane(
+        torch.from_numpy(c), torch.from_numpy(thr), sf=B3SPLINE, recon=recon,
+        write_plane=write_plane, **kw)
+    assert _build.PLAIN_CALLS == {"whiten_plane": 1}
+    white = hopper_deep.deep_whiten_plane(
+        torch.from_numpy(c), torch.from_numpy(thr), sf=B3SPLINE, **kw)
+    assert_close_scaled(white, ref, 5e-6)
+    assert torch.equal(recon, torch.from_numpy(recon0) + white)
+    assert_close_scaled(recon, recon0 + np.asarray(ref), 5e-6)
+    if write_plane:
+        assert torch.equal(got, white)
+    else:
+        assert got is None
+    with pytest.raises(ValueError, match="write_plane"):
+        hopper_deep.deep_whiten_plane(
+            torch.from_numpy(c), torch.from_numpy(thr), sf=B3SPLINE,
+            write_plane=False, **kw)
+
+
 def test_deep_plane_runtime_factor_and_gamma():
     c = torch.from_numpy(np.random.default_rng(9).normal(size=(2, 64, 64))
                          .astype(np.float32))

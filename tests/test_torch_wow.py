@@ -227,6 +227,58 @@ def test_fused_body_with_deferred_tail_is_the_merged_body(frames):
     assert all(torch.equal(a, b) for a, b in zip(c_f, c_m))
 
 
+FUSED_CASES = {
+    # P3: the gamma blend, and with preserve_variance
+    "P3-gamma": dict(h=0.5, denoise_coefficients=[5, 2]),
+    "P3-pv": dict(h=0.5, preserve_variance=True,
+                  denoise_coefficients=[5, 2]),
+    # B4: WOW of a bilateral transform's planes
+    "B4": dict(bilateral=1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_CASES))
+@pytest.mark.parametrize("need_planes", [True, False])
+def test_fused_body_with_materialized_deep_planes_matches_jax(frames, case,
+                                                              need_planes):
+    # _wow_body_fused, which adds each deep plane's white into the recon
+    # inside kernel D's wrapper (and writes no deep white without planes):
+    # one pieces call for scales 0-2, one plane call a deeper scale, the
+    # recon bitwise the same with and without planes, against the JAX
+    # package
+    n = 6
+    kw = dict(FUSED_CASES[case])
+    bilateral = kw.pop("bilateral", None)
+    x = frames[(256, 256)].astype(np.float32)
+    if bilateral:
+        x = x - 10   # zero mean keeps the bilateral chain well conditioned
+        rj, cj = J.wow(J.AtrousTransform(bilateral=1)(x, n))
+        cube = T.AtrousTransform(bilateral=1)(x, n, device="cpu").data
+        pieces, layout = (cube,), tuple((0, s) for s in range(n + 1))
+    else:
+        rj, cj = J.wow(x, n_scales=n, **kw)
+        pieces, layout = tdecompose_pieces(torch.from_numpy(x), n, B3SPLINE)
+    _, w, d, _ = twow.normalize_wow_params(
+        B3SPLINE, n, [], kw.pop("denoise_coefficients", []), None, 0, 2)
+    zero = torch.zeros(())
+    run = dict(bilateral=(1.0,) * (n + 1) if bilateral else None,
+               planes_layout="rows", **kw)
+    _build.reset_counters()
+    rt, ct = twow._wow_body_fused(pieces, layout, None, zero, False,
+                                  B3SPLINE, n, w, d, True,
+                                  need_planes=need_planes, **run)
+    assert _build.PLAIN_CALLS["whiten_plane"] == 1 + n - twow.N_FAST
+    assert_close_scaled(rt, np.asarray(rj), 5e-6)
+    if need_planes:
+        _assert_wow_close(rt, ct, rj, cj, np.float32)
+        r2, none = twow._wow_body_fused(pieces, layout, None, zero, False,
+                                        B3SPLINE, n, w, d, True,
+                                        need_planes=False, **run)
+        assert none is None and torch.equal(rt, r2)
+    else:
+        assert ct is None
+
+
 def test_wow_core_layouts(frames):
     x = torch.from_numpy(frames[(256, 256)])
     kw = dict(sf=B3SPLINE, n_scales=5, weights=(1.0,) * 6, whitening=True,

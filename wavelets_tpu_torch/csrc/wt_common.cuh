@@ -1,7 +1,7 @@
 // Device helpers shared by every kernel: the symmetric taps, numpy's
 // periodic 'symmetric' index map, the whitening epilogue, and the
-// per-pixel passes (whiten_plane.cu, the reference entry of
-// bilateral_step.cu) with the dilated 1-D folds rounded step by step in
+// per-pixel passes (the check-only reference entries of whiten_plane.cu
+// and bilateral_step.cu) with the dilated 1-D folds rounded step by step in
 // the JAX package's order
 //   x*t_c + sum_j t_{c+j}*(x<-jD + x->jD),
 // with __fmul_rn/__fadd_rn, which nvcc never contracts into FMAs, so a

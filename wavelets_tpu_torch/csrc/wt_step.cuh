@@ -1,6 +1,7 @@
 // The row-buffer pass of a separable dilated smooth, one launch per
 // pass pair, shared by kernel A's deep form (whiten_step.cu), kernel C
-// (decompose_group.cu) and kernel G (bilateral_step.cu).  Host-side
+// (decompose_group.cu), kernel D's deep-plane form (whiten_plane.cu) and
+// kernel G (bilateral_step.cu).  Host-side
 // plan: ops/hopper_conv.py::step_plan.
 //
 // step_pass<SECOND, WHOLE, Idx, HW> at dilation D:
@@ -8,15 +9,18 @@
 //          detail = carry - c_next (unless detail is null);
 //   SECOND (SECOND = true):  rows fold of detail^2, cols fold -> lp, the
 //          whitening epilogue (wt::whiten_value) -> white (optional), acc
-//          (acc_mode 0 none, 1 set, 2 +=).
+//          (acc_mode 0 none, 1 set, 2 +=), with the host float fac;
+//          with PlaneArgs (kernel D's deep-plane form, SECOND only) the
+//          factor facp[b] per frame from device memory and the masked,
+//          unwhitened value into gamma (gamma_mode 0 none, 1 set, 2 +=).
 // A block owns one image row h of one frame and a run of its columns:
-// whole rows while two rows of floats fit the opt-in shared memory
-// (W <= 29056), else segments of `seg` columns.  It maps the 2hw+1 tap
-// rows h + jD through numpy's periodic symmetric index map once, into a
-// table in shared memory, then folds down the columns: the rows fold
-// reads whole rows, coalesced, into a row buffer in shared memory, with
-// the raw centre row beside it; the cols fold reads its taps from the
-// buffer.  So the rows pass never reaches device memory.  A segment of
+// whole rows while two rows of floats fit the opt-in shared memory beside
+// the static tap-row table (W <= 29038), else segments of `seg` columns.
+// It maps the 2hw+1 tap rows h + jD through numpy's periodic symmetric
+// index map once, into a table in shared memory, then folds down the
+// columns: the rows fold reads whole rows, coalesced, into a row buffer
+// in shared memory, with the raw centre row beside it; the cols fold
+// reads its taps from the buffer.  So the rows pass never reaches device memory.  A segment of
 // seg output columns from w0 lays its row buffer out as kernel F's ring
 // (wt_ring.cuh): shared index v holds column
 //   w0 + (v / S - hw) * Dc + v % S,   S = min(Dc, seg),
@@ -34,6 +38,13 @@
 // (wt_tile.cuh): the same taps at any scale, in 32-bit index math.
 // Frames.  The grid's z holds at most 65535 frames; a larger batch runs
 // as several launches over consecutive frames (run_step_pass).
+//
+// The arguments' type is a template parameter, so kernels A, C and G
+// launch the pass they had before kernel D shared it, on the same
+// StepArgs: run-time branches on facp and gamma_mode cost kernel G's
+// second pass 4% of its device time, the fields added to StepArgs
+// behind a compile-time switch 2.5-2.9%, this 0 (scripts/
+// kernel_variants.py, PERF.md).
 //
 // Rounding.  The folds round step by step in the JAX package's order, as
 // wt_common.cuh's fold_rows/fold_cols, so c_next and the detail are
@@ -71,8 +82,20 @@ struct StepArgs {
   Taps taps;
 };
 
-template <bool SECOND, bool WHOLE, typename Idx, int HW>
-__global__ void __launch_bounds__(kStepThreads) step_pass(StepArgs a) {
+// Kernel D's deep-plane form: the SECOND pass's arguments and the gamma
+// sum and per-frame factors.
+struct PlaneArgs : StepArgs {
+  float* gamma;        // gamma_mode 1 or 2: the masked detail
+  const float* facp;   // one factor per frame
+  int gamma_mode;
+};
+
+template <class Args>
+constexpr bool is_plane = std::is_same<Args, PlaneArgs>::value;
+
+template <bool SECOND, bool WHOLE, typename Idx, int HW,
+          class Args = StepArgs>
+__global__ void __launch_bounds__(kStepThreads) step_pass(Args a) {
   extern __shared__ __align__(16) float sm[];
   __shared__ Idx roff[2 * WT_MAX_HW + 1];
   const int H = a.H, W = a.W, D = a.D, Dc = a.Dc;
@@ -126,6 +149,8 @@ __global__ void __launch_bounds__(kStepThreads) step_pass(StepArgs a) {
   }
   __syncthreads();
   const Idx row = base + static_cast<Idx>(h) * W;
+  float facb = 0.0f;
+  if constexpr (is_plane<Args>) facb = a.facp[b];
   for (int o = threadIdx.x; o < n_out; o += kStepThreads) {
     const int w = w0 + o, v = WHOLE ? w : o + hw * S;
     float f = __fmul_rn(T[v], a.taps.t[0]);
@@ -141,12 +166,17 @@ __global__ void __launch_bounds__(kStepThreads) step_pass(StepArgs a) {
       if (a.detail) a.detail[g] = __fsub_rn(ctr[o], f);
     } else {
       float wc;
-      const float v2 = whiten_value(ctr[o], f, a.fac,
+      const float v2 = whiten_value(ctr[o], f,
+                                    is_plane<Args> ? facb : a.fac,
                                     a.masked ? a.thr + b : nullptr, a.soft,
                                     &wc);
       if (a.white) a.white[g] = v2;
       if (a.acc_mode == 1) a.acc[g] = v2;
       else if (a.acc_mode == 2) a.acc[g] = __fadd_rn(a.acc[g], v2);
+      if constexpr (is_plane<Args>) {
+        if (a.gamma_mode == 1) a.gamma[g] = wc;
+        else if (a.gamma_mode == 2) a.gamma[g] = __fadd_rn(a.gamma[g], wc);
+      }
     }
   }
 }
@@ -181,14 +211,14 @@ inline bool step_plan_ok(const StepPlan& p, int hw, long long B, long long H,
           (p.index_bits == 32 && frames * H * W < (1ll << 31)));
 }
 
-template <bool SECOND, bool WHOLE, typename Idx, int HW>
-static int launch_step_pass(const StepArgs& a, dim3 grid, int bytes,
+template <bool SECOND, bool WHOLE, typename Idx, int HW, class Args>
+static int launch_step_pass(const Args& a, dim3 grid, int bytes,
                             cudaStream_t s) {
   static std::atomic<int> optin[kMaxDevices];
   cudaError_t err =
-      smem_optin(step_pass<SECOND, WHOLE, Idx, HW>, bytes, optin);
+      smem_optin(step_pass<SECOND, WHOLE, Idx, HW, Args>, bytes, optin);
   if (err != cudaSuccess) return static_cast<int>(err);
-  step_pass<SECOND, WHOLE, Idx, HW>
+  step_pass<SECOND, WHOLE, Idx, HW, Args>
       <<<grid, kStepThreads, static_cast<size_t>(bytes), s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -198,15 +228,15 @@ inline float* shift(float* p, long long n) { return p ? p + n : p; }
 // One step pass of a checked plan `p` on B frames, at the true dilation
 // D: a launch per p.frames consecutive frames.  a's pointers are those of
 // frame 0; H, W, taps and the epilogue's fields are set by the caller.
-template <bool SECOND>
-static int run_step_pass(StepArgs a, const StepPlan& p, long long B,
+template <bool SECOND, class Args = StepArgs>
+static int run_step_pass(Args a, const StepPlan& p, long long B,
                          long long D, cudaStream_t s) {
   a.D = static_cast<int>(map_step(D, a.H));
   a.Dc = static_cast<int>(map_step(D, a.W));
   a.seg = static_cast<int>(p.seg);
   const long long plane = static_cast<long long>(a.H) * a.W;
   for (long long b0 = 0; b0 < B; b0 += p.frames) {
-    StepArgs c = a;
+    Args c = a;
     const long long off = b0 * plane;
     c.carry = a.carry ? a.carry + off : nullptr;
     c.c_next = shift(a.c_next, off);
@@ -214,6 +244,10 @@ static int run_step_pass(StepArgs a, const StepPlan& p, long long B,
     c.white = shift(a.white, off);
     c.acc = shift(a.acc, off);
     c.thr = a.thr ? a.thr + b0 : nullptr;
+    if constexpr (is_plane<Args>) {
+      c.gamma = shift(a.gamma, off);
+      c.facp = a.facp + b0;
+    }
     const long long nb = B - b0 < p.frames ? B - b0 : p.frames;
     const dim3 grid(static_cast<unsigned>(p.grid_rows),
                     static_cast<unsigned>(p.grid_segs),
@@ -222,10 +256,10 @@ static int run_step_pass(StepArgs a, const StepPlan& p, long long B,
     const int err = dispatch_hw(c.taps.hw, [&](auto hw) {
       constexpr int HW = decltype(hw)::value;
       if (p.index_bits == 32)
-        return c.seg == 0
-                   ? launch_step_pass<SECOND, true, int, HW>(c, grid, bytes, s)
-                   : launch_step_pass<SECOND, false, int, HW>(c, grid, bytes,
-                                                              s);
+        return c.seg == 0 ? launch_step_pass<SECOND, true, int, HW>(
+                                c, grid, bytes, s)
+                          : launch_step_pass<SECOND, false, int, HW>(
+                                c, grid, bytes, s);
       return c.seg == 0 ? launch_step_pass<SECOND, true, long long, HW>(
                               c, grid, bytes, s)
                         : launch_step_pass<SECOND, false, long long, HW>(

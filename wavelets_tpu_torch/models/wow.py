@@ -267,7 +267,7 @@ def _wow_body_fused(pieces, layout, tail, noise, has_noise, sf, n_scales,
     materialized ones to ``deep_whiten_plane`` (kernel D for both:
     ``preserve_variance``'s power norm ``w·sqrt(mean(c²))`` rides in the
     device factor table, the gamma sum of the masked planes in the
-    kernel's gamma output).  Scales past the pieces arrive deferred,
+    kernel's gamma output, the deep planes' recon add in its epilogue).  Scales past the pieces arrive deferred,
     ``tail = (carry, n_tail)``, and run ``_deep_tail_scales`` without
     materializing their detail planes; ``preserve_variance`` and the
     gamma blend need every plane, so they take no tail.  ``bilateral``
@@ -309,14 +309,16 @@ def _wow_body_fused(pieces, layout, tail, noise, has_noise, sf, n_scales,
     gamma_scaled = outs[2][0] if h > 0 else None
     out_rows = [outs[0][s, 0] for s in range(n_fast)] if need_planes else []
     for s in range(n_fast, tail_start):
+        # recon += white rides the kernel's epilogue: the same float32 add
+        # in the same scale order as an out-of-place sum
         white = hopper_deep.deep_whiten_plane(
             plane(s)[None], thr_of(s).reshape(1), sf=sf, scale=s,
             weight=factor(s), soft=soft_threshold,
             masked=denoise_coefficients[s] != 0,
-            gamma=None if gamma_scaled is None else gamma_scaled[None])[0]
+            gamma=None if gamma_scaled is None else gamma_scaled[None],
+            recon=recon[None], write_plane=need_planes)
         if need_planes:
-            out_rows.append(white)
-        recon = recon + white
+            out_rows.append(white[0])
     if tail is not None:
         deep_rows, residual = _deep_tail_scales(
             tail[0], recon, thr_of, sf, tail_start, n_scales, weights,

@@ -50,7 +50,7 @@ __all__ = ["N_FAST", "fused_group", "fused_group_plain", "group_pieces",
            "fused_wow_group_plain", "whiten_scale_plain",
            "whiten_detail_plain", "GroupPlan", "group_halo", "group_plan",
            "StepPlan", "step_plan", "step_smem", "map_step", "MAX_FRAMES",
-           "decompose_buffers", "SMEM_OPTIN"]
+           "decompose_buffers", "SMEM_OPTIN", "STEP_STATIC_SMEM"]
 
 KERNEL = "whiten_step"
 GROUP_KERNEL = "whiten_group"
@@ -67,8 +67,13 @@ DECOMPOSE_KERNEL = "decompose_group"
 #: (:func:`group_plan`).
 N_FAST = 3
 
-#: shared memory one block may opt in to on an H100 (227 KB)
+#: shared memory one block may opt in to on an H100 (227 KB): the
+#: dynamic bytes of a launch and the kernel's static ones together
 SMEM_OPTIN = 232448
+#: the row-buffer pass's static shared bytes (its tap-row offset table,
+#: 17 offsets of 8 bytes, as ptxas lays it out), which the dynamic bytes
+#: of its plan leave room for
+STEP_STATIC_SMEM = 144
 #: the most one block may take so that two fit on an SM (228 KB per SM,
 #: 1 KB of it reserved per block)
 SMEM_TWO_PER_SM = 115712
@@ -174,7 +179,8 @@ def step_smem(W: int, D: int, hw: int, seg: int) -> int:
 def step_plan(B: int, H: int, W: int, D: int, hw: int) -> StepPlan:
     """The row-buffer pass's launch on the card, from the shape, the true
     dilation and the half width of the taps: whole rows where two rows
-    fit the shared memory (``W ≤ 29056``), else the widest segment of
+    fit the shared memory beside the static tap-row table
+    (:data:`STEP_STATIC_SMEM`; ``W ≤ 29038``), else the widest segment of
     :data:`STEP_SEGS` whose buffer fits (at any dilation: past the
     segment the buffer holds the tap windows only); raises where the
     taps' reach (:func:`map_step`) passes 32-bit index math, a side
@@ -184,11 +190,11 @@ def step_plan(B: int, H: int, W: int, D: int, hw: int) -> StepPlan:
     if max(H, W) >= 2 ** 30:
         raise ValueError(f"step_plan: a {H}x{W} frame passes 32-bit "
                          "index math (2^30 a side)")
-    if 8 * W <= SMEM_OPTIN:
+    budget = SMEM_OPTIN - STEP_STATIC_SMEM
+    if 8 * W <= budget:
         seg = 0
     else:
-        seg = next(s for s in STEP_SEGS
-                   if step_smem(W, D, hw, s) <= SMEM_OPTIN)
+        seg = next(s for s in STEP_SEGS if step_smem(W, D, hw, s) <= budget)
     Dr, Dc = map_step(D, H), map_step(D, W)
     if max(H + hw * Dr, W + seg + hw * Dc) >= 2 ** 31:
         raise ValueError(f"step_plan: the taps of a {H}x{W} frame at "

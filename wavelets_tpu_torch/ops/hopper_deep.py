@@ -19,8 +19,13 @@ Counterpart of ``wavelets_tpu/ops/pallas_deep.py`` (signatures minus
   ``can_deep2`` is false (the two are numerically identical,
   pallas_deep.py:950-952).
 * :func:`deep_whiten_plane` — whiten one materialized deep plane, on
-  kernel D (``csrc/whiten_plane.cu``), with a runtime factor and an
-  optional gamma sum.
+  kernel D's deep-plane form (``csrc/whiten_plane.cu``: one launch of
+  the row-buffer pass that kernel A's deep step and kernel G's second
+  launch run, sized by :func:`~.hopper_conv.step_plan`), with a runtime
+  factor, an optional gamma sum and an optional in-place recon add.
+  :func:`deep_whiten_plane_ref` runs kernel D's first-port design (two
+  per-pixel launches through a scratch plane), a check-only reference
+  that no path calls.
 * :func:`deep_bilateral_whiten_step` — one deep *bilateral* scale from the
   carry on kernel G (``csrc/bilateral_step.cu``), two launches: kernel
   F's ring at one scale (``c_next`` and the detail, sized by
@@ -52,12 +57,13 @@ from .hopper_conv import (KERNEL, SMEM_OPTIN, _ptr, check_kernel_input,
                           launch_whiten_step, step_plan, whiten_detail_plain,
                           whiten_scale_plain)
 from .hopper_wow import KERNEL as PLANE_KERNEL
-from .hopper_wow import launch_whiten_plane
+from .hopper_wow import launch_whiten_plane, launch_whiten_plane_ref
 
 __all__ = ["deep_whiten_step", "deep_whiten_step_plain", "can_deep2",
            "PairPlan", "pair_plan",
            "deep_whiten_step2", "deep_whiten_step2_plain",
            "deep_whiten_plane", "deep_whiten_plane_plain",
+           "deep_whiten_plane_ref",
            "can_deep_bilateral", "deep_bilateral_whiten_step",
            "deep_bilateral_whiten_step_plain",
            "deep_bilateral_whiten_step_ref"]
@@ -266,11 +272,12 @@ def deep_whiten_step2(carry: torch.Tensor, recon: Optional[torch.Tensor],
 # Kernel D: one given deep plane
 # ---------------------------------------------------------------------
 
-def _plane_args(plane, threshold, weight, gamma):
+def _plane_args(plane, threshold, weight, gamma, recon, write_plane):
     if plane.ndim != 3:
         raise ValueError("deep_whiten_plane takes a (B, H, W) plane")
     if gamma is not None and gamma.shape != plane.shape:
         raise ValueError("deep_whiten_plane: gamma must match the plane")
+    _check_args(plane, recon, write_plane, "deep_whiten_plane")
     B = plane.shape[0]
     fac = torch.as_tensor(weight, dtype=plane.dtype,
                           device=plane.device).reshape(-1).expand(B)
@@ -282,23 +289,42 @@ def _plane_args(plane, threshold, weight, gamma):
 def deep_whiten_plane_plain(plane: torch.Tensor, threshold, *,
                             sf: ScalingFunction, scale: int, weight,
                             soft: bool = True, masked: bool = False,
-                            gamma: Optional[torch.Tensor] = None):
+                            gamma: Optional[torch.Tensor] = None,
+                            recon: Optional[torch.Tensor] = None,
+                            write_plane: bool = True):
     """Plain PyTorch version of :func:`deep_whiten_plane` (any dtype or
-    device); like the kernel it adds into ``gamma`` in place."""
+    device); like the kernel it adds into ``gamma`` and ``recon`` in
+    place."""
     _build.PLAIN_CALLS[PLANE_KERNEL] += 1
-    fac, thr = _plane_args(plane, threshold, weight, gamma)
+    fac, thr = _plane_args(plane, threshold, weight, gamma, recon,
+                           write_plane)
     white, wc = whiten_detail_plain(plane, fac[:, None, None],
                                     thr[:, None, None], sf, scale, soft,
                                     masked)
     if gamma is not None:
         gamma.add_(wc)
-    return white
+    if recon is not None:
+        recon.add_(white)
+    return white if write_plane else None
+
+
+def _plane_kernel_args(plane, threshold, weight, sf, gamma, recon,
+                       write_plane, what):
+    check_kernel_input(plane, sf, what)
+    fac, thr = _plane_args(plane, threshold, weight, gamma, recon,
+                           write_plane)
+    for t in (gamma, recon):
+        if t is not None:
+            check_kernel_input(t, sf, what)
+    return fac, thr
 
 
 def deep_whiten_plane(plane: torch.Tensor, threshold, *,
                       sf: ScalingFunction, scale: int, weight,
                       soft: bool = True, masked: bool = False,
-                      gamma: Optional[torch.Tensor] = None):
+                      gamma: Optional[torch.Tensor] = None,
+                      recon: Optional[torch.Tensor] = None,
+                      write_plane: bool = True):
     """Whiten one materialized deep detail plane: returns ``white =
     plane·sig·(weight / sqrt(max(smooth_s(plane²), 1e-15)))``.
 
@@ -307,21 +333,47 @@ def deep_whiten_plane(plane: torch.Tensor, threshold, *,
     plane's device, so a runtime factor (``preserve_variance``'s
     ``w·sqrt(mean(c²))``) needs no host round trip.  ``gamma`` (or None)
     is a ``(B, H, W)`` tensor to which the masked, unwhitened plane is
-    added in place (the gamma-blend input).  A CPU plane runs
-    :func:`deep_whiten_plane_plain`; a CUDA plane runs kernel D or
-    raises."""
+    added in place (the gamma-blend input); ``recon`` (or None) one to
+    which the white is added in place, ``recon += white``, the same float32
+    add as an out-of-place sum.  With ``write_plane=False`` no white is
+    written and None is returned (then ``recon`` is required).  The
+    defaults are the JAX signature and contract.  A CPU plane runs
+    :func:`deep_whiten_plane_plain`; a CUDA plane runs kernel D's
+    deep-plane form (one row-buffer launch) or raises."""
     if not plane.is_cuda:
         return deep_whiten_plane_plain(
             plane, threshold, sf=sf, scale=scale, weight=weight, soft=soft,
-            masked=masked, gamma=gamma)
-    check_kernel_input(plane, sf, "deep_whiten_plane")
-    fac, thr = _plane_args(plane, threshold, weight, gamma)
-    if gamma is not None:
-        check_kernel_input(gamma, sf, "deep_whiten_plane")
-    white = torch.empty_like(plane)
-    launch_whiten_plane(plane, white, None, 0, gamma,
-                        0 if gamma is None else 2, fac,
+            masked=masked, gamma=gamma, recon=recon, write_plane=write_plane)
+    fac, thr = _plane_kernel_args(plane, threshold, weight, sf, gamma, recon,
+                                  write_plane, "deep_whiten_plane")
+    white = torch.empty_like(plane) if write_plane else None
+    launch_whiten_plane(plane, white, recon, 0 if recon is None else 2,
+                        gamma, 0 if gamma is None else 2, fac,
                         thr if masked else None, soft, sf, scale)
+    return white
+
+
+def deep_whiten_plane_ref(plane: torch.Tensor, threshold, *,
+                          sf: ScalingFunction, scale: int, weight,
+                          soft: bool = True, masked: bool = False,
+                          gamma: Optional[torch.Tensor] = None,
+                          recon: Optional[torch.Tensor] = None,
+                          write_plane: bool = True):
+    """Check-only: :func:`deep_whiten_plane` through kernel D's first-port
+    design, two per-pixel launches through a scratch plane
+    (``csrc/whiten_plane.cu`` ``wt_whiten_plane_ref_f32``).  An
+    independent reference for the deep-plane form's bits; no path calls
+    it.  Takes a CUDA plane only; counted under
+    :data:`~.hopper_wow.REF`."""
+    if not plane.is_cuda:
+        raise ValueError("deep_whiten_plane_ref: a check on the card; it "
+                         "takes a CUDA plane")
+    fac, thr = _plane_kernel_args(plane, threshold, weight, sf, gamma, recon,
+                                  write_plane, "deep_whiten_plane_ref")
+    white = torch.empty_like(plane) if write_plane else None
+    launch_whiten_plane_ref(plane, white, recon, 0 if recon is None else 2,
+                            gamma, 0 if gamma is None else 2, fac,
+                            thr if masked else None, soft, sf, scale)
     return white
 
 

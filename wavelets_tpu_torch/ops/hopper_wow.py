@@ -14,11 +14,16 @@ with its signature and return contract: the detail planes of scales
 4. the partial reconstruction Σ white and, with ``write_gamma``, the sum
    of the masked, unwhitened planes (the gamma-blend input).
 
-On a CUDA tensor each scale is one call of the hand-written kernel
-``csrc/whiten_plane.cu`` (two launches; see the source's note for its
-design and bound), which ``hopper_deep.deep_whiten_plane`` drives for one
-deep plane too; on a CPU tensor the plain PyTorch version below runs.  A
-CUDA tensor the kernel cannot take raises.
+On CUDA pieces the ``n_fast`` scales are one launch of the hand-written
+kernel ``csrc/whiten_plane.cu`` (its pieces form, sized by
+:func:`pieces_plan`; see the source's note for its design and bound);
+:func:`launch_whiten_plane` is the same kernel's deep-plane form, one
+row-buffer launch sized by :func:`~.hopper_conv.step_plan`, which
+``hopper_deep.deep_whiten_plane`` drives.  On a CPU tensor the plain
+PyTorch version below runs.  A CUDA tensor the kernel cannot take
+raises.  :func:`fused_whiten_pieces_ref` runs the first-port design
+(two per-pixel launches a scale through a scratch plane), a check-only
+reference on the card that no path calls.
 """
 
 from __future__ import annotations
@@ -30,40 +35,129 @@ import torch
 
 from . import _build
 from .filters import ScalingFunction
-from .hopper_conv import _ptr, check_kernel_input, whiten_detail_plain
+from .hopper_conv import (MAX_FRAMES, STEP_SEGS, N_FAST, StepPlan, _ptr,
+                          check_kernel_input, map_step, step_plan,
+                          whiten_detail_plain)
 
 __all__ = ["fused_whiten_pieces", "fused_whiten_pieces_plain",
-           "launch_whiten_plane"]
+           "fused_whiten_pieces_ref", "pieces_plan", "pieces_smem",
+           "launch_whiten_plane", "launch_whiten_plane_ref"]
 
 KERNEL = "whiten_plane"
+#: the launch counter of kernel D's check-only reference entry
+REF = "whiten_plane_ref"
+#: the pieces kernel's static shared bytes (its tap-row table, 3 × 17
+#: offsets of 8 bytes, as ptxas lays it out)
+PIECES_STATIC_SMEM = 416
+#: dynamic shared bytes a block of the pieces form may take so that four
+#: blocks of 512 threads, a full SM, share its 228 KB (233472 bytes, 1 KB
+#: of it reserved per block) beside the static table: whole rows held
+#: two blocks to an SM and took 15% more device time than 2048-column
+#: segments at 4096² (scripts/kernel_variants.py, PERF.md)
+PIECES_SMEM = 233472 // 4 - 1024 - PIECES_STATIC_SMEM
 
 
 def _lib():
     lib = _build.load(KERNEL)
     fn = lib.wt_whiten_plane_f32
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p,
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_int] + [ctypes.c_void_p] * 2
                    + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
-                   + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
+                   + [ctypes.c_longlong] * 9 + [ctypes.c_int,
+                   ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    fn = lib.wt_whiten_pieces_f32
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p, ctypes.c_int]
+                   + [ctypes.c_longlong] * 8 + [ctypes.c_int,
+                   ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    ref = lib.wt_whiten_plane_ref_f32
+    ref.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p,
+                    ctypes.c_int] + [ctypes.c_void_p] * 2
+                    + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+                    + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
+    ref.restype = ctypes.c_int
     return lib
+
+
+def pieces_smem(n: int, hw: int, W: int, seg: int) -> int:
+    """Shared bytes of a pieces block: per scale ``s`` a row buffer and
+    the centre row, two rows of floats, or for a segment of ``seg``
+    columns ``2·seg + 2hw·Dc_s`` floats (the segment and a contiguous
+    ``hw·Dc_s`` halo on each side, ``Dc_s = map_step(2^s, W)``)."""
+    if seg == 0:
+        return 8 * n * W
+    return 4 * sum(2 * seg + 2 * hw * map_step(1 << s, W) for s in range(n))
+
+
+def pieces_plan(B: int, H: int, W: int, n: int, hw: int) -> StepPlan:
+    """The pieces form's launch on the card, from the shape, the number
+    of scales ``n ≤ N_FAST`` and the taps' half width: a block a row
+    (``grid = (H, segments, frames a launch)``), whole rows while the
+    ``2n`` rows of floats fit :data:`PIECES_SMEM` (four blocks to an SM;
+    ``W ≤ 2372`` at ``n = 3``), else the widest segment of
+    :data:`~.hopper_conv.STEP_SEGS` whose buffers fit (2048 columns for
+    the B3spline); a batch past :data:`~.hopper_conv.MAX_FRAMES` runs as
+    several launches.  Raises where a side reaches 2^30, the taps' reach
+    passes 32-bit index math or a row has more than 65535 segments."""
+    if not 1 <= n <= N_FAST:
+        raise ValueError(f"pieces_plan: {n} scales, not 1..{N_FAST}")
+    if max(H, W) >= 2 ** 30:
+        raise ValueError(f"pieces_plan: a {H}x{W} frame passes 32-bit "
+                         "index math (2^30 a side)")
+    if pieces_smem(n, hw, W, 0) <= PIECES_SMEM:
+        seg = 0
+    else:
+        seg = next(s for s in STEP_SEGS
+                   if pieces_smem(n, hw, W, s) <= PIECES_SMEM)
+    frames = min(B, MAX_FRAMES)
+    grid = (H, 1 if seg == 0 else -(-W // seg), frames)
+    if grid[1] > 65535:
+        raise ValueError(f"pieces_plan: {grid[1]} segments of a "
+                         f"{W}-column row pass the grid's 65535")
+    return StepPlan(seg, pieces_smem(n, hw, W, seg), grid,
+                    32 if frames * H * W < 2 ** 31 else 64)
 
 
 def launch_whiten_plane(plane, white, recon, recon_mode, gamma, gamma_mode,
                         fac, thr, soft, sf, scale) -> None:
-    """One scale of kernel D on ``(B, H, W)`` float32 CUDA tensors;
+    """One scale of kernel D's deep-plane form on ``(B, H, W)`` float32
+    CUDA tensors, one row-buffer launch (a launch per 65535 frames);
     ``fac`` and ``thr`` (or None: no mask) are ``(B,)`` float32 device
-    tensors.  The launch counter is incremented here and nowhere else."""
+    tensors, ``recon_mode``/``gamma_mode`` 0 none, 1 set, 2 +=.  The
+    launch counter is incremented here and nowhere else."""
     lib = _lib()
     B, H, W = plane.shape
+    plan = step_plan(B, H, W, 1 << scale, sf.half_width)
     taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
     code = lib.wt_whiten_plane_f32(
-        _ptr(plane), _ptr(torch.empty_like(plane)), _ptr(white), _ptr(recon),
-        int(recon_mode), _ptr(gamma), int(gamma_mode), _ptr(fac), _ptr(thr),
-        int(bool(soft)), taps, len(sf.taps), B, H, W, 1 << scale,
+        _ptr(plane), _ptr(white), _ptr(recon), int(recon_mode), _ptr(gamma),
+        int(gamma_mode), _ptr(fac), _ptr(thr), int(bool(soft)), taps,
+        len(sf.taps), B, H, W, 1 << scale, plan.seg, plan.grid[0],
+        plan.grid[1], plan.grid[2], plan.smem_bytes, plan.index_bits,
         _build.stream_ptr(plane.device))
     _build.check(lib, code, "whiten_plane")
     _build.LAUNCHES[KERNEL] += 1
+
+
+def launch_whiten_plane_ref(plane, white, recon, recon_mode, gamma,
+                            gamma_mode, fac, thr, soft, sf, scale) -> None:
+    """Check-only: :func:`launch_whiten_plane` through the first-port
+    design, two per-pixel launches through a scratch plane
+    (``wt_whiten_plane_ref_f32``).  Counted under :data:`REF`."""
+    lib = _lib()
+    B, H, W = plane.shape
+    taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
+    # scratch held by name until the launches are queued
+    tmp = torch.empty_like(plane)
+    code = lib.wt_whiten_plane_ref_f32(
+        _ptr(plane), _ptr(tmp), _ptr(white), _ptr(recon), int(recon_mode),
+        _ptr(gamma), int(gamma_mode), _ptr(fac), _ptr(thr), int(bool(soft)),
+        taps, len(sf.taps), B, H, W, 1 << scale,
+        _build.stream_ptr(plane.device))
+    _build.check(lib, code, "whiten_plane_ref")
+    _build.LAUNCHES[REF] += 1
 
 
 def _table(values, n: int, B: int, like: torch.Tensor) -> torch.Tensor:
@@ -117,6 +211,27 @@ def fused_whiten_pieces_plain(
     return planes, recon
 
 
+def _kernel_args(pieces, factors, thresholds, sf, n_fast, layout,
+                 batch_major, out_rows_total, what):
+    """Check CUDA pieces for kernel D → the planes of the scales and the
+    contiguous ``(n, B)`` factor and threshold tables."""
+    _check_args(pieces, n_fast, layout, batch_major, out_rows_total)
+    for p in pieces:
+        check_kernel_input(p, sf, what)
+    planes = [pieces[k][r] for k, r in layout[:n_fast]]
+    B = pieces[0].shape[1]
+    return (planes, _table(factors, n_fast, B, pieces[0]),
+            _table(thresholds, n_fast, B, pieces[0]))
+
+
+def _outputs(n_fast, B, H, W, dev, write_planes, write_gamma):
+    planes = (torch.empty((n_fast, B, H, W), dtype=torch.float32, device=dev)
+              if write_planes else None)
+    recon = torch.empty((B, H, W), dtype=torch.float32, device=dev)
+    gamma = torch.empty_like(recon) if write_gamma else None
+    return planes, recon, gamma
+
+
 def fused_whiten_pieces(
     pieces, factors, thresholds, sf: ScalingFunction, n_fast: int,
     layout: Sequence[Tuple[int, int]], soft: bool = True,
@@ -136,29 +251,60 @@ def fused_whiten_pieces(
     unwhitened planes with ``write_gamma``.  ``batch_major`` and
     ``out_rows_total`` (the frame-stack layouts) raise
     ``NotImplementedError``.  CPU pieces run
-    :func:`fused_whiten_pieces_plain`; CUDA pieces run kernel D once per
-    scale or raise."""
+    :func:`fused_whiten_pieces_plain`; CUDA pieces run kernel D's pieces
+    form, one launch for the ``n_fast`` scales, or raise."""
     if not pieces[0].is_cuda:
         return fused_whiten_pieces_plain(
             pieces, factors, thresholds, sf, n_fast, layout, soft,
             write_planes, batch_major, out_rows_total, write_gamma)
-    _check_args(pieces, n_fast, layout, batch_major, out_rows_total)
-    for p in pieces:
-        check_kernel_input(p, sf, "fused_whiten_pieces")
+    src, fac, thr = _kernel_args(pieces, factors, thresholds, sf, n_fast,
+                                 layout, batch_major, out_rows_total,
+                                 "fused_whiten_pieces")
     _, B, H, W = pieces[0].shape
-    dev = pieces[0].device
-    fac = _table(factors, n_fast, B, pieces[0])
-    thr = _table(thresholds, n_fast, B, pieces[0])
-    planes = (torch.empty((n_fast, B, H, W), dtype=torch.float32, device=dev)
-              if write_planes else None)
-    recon = torch.empty((B, H, W), dtype=torch.float32, device=dev)
-    gamma = torch.empty_like(recon) if write_gamma else None
+    planes, recon, gamma = _outputs(n_fast, B, H, W, pieces[0].device,
+                                    write_planes, write_gamma)
+    plan = pieces_plan(B, H, W, n_fast, sf.half_width)
+    lib = _lib()
+    ptrs = ctypes.c_void_p * n_fast
+    taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
+    code = lib.wt_whiten_pieces_f32(
+        ptrs(*(_ptr(p) for p in src)),
+        ptrs(*(_ptr(p) for p in planes)) if write_planes else None,
+        _ptr(recon), _ptr(gamma), _ptr(fac), _ptr(thr), int(bool(soft)),
+        n_fast, taps, len(sf.taps), B, H, W, plan.seg, plan.grid[0],
+        plan.grid[1], plan.grid[2], plan.smem_bytes, plan.index_bits,
+        _build.stream_ptr(pieces[0].device))
+    _build.check(lib, code, "whiten_pieces")
+    _build.LAUNCHES[KERNEL] += 1
+    if write_gamma:
+        return planes, recon, gamma
+    return planes, recon
+
+
+def fused_whiten_pieces_ref(
+    pieces, factors, thresholds, sf: ScalingFunction, n_fast: int,
+    layout: Sequence[Tuple[int, int]], soft: bool = True,
+    write_planes: bool = True, write_gamma: bool = False,
+):
+    """Check-only: :func:`fused_whiten_pieces` through kernel D's
+    first-port design, one :func:`launch_whiten_plane_ref` a scale that
+    sets recon and gamma at scale 0 and adds the later scales in order.
+    An independent reference for the pieces form's bits; no path calls
+    it.  Takes CUDA pieces only."""
+    if not pieces[0].is_cuda:
+        raise ValueError("fused_whiten_pieces_ref: a check on the card; it "
+                         "takes CUDA pieces")
+    src, fac, thr = _kernel_args(pieces, factors, thresholds, sf, n_fast,
+                                 layout, False, 0, "fused_whiten_pieces_ref")
+    _, B, H, W = pieces[0].shape
+    planes, recon, gamma = _outputs(n_fast, B, H, W, pieces[0].device,
+                                    write_planes, write_gamma)
     for s in range(n_fast):
-        k, r = layout[s]
         mode = 1 if s == 0 else 2
-        launch_whiten_plane(pieces[k][r], planes[s] if write_planes else None,
-                            recon, mode, gamma, mode if write_gamma else 0,
-                            fac[s], thr[s], soft, sf, s)
+        launch_whiten_plane_ref(src[s], planes[s] if write_planes else None,
+                                recon, mode, gamma,
+                                mode if write_gamma else 0, fac[s], thr[s],
+                                soft, sf, s)
     if write_gamma:
         return planes, recon, gamma
     return planes, recon
