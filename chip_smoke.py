@@ -28,7 +28,10 @@ CUDA toolkit.  It
    3..9 on 4096², 8 on 257×513, 5 and 9 on a batch and 13 on 2×3×40000,
    with white, ``recon +=`` and gamma, or ``recon +=`` alone; bitwise to
    the first-port design, the check-only reference entry, inputs
-   unchanged) and kernel E (the pairs
+   unchanged; and the batch-major layout of a frame stack's plane cube,
+   4×4096² into rows 0-2 of a (4, 7, H, W) cube, bitwise to the
+   scale-major form permuted and to the reference entry, rows 3-6 left
+   as a sentinel) and kernel E (the pairs
    (7, 8) at 4096² and (4, 5) at 512² against two plain steps, carry
    bitwise, and against two kernel A steps, bitwise), kernel F
    (bilateral groups at 4096², 1000×1536 and 257×513, offsets 0, 3 and
@@ -49,11 +52,21 @@ CUDA toolkit.  It
    4096² auto 10 scales, ``bilateral=1``, known noise; B1-lazy with lazy
    noise and ``bilateral_scaling``), B2 ``AtrousTransform(bilateral=1)(x,
    6)``, B3 ``denoise(x, [3, 3, 3], bilateral=1)`` and B4 ``wow`` of
-   ``AtrousTransform(bilateral=1)(x, 10)`` — and requires that each
-   expected kernel launched (for B1-B4 exactly the expected counts), that
-   no plain version ran, that the outputs are finite, on the card, and
-   agree with ``fuse=False`` on the same tensors and with the float64 CPU
-   path on a small input;
+   ``AtrousTransform(bilateral=1)(x, 10)``, the frame-stack cells of the
+   JAX rows ``wow_stack_4x4k_*`` — S1 ``wow_stack`` 4×4096² L6, denoise
+   [5, 2], noise 1.0, serving (the merged route), S2 the same with lazy
+   noise (the pieces route, kernel B once a frame), S3 bilateral=1 with
+   lazy noise on a zero-mean stack, S4 S1 with the planes (kernel D's
+   batch-major cube) — S5 ``process_stack`` of 10 uint16 frames of
+   4096² from a file in batches of 4 (bitwise to ``wow_stack`` over the
+   same batches) and S6 ``wow`` of a 64×1024² volume — and requires that
+   each expected kernel launched (for B1-B4 and S1-S6 exactly the
+   expected counts), that no plain version ran, that the outputs are
+   finite, on the card, and agree with ``fuse=False`` on the same tensors
+   and with the float64 CPU path on a small input, and that each frame of
+   S1-S4 agrees with single-frame ``wow`` of that frame (bitwise where
+   both take the same route); S2 is also run on the merged body forced,
+   for its time;
 5. times each path, kernels against plain, and each kernel against its
    plain version and, where one exists, one PyTorch call computing the
    same function, with CUDA events (median of 20 runs after warm-up),
@@ -63,9 +76,10 @@ CUDA toolkit.  It
    ``expf`` counted as :data:`EXPF_OPS` instructions); kernel B at 4096²
    and 512² (and the device kernels of one call, profiled: at most 4),
    kernels C and F per group at offsets 0 and 3, kernel C's one-scale
-   volume pass at 64×1024², kernel D's pieces form (scales 0-2) and its
-   deep plane per scale s = 3..9, each beside the first-port reference
-   entry, kernel G per scale s = 3..9;
+   volume pass at 64×1024², kernel D's pieces form (scales 0-2; at
+   4×4096² batch-major against scale-major) and its deep plane per scale
+   s = 3..9, each beside the first-port reference entry, kernel G per
+   scale s = 3..9; frames/s of S1-S6;
 6. traces each path's kernel route with ``torch.profiler`` over 5 runs:
    device-busy ms per run, the idle share against the CUDA-event time,
    and the kernels that take the most device time.
@@ -499,6 +513,60 @@ def main():
         print(f"kernel D: {n_d} checks passed, bitwise to the first-port "
               f"reference; vs plain 4096² max abs err {err_d:.3e}")
 
+    # ---- 3d'. kernel D's batch-major pieces form -------------------------
+    with Phase("kernel D batch-major pieces 4×4096²"):
+        # the frame stack's plane cube (B, 7, H, W): rows 0-2 written in
+        # place, bitwise to the scale-major form permuted and to the
+        # first-port reference; rows 3-6 stay the caller's (a sentinel)
+        x = frame((4096, 4096), b=4)
+        cube = hopper_conv.fused_group(x, 3, B3SPLINE)
+        pieces, layout = (cube[:1], cube[1:]), ((0, 0), (1, 0), (1, 1))
+        fac = torch.stack([w * torch.sqrt(torch.mean(
+            cube[s] ** 2, dim=(-2, -1))) for s, w in
+            enumerate((1.0, 2.0, 0.5))])
+        sentinel = -1234.5
+        n_bm = 0
+        err_bm = 0.0
+        for mode in ("soft", "hard"):
+            thr = torch.stack([torch.arange(1, 5, device=dev) * 2.0
+                               * float(sig[k]) for k in range(3)])
+            args = (pieces, fac, thr, B3SPLINE, 3, layout)
+            kw = dict(soft=mode == "soft", write_gamma=True)
+            out = torch.full((4, 7, 4096, 4096), sentinel, device=dev)
+            got = hopper_wow.fused_whiten_pieces(
+                *args, batch_major=True, out_rows_total=7, out=out, **kw)
+            ref = hopper_wow.fused_whiten_pieces_ref(
+                *args, batch_major=True, out_rows_total=7, **kw)
+            sm = hopper_wow.fused_whiten_pieces(*args, **kw)
+            plain = hopper_wow.fused_whiten_pieces_plain(
+                *args, batch_major=True, out_rows_total=7, **kw)
+            torch.cuda.synchronize()
+            what = f"kernel D batch-major 4×4096² {mode}"
+            require(got[0].data_ptr() == out.data_ptr()
+                    and got[0].shape == (4, 7, 4096, 4096),
+                    what + ": not written into the given cube")
+            check_bitwise(got[0][:, :3], sm[0].permute(1, 0, 2, 3),
+                          what + " vs scale-major permuted")
+            check_bitwise(got[0][:, :3], ref[0][:, :3],
+                          what + " vs reference")
+            for k in (1, 2):
+                check_bitwise(got[k], sm[k], f"{what} output {k} vs "
+                              "scale-major")
+                check_bitwise(got[k], ref[k], f"{what} output {k} vs "
+                              "reference")
+            require(bool((got[0][:, 3:] == sentinel).all()),
+                    what + ": rows 3-6 were written")
+            scale = float(plain[1].abs().max())
+            err_bm = max(err_bm, check_white(got[0][:, :3], plain[0][:, :3],
+                                             what, scale),
+                         check_white(got[1], plain[1], what + " recon"))
+            n_bm += 1
+            del out, got, ref, sm, plain
+        del x, cube, pieces
+        print(f"kernel D batch-major: {n_bm} checks, bitwise to the "
+              "scale-major form permuted and to the reference, rows 3-6 "
+              f"untouched; vs plain max abs err {err_bm:.3e}")
+
     # ---- 3e. kernel E ---------------------------------------------------
     err_e = {"white": 0.0, "carry": 0.0}
     with Phase("kernel E checks"):
@@ -924,6 +992,171 @@ def main():
         paths[what + ": wow of the planes"] = (
             lambda: wt.wow(bplanes), lambda: wt.wow(bplanes, fuse=False))
 
+    # S1-S6: frame-stack serving (wow_stack, process_stack) and the
+    # volume WOW; the stacks of the JAX rows wow_stack_4x4k_*
+    # (wavelets_tpu/evidence.py:145-179): [x, x/2, x+1, 2x] of a standard
+    # normal frame, zero-mean [x, x/2, -x, 2x] for bilateral (see bil_frame)
+    big = torch.from_numpy(rng.normal(size=(4096, 4096)).astype(
+        np.float32)).to(dev)
+    stack4 = torch.stack([big, big * 0.5, big + 1.0, big * 2.0])
+    stackb = torch.stack([big, big * 0.5, -big, big * 2.0])
+    l6 = dict(n_scales=6, denoise_coefficients=[5, 2])
+    stack_cells = {
+        # merged route: kernel A's group (scales 0-2), its deep step 3-5
+        "S1 wow_stack 4×4096² L6 [5, 2] noise 1.0 serving":
+            (stack4, dict(l6, noise=1.0, with_coefficients=False),
+             {"whiten_group": 1, "whiten_step": 3}, True),
+        # pieces route: kernel C's group, kernel B a frame, kernel D's
+        # pieces form, the deferred tail on kernel A's deep step
+        "S2 wow_stack 4×4096² L6 [5, 2] lazy serving":
+            (stack4, dict(l6, with_coefficients=False),
+             {"decompose_group": 1, "median_select": 4, "whiten_plane": 1,
+              "whiten_step": 3}, False),
+        # kernel F's group, kernel B a frame, kernel D, kernel G 3-5
+        "S3 wow_stack 4×4096² L6 bilateral=1 [5, 2] lazy serving":
+            (stackb, dict(l6, bilateral=1, with_coefficients=False),
+             {"bilateral_group": 1, "median_select": 4, "whiten_plane": 1,
+              "bilateral_step": 3}, True),
+        # S1 with the planes: the pieces route, kernel D batch-major
+        "S4 wow_stack 4×4096² L6 [5, 2] noise 1.0 with_coefficients":
+            (stack4, dict(l6, noise=1.0, with_coefficients=True),
+             {"decompose_group": 1, "whiten_plane": 1, "whiten_step": 3},
+             False),
+    }
+    stack_fps = {}
+    for what, (xs, kw, expect, same_route) in stack_cells.items():
+        with Phase(what):
+            (recon, s_planes), _ = drive(what, lambda: wt.wow_stack(xs, **kw),
+                                       expect)
+            on_card(recon, what + " recon", xs.shape)
+            wc = kw["with_coefficients"]
+            require((s_planes is not None) == wc, what + ": planes")
+            if wc:
+                on_card(s_planes, what + " planes", (4, 7, 4096, 4096))
+            r_p, c_p = wt.wow_stack(xs, fuse=False, **kw)
+            torch.cuda.synchronize()
+            scale = float(r_p.abs().max())
+            e_r = check_white(recon, r_p, what + " recon vs fuse=False")
+            e_c = (check_white(s_planes, c_p,
+                               what + " planes vs fuse=False",
+                               scale) if wc else 0.0)
+            del r_p, c_p
+            # each frame against single-frame wow of that frame
+            one_kw = {k: v for k, v in kw.items() if k != "with_coefficients"}
+            e_f = 0.0
+            for b in range(xs.shape[0]):
+                r1, c1 = wt.wow(xs[b], **one_kw)
+                torch.cuda.synchronize()
+                if same_route:
+                    check_bitwise(recon[b], r1, f"{what} frame {b} vs wow")
+                else:
+                    e_f = max(e_f, check_white(recon[b], r1,
+                                               f"{what} frame {b} vs wow"))
+                if wc:
+                    for k in range(7):
+                        e_f = max(e_f, check_white(
+                            s_planes[b, k], c1[k],
+                            f"{what} frame {b} plane {k} vs wow",
+                            float(r1.abs().max())))
+                del r1, c1
+            print(f"  vs fuse=False: recon {e_r:.3e}, planes {e_c:.3e}; "
+                  f"frames vs single-frame wow: "
+                  + ("bitwise" if same_route and not wc else
+                     f"max abs err {e_f:.3e}"))
+            del recon, s_planes
+            paths[what] = (
+                lambda xs=xs, kw=kw: wt.wow_stack(xs, **kw),
+                lambda xs=xs, kw=kw: wt.wow_stack(xs, fuse=False, **kw))
+            stack_fps[what] = 4
+    small_vs_cpu("S2 wow_stack 2×256²", lambda y, **d: wt.wow_stack(
+        y, n_scales=5, denoise_coefficients=[5, 2],
+        with_coefficients=False, **d)[0], (2, 256, 256))
+
+    # the dispatch's route for S2 against the merged body forced: the
+    # stack half of the lazy-noise route question (no dispatch change)
+    zero4 = torch.zeros(4, device=dev)
+    d6 = (5.0, 2.0, 0.0, 0.0, 0.0, 0.0, 1.0)
+    what = "route S2 stack: pieces (dispatch) vs merged forced"
+    with Phase(what):
+        def s2_merged():
+            return _wow_body_merged(stack4, zero4, False, B3SPLINE, 6,
+                                    (1.0,) * 7, d6, True, kernels=True,
+                                    need_planes=False)[0]
+
+        r_m, _ = drive(what + ": merged forced", s2_merged,
+                       {"whiten_group": 1, "whiten_step": 3,
+                        "median_select": 4})
+        r_d = wt.wow_stack(stack4, with_coefficients=False, **l6)[0]
+        torch.cuda.synchronize()
+        e = check_white(r_d, r_m, what)
+        print(f"  pieces route vs merged route: recon max abs err {e:.3e}")
+        paths["route S2 stack 4×4096² L6 lazy [5, 2]"] = (
+            lambda: wt.wow_stack(stack4, with_coefficients=False, **l6),
+            s2_merged)
+        del r_m, r_d
+
+    # S5: process_stack from disk: 10 uint16 frames of 4096², batches of
+    # 4 (the last one short), S2's options
+    what = "S5 process_stack 10×4096² uint16, batch 4, L6 [5, 2] lazy"
+    import tempfile
+    from wavelets_tpu_torch.utils.frameio import FrameStack, write_array
+    tmp_dir = tempfile.TemporaryDirectory(dir=ROOT / "build")
+    raw = Path(tmp_dir.name) / "frames.raw"
+    with Phase(what):
+        host = rng.integers(0, 4096, size=(10, 4096, 4096), dtype=np.uint16)
+        write_array(str(raw), host)
+        del host
+        out_k = Path(tmp_dir.name) / "out_kernels.raw"
+        out_p = Path(tmp_dir.name) / "out_plain.raw"
+
+        def s5(out=out_k, **kw):
+            return wt.process_stack(str(raw), str(out), 10, (4096, 4096),
+                                    batch=4, **l6, **kw)
+
+        (n, secs, fps), _ = drive(
+            what, s5, {"decompose_group": 3, "median_select": 10,
+                       "whiten_plane": 3, "whiten_step": 9})
+        print(f"  {n} frames in {secs:.3f} s = {fps:.2f} frames/s "
+              "(first call)")
+        s5(out=out_p, fuse=False)
+        got = np.fromfile(out_k, np.float32).reshape(10, 4096, 4096)
+        with FrameStack(str(raw), 10, (4096, 4096)) as fs:
+            for b0 in range(0, 10, 4):
+                idx = list(range(b0, min(b0 + 4, 10)))
+                batch = torch.from_numpy(fs.read_batch(idx)).to(dev)
+                want = wt.wow_stack(batch, with_coefficients=False, **l6)[0]
+                check_bitwise(torch.from_numpy(got[idx]).to(dev), want,
+                              f"{what} frames {idx} vs wow_stack")
+        require(np.isfinite(got).all(), what + ": not finite")
+        plain = np.fromfile(out_p, np.float32).reshape(10, 4096, 4096)
+        e = check_white(torch.from_numpy(got), torch.from_numpy(plain),
+                        what + " vs fuse=False")
+        print(f"  bitwise to wow_stack over the same batches; vs "
+              f"fuse=False max abs err {e:.3e}")
+        del got, plain, batch, want
+        paths[what] = (lambda: s5(), lambda: s5(out=out_p, fuse=False))
+        stack_fps[what] = 10
+
+    # S6: WOW of a 64×1024² volume: kernel C's volume pass, kernel B on
+    # the finest plane, the plain whitening loop
+    what = "S6 wow volume 64×1024² [5, 2] lazy"
+    xv6 = frame((64, 1024, 1024))
+    with Phase(what):
+        (recon, coeffs), _ = drive(
+            what, lambda: wt.wow(xv6, denoise_coefficients=[5, 2]),
+            {"decompose_group": 4, "median_select": 1})
+        r_p, c_p = wt.wow(xv6, denoise_coefficients=[5, 2], fuse=False)
+        torch.cuda.synchronize()
+        on_card(recon, what + " recon", xv6.shape)
+        check_wow(what, recon, coeffs, r_p, c_p, 5)
+        small_vs_cpu(what, lambda y, **d: wt.wow(
+            y, denoise_coefficients=[5, 2], **d)[0], (16, 64, 64))
+        del recon, coeffs, r_p, c_p
+        paths[what] = (
+            lambda: wt.wow(xv6, denoise_coefficients=[5, 2]),
+            lambda: wt.wow(xv6, denoise_coefficients=[5, 2], fuse=False))
+        stack_fps[what] = 1
+
     # ---- 5. timings -----------------------------------------------------
     print(f"timings on {card}: median of {N_TIMED} runs, CUDA events")
     e2e = {}
@@ -940,6 +1173,12 @@ def main():
             label = "merged" if what.startswith("route") else "plain"
             print(f"  {what}: kernels {t_k:.3f} ms, {label} {t_p:.3f} ms")
         del x_vol
+        fps_out = {what: {"frames_per_s": n / e2e[what][0] * 1e3,
+                          "plain_frames_per_s": n / e2e[what][1] * 1e3}
+                   for what, n in stack_fps.items()}
+        for what, v in fps_out.items():
+            print(f"  {what}: {v['frames_per_s']:.2f} frames/s, plain "
+                  f"{v['plain_frames_per_s']:.2f}")
 
     kernels_out = []
     with Phase("timings: kernels"):
@@ -1116,6 +1355,22 @@ def main():
         print(f"  kernel D 4096² pieces, scales 0-2 with gamma: {d_k:.3f} ms, "
               f"first-port reference {d_r:.3f} ms, plain {d_p:.3f} ms")
         del cube, args
+        # a frame stack's pieces, 4×4096², scale-major and batch-major
+        cube4 = hopper_conv.fused_group(frame((4096, 4096), b=4), 3,
+                                        B3SPLINE)
+        args4 = ((cube4,), torch.ones(3, device=dev),
+                 torch.full((3,), 0.5, device=dev), B3SPLINE, 3,
+                 ((0, 0), (0, 1), (0, 2)))
+        out4 = torch.empty((4, 7, 4096, 4096), device=dev)
+        d_bm = timed(lambda: hopper_wow.fused_whiten_pieces(
+            *args4, batch_major=True, out_rows_total=7, out=out4), torch)
+        d_sm = timed(lambda: hopper_wow.fused_whiten_pieces(*args4), torch)
+        d_bp = timed(lambda: hopper_wow.fused_whiten_pieces_plain(
+            *args4, batch_major=True, out_rows_total=7, out=out4), torch)
+        print(f"  kernel D 4×4096² pieces, scales 0-2: batch-major "
+              f"{d_bm:.3f} ms, scale-major {d_sm:.3f} ms, plain "
+              f"{d_bp:.3f} ms")
+        del cube4, args4, out4
         xd = frame((4096, 4096), b=1)
         rd = torch.zeros_like(xd)
         one1 = torch.ones(1, device=dev)
@@ -1151,6 +1406,13 @@ def main():
             deep_plane_reference_per_scale_ms=dp_r,
             deep_plane_plain_per_scale_ms=dp_p,
             deep_plane_bound_ms=b_dp[0], deep_plane_bound_by=b_dp[1],
+            batch_major_max_abs_err=err_bm,
+            batch_major_4x4096_ms=d_bm, scale_major_4x4096_ms=d_sm,
+            batch_major_plain_4x4096_ms=d_bp,
+            # read 3 planes, write 3 whites and recon, 4 frames
+            batch_major_bound_ms=bound_ms(
+                4 * 7 * plane_bytes,
+                4 * 3 * 4096 * 4096 * (FOLD_OPS * 2 + 12))[0],
             library="none: PyTorch has no numpy-symmetric pad"))
 
         # kernel E: the pairs against their plain versions and against two
@@ -1285,11 +1547,15 @@ def main():
                       f"{e.key[:40]} {e.self_device_time_total / 5e3:.3f}"
                       f" (x{e.count // 5})" for e in top))
 
+    tmp_dir.cleanup()
+    require(not raw.exists(), "S5's frame file was not deleted")
+
     summary = {
         "card": card,
         "build_s": build_s,
         "path_ms": {k: {"kernels": v[0], "plain": v[1]}
                     for k, v in e2e.items()},
+        "stack_fps": fps_out,
         "kernels": kernels_out,
     }
     print(json.dumps(summary))

@@ -930,3 +930,90 @@ def test_bilateral_ring_past_the_maps_period(dev, offset):
         x, 3, B3SPLINE, variances, 7))
     assert_close_scaled(got, hopper_bilateral.fused_bilateral_group_plain(
         x, 3, B3SPLINE, variances, offset), 5e-6)
+
+
+# ---------------------------------------------------------------------
+# Frame stacks: kernel D's batch-major pieces, wow_stack, process_stack
+# ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(3, 96, 1000), (2, 3, 40000),
+                                   (4, 257, 513)])
+@pytest.mark.parametrize("rows", [3, 7])
+def test_pieces_batch_major_bitwise_to_scale_major(dev, shape, rows):
+    # rows 0-2 of the (B, rows, H, W) cube, bitwise to the scale-major
+    # whites permuted and to the first-port reference; rows past 2 are the
+    # caller's (a sentinel stays)
+    x = torch.from_numpy(np.random.default_rng(rows).normal(
+        size=shape).astype(np.float32)).to(dev)
+    cube = hopper_conv.fused_group(x, 3, B3SPLINE)
+    B = shape[0]
+    thr = torch.arange(1, B + 1, device=dev).repeat(3, 1) * 0.3
+    args = ((cube[:1], cube[1:]), torch.tensor([1.0, 2.0, 0.5], device=dev),
+            thr, B3SPLINE, 3, ((0, 0), (1, 0), (1, 1)))
+    out = torch.full((B, rows) + shape[1:], -7.0, device=dev)
+    got = hopper_wow.fused_whiten_pieces(
+        *args, batch_major=True, out_rows_total=rows, out=out,
+        write_gamma=True)
+    sm = hopper_wow.fused_whiten_pieces(*args, write_gamma=True)
+    ref = hopper_wow.fused_whiten_pieces_ref(
+        *args, batch_major=True, out_rows_total=rows, write_gamma=True)
+    plain = hopper_wow.fused_whiten_pieces_plain(
+        *args, batch_major=True, out_rows_total=rows, write_gamma=True)
+    assert got[0].data_ptr() == out.data_ptr()
+    assert torch.equal(got[0][:, :3], sm[0].permute(1, 0, 2, 3))
+    assert torch.equal(got[0][:, :3], ref[0][:, :3])
+    assert torch.equal(got[1], sm[1]) and torch.equal(got[2], sm[2])
+    assert bool((got[0][:, 3:] == -7.0).all())
+    scale = float(plain[1].abs().max())
+    assert_close_scaled(got[0][:, :3], plain[0][:, :3], 5e-6, scale)
+    assert_close_scaled(got[1], plain[1], 5e-6)
+
+
+STACK_CASES = {
+    "merged": dict(noise=1.0, with_coefficients=False),
+    "lazy": dict(with_coefficients=False),
+    "planes": dict(noise=[0.5, 1.0], with_coefficients=True),
+    "bilateral": dict(bilateral=1, with_coefficients=False),
+    "h": dict(h=0.5, with_coefficients=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STACK_CASES))
+def test_wow_stack_kernels_vs_plain(dev, case):
+    from wavelets_tpu_torch import wow_stack
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(2, 256, 320)).astype(np.float32)).to(dev)
+    kw = dict(STACK_CASES[case], n_scales=5, denoise_coefficients=[5, 2])
+    _build.reset_counters()
+    r_k, p_k = wow_stack(x, **kw)
+    assert not _build.PLAIN_CALLS and _build.LAUNCHES
+    r_p, p_p = wow_stack(x, fuse=False, **kw)
+    scale = float(r_p.abs().max())
+    assert_close_scaled(r_k, r_p, 5e-6)
+    if kw["with_coefficients"]:
+        assert p_k.shape == (2, 6, 256, 320)
+        assert_close_scaled(p_k, p_p, 5e-6, scale)
+    for b in range(2):
+        one = {k: v for k, v in kw.items() if k != "with_coefficients"}
+        if isinstance(one.get("noise"), list):
+            one["noise"] = one["noise"][b]
+        r1, _ = wow(x[b], **one)
+        assert_close_scaled(r_k[b], r1, 5e-6)
+
+
+def test_process_stack_on_the_card(dev, tmp_path):
+    from wavelets_tpu_torch import process_stack, wow_stack
+    from wavelets_tpu_torch.utils.frameio import write_array
+    host = np.random.default_rng(2).integers(0, 4096, size=(5, 256, 256),
+                                             dtype=np.uint16)
+    write_array(str(tmp_path / "in.raw"), host)
+    kw = dict(n_scales=5, denoise_coefficients=[5, 2])
+    n, _, fps = process_stack(str(tmp_path / "in.raw"),
+                              str(tmp_path / "out.raw"), 5, (256, 256),
+                              batch=2, **kw)
+    assert n == 5 and fps > 0
+    got = np.fromfile(tmp_path / "out.raw", np.float32).reshape(5, 256, 256)
+    for b0 in range(0, 5, 2):
+        batch = torch.from_numpy(host[b0:b0 + 2].astype(np.float32)).to(dev)
+        want = wow_stack(batch, with_coefficients=False, **kw)[0]
+        assert np.array_equal(got[b0:b0 + 2], to_np(want))

@@ -824,11 +824,13 @@ def test_new_plans_take_what_the_old_kernels_took(shape, scale, kernel):
 # the pieces form pieces_plan
 # ---------------------------------------------------------------------
 
-def _pieces_plan_ok(p, hw, n, B, H, W):
+def _pieces_plan_ok(p, hw, n, B, H, W, rows=1):
     """csrc/whiten_plane.cu::pieces_plan_ok: what the pieces entry checks
-    before it launches."""
+    before it launches; ``rows`` planes a frame in the whites' output
+    (its frame stride ``wstride = rows·H·W``)."""
+    wstride = rows * H * W
     if not (1 <= n <= 3 and H < 2 ** 30 and W < 2 ** 30
-            and (p.seg == 0 or p.seg < W)):
+            and (p.seg == 0 or p.seg < W) and wstride >= H * W):
         return False
     for s in range(n):
         Dr = hopper_conv.map_step(1 << s, H)
@@ -841,7 +843,38 @@ def _pieces_plan_ok(p, hw, n, B, H, W):
             and p.grid[1] == (1 if p.seg == 0 else -(-W // p.seg))
             and p.grid[1] <= 65535 and p.grid[2] == frames
             and hopper_wow.pieces_smem(n, hw, W, p.seg) <= p.smem_bytes
-            and (p.index_bits == 64 or frames * H * W < 2 ** 31))
+            and (p.index_bits == 64 or frames * wstride < 2 ** 31))
+
+
+@pytest.mark.parametrize("B,H,W,rows", [(4, 4096, 4096, 7),
+                                        (4, 4096, 4096, 32),
+                                        (3, 96, 1000, 3),
+                                        (70000, 64, 64, 7),
+                                        (1, 30000, 30000, 3)])
+def test_pieces_plan_batch_major(B, H, W, rows):
+    # the batch-major cube (B, rows, H, W) changes only the whites' frame
+    # stride: the same segments, shared bytes and grid, and 32-bit offsets
+    # while a launch's whites span fewer than 2^31 elements (4 × 4096² at
+    # 32 rows a frame is exactly 2^31)
+    for n in range(1, 4):
+        plan = hopper_wow.pieces_plan(B, H, W, n, 2, rows)
+        base = hopper_wow.pieces_plan(B, H, W, n, 2)
+        assert _pieces_plan_ok(plan, 2, n, B, H, W, rows)
+        assert (plan.seg, plan.smem_bytes, plan.grid) == \
+            (base.seg, base.smem_bytes, base.grid)
+        frames = plan.grid[2]
+        assert plan.index_bits == (
+            32 if frames * rows * H * W < 2 ** 31 else 64)
+        if plan.index_bits == 32:
+            # the farthest white a launch writes: frame frames-1, scale
+            # n-1 (its pointer), the last pixel, within 32-bit offsets
+            # from the scale's pointer, and no scale reaches the next
+            # frame's rows
+            assert (frames - 1) * rows * H * W + H * W - 1 < 2 ** 31
+            assert n <= rows
+    assert (4, 4096, 4096, 32) != (B, H, W, rows) or plan.index_bits == 64
+    with pytest.raises(ValueError):
+        hopper_wow.pieces_plan(B, H, W, 3, 2, 0)
 
 
 @pytest.mark.parametrize("W", [70, 2372, 2373, 4096, 9700, 40000, 1 << 20])

@@ -73,7 +73,8 @@ def test_whiten_pieces_plain_vs_pallas(pieces, per_frame, write_planes,
 
 def test_whiten_pieces_layouts_and_dispatch(pieces):
     # rows as pieces of their own give the cube's numbers; a CPU tensor
-    # takes the plain version; the frame-stack layouts are not ported
+    # takes the plain version; the frame-stack layout is the scale-major
+    # whites permuted, in place in a given cube whose later rows stay
     cube = torch.from_numpy(pieces)
     rows = tuple(cube[s][None] for s in range(3))
     args = (torch.ones(3), torch.zeros(3), B3SPLINE, 3)
@@ -84,9 +85,16 @@ def test_whiten_pieces_layouts_and_dispatch(pieces):
     assert _build.PLAIN_CALLS == {"whiten_plane": 2}
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     assert a[1].data_ptr() != a[0].data_ptr()
-    with pytest.raises(NotImplementedError, match="wow_stack"):
+    out = torch.full((cube.shape[1], 5) + cube.shape[2:], -7.0)
+    c = hopper_wow.fused_whiten_pieces((cube,), *args, LAYOUT,
+                                       batch_major=True, out_rows_total=5,
+                                       out=out)
+    assert c[0] is out and torch.equal(c[1], a[1])
+    assert torch.equal(out[:, :3], a[0].permute(1, 0, 2, 3))
+    assert bool((out[:, 3:] == -7.0).all())
+    with pytest.raises(ValueError, match="batch-major only"):
         hopper_wow.fused_whiten_pieces((cube,), *args, LAYOUT,
-                                       batch_major=True)
+                                       out_rows_total=5)
 
 
 @pytest.mark.parametrize("s", [4, 5])

@@ -357,8 +357,9 @@ def test_options_outside_the_slice_raise(option):
     cpu = dict(device="cpu")
     calls = {
         "bfloat16": lambda: T.wow(torch.zeros(32, 32, dtype=torch.bfloat16)),
-        "3d": lambda: T.wow(np.zeros((2, 32, 32), np.float32), **cpu),
-        "wow_stack": lambda: twow.wow_stack(np.zeros((2, 32, 32))),
+        "3d": lambda: T.wow(np.zeros((32, 32, 32), np.float16), **cpu),
+        "wow_stack": lambda: twow.wow_stack(
+            torch.zeros(2, 32, 32, dtype=torch.bfloat16)),
     }
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
         calls[option]()

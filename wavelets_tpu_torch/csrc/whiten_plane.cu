@@ -37,7 +37,11 @@
 //     epilogue whitens the scales of a column and writes the whites,
 //     recon = (w0 + w1) + w2 and gamma = (wc0 + wc1) + wc2: 8 arrays at
 //     n = 3 with gamma (read 3 planes; write 3 whites, recon, gamma),
-//     against 16 for three deep-form launches.
+//     against 16 for three deep-form launches.  The whites go to n
+//     pointers with a frame stride: n (B, H, W) planes (scale-major), or
+//     rows 0..n-1 of the batch-major (B, R, H, W) cube a frame stack keeps
+//     its planes in, written in place as the TPU kernel's batch-major
+//     block does (pallas_wow.py:346-355); rows n..R-1 are the caller's.
 //
 // Bound: device memory.  The pieces form must read 3 planes and write 3
 // whites, recon and gamma (0.54 GB at 4096^2: 0.160 ms at 3.35 TB/s), a
@@ -81,6 +85,7 @@ struct PiecesArgs {
   const float* fac;           // (n, stride) table from this launch's frame
   const float* thr;           // likewise, or null: no mask
   long long stride;           // frames of the tables
+  long long wstride;          // elements from a frame's white to the next
   int n, soft, H, W, seg;
   int Dr[kPieces], Dc[kPieces];  // map_step(2^s) of the rows, the columns
   Taps taps;
@@ -152,6 +157,8 @@ __global__ void __launch_bounds__(kPiecesThreads)
   for (int o = threadIdx.x; o < n_out; o += kPiecesThreads) {
     const int w = w0 + o;
     const Idx g = row + w;
+    const Idx gw = static_cast<Idx>(b) * a.wstride +
+                   static_cast<Idx>(h) * W + w;
     float rec = 0.0f, gam = 0.0f;
 #pragma unroll
     for (int s = 0; s < kPieces; ++s) {
@@ -168,7 +175,7 @@ __global__ void __launch_bounds__(kPiecesThreads)
       float wc;
       const float wv =
           wt::whiten_value(ctr[s][o], f, fac[s], thr[s], a.soft, &wc);
-      if (a.white[s]) a.white[s][g] = wv;
+      if (a.white[s]) a.white[s][gw] = wv;
       // the first-port design's order (set at scale 0, add the later
       // ones), so recon and gamma keep its bits
       rec = s == 0 ? wv : __fadd_rn(rec, wv);
@@ -189,14 +196,16 @@ long long pieces_smem(int n, int hw, long long W, long long seg) {
 }
 
 // Whether pieces_pass runs `p` on n scales of a (B, H, W) stack with taps
-// of half width hw: a block row per image row, every segment, at most
-// kMaxFrames frames a launch, each segment's halo contiguous (Dc_s <=
-// seg), the buffers in the shared memory, the taps' reach in 32-bit
-// index math, 32-bit offsets only where they cannot overflow.
+// of half width hw and whites wstride >= H*W elements from frame to frame:
+// a block row per image row, every segment, at most kMaxFrames frames a
+// launch, each segment's halo contiguous (Dc_s <= seg), the buffers in the
+// shared memory, the taps' reach in 32-bit index math, 32-bit offsets only
+// where they cannot overflow (the whites' too).
 bool pieces_plan_ok(const wt::StepPlan& p, int hw, int n, long long B,
-                    long long H, long long W) {
+                    long long H, long long W, long long wstride) {
   if (n < 1 || n > kPieces || B < 1 || H < 1 || W < 1 || H >= (1ll << 30) ||
-      W >= (1ll << 30) || p.seg < 0 || (p.seg > 0 && p.seg >= W))
+      W >= (1ll << 30) || p.seg < 0 || (p.seg > 0 && p.seg >= W) ||
+      wstride < H * W)
     return false;
   for (int s = 0; s < n; ++s) {
     const long long Dr = wt::map_step(1ll << s, H);
@@ -211,7 +220,7 @@ bool pieces_plan_ok(const wt::StepPlan& p, int hw, int n, long long B,
          p.grid_segs <= 65535 && p.frames == frames &&
          p.smem >= pieces_smem(n, hw, W, p.seg) && p.smem <= (1ll << 30) &&
          (p.index_bits == 64 ||
-          (p.index_bits == 32 && frames * H * W < (1ll << 31)));
+          (p.index_bits == 32 && frames * wstride < (1ll << 31)));
 }
 
 template <bool WHOLE, typename Idx, int HW>
@@ -307,9 +316,12 @@ int wt_whiten_plane_f32(const float* plane, float* white, float* recon,
 
 // The pieces form: scales 0..n-1 (n <= 3) at dilations 2^s in one launch
 // (a launch per `frames` frames).  src: n contiguous (B, H, W) float32
-// planes on the device; white: n planes or null pointers (or a null
-// array); recon (set) and gamma (set, or null) of the same shape; no
-// output is a source.  fac: (n, B) factors on the device; thr: (n, B)
+// planes on the device; white: n pointers to frame 0 of a scale's white,
+// frames wstride >= H*W elements apart (H*W: n (B, H, W) planes; R*H*W:
+// scale s of a batch-major (B, R, H, W) cube, which leaves the rows past
+// n to the caller), or null pointers (or a null array); recon (set) and
+// gamma (set, or null) (B, H, W); no output is a source.  fac: (n, B)
+// factors on the device; thr: (n, B)
 // thresholds (0 = no mask) or null.  The launch is the wrapper's
 // pieces_plan (seg, grid_rows x grid_segs x frames blocks of 512 threads,
 // smem_bytes, index_bits), checked (pieces_plan_ok) and launched as
@@ -319,15 +331,16 @@ int wt_whiten_pieces_f32(const float* const* src, float* const* white,
                          float* recon, float* gamma, const float* fac,
                          const float* thr, int soft, int n,
                          const double* taps, int n_taps, long long B,
-                         long long H, long long W, long long seg,
-                         long long grid_rows, long long grid_segs,
-                         long long frames, long long smem_bytes,
-                         int index_bits, void* stream) {
+                         long long H, long long W, long long wstride,
+                         long long seg, long long grid_rows,
+                         long long grid_segs, long long frames,
+                         long long smem_bytes, int index_bits,
+                         void* stream) {
   PiecesArgs a = {};
   const wt::StepPlan p = {seg, grid_rows, grid_segs, frames, smem_bytes,
                           index_bits};
   if (!wt::make_taps(taps, n_taps, &a.taps) || !src || !recon || !fac ||
-      !pieces_plan_ok(p, a.taps.hw, n, B, H, W))
+      !pieces_plan_ok(p, a.taps.hw, n, B, H, W, wstride))
     return static_cast<int>(cudaErrorInvalidValue);
   for (int s = 0; s < n; ++s) {
     const float* outs[] = {recon, gamma, white ? white[s] : nullptr};
@@ -342,6 +355,7 @@ int wt_whiten_pieces_f32(const float* const* src, float* const* white,
   a.W = static_cast<int>(W);
   a.seg = static_cast<int>(seg);
   a.stride = B;
+  a.wstride = wstride;
   for (int s = 0; s < n; ++s) {
     a.Dr[s] = static_cast<int>(wt::map_step(1ll << s, H));
     a.Dc[s] = static_cast<int>(wt::map_step(1ll << s, W));
@@ -352,7 +366,7 @@ int wt_whiten_pieces_f32(const float* const* src, float* const* white,
     const long long off = b0 * H * W;
     for (int s = 0; s < n; ++s) {
       c.src[s] = src[s] + off;
-      c.white[s] = white ? wt::shift(white[s], off) : nullptr;
+      c.white[s] = white ? wt::shift(white[s], b0 * wstride) : nullptr;
     }
     c.recon = recon + off;
     c.gamma = wt::shift(gamma, off);

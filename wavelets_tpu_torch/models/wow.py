@@ -1,7 +1,9 @@
 """WOW — Wavelets Optimized Whitening (reference: watroo/utils.py:105-219).
 
 Counterpart of ``wavelets_tpu/models/wow.py`` for WOW, standard and
-bilateral, on one 2-D float32 or float64 frame, with three bodies:
+bilateral, on a 2-D float32 or float64 frame, a 3-D volume and a
+``(B, H, W)`` frame stack (``wow_stack``, per-frame statistics), with
+three bodies:
 
 * ``_wow_body_merged`` — standard WOW (whitening, ``h == 0``, no
   ``preserve_variance``), the main path: lazy MAD noise from ``w0 = data
@@ -22,8 +24,12 @@ bilateral, on one 2-D float32 or float64 frame, with three bodies:
   ``deep_bilateral_whiten_step``, kernel G, per scale past the first
   group, the JAX package's route, wavelets_tpu/models/wow.py:961-987);
 * ``_wow_body`` — the plain per-scale loop: ``whitening=False``,
-  ``h ≥ 1`` (decomposition by kernel C or F on the card) and the plain
-  route of the options above.
+  ``h ≥ 1`` (decomposition by kernel C or F on the card), 3-D volumes
+  (kernel C's volume pass) and the plain route of the options above.
+
+A stack runs the first two bodies batched (kernels A, C, D, E, F and G
+take ``(B, H, W)``, kernel B runs once a frame) by the JAX package's
+stack rule (``wow_core``), or a loop of single-frame calls.
 
 Every body ends with the residual divided by its population std (clamped
 ``≤0 → 1e-15``), the sum of the planes and, for ``h > 0``, the gamma
@@ -57,7 +63,7 @@ from ..ops.conv import smooth
 from ..ops.filters import ScalingFunction
 from ..ops.hopper_conv import N_FAST
 from ..ops.layout import stack_planes
-from ..ops.stats import mad_noise, significance
+from ..ops.stats import mad_noise, mad_noise_frames, significance
 
 __all__ = ["wow", "wow_core", "wow_stack", "normalize_wow_params", "N_FAST"]
 
@@ -115,13 +121,50 @@ def _not_ported(what: str, item: str):
 
 
 def _check_slice(data, axes):
-    """Raise for every option outside the ported slice, on every device:
-    no option may run without its kernel."""
-    if data.ndim != 2 or axes not in (None, (0, 1), (-2, -1)):
-        raise _not_ported("WOW of 3-D volumes and frame stacks",
-                          "volumes and wow_stack")
+    """What ``data`` is to WOW → ``"frame"`` (2-D), ``"volume"`` (3-D
+    transformed over all three axes) or ``"stack"`` (``(B, H, W)`` with
+    ``axes=(1, 2)``); raise for every option outside the ported slice, on
+    every device: no option may run without its kernel."""
     if data.dtype not in (torch.float32, torch.float64):
         raise _not_ported(f"WOW in {data.dtype}", "bfloat16 and float16")
+    spatial = (None if axes is None
+               else tuple(a % max(data.ndim, 1) for a in axes))
+    if data.ndim == 2 and spatial in (None, (0, 1)):
+        return "frame"
+    if data.ndim == 3 and spatial in (None, (0, 1, 2)):
+        return "volume"
+    if data.ndim == 3 and spatial == (1, 2):
+        return "stack"
+    raise ValueError(f"WOW takes a 2-D frame, a 3-D volume (axes=None) or "
+                     f"a (B, H, W) stack (axes=(1, 2)), not {data.ndim}-D "
+                     f"data with axes={axes}")
+
+
+def _per_frame(fn, x, batched):
+    """``fn`` of ``x``, or with ``batched`` of each frame of the stack
+    ``x`` alone → ``(B,)``: a frame of a stack gets the bits its
+    statistics have as a single frame (one reduction over the same
+    contiguous plane), per-frame statistics being wow_stack's semantics
+    (a loop of single-frame ``wow`` calls)."""
+    if not batched:
+        return fn(x)
+    return torch.stack([fn(x[b]) for b in range(x.shape[0])])
+
+
+def _frame_bcast(t, batched):
+    """A per-frame ``(B,)`` statistic as ``(B, 1, 1)`` against the
+    stack; a single frame's as it is."""
+    return t.reshape(-1, 1, 1) if batched else t
+
+
+def _frame_noise(noise, batched, like):
+    """Noise as a float32 tensor on ``like``'s device: ``(B,)`` for a
+    stack (a scalar broadcast to every frame, wavelets_tpu/models/
+    wow.py:1260-1265), 0-d for one frame."""
+    noise = torch.as_tensor(noise, dtype=torch.float32, device=like.device)
+    if batched:
+        noise = noise.reshape(-1).expand(like.shape[-3]).contiguous()
+    return noise
 
 
 def _threshold_fn(noise, sigma_e, denoise_coefficients):
@@ -151,14 +194,21 @@ def _deep_tail_scales(carry, recon, thr_of, sf, start, n_scales, weights,
     the gate refuses, each scale is one ``deep_whiten_step`` (kernel A),
     the JAX package's rule when ``can_deep2`` is false
     (wavelets_tpu/ops/pallas_deep.py:688-710).  ``kernels`` selects the
-    wrappers over their plain versions.  Returns ``(rows, residual)``."""
+    wrappers over their plain versions.  ``carry`` and ``recon`` are one
+    frame ``(H, W)`` or a stack ``(B, H, W)`` with ``thr_of(s)`` per frame
+    ``(B,)``.  Returns ``(rows, residual)``."""
     step = (hopper_deep.deep_whiten_step if kernels
             else hopper_deep.deep_whiten_step_plain)
     pair = (hopper_deep.deep_whiten_step2 if kernels
             else hopper_deep.deep_whiten_step2_plain)
     bil_step = (hopper_deep.deep_bilateral_whiten_step if kernels
                 else hopper_deep.deep_bilateral_whiten_step_plain)
-    rows, carry, acc = [], carry[None], recon[None]
+    batched = carry.ndim == 3
+    rows = []
+    carry, acc = ((carry, recon) if batched else (carry[None], recon[None]))
+
+    def row(white):
+        return white if batched else white[0]
 
     def masked(k):
         return denoise_coefficients[k] != 0
@@ -167,13 +217,13 @@ def _deep_tail_scales(carry, recon, thr_of, sf, start, n_scales, weights,
     while s < n_scales:
         if bilateral is not None:
             white, carry = bil_step(
-                carry, thr_of(s).reshape(1), sf=sf, scale=s,
+                carry, thr_of(s).reshape(-1), sf=sf, scale=s,
                 var_factor=float(bilateral[s]) ** 2, weight=weights[s],
                 soft=soft_threshold, masked=masked(s),
                 bilateral_scaling=bilateral_scaling, recon=acc,
                 write_plane=write_planes)
             if write_planes:
-                rows.append(white[0])
+                rows.append(row(white))
             s += 1
             continue
         if (s + 1 < n_scales
@@ -181,36 +231,42 @@ def _deep_tail_scales(carry, recon, thr_of, sf, start, n_scales, weights,
                 and hopper_deep.can_deep2(carry, sf, s)):
             w1, w2, _, carry = pair(
                 carry, acc, torch.stack([thr_of(s), thr_of(s + 1)])
-                .reshape(2, 1), sf=sf, scale=s,
+                .reshape(2, -1), sf=sf, scale=s,
                 weights=(weights[s], weights[s + 1]), soft=soft_threshold,
                 masked=(masked(s), masked(s + 1)), write_plane=write_planes)
             if write_planes:
-                rows.extend([w1[0], w2[0]])
+                rows.extend([row(w1), row(w2)])
             s += 2
             continue
         white, _, carry = step(
-            carry, acc, thr_of(s).reshape(1), sf=sf, scale=s,
+            carry, acc, thr_of(s).reshape(-1), sf=sf, scale=s,
             weight=weights[s], soft=soft_threshold, masked=masked(s),
             write_plane=write_planes)
         if write_planes:
-            rows.append(white[0])
+            rows.append(row(white))
         s += 1
-    return rows, carry[0]
+    return rows, row(carry)
 
 
-def _residual_std(residual):
-    """``(std, clamped std)`` of the residual plane: the population std
-    (``jnp.std``), clamped ``≤0 → 1e-15`` for the whitening
-    (watroo/utils.py:185-191)."""
-    std = torch.std(residual, correction=0)
+def _residual_std(residual, batched=False):
+    """``(std, clamped std)`` of the residual plane, per frame
+    ``(B, 1, 1)`` with ``batched``: the population std (``jnp.std``),
+    clamped ``≤0 → 1e-15`` for the whitening (watroo/utils.py:185-191)."""
+    std = _frame_bcast(_per_frame(lambda r: torch.std(r, correction=0),
+                                  residual, batched), batched)
     return std, torch.where(std <= 0, 1e-15, std)
 
 
-def _gamma_blend(recon, gamma_scaled, gamma, gamma_min, gamma_max, h):
-    """Gamma-blend tone mapping (watroo/utils.py:205-217)."""
-    gmin = (torch.min(gamma_scaled) if gamma_min is None
+def _gamma_blend(recon, gamma_scaled, gamma, gamma_min, gamma_max, h,
+                 batched=False):
+    """Gamma-blend tone mapping (watroo/utils.py:205-217), its bounds per
+    frame with ``batched``."""
+    def bound(fn):
+        return _frame_bcast(_per_frame(fn, gamma_scaled, batched), batched)
+
+    gmin = (bound(torch.min) if gamma_min is None
             else torch.tensor(gamma_min, dtype=recon.dtype))
-    gmax = (torch.max(gamma_scaled) if gamma_max is None
+    gmax = (bound(torch.max) if gamma_max is None
             else torch.tensor(gamma_max, dtype=recon.dtype))
     gs = (gamma_scaled - gmin) / (gmax - gmin)
     gs = torch.clamp(gs, 0.0, 1.0) ** (1.0 / gamma)
@@ -220,16 +276,23 @@ def _gamma_blend(recon, gamma_scaled, gamma, gamma_min, gamma_max, h):
 def _wow_body_merged(data, noise, has_noise, sf, n_scales, weights,
                      denoise_coefficients, soft_threshold, kernels,
                      need_planes=True):
-    """The WOW pass over one frame → ``(recon, rows)``; ``kernels``
-    selects the kernels' wrappers over their plain versions."""
+    """The WOW pass over one frame, or a ``(B, H, W)`` stack with
+    per-frame statistics (noise ``(B,)``, a scalar broadcast; thresholds
+    ``(g, B)``; the residual's std per frame) → ``(recon, rows)``;
+    ``kernels`` selects the kernels' wrappers over their plain
+    versions."""
     group = (hopper_conv.fused_wow_group if kernels
              else hopper_conv.fused_wow_group_plain)
+    batched = data.ndim == 3
     sigma_e = sf.sigma_e(2, False)
     if not has_noise and any(
         d != 0 for d in denoise_coefficients[:n_scales]
     ):
-        w0 = data - smooth(data, sf, scale=0)
-        noise = mad_noise(w0, float(sigma_e[0]), fuse=kernels)
+        w0 = data - smooth(data, sf, scale=0, axes=(-2, -1))
+        noise = (mad_noise_frames if batched else mad_noise)(
+            w0, float(sigma_e[0]), fuse=kernels)
+    if batched:
+        noise = _frame_noise(noise, True, data)
     thr_of = _threshold_fn(noise, sigma_e, denoise_coefficients)
 
     n_fast = min(n_scales, N_FAST)
@@ -249,7 +312,7 @@ def _wow_body_merged(data, noise, has_noise, sf, n_scales, weights,
             denoise_coefficients, soft_threshold, kernels, need_planes)
         out_rows.extend(deep_rows)
 
-    _, lp = _residual_std(carry)
+    _, lp = _residual_std(carry, batched)
     c = carry * torch.div(torch.tensor(weights[n_scales], dtype=lp.dtype), lp)
     out_rows.append(c)
     return (c if recon is None else recon + c), out_rows
@@ -272,7 +335,17 @@ def _wow_body_fused(pieces, layout, tail, noise, has_noise, sf, n_scales,
     materializing their detail planes; ``preserve_variance`` and the
     gamma blend need every plane, so they take no tail.  ``bilateral``
     (the σ_b tuple, or None) selects the bilateral σ_e table and the
-    bilateral chain of the tail."""
+    bilateral chain of the tail.
+
+    Pieces of a ``(B, H, W)`` stack (``(rows, B, H, W)`` cubes) take
+    per-frame statistics: the noise (kernel B once a frame), thresholds
+    and ``preserve_variance``'s factors per (scale, frame), the residual's
+    std and the gamma bounds per frame; the planes come back as the
+    batch-major cube ``(B, n_scales+1, H, W)``, rows ``0 .. N_FAST−1``
+    written in place by kernel D's pieces form, the deeper ones copied
+    into their rows (the JAX package's ``dynamic_update_slice``)."""
+    batched = pieces[0].ndim == 4
+
     def plane(s):
         k, r = layout[s]
         return pieces[k][r]
@@ -285,59 +358,81 @@ def _wow_body_fused(pieces, layout, tail, noise, has_noise, sf, n_scales,
     if not has_noise and any(
         d != 0 for d in denoise_coefficients[:n_scales]
     ):
-        noise = mad_noise(plane(0), float(sigma_e[0]))
-    noise = torch.as_tensor(noise, dtype=torch.float32,
-                            device=plane(0).device)
+        noise = (mad_noise_frames if batched else mad_noise)(
+            plane(0), float(sigma_e[0]))
+    noise = _frame_noise(noise, batched, plane(0))
     thr_of = _threshold_fn(noise, sigma_e, denoise_coefficients)
 
     def factor(s):
-        # the per-scale power norm sqrt(mean(c²)) (watroo/utils.py:178-184)
+        # the per-scale power norm sqrt(mean(c²)) (watroo/utils.py:178-184),
+        # per frame for a stack
         if preserve_variance:
-            return weights[s] * torch.sqrt(torch.mean(plane(s) ** 2))
+            return weights[s] * _per_frame(
+                lambda c: torch.sqrt(torch.mean(c ** 2)), plane(s), batched)
         return weights[s]
+
+    def one(t):
+        # a single frame as the kernels' batch of one
+        return t if batched else t[None]
 
     n_fast = min(n_scales, N_FAST, tail_start)
     outs = hopper_wow.fused_whiten_pieces(
-        tuple(p[:, None] for p in pieces),
+        pieces if batched else tuple(p[:, None] for p in pieces),
         torch.stack([torch.as_tensor(factor(s), dtype=torch.float32,
                                      device=noise.device)
                      for s in range(n_fast)]),
         torch.stack([thr_of(s) for s in range(n_fast)]), sf, n_fast,
         tuple(layout[:n_fast]), soft=soft_threshold,
-        write_planes=need_planes, write_gamma=h > 0)
-    recon = outs[1][0]
-    gamma_scaled = outs[2][0] if h > 0 else None
-    out_rows = [outs[0][s, 0] for s in range(n_fast)] if need_planes else []
+        write_planes=need_planes, batch_major=batched,
+        out_rows_total=n_scales + 1 if batched else 0, write_gamma=h > 0)
+    # a stack's planes: the batch-major cube, its fast rows written
+    cube = outs[0] if batched and need_planes else None
+    recon = outs[1] if batched else outs[1][0]
+    gamma_scaled = None
+    if h > 0:
+        gamma_scaled = outs[2] if batched else outs[2][0]
+    out_rows = ([outs[0][s, 0] for s in range(n_fast)]
+                if need_planes and not batched else [])
+
+    def keep(s, row):
+        if cube is not None:
+            cube[:, s].copy_(row)
+        elif need_planes:
+            out_rows.append(row)
+
     for s in range(n_fast, tail_start):
         # recon += white rides the kernel's epilogue: the same float32 add
         # in the same scale order as an out-of-place sum
         white = hopper_deep.deep_whiten_plane(
-            plane(s)[None], thr_of(s).reshape(1), sf=sf, scale=s,
+            one(plane(s)), thr_of(s).reshape(-1), sf=sf, scale=s,
             weight=factor(s), soft=soft_threshold,
             masked=denoise_coefficients[s] != 0,
-            gamma=None if gamma_scaled is None else gamma_scaled[None],
-            recon=recon[None], write_plane=need_planes)
+            gamma=None if gamma_scaled is None else one(gamma_scaled),
+            recon=one(recon), write_plane=need_planes)
         if need_planes:
-            out_rows.append(white[0])
+            keep(s, white if batched else white[0])
     if tail is not None:
         deep_rows, residual = _deep_tail_scales(
             tail[0], recon, thr_of, sf, tail_start, n_scales, weights,
             denoise_coefficients, soft_threshold, True, need_planes,
             bilateral, bilateral_scaling)
-        out_rows.extend(deep_rows)
+        for s, row in enumerate(deep_rows, start=tail_start):
+            keep(s, row)
     else:
         residual = plane(n_scales)
-    std, lp = _residual_std(residual)
+    std, lp = _residual_std(residual, batched)
     # the residual's power norm is the unclamped std (watroo/utils.py:182)
     pn = std if preserve_variance else torch.ones((), dtype=std.dtype)
     c = residual * (weights[n_scales] * pn / lp)
-    out_rows.append(c)
+    keep(n_scales, c)
     recon = recon + c
     if gamma_scaled is not None:
         recon = _gamma_blend(recon, gamma_scaled + residual, gamma,
-                             gamma_min, gamma_max, h)
+                             gamma_min, gamma_max, h, batched)
     if not need_planes:
         return recon, None
+    if batched:
+        return recon, cube
     if planes_layout == "rows":
         return recon, tuple(out_rows)
     return recon, stack_planes(out_rows)
@@ -421,34 +516,64 @@ def wow_core(
     need_planes: bool = True,
     planes_layout: str = "cube",
 ):
-    """Decomposition + whitening from a raw 2-D frame → ``(recon,
-    planes)``, with the JAX package's signature.  ``noise`` is a 0-d
-    tensor on ``data``'s device (read when ``has_noise``).  ``fuse=False``
-    runs the kernels' plain versions.  ``need_planes=False`` skips the
-    whitened plane writes and returns ``(recon, None)``;
-    ``planes_layout="rows"`` returns the planes as a tuple instead of a
-    stacked cube.
+    """Decomposition + whitening from raw data → ``(recon, planes)``, with
+    the JAX package's signature.  ``data`` is a 2-D frame, a 3-D volume
+    (``axes=None``, transformed over all three axes) or a ``(B, H, W)``
+    frame stack (``axes=(1, 2)``, per-frame statistics).  ``noise`` is a
+    tensor on ``data``'s device (read when ``has_noise``): 0-d, or
+    ``(B,)`` for a stack.  ``fuse=False`` runs the kernels' plain
+    versions.  ``need_planes=False`` skips the whitened plane writes and
+    returns ``(recon, None)``; ``planes_layout="rows"`` returns a frame's
+    or a volume's planes as a tuple instead of a stacked cube (a stack's
+    are always the cube ``(B, n_scales+1, H, W)``).
 
-    Dispatch (wavelets_tpu/models/wow.py:961-1003): standard WOW takes
-    ``_wow_body_merged``; bilateral WOW, ``preserve_variance`` or ``0 < h
-    < 1`` on the kernels' route take ``_wow_body_fused`` over kernel C's
-    or kernel F's pieces, bilateral WOW with ``h == 0`` and no
-    ``preserve_variance`` with the scales past the first group deferred
-    to kernel G; ``whitening=False``, ``h ≥ 1`` and the plain route of
-    those options take ``_wow_body`` over the decomposition."""
-    _check_slice(data, axes)
+    Dispatch (wavelets_tpu/models/wow.py:961-1003, :1166-1204): standard
+    WOW of a frame takes ``_wow_body_merged``; bilateral WOW,
+    ``preserve_variance`` or ``0 < h < 1`` of a frame on the kernels'
+    route take ``_wow_body_fused`` over kernel C's or kernel F's pieces,
+    bilateral WOW with ``h == 0`` and no ``preserve_variance`` with the
+    scales past the first group deferred to kernel G; a stack takes the
+    merged body only in serving mode (``need_planes=False``) with known
+    noise for standard WOW, and ``_wow_body_fused`` for everything else
+    with whitening and ``h < 1``, both batched, when the kernels' route
+    is on (``fuse`` and float32), else a loop of single-frame
+    ``wow_core`` calls (the JAX package's per-frame ``vmap``);
+    ``whitening=False``, ``h ≥ 1``, a volume and the plain route of the
+    options above take ``_wow_body`` over the decomposition (kernel C's
+    volume pass for a float32 volume)."""
+    mode = _check_slice(data, axes)
     kernels = bool(fuse) and data.dtype == torch.float32
     bil = dict(bilateral=bilateral, bilateral_scaling=bilateral_scaling)
-    if whitening and h == 0 and not preserve_variance and bilateral is None:
+    standard = (whitening and h == 0 and not preserve_variance
+                and bilateral is None)
+    fast = kernels and whitening and h < 1
+    if mode == "stack" and not fast:
+        return _stack_frames(data, noise, need_planes, dict(
+            sf=sf, n_scales=n_scales, weights=weights, whitening=whitening,
+            denoise_coefficients=denoise_coefficients, **bil,
+            soft_threshold=soft_threshold,
+            preserve_variance=preserve_variance, gamma=gamma,
+            gamma_min=gamma_min, gamma_max=gamma_max, h=h,
+            has_noise=has_noise, fuse=fuse))
+    lazy = not has_noise and any(
+        d != 0 for d in denoise_coefficients[:n_scales])
+    merged = standard and (mode == "frame" or (
+        mode == "stack" and not need_planes and not lazy))
+    sp_axes = None if mode == "volume" else (-2, -1)
+    if merged:
         recon, rows = _wow_body_merged(
             data, noise, has_noise, sf, n_scales, weights,
             denoise_coefficients, soft_threshold, kernels,
             need_planes=need_planes)
-        out = rows if planes_layout == "rows" else stack_planes(rows)
-    elif kernels and whitening and h < 1:
+        if mode == "stack":
+            out = torch.stack(rows, dim=1) if need_planes else None
+        else:
+            out = rows if planes_layout == "rows" else stack_planes(rows)
+    elif fast and mode != "volume":
         # preserve_variance and the gamma blend need every plane: no tail
         defer = h == 0 and not preserve_variance
-        out = decompose_pieces(data, n_scales, sf, defer_tail=defer, **bil)
+        out = decompose_pieces(data, n_scales, sf, axes=sp_axes,
+                               defer_tail=defer, **bil)
         pieces, layout, tail = out if defer else (*out, None)
         recon, out = _wow_body_fused(
             pieces, layout, tail, noise, has_noise, sf, n_scales, weights,
@@ -457,8 +582,8 @@ def wow_core(
             gamma_min=gamma_min, gamma_max=gamma_max,
             need_planes=need_planes, planes_layout=planes_layout)
     else:
-        pieces, layout = decompose_pieces(data, n_scales, sf, fuse=kernels,
-                                          **bil)
+        pieces, layout = decompose_pieces(data, n_scales, sf, axes=sp_axes,
+                                          fuse=kernels, **bil)
         recon, out = _wow_body(
             assemble_pieces(pieces, layout), noise, has_noise, sf, n_scales,
             weights, whitening, denoise_coefficients, soft_threshold,
@@ -466,7 +591,20 @@ def wow_core(
             planes_layout=planes_layout, bilateral=bilateral is not None)
     if not need_planes:
         return recon, None
-    return recon, (tuple(out) if planes_layout == "rows" else out)
+    return recon, (tuple(out) if planes_layout == "rows"
+                   and mode != "stack" else out)
+
+
+def _stack_frames(data, noise, need_planes, statics):
+    """A ``(B, H, W)`` stack as a loop of single-frame :func:`wow_core`
+    calls (the JAX package's per-frame ``vmap`` fallback,
+    wavelets_tpu/models/wow.py:1196-1204) → ``(recon (B, H, W), planes
+    (B, n_scales+1, H, W) or None)``."""
+    runs = [wow_core(data[b], noise[b], need_planes=need_planes, **statics)
+            for b in range(data.shape[0])]
+    recon = torch.stack([r for r, _ in runs])
+    return recon, (torch.stack([p for _, p in runs]) if need_planes
+                   else None)
 
 
 def _wow_from_planes_core(planes, noise, *, sf, n_scales, weights, whitening,
@@ -477,7 +615,7 @@ def _wow_from_planes_core(planes, noise, *, sf, n_scales, weights, whitening,
     ``wow(Coefficients)`` reuse entry, watroo/utils.py:128-133,152-155).
     ``planes`` is the ``(n_scales+1, H, W)`` cube or a tuple of
     ``n_scales+1`` per-scale rows (the form ``wow`` emits), which pass
-    through without stacking.  A float32 set with whitening on and
+    through without stacking.  A float32 2-D set with whitening on and
     ``h < 1`` rides ``_wow_body_fused`` with the planes as decompose
     pieces (the cube is one piece with ``layout[s] = (0, s)``; rows are
     one piece each, ``layout[s] = (s, 0)``); everything else runs
@@ -486,7 +624,8 @@ def _wow_from_planes_core(planes, noise, *, sf, n_scales, weights, whitening,
     placeholder σ tuple on the fused body as in the JAX package."""
     rows = planes if isinstance(planes, tuple) else None
     first = rows[0] if rows is not None else planes[0]
-    if fuse and whitening and h < 1 and first.dtype == torch.float32:
+    if (fuse and whitening and h < 1 and first.dtype == torch.float32
+            and first.ndim == 2):
         if rows is not None:
             pieces = tuple(r[None] for r in rows)
             layout = tuple((s, 0) for s in range(n_scales + 1))
@@ -529,8 +668,9 @@ def wow(data,
     ``watroo.utils.wow`` (watroo/utils.py:105-219) plus ``fuse`` and
     ``device``.
 
-    ``data`` is a raw 2-D frame or a precomputed :class:`Coefficients`
-    (the reuse entry, watroo/utils.py:128-133).  A tensor, and the planes
+    ``data`` is a raw 2-D frame, a 3-D volume (transformed over all three
+    axes) or a precomputed :class:`Coefficients` of either (the reuse
+    entry, watroo/utils.py:128-133).  A tensor, and the planes
     of a ``Coefficients``, stay on their device; a numpy frame goes to
     ``device``, the card by default.  Returns ``(reconstruction,
     Coefficients)``.
@@ -608,6 +748,71 @@ def wow(data,
     return recon, coeffs
 
 
-def wow_stack(data, noise=None, with_coefficients=True, **kwargs):
-    """Per-frame WOW over a ``(B, H, W)`` stack — not ported yet."""
-    raise _not_ported("wow_stack", "volumes and wow_stack")
+def _stack_core(data, noise_arr, with_coefficients, statics, fuse=True):
+    """The batched ``(B, H, W)`` dispatch of :func:`wow_stack` (JAX
+    ``_stack_core``, wavelets_tpu/models/wow.py:1166-1204): ``wow_core``
+    with ``axes=(1, 2)`` and ``need_planes=with_coefficients``, which
+    takes the batched bodies where the kernels' route admits them and the
+    per-frame loop elsewhere.  ``noise_arr`` is ``(B,)`` on ``data``'s
+    device."""
+    return wow_core(data, noise_arr, axes=(1, 2), fuse=fuse,
+                    need_planes=with_coefficients, **statics)
+
+
+def wow_stack(data, noise=None, with_coefficients=True, fuse=True,
+              device=DEFAULT_DEVICE, **kwargs):
+    """Per-frame WOW over a frame stack ``(B, H, W)``, the batched
+    serving path.  Statistics (MAD noise, residual std, the gamma bounds,
+    ``preserve_variance``'s norms) are computed per frame, matching a loop
+    of single-frame :func:`wow` calls.  Returns ``(recon (B, H, W),
+    planes (B, n_scales+1, H, W))``; ``with_coefficients=False`` skips
+    the plane writes and returns ``(recon, None)``.
+
+    ``noise`` is None (lazy MAD noise per frame), a scalar (every frame)
+    or one value a frame.  Takes the keyword arguments of :func:`wow`
+    (the automatic ``n_scales`` from the frame shape); an unknown one
+    raises ``TypeError``.  A tensor stays on its device; other input goes
+    to ``device``, the card by default.  ``fuse=False`` runs the plain
+    versions.  Dispatch: :func:`_stack_core`."""
+    data = _as_tensor(data, device)
+    if data.ndim != 3:
+        raise ValueError("wow_stack expects a (B, H, W) stack")
+    scaling_function = kwargs.pop("scaling_function", B3spline)
+    spec = _spec_of(scaling_function)
+    n_scales = kwargs.pop("n_scales", None)
+    h = float(kwargs.pop("h", 0))
+    denoise_coefficients = list(kwargs.pop("denoise_coefficients", []))
+    weights = list(kwargs.pop("weights", []))
+    bilateral = kwargs.pop("bilateral", None)
+    n_scales, weights_t, denoise_t, sigma_bilateral = normalize_wow_params(
+        spec, n_scales, weights, denoise_coefficients, bilateral, h,
+        n_dims=2, min_extent=min(data.shape[1:]))
+    gamma_min = kwargs.pop("gamma_min", None)
+    gamma_max = kwargs.pop("gamma_max", None)
+    has_noise = noise is not None
+    statics = dict(
+        sf=spec,
+        n_scales=n_scales,
+        weights=weights_t,
+        whitening=bool(kwargs.pop("whitening", True)),
+        denoise_coefficients=denoise_t,
+        bilateral=sigma_bilateral,
+        bilateral_scaling=bool(kwargs.pop("bilateral_scaling", False)),
+        soft_threshold=bool(kwargs.pop("soft_threshold", True)),
+        preserve_variance=bool(kwargs.pop("preserve_variance", False)),
+        gamma=float(kwargs.pop("gamma", 3.2)),
+        gamma_min=None if gamma_min is None else float(gamma_min),
+        gamma_max=None if gamma_max is None else float(gamma_max),
+        h=h,
+        has_noise=has_noise,
+    )
+    if kwargs:
+        raise TypeError(f"unexpected arguments: {sorted(kwargs)}")
+    B = data.shape[0]
+    if has_noise:
+        noise_arr = torch.as_tensor(noise, dtype=data.dtype,
+                                    device=data.device).reshape(-1)
+        noise_arr = noise_arr.expand(B).contiguous()
+    else:
+        noise_arr = torch.zeros((B,), dtype=data.dtype, device=data.device)
+    return _stack_core(data, noise_arr, with_coefficients, statics, fuse)

@@ -14,6 +14,10 @@ with its signature and return contract: the detail planes of scales
 4. the partial reconstruction Σ white and, with ``write_gamma``, the sum
    of the masked, unwhitened planes (the gamma-blend input).
 
+The whites come out scale-major ``(n, B, H, W)``, or with
+``batch_major`` into rows ``0 .. n−1`` of a frame stack's ``(B, R, H,
+W)`` plane cube, in place.
+
 On CUDA pieces the ``n_fast`` scales are one launch of the hand-written
 kernel ``csrc/whiten_plane.cu`` (its pieces form, sized by
 :func:`pieces_plan`; see the source's note for its design and bound);
@@ -69,7 +73,7 @@ def _lib():
     fn = lib.wt_whiten_pieces_f32
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
                    + [ctypes.c_void_p, ctypes.c_int]
-                   + [ctypes.c_longlong] * 8 + [ctypes.c_int,
+                   + [ctypes.c_longlong] * 9 + [ctypes.c_int,
                    ctypes.c_void_p])
     fn.restype = ctypes.c_int
     ref = lib.wt_whiten_plane_ref_f32
@@ -91,7 +95,8 @@ def pieces_smem(n: int, hw: int, W: int, seg: int) -> int:
     return 4 * sum(2 * seg + 2 * hw * map_step(1 << s, W) for s in range(n))
 
 
-def pieces_plan(B: int, H: int, W: int, n: int, hw: int) -> StepPlan:
+def pieces_plan(B: int, H: int, W: int, n: int, hw: int,
+                rows: int = 1) -> StepPlan:
     """The pieces form's launch on the card, from the shape, the number
     of scales ``n ≤ N_FAST`` and the taps' half width: a block a row
     (``grid = (H, segments, frames a launch)``), whole rows while the
@@ -99,10 +104,14 @@ def pieces_plan(B: int, H: int, W: int, n: int, hw: int) -> StepPlan:
     ``W ≤ 2372`` at ``n = 3``), else the widest segment of
     :data:`~.hopper_conv.STEP_SEGS` whose buffers fit (2048 columns for
     the B3spline); a batch past :data:`~.hopper_conv.MAX_FRAMES` runs as
-    several launches.  Raises where a side reaches 2^30, the taps' reach
+    several launches.  ``rows`` is the whites' frame stride in planes: 1
+    for ``n`` planes ``(B, H, W)``, ``R`` for the batch-major cube ``(B,
+    R, H, W)``; offsets are 32-bit while a launch's whites span fewer than
+    2^31 elements.  Raises where a side reaches 2^30, the taps' reach
     passes 32-bit index math or a row has more than 65535 segments."""
-    if not 1 <= n <= N_FAST:
-        raise ValueError(f"pieces_plan: {n} scales, not 1..{N_FAST}")
+    if not 1 <= n <= N_FAST or rows < 1:
+        raise ValueError(f"pieces_plan: {n} scales, not 1..{N_FAST}, or "
+                         f"{rows} rows a frame")
     if max(H, W) >= 2 ** 30:
         raise ValueError(f"pieces_plan: a {H}x{W} frame passes 32-bit "
                          "index math (2^30 a side)")
@@ -117,7 +126,7 @@ def pieces_plan(B: int, H: int, W: int, n: int, hw: int) -> StepPlan:
         raise ValueError(f"pieces_plan: {grid[1]} segments of a "
                          f"{W}-column row pass the grid's 65535")
     return StepPlan(seg, pieces_smem(n, hw, W, seg), grid,
-                    32 if frames * H * W < 2 ** 31 else 64)
+                    32 if frames * rows * H * W < 2 ** 31 else 64)
 
 
 def launch_whiten_plane(plane, white, recon, recon_mode, gamma, gamma_mode,
@@ -167,33 +176,64 @@ def _table(values, n: int, B: int, like: torch.Tensor) -> torch.Tensor:
     return t.reshape(n, -1).expand(n, B).contiguous()
 
 
-def _check_args(pieces, n_fast, layout, batch_major, out_rows_total):
-    if batch_major or out_rows_total:
-        raise NotImplementedError(
-            "batch-major planes (wow_stack) are not ported to "
-            "wavelets_tpu_torch yet (ROADMAP.md queue A: volumes and "
-            "wow_stack)")
+def _check_args(pieces, n_fast, layout, batch_major, out_rows_total, out):
+    """Raise for arguments outside the contract → the planes of a frame
+    in the whites' output: 0 for the scale-major ``(n_fast, B, H, W)``,
+    ``max(out_rows_total, n_fast)`` for the batch-major cube."""
     if n_fast < 1 or len(layout) < n_fast:
         raise ValueError("fused_whiten_pieces needs a layout entry for each "
                          "of its n_fast >= 1 scales")
     if any(p.ndim != 4 for p in pieces):
         raise ValueError("pieces are (rows, B, H, W) cubes")
+    if not batch_major:
+        if out_rows_total or out is not None:
+            raise ValueError("out_rows_total and out are batch-major only")
+        return 0
+    _, B, H, W = pieces[0].shape
+    rows = max(out_rows_total, n_fast)
+    if out is not None and (tuple(out.shape) != (B, rows, H, W)
+                            or out.dtype != pieces[0].dtype
+                            or out.device != pieces[0].device):
+        raise ValueError(f"out must be a {pieces[0].dtype} ({B}, {rows}, "
+                         f"{H}, {W}) cube on the pieces' device")
+    return rows
+
+
+def _planes_out(n_fast, B, H, W, like, write_planes, rows, out):
+    """The whites' output: None, the scale-major ``(n_fast, B, H, W)``
+    planes, or the batch-major ``(B, rows, H, W)`` cube (``out`` when
+    given), rows past ``n_fast`` left as they are."""
+    if not write_planes:
+        return None
+    if not rows:
+        return torch.empty((n_fast, B, H, W), dtype=like.dtype,
+                           device=like.device)
+    if out is not None:
+        return out
+    return torch.empty((B, rows, H, W), dtype=like.dtype, device=like.device)
+
+
+def _white_of(planes, s, rows):
+    """Scale ``s``'s whites ``(B, H, W)`` in either layout (a view)."""
+    return planes[:, s] if rows else planes[s]
 
 
 def fused_whiten_pieces_plain(
     pieces, factors, thresholds, sf: ScalingFunction, n_fast: int,
     layout: Sequence[Tuple[int, int]], soft: bool = True,
     write_planes: bool = True, batch_major: bool = False,
-    out_rows_total: int = 0, write_gamma: bool = False,
+    out_rows_total: int = 0, write_gamma: bool = False, out=None,
 ):
     """Plain PyTorch version of :func:`fused_whiten_pieces` (any dtype or
     device)."""
     _build.PLAIN_CALLS[KERNEL] += 1
-    _check_args(pieces, n_fast, layout, batch_major, out_rows_total)
-    B = pieces[0].shape[1]
+    rows = _check_args(pieces, n_fast, layout, batch_major, out_rows_total,
+                       out)
+    _, B, H, W = pieces[0].shape
     fac = _table(factors, n_fast, B, pieces[0])
     thr = _table(thresholds, n_fast, B, pieces[0])
-    whites, recon, gamma = [], None, None
+    planes = _planes_out(n_fast, B, H, W, pieces[0], write_planes, rows, out)
+    recon, gamma = None, None
     for s in range(n_fast):
         k, r = layout[s]
         white, wc = whiten_detail_plain(
@@ -204,39 +244,41 @@ def fused_whiten_pieces_plain(
         if write_gamma:
             gamma = wc.clone() if gamma is None else gamma + wc
         if write_planes:
-            whites.append(white)
-    planes = torch.stack(whites) if write_planes else None
+            _white_of(planes, s, rows).copy_(white)
     if write_gamma:
         return planes, recon, gamma
     return planes, recon
 
 
 def _kernel_args(pieces, factors, thresholds, sf, n_fast, layout,
-                 batch_major, out_rows_total, what):
-    """Check CUDA pieces for kernel D → the planes of the scales and the
-    contiguous ``(n, B)`` factor and threshold tables."""
-    _check_args(pieces, n_fast, layout, batch_major, out_rows_total)
+                 batch_major, out_rows_total, out, write_planes, write_gamma,
+                 what):
+    """Check CUDA pieces for kernel D → the planes of the scales, the
+    contiguous ``(n, B)`` factor and threshold tables, the whites' frame
+    stride in planes (``rows``, 0 scale-major) and the outputs
+    ``(planes, recon, gamma)``."""
+    rows = _check_args(pieces, n_fast, layout, batch_major, out_rows_total,
+                       out)
     for p in pieces:
         check_kernel_input(p, sf, what)
-    planes = [pieces[k][r] for k, r in layout[:n_fast]]
-    B = pieces[0].shape[1]
-    return (planes, _table(factors, n_fast, B, pieces[0]),
-            _table(thresholds, n_fast, B, pieces[0]))
-
-
-def _outputs(n_fast, B, H, W, dev, write_planes, write_gamma):
-    planes = (torch.empty((n_fast, B, H, W), dtype=torch.float32, device=dev)
-              if write_planes else None)
-    recon = torch.empty((B, H, W), dtype=torch.float32, device=dev)
+    if out is not None:
+        check_kernel_input(out, sf, what)
+    src = [pieces[k][r] for k, r in layout[:n_fast]]
+    _, B, H, W = pieces[0].shape
+    planes = _planes_out(n_fast, B, H, W, pieces[0], write_planes, rows, out)
+    recon = torch.empty((B, H, W), dtype=torch.float32,
+                        device=pieces[0].device)
     gamma = torch.empty_like(recon) if write_gamma else None
-    return planes, recon, gamma
+    return (src, _table(factors, n_fast, B, pieces[0]),
+            _table(thresholds, n_fast, B, pieces[0]), rows,
+            (planes, recon, gamma))
 
 
 def fused_whiten_pieces(
     pieces, factors, thresholds, sf: ScalingFunction, n_fast: int,
     layout: Sequence[Tuple[int, int]], soft: bool = True,
     write_planes: bool = True, batch_major: bool = False,
-    out_rows_total: int = 0, write_gamma: bool = False,
+    out_rows_total: int = 0, write_gamma: bool = False, out=None,
 ):
     """Whiten detail scales ``0 .. n_fast−1`` read from decompose pieces.
 
@@ -248,32 +290,35 @@ def fused_whiten_pieces(
 
     Returns ``(whitened (n_fast, B, H, W) or None, partial_recon
     (B, H, W))``, plus the gamma sum ``(B, H, W)`` of the masked,
-    unwhitened planes with ``write_gamma``.  ``batch_major`` and
-    ``out_rows_total`` (the frame-stack layouts) raise
-    ``NotImplementedError``.  CPU pieces run
+    unwhitened planes with ``write_gamma``.  With ``batch_major`` the
+    whites come out ``(B, R, H, W)``, ``R = max(out_rows_total,
+    n_fast)``, written in that layout by the kernel (a frame stack's
+    plane cube, no relayout); rows ``n_fast ..`` are left as they are
+    for the caller to fill, in ``out`` when given (a ``(B, R, H, W)``
+    cube), else in a new uninitialized cube.  CPU pieces run
     :func:`fused_whiten_pieces_plain`; CUDA pieces run kernel D's pieces
     form, one launch for the ``n_fast`` scales, or raise."""
     if not pieces[0].is_cuda:
         return fused_whiten_pieces_plain(
             pieces, factors, thresholds, sf, n_fast, layout, soft,
-            write_planes, batch_major, out_rows_total, write_gamma)
-    src, fac, thr = _kernel_args(pieces, factors, thresholds, sf, n_fast,
-                                 layout, batch_major, out_rows_total,
-                                 "fused_whiten_pieces")
+            write_planes, batch_major, out_rows_total, write_gamma, out)
+    src, fac, thr, rows, (planes, recon, gamma) = _kernel_args(
+        pieces, factors, thresholds, sf, n_fast, layout, batch_major,
+        out_rows_total, out, write_planes, write_gamma,
+        "fused_whiten_pieces")
     _, B, H, W = pieces[0].shape
-    planes, recon, gamma = _outputs(n_fast, B, H, W, pieces[0].device,
-                                    write_planes, write_gamma)
-    plan = pieces_plan(B, H, W, n_fast, sf.half_width)
+    plan = pieces_plan(B, H, W, n_fast, sf.half_width, max(rows, 1))
     lib = _lib()
     ptrs = ctypes.c_void_p * n_fast
     taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
     code = lib.wt_whiten_pieces_f32(
         ptrs(*(_ptr(p) for p in src)),
-        ptrs(*(_ptr(p) for p in planes)) if write_planes else None,
+        ptrs(*(_ptr(_white_of(planes, s, rows)) for s in range(n_fast)))
+        if write_planes else None,
         _ptr(recon), _ptr(gamma), _ptr(fac), _ptr(thr), int(bool(soft)),
-        n_fast, taps, len(sf.taps), B, H, W, plan.seg, plan.grid[0],
-        plan.grid[1], plan.grid[2], plan.smem_bytes, plan.index_bits,
-        _build.stream_ptr(pieces[0].device))
+        n_fast, taps, len(sf.taps), B, H, W, max(rows, 1) * H * W, plan.seg,
+        plan.grid[0], plan.grid[1], plan.grid[2], plan.smem_bytes,
+        plan.index_bits, _build.stream_ptr(pieces[0].device))
     _build.check(lib, code, "whiten_pieces")
     _build.LAUNCHES[KERNEL] += 1
     if write_gamma:
@@ -284,27 +329,33 @@ def fused_whiten_pieces(
 def fused_whiten_pieces_ref(
     pieces, factors, thresholds, sf: ScalingFunction, n_fast: int,
     layout: Sequence[Tuple[int, int]], soft: bool = True,
-    write_planes: bool = True, write_gamma: bool = False,
+    write_planes: bool = True, batch_major: bool = False,
+    out_rows_total: int = 0, write_gamma: bool = False, out=None,
 ):
     """Check-only: :func:`fused_whiten_pieces` through kernel D's
     first-port design, one :func:`launch_whiten_plane_ref` a scale that
-    sets recon and gamma at scale 0 and adds the later scales in order.
-    An independent reference for the pieces form's bits; no path calls
-    it.  Takes CUDA pieces only."""
+    sets recon and gamma at scale 0 and adds the later scales in order;
+    a batch-major cube gets each scale's whites by a copy into its rows,
+    so the pieces form's layout is held against PyTorch's indexing.  An
+    independent reference for the pieces form's bits; no path calls it.
+    Takes CUDA pieces only."""
     if not pieces[0].is_cuda:
         raise ValueError("fused_whiten_pieces_ref: a check on the card; it "
                          "takes CUDA pieces")
-    src, fac, thr = _kernel_args(pieces, factors, thresholds, sf, n_fast,
-                                 layout, False, 0, "fused_whiten_pieces_ref")
-    _, B, H, W = pieces[0].shape
-    planes, recon, gamma = _outputs(n_fast, B, H, W, pieces[0].device,
-                                    write_planes, write_gamma)
+    src, fac, thr, rows, (planes, recon, gamma) = _kernel_args(
+        pieces, factors, thresholds, sf, n_fast, layout, batch_major,
+        out_rows_total, out, write_planes, write_gamma,
+        "fused_whiten_pieces_ref")
     for s in range(n_fast):
         mode = 1 if s == 0 else 2
-        launch_whiten_plane_ref(src[s], planes[s] if write_planes else None,
-                                recon, mode, gamma,
+        white = None
+        if write_planes:
+            white = torch.empty_like(recon) if rows else planes[s]
+        launch_whiten_plane_ref(src[s], white, recon, mode, gamma,
                                 mode if write_gamma else 0, fac[s], thr[s],
                                 soft, sf, s)
+        if write_planes and rows:
+            planes[:, s].copy_(white)
     if write_gamma:
         return planes, recon, gamma
     return planes, recon

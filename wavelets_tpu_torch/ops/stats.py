@@ -12,8 +12,8 @@ from . import hopper_stats
 from .layout import stack_planes
 
 __all__ = ["MAD_TO_SIGMA", "generalized_anscombe", "median_abs", "mad_noise",
-           "significance_soft", "significance_hard", "significance",
-           "apply_denoise"]
+           "median_abs_frames", "mad_noise_frames", "significance_soft",
+           "significance_hard", "significance", "apply_denoise"]
 
 #: MAD → σ conversion constant for a Gaussian (watroo/wavelets.py:127).
 MAD_TO_SIGMA = 0.6745
@@ -53,6 +53,23 @@ def mad_noise(w0: torch.Tensor, sigma_e0: float,
     """Noise level from the finest detail plane via the MAD estimator:
     ``median(|w0|) / 0.6745 / σ_e[0]`` (watroo/wavelets.py:126-127)."""
     return median_abs(w0, fuse) / MAD_TO_SIGMA / sigma_e0
+
+
+def median_abs_frames(x: torch.Tensor, fuse: bool = True) -> torch.Tensor:
+    """Per-frame ``median(|x|)`` over a stack ``(B, ...)`` → ``(B,)`` on
+    ``x``'s device: :func:`median_abs` of each contiguous frame, one call
+    a frame (kernel B on the card for float32), as the JAX package runs
+    one single-frame select a frame (wavelets_tpu/ops/stats.py:144-161);
+    ``fuse=False`` runs the plain version, a sort of each frame."""
+    x = x.contiguous()
+    return torch.stack([median_abs(x[b], fuse) for b in range(x.shape[0])])
+
+
+def mad_noise_frames(w0: torch.Tensor, sigma_e0: float,
+                     fuse: bool = True) -> torch.Tensor:
+    """Per-frame MAD noise over a stack of finest detail planes ``(B, H,
+    W)`` → ``(B,)``."""
+    return median_abs_frames(w0, fuse) / MAD_TO_SIGMA / sigma_e0
 
 
 def significance_soft(w: torch.Tensor, threshold) -> torch.Tensor:
