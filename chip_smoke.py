@@ -59,21 +59,36 @@ CUDA toolkit.  It
    lazy noise on a zero-mean stack, S4 S1 with the planes (kernel D's
    batch-major cube) — S5 ``process_stack`` of 10 uint16 frames of
    4096² from a file in batches of 4 (bitwise to ``wow_stack`` over the
-   same batches) and S6 ``wow`` of a 64×1024² volume — and requires that
-   each expected kernel launched (for B1-B4 and S1-S6 exactly the
-   expected counts), that no plain version ran, that the outputs are
-   finite, on the card, and agree with ``fuse=False`` on the same tensors
-   and with the float64 CPU path on a small input, and that each frame of
-   S1-S4 agrees with single-frame ``wow`` of that frame (bitwise where
-   both take the same route); S2 is also run on the merged body forced,
-   for its time;
+   same batches) and S6 ``wow`` of a 64×1024² volume — then R1-R4
+   ``richardson_lucy`` (the JAX rows ``richardson_lucy_1k_10it_direct``
+   and ``_fft``, 4096² auto, ``richardson_lucy_stack2_1k_10it_auto``
+   with each frame against a single-frame call, and 1024² hard,
+   ``uniform_init``, not persistent), E1 ``enhance`` of 3×4096² channels
+   and E2 of one 4096² frame, T1 ``AtrousTransform()(x, 6,
+   recursive=True)`` at 4096² (its interior bitwise to the standard
+   transform), T2 ``convolution`` at s = 0..3, N1
+   ``B3spline(2).compute_noise_weights(6, n_trials=100)`` against the
+   σ_e table and C1 ``python -m wavelets_tpu_torch rl`` on 4 uint16
+   frames of 1024² (bitwise to ``richardson_lucy`` per frame) — and
+   requires that each expected kernel launched (for B1-B4, S1-S6, R1-R4,
+   E1-E2, T1 and N1 exactly the expected counts), that no plain version
+   ran, that the outputs are finite, on the card, and agree with
+   ``fuse=False`` on the same tensors and with the float64 CPU path on a
+   small input, and that each frame of S1-S4 agrees with single-frame
+   ``wow`` of that frame (bitwise where both take the same route); S2 is
+   also run on the merged body forced, for its time; RL's direct path
+   (``F.conv2d`` with TF32 off) is held against the float32 shift-add,
+   and timed against it and against the FFT path (PSFs 3×3 to 15×15 at
+   1024² and 4096², 10 iterations), beside cuFFT's first-call plan
+   time;
 5. times each path, kernels against plain, and each kernel against its
    plain version and, where one exists, one PyTorch call computing the
    same function, with CUDA events (median of 20 runs after warm-up),
    beside the kernel's bound: the larger of its bytes (each input read
    once, each output written once) over 3.35 TB/s and its float32
-   operations over 67 TFLOP/s, the H100 SXM's published peaks (an
-   ``expf`` counted as :data:`EXPF_OPS` instructions); kernel B at 4096²
+   operations over 67 TFLOP/s, the H100 SXM's published peaks
+   (``wavelets_tpu_torch/utils/profiling.py``; an ``expf`` counted as
+   ``EXPF_OPS`` instructions); kernel B at 4096²
    and 512² (and the device kernels of one call, profiled: at most 4),
    kernels C and F per group at offsets 0 and 3, kernel C's one-scale
    volume pass at 64×1024², kernel D's pieces form (scales 0-2; at
@@ -104,35 +119,6 @@ ROOT = Path(__file__).resolve().parent
 WHITE_RTOL = 5e-6
 N_TIMED = 20
 N_WARM = 3
-
-#: H100 SXM published peaks (NVIDIA data sheet, 700 W): device memory
-#: bytes/s and float32 FLOP/s outside the tensor cores
-PEAK_BYTES = 3.35e12
-PEAK_F32 = 67e12
-#: float32 operations per output pixel and scale: a 5-tap fold is one
-#: multiply and two adds plus one multiply per tap pair (7), two per
-#: separable smooth
-FOLD_OPS = 7
-#: float32 instructions of one accurate ``expf`` (range reduction, ex2,
-#: scaling), as counted for the bilateral kernels' bound
-EXPF_OPS = 8
-#: one bilateral chain smooth per pixel and scale (kernels F and G): rows
-#: moments (two folds, five squares) 19, cols moments and range factor
-#: (two folds, mean², difference, clamp, two products, division) 20, 24
-#: taps of 7 operations and one expf, 3 to finish (centre, division,
-#: detail)
-BIL_OPS = 19 + 20 + 24 * (7 + EXPF_OPS) + 3
-#: the H100 SXM's float32 instruction issue (an FMA counts two of the
-#: 67 TFLOP/s; the bilateral kernels have none) and special-function
-#: pipe (16 ex2 a clock on each of 132 SMs at 1.98 GHz): kernel F's
-#: computed instruction and special-function floors, printed apart from
-#: the measured numbers
-PEAK_F32_INSTR = PEAK_F32 / 2
-PEAK_SFU = 132 * 16 * 1.98e9
-BIL_TAPS = 24
-#: kernel G's power smooth (two folds, five squares) and whitening
-#: epilogue (clamp, sqrt, mask, division, product, recon add)
-BIL_WHITEN_OPS = 2 * FOLD_OPS + 5 + 12
 
 
 def require(cond, msg):
@@ -176,12 +162,6 @@ def timed(fn, torch, n=N_TIMED):
     return float(np.median(ms))
 
 
-def bound_ms(n_bytes, n_ops):
-    """The least time for the work: ``(ms, "bytes" or "operations")``."""
-    t_b, t_o = n_bytes / PEAK_BYTES, n_ops / PEAK_F32
-    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
-
-
 class Phase:
     """Prints a phase's seconds when it ends."""
 
@@ -221,6 +201,10 @@ def main():
 
     sys.path.insert(0, str(ROOT))
     import wavelets_tpu_torch as wt
+    # the H100's peaks and the kernels' operation counts (one owner)
+    from wavelets_tpu_torch.utils.profiling import (
+        BIL_OPS, BIL_TAPS, BIL_WHITEN_OPS, EXPF_OPS, FOLD_OPS, PEAK_F32_INSTR,
+        PEAK_SFU, bound_ms)
     from wavelets_tpu_torch.core.transform import decompose, decompose_pieces
     from wavelets_tpu_torch.models.wow import (_wow_body_fused,
                                                _wow_body_merged)
@@ -1157,6 +1141,265 @@ def main():
             lambda: wt.wow(xv6, denoise_coefficients=[5, 2], fuse=False))
         stack_fps[what] = 1
 
+    # R1-R4: Richardson-Lucy, the JAX rows richardson_lucy_1k_10it_* and
+    # richardson_lucy_stack2_1k_10it_auto (wavelets_tpu/evidence.py:
+    # 241-262): x·x + 1 of a standard normal frame, a normalized 15×15
+    # Hanning PSF, soft (5, 2, 1), 10 iterations.  Kernel C once a
+    # 3-scale decomposition (the start and each iteration), kernel B once
+    # a frame, or once a frame an iteration under uniform_init
+    import importlib
+    trl = importlib.import_module("wavelets_tpu_torch.models.richardson_lucy")
+    han = np.hanning(15)
+    psf15 = np.outer(han, han).astype(np.float32)
+    psf15 /= psf15.sum()
+
+    def rl_input(shape):
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+        return x.to(dev) * x.to(dev) + 1.0
+
+    pos1k, pos4k = rl_input((1024, 1024)), rl_input((4096, 4096))
+    stack2 = torch.stack([pos1k, pos1k * 2.0])
+    rl_kw = dict(iterations=10, denoise_coefficients=(5, 2, 1))
+    rl_out = {}
+    # time to first frame: the process's first FFT (cuFFT's load and a
+    # plan), a plan alone (cache cleared), and the transform planned
+    for n, x in ((1024, pos1k), (4096, pos4k)):
+        plans = torch.backends.cuda.cufft_plan_cache
+        plans.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.fft.irfft2(torch.fft.rfft2(x), s=x.shape)
+        torch.cuda.synchronize()
+        first = (time.perf_counter() - t0) * 1e3
+        rl_out[f"cufft_first_call_ms_{n}"] = first
+        rl_out[f"cufft_planned_ms_{n}"] = timed(
+            lambda x=x: torch.fft.irfft2(torch.fft.rfft2(x), s=x.shape),
+            torch)
+        print(f"  cuFFT rfft2 + irfft2 {n}²: first call after the plan "
+              f"cache was cleared {first:.3f} ms (host clock, the process's "
+              f"{'first FFT' if n == 1024 else 'plan'}), planned "
+              f"{rl_out[f'cufft_planned_ms_{n}']:.3f} ms")
+
+    def check_path(what, got, plain, shape):
+        on_card(got, what, shape)
+        e = check_white(got, plain, what + " vs fuse=False")
+        same = bool(torch.equal(got, plain))
+        print(f"  vs fuse=False on the card: "
+              + ("bitwise" if same else f"max abs err {e:.3e}"))
+
+    def rl_vs_cpu(what, kw, shape=(256, 256)):
+        # float32 on the card against float64 on the CPU, a small x·x + 1
+        small = rng.normal(size=shape) ** 2 + 1
+        fn = wt.richardson_lucy_stack if len(shape) == 3 else \
+            wt.richardson_lucy
+        got = fn(torch.from_numpy(small.astype(np.float32)).to(dev),
+                 psf15, **kw)
+        ref = fn(small, psf15.astype(np.float64), device="cpu", **kw)
+        scale = float(ref.abs().max())
+        err = check_white(got.cpu(), ref, f"{what} vs float64 CPU", scale)
+        print(f"  {shape} on the card vs the float64 CPU path: max abs err "
+              f"{err:.3e} (scale {scale:.4g})")
+
+    r4_kw = dict(rl_kw, threshold_type="hard", uniform_init=True,
+                 persistent_mrs=False)
+    rl_cells = {
+        "R1 richardson_lucy_1k_10it_direct":
+            (pos1k, dict(rl_kw, fft=False), 11, 1, wt.richardson_lucy),
+        "R1 richardson_lucy_1k_10it_fft":
+            (pos1k, dict(rl_kw, fft=True), 11, 1, wt.richardson_lucy),
+        "R2 richardson_lucy 4096² 10it auto":
+            (pos4k, dict(rl_kw, fft="auto"), 11, 1, wt.richardson_lucy),
+        "R3 richardson_lucy_stack2_1k_10it_auto":
+            (stack2, dict(rl_kw, fft="auto"), 11, 2,
+             wt.richardson_lucy_stack),
+        "R4 richardson_lucy 1k 10it hard uniform_init not persistent":
+            (pos1k, r4_kw, 10, 10, wt.richardson_lucy),
+    }
+    for what, (x, kw, n_c, n_b, fn) in rl_cells.items():
+        with Phase(what):
+            got, _ = drive(what, lambda: fn(x, psf15, **kw),
+                           {"decompose_group": n_c, "median_select": n_b})
+            plain = fn(x, psf15, fuse=False, **kw)
+            torch.cuda.synchronize()
+            check_path(what, got, plain, x.shape)
+            if x.ndim == 3:
+                for b in range(x.shape[0]):
+                    check_bitwise(got[b], wt.richardson_lucy(x[b], psf15,
+                                                             **kw),
+                                  f"{what} frame {b} vs richardson_lucy")
+                print("  each frame bitwise to single-frame richardson_lucy")
+            # hard thresholds flip where a coefficient meets the threshold
+            # (float32 against float64), so R4's float64 check is soft
+            small_kw = dict(kw, threshold_type="soft")
+            rl_vs_cpu(what, small_kw, (2, 128, 128) if x.ndim == 3
+                      else (256, 256))
+            paths[what] = (lambda x=x, kw=kw, fn=fn: fn(x, psf15, **kw),
+                           lambda x=x, kw=kw, fn=fn: fn(x, psf15, fuse=False,
+                                                        **kw))
+            del got, plain
+
+    # the direct path's correlation: F.conv2d (TF32 off) against the
+    # float32 shift-add in the JAX tap order, then the direct against
+    # the FFT path, 10 iterations (the JAX rule takes FFT above 36 taps)
+    with Phase("RL: correlation and the direct/FFT crossover"):
+        corr = {}
+        for n, x in ((1024, pos1k), (4096, pos4k)):
+            for k in (5, 15):
+                h = np.hanning(k + 2)[1:-1]
+                p = torch.from_numpy((np.outer(h, h) / np.outer(h, h).sum())
+                                     .astype(np.float32)).to(dev)
+                c_k = trl._correlate2d_symmetric(x, p)
+                c_s = trl._correlate2d_shift_add(x, p)
+                e = check_white(c_k, c_s, f"conv2d vs shift-add {n}² {k}×{k}")
+                t_c = timed(lambda: trl._correlate2d_symmetric(x, p), torch)
+                t_s = timed(lambda: trl._correlate2d_shift_add(x, p), torch,
+                            n=5)
+                corr[f"{n}x{n}_{k}x{k}"] = {"conv2d_ms": t_c,
+                                            "shift_add_ms": t_s,
+                                            "max_abs_err": e}
+                print(f"  correlation {n}² {k}×{k}: conv2d (TF32 off) "
+                      f"{t_c:.3f} ms, shift-add {t_s:.3f} ms, max abs err "
+                      f"{e:.3e}")
+        rl_out["correlation"] = corr
+        cross = {}
+        for n, x in ((1024, pos1k), (4096, pos4k)):
+            for k in (3, 5, 7, 9, 15):
+                h = np.hanning(k + 2)[1:-1]
+                p = (np.outer(h, h) / np.outer(h, h).sum()).astype(np.float32)
+                t_d = timed(lambda: wt.richardson_lucy(x, p, fft=False,
+                                                       **rl_kw), torch, n=5)
+                t_f = timed(lambda: wt.richardson_lucy(x, p, fft=True,
+                                                       **rl_kw), torch, n=5)
+                cross[f"{n}x{n}_{k}x{k}"] = {"direct_ms": t_d, "fft_ms": t_f,
+                                             "auto": "fft" if trl._fft_auto(
+                                                 "auto", p.shape)
+                                             else "direct"}
+                print(f"  RL 10 it {n}² PSF {k}×{k} ({k * k} taps): direct "
+                      f"{t_d:.3f} ms, FFT {t_f:.3f} ms; faster "
+                      f"{'direct' if t_d < t_f else 'FFT'}, auto takes "
+                      f"{cross[f'{n}x{n}_{k}x{k}']['auto']}")
+        rl_out["crossover"] = cross
+
+    # E1-E2: enhance (wavelets_tpu/models/enhance.py), denoise [5, 3],
+    # weights [1.5, 1.2], lazy noise: E1 the batched pass over three
+    # 4096² channels (kernel C once, kernel B a channel), E2 one frame
+    x3 = frame((3, 4096, 4096))
+    en_cells = {
+        "E1 enhance 3×4096² [5, 3] × [1.5, 1.2] lazy":
+            (x3, dict(weights=[[1.5, 1.2]] * 3, denoise=[[5, 3]] * 3), 3,
+             (3, 64, 64)),
+        "E2 enhance 4096² [5, 3] × [1.5, 1.2] lazy":
+            (x4k, dict(weights=[1.5, 1.2], denoise=[5, 3]), 1, (256, 256)),
+    }
+    for what, (x, kw, n_b, small) in en_cells.items():
+        with Phase(what):
+            got, _ = drive(what, lambda: wt.enhance(x, **kw),
+                           {"decompose_group": 1, "median_select": n_b})
+            plain = wt.enhance(x, fuse=False, **kw)
+            torch.cuda.synchronize()
+            check_path(what, got, plain, x.shape)
+            if x.ndim == 3:
+                one = wt.enhance(x[1], weights=[1.5, 1.2], denoise=[5, 3])
+                e = check_white(got[1], one, what + " channel 1 vs 2-D")
+                print(f"  channel 1 vs a 2-D enhance: "
+                      + ("bitwise" if torch.equal(got[1], one)
+                         else f"max abs err {e:.3e}"))
+            small_vs_cpu(what, lambda y, **d: wt.enhance(y, **kw, **d), small)
+            paths[what] = (lambda x=x, kw=kw: wt.enhance(x, **kw),
+                           lambda x=x, kw=kw: wt.enhance(x, fuse=False, **kw))
+            del got, plain
+
+    # T1: the recursive algorithm's borders at 4096² L6: a pad of
+    # 2·2^5 = 64 on each side, kernel C's two groups on 4224²
+    what = "T1 AtrousTransform()(x4096, 6, recursive=True)"
+    with Phase(what):
+        coeffs, _ = drive(what, lambda: wt.AtrousTransform()(
+            x4k, 6, recursive=True), {"decompose_group": 2})
+        plain = decompose(x4k, 6, B3SPLINE, recursive_borders=True,
+                          fuse=False)
+        check_path(what, coeffs.data, plain, (7, 4096, 4096))
+        reach = B3SPLINE.half_width * (2 ** 6 - 1)
+        inner = (slice(None), slice(reach, -reach), slice(reach, -reach))
+        std = wt.AtrousTransform()(x4k, 6).data
+        check_bitwise(coeffs.data[inner], std[inner],
+                      what + " interior vs the standard transform")
+        rt = max_err(wt.synthesize(coeffs.data), x4k)
+        require(rt <= WHITE_RTOL * max(1.0, float(x4k.abs().max())),
+                f"T1 round trip err {rt}")
+        print(f"  interior (beyond {reach} px) bitwise to the standard "
+              f"transform; round trip max abs err {rt:.3e}")
+        small_vs_cpu(what, lambda y, **d: wt.AtrousTransform()(
+            y, 6, recursive=True, **d).data)
+        paths[what] = (
+            lambda: wt.AtrousTransform()(x4k, 6, recursive=True),
+            lambda: wt.AtrousTransform()(x4k, 6, recursive=True, fuse=False))
+        del coeffs, plain, std
+
+    # T2: convolution (plain PyTorch, no kernel) at s = 0..3
+    what = "T2 convolution 4096² s = 0..3"
+    with Phase(what):
+        for s in range(4):
+            got, _ = drive(f"{what}: s={s}", lambda: wt.convolution(
+                x4k, wt.B3spline, s=s), {})
+            on_card(got, f"{what} s={s}", x4k.shape)
+            small_vs_cpu(f"{what} s={s}", lambda y, **d: wt.convolution(
+                y, wt.B3spline, s=s, **d))
+        del got
+
+    # N1: the σ_e table by Monte Carlo on the card: 100 trials of 704²
+    # in 10 batches of 10, each a 6-scale decomposition (two groups)
+    what = "N1 B3spline(2).compute_noise_weights(6, n_trials=100)"
+    with Phase(what):
+        t0 = time.perf_counter()
+        got, _ = drive(what, lambda: wt.B3spline(2).compute_noise_weights(
+            6, n_trials=100), {"decompose_group": 20})
+        n1_s = time.perf_counter() - t0
+        table = wt.B3spline(2).sigma_e()[:6]
+        # the JAX package's Monte-Carlo tolerance (tests/test_calibration.py)
+        require(np.allclose(got, table, rtol=0.08),
+                f"{what}: {got} against the table {table}")
+        plain = wt.B3spline(2).compute_noise_weights(6, n_trials=100,
+                                                     fuse=False)
+        require(np.array_equal(got, plain), f"{what}: not bitwise to "
+                f"fuse=False ({got} against {plain})")
+        rl_out["noise_weights"] = {"got": got.tolist(),
+                                   "table": table.tolist(), "s": n1_s}
+        print(f"  {got} against the table {table} (largest relative "
+              f"difference {np.abs(got / table - 1).max():.4f}, tolerance "
+              f"0.08); bitwise to fuse=False; {n1_s:.3f} s")
+
+    # C1: python -m wavelets_tpu_torch rl on 4 uint16 frames of 1024²
+    what = "C1 python -m wavelets_tpu_torch rl 4×1024² uint16"
+    with Phase(what):
+        host = ((rng.normal(size=(4, 1024, 1024)) ** 2 + 1) * 100).astype(
+            np.uint16)
+        rl_in = Path(tmp_dir.name) / "rl_in.raw"
+        rl_res = Path(tmp_dir.name) / "rl_out.raw"
+        psf_file = Path(tmp_dir.name) / "psf15.npy"
+        write_array(str(rl_in), host)
+        np.save(psf_file, psf15)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "wavelets_tpu_torch", "rl", str(rl_in),
+             str(rl_res), "--frames", "4", "--shape", "1024", "1024",
+             "--dtype", "uint16", "--psf", str(psf_file), "--device",
+             "cuda"], cwd=ROOT, capture_output=True, text=True, timeout=600)
+        c1_s = time.perf_counter() - t0
+        require(proc.returncode == 0, f"{what}: exit {proc.returncode}\n"
+                f"{proc.stdout}\n{proc.stderr}")
+        print(f"  {proc.stdout.strip()} ({c1_s:.2f} s, a new process)")
+        got = np.fromfile(rl_res, np.float32).reshape(4, 1024, 1024)
+        require(np.isfinite(got).all(), what + ": not finite")
+        for k in range(4):
+            want = wt.richardson_lucy(
+                torch.from_numpy(host[k].astype(np.float32)).to(dev), psf15,
+                fft=False, **rl_kw)
+            check_bitwise(torch.from_numpy(got[k]).to(dev), want,
+                          f"{what} frame {k} vs richardson_lucy")
+        print("  each frame bitwise to richardson_lucy on the card")
+        rl_out["c1_s"] = c1_s
+        del host, got, want
+
     # ---- 5. timings -----------------------------------------------------
     print(f"timings on {card}: median of {N_TIMED} runs, CUDA events")
     e2e = {}
@@ -1556,6 +1799,7 @@ def main():
         "path_ms": {k: {"kernels": v[0], "plain": v[1]}
                     for k, v in e2e.items()},
         "stack_fps": fps_out,
+        "richardson_lucy": rl_out,
         "kernels": kernels_out,
     }
     print(json.dumps(summary))

@@ -91,8 +91,10 @@ def test_asymmetric_taps(rng):
 def test_boundary_for_ndim():
     for n in (1, 2, 3, 4):
         assert tconv.boundary_for_ndim(n) == jconv.boundary_for_ndim(n)
+    # "wrap" and "edge" are index maps now (atrous_convolution's modes);
+    # "constant" is not one
     with pytest.raises(ValueError):
-        tconv.boundary_index(4, 1, "wrap")
+        tconv.boundary_index(4, 1, "constant")
 
 
 @pytest.mark.parametrize("shape,level", [((64, 64), 6), ((48, 40), 4),
@@ -142,8 +144,12 @@ def test_atrous_transform(rng, cls):
 
 
 def test_atrous_transform_options_outside_the_slice():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tapi.AtrousTransform()(np.zeros((8, 8)), 2, recursive=True)
+    # recursive=True is in the slice now: the JAX package's planes
+    x = np.random.default_rng(3).normal(size=(8, 8))
+    got = tapi.AtrousTransform()(x, 2, recursive=True, device="cpu")
+    assert_rel(np.asarray(got),
+               np.asarray(japi.AtrousTransform()(x, 2, recursive=True)),
+               1e-12)
     with pytest.raises(ValueError):
         tapi.AtrousTransform()(np.zeros((2, 2, 2, 2)), 1)
 

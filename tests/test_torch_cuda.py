@@ -1017,3 +1017,136 @@ def test_process_stack_on_the_card(dev, tmp_path):
         batch = torch.from_numpy(host[b0:b0 + 2].astype(np.float32)).to(dev)
         want = wow_stack(batch, with_coefficients=False, **kw)[0]
         assert np.array_equal(got[b0:b0 + 2], to_np(want))
+
+
+def _rl_input(shape, seed=0):
+    x = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+    return x * x + 1
+
+
+def _hanning(n):
+    h = np.hanning(n + 2)[1:-1]
+    p = np.outer(h, h)
+    return (p / p.sum()).astype(np.float32)
+
+
+RL_CASES = {
+    "direct": dict(fft=False),
+    "fft": dict(fft=True),
+    "auto-hard": dict(threshold_type="hard"),
+    "uniform-not-persistent": dict(uniform_init=True, persistent_mrs=False,
+                                   threshold_type="hard"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RL_CASES))
+@pytest.mark.parametrize("frames", [1, 2])
+def test_richardson_lucy_kernels_vs_plain(dev, case, frames):
+    # kernels C and B are bitwise to their plain versions, and nothing
+    # else differs between the two runs, so the deconvolutions are too;
+    # kernel C once a decomposition (3 scales: one group), kernel B once
+    # a frame, or once a frame an iteration under uniform_init
+    from wavelets_tpu_torch import richardson_lucy, richardson_lucy_stack
+    shape = (frames, 160, 200) if frames > 1 else (160, 200)
+    x = torch.from_numpy(_rl_input(shape)).to(dev)
+    psf = _hanning(7 if "fft" in case or "auto" in case else 5)
+    fn = richardson_lucy_stack if frames > 1 else richardson_lucy
+    kw = dict(RL_CASES[case], iterations=4)
+    _build.reset_counters()
+    got = fn(x, psf, **kw)
+    torch.cuda.synchronize()
+    uniform = kw.get("uniform_init", False)
+    assert dict(_build.LAUNCHES) == {
+        "decompose_group": 4 if uniform else 5,
+        "median_select": frames * (4 if uniform else 1)}
+    assert not _build.PLAIN_CALLS
+    plain = fn(x, psf, fuse=False, **kw)
+    assert got.is_cuda and bool(torch.isfinite(got).all())
+    assert torch.equal(got, plain)
+    if frames > 1:
+        # a frame of a stack keeps a single frame's bits
+        for b in range(frames):
+            assert torch.equal(got[b], richardson_lucy(x[b], psf, **kw))
+
+
+@pytest.mark.parametrize("shape", [(160, 200), (2, 96, 80)])
+@pytest.mark.parametrize("n", [3, 5, 15])
+def test_conv2d_without_tf32_matches_the_shift_add(dev, shape, n):
+    # cuDNN would compute a float32 convolution in TF32 (about three
+    # decimal digits) unless told otherwise: the direct path's F.conv2d
+    # must agree with the float32 shift-add to float32 round-off
+    import importlib
+    trl = importlib.import_module("wavelets_tpu_torch.models.richardson_lucy")
+    x = torch.from_numpy(_rl_input(shape, seed=n)).to(dev)
+    psf = torch.from_numpy(_hanning(n)).to(dev)
+    got = trl._correlate2d_symmetric(x, psf)
+    ref = trl._correlate2d_shift_add(x, psf)
+    assert_close_scaled(got, ref, 5e-6)
+    rng_psf = torch.from_numpy(np.random.default_rng(n).uniform(
+        size=(n, n + 1)).astype(np.float32)).to(dev)
+    assert_close_scaled(trl._correlate2d_symmetric(x, rng_psf),
+                        trl._correlate2d_shift_add(x, rng_psf), 5e-6)
+
+
+@pytest.mark.parametrize("noise", [None, [0.5, None, 1.0]])
+@pytest.mark.parametrize("bilateral", [None, 1])
+def test_enhance_channels_kernels_vs_plain(dev, noise, bilateral):
+    from wavelets_tpu_torch import enhance
+    x = np.random.default_rng(3).normal(size=(3, 160, 200)).astype(
+        np.float32)
+    xt = torch.from_numpy(x if bilateral else x * 3 + 10).to(dev)
+    args = () if noise is None else (noise,)
+    kw = dict(weights=[[1.5, 1.2]] * 3, denoise=[[5, 3]] * 3,
+              bilateral=bilateral)
+    _build.reset_counters()
+    got = enhance(xt, *args, **kw)
+    torch.cuda.synchronize()
+    group = "bilateral_group" if bilateral else "decompose_group"
+    assert dict(_build.LAUNCHES) == {group: 1, "median_select": 3}
+    assert not _build.PLAIN_CALLS
+    plain = enhance(xt, *args, fuse=False, **kw)
+    if bilateral:
+        assert_close_scaled(got, plain, 5e-6)
+    else:
+        assert torch.equal(got, plain)
+    one = enhance(xt[1], weights=[1.5, 1.2], denoise=[5, 3],
+                  bilateral=bilateral)
+    assert_close_scaled(got[1], one, 5e-6)
+
+
+@pytest.mark.parametrize("shape,level", [((160, 200), 6), ((40, 36), 5),
+                                         ((2, 96, 80), 3)])
+def test_recursive_kernels_vs_plain(dev, shape, level):
+    # (40, 36) at level 5 pads by 32 on a side: the padded frame reflects
+    # more than once
+    from wavelets_tpu_torch import AtrousTransform, decompose
+    x = torch.from_numpy(np.random.default_rng(4).normal(
+        size=shape).astype(np.float32)).to(dev)
+    axes = (1, 2) if len(shape) == 3 else None
+    _build.reset_counters()
+    got = decompose(x, level, B3SPLINE, axes=axes, recursive_borders=True)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"decompose_group": -(-level // 3)}
+    plain = decompose(x, level, B3SPLINE, axes=axes, recursive_borders=True,
+                      fuse=False)
+    assert torch.equal(got, plain)
+    if len(shape) == 2:
+        c = AtrousTransform()(x, level, recursive=True)
+        assert torch.equal(c.data, got)
+
+
+def test_noise_calibration_on_the_card(dev):
+    from wavelets_tpu_torch import B3spline
+    from wavelets_tpu_torch.utils import noise_calibration as tcal
+    _build.reset_counters()
+    got = B3spline(2).compute_noise_weights(4, n_trials=8)
+    torch.cuda.synchronize()
+    # 176² trials, all 8 in one batch: a group of 3 and one of 1
+    assert dict(_build.LAUNCHES) == {"decompose_group": 2}
+    np.testing.assert_allclose(got, B3spline(2).sigma_e()[:4], rtol=0.08)
+    noise = torch.randn((8, 176, 176), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    k = tcal.batch_sigma_sum(noise, B3SPLINE, 4)
+    p = tcal.batch_sigma_sum(noise, B3SPLINE, 4, fuse=False)
+    assert torch.equal(k, p)
+    assert np.array_equal(got, (k / 8).cpu().numpy())

@@ -145,9 +145,12 @@ def test_volume_route_is_the_plain_chain():
 
 
 def test_decompose_options_outside_the_slice_raise():
+    # recursive_borders is ported; with a scale offset (which the JAX
+    # package drops there) it raises
     x = torch.zeros(16, 16)
-    with pytest.raises(NotImplementedError, match="transform options"):
-        ttransform.decompose(x, 2, B3SPLINE, recursive_borders=True)
+    with pytest.raises(ValueError, match="scale_offset"):
+        ttransform.decompose(x, 2, B3SPLINE, recursive_borders=True,
+                             scale_offset=1)
 
 
 def test_fused_group_rejects_bad_arguments():

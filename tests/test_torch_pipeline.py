@@ -201,15 +201,53 @@ def test_cli_matches_jax(stack_file, tmp_path, cmd):
 def test_cli_not_ported_and_module_entry(tmp_path):
     with pytest.raises(NotImplementedError, match="A1"):
         tcli(["bench"])
-    with pytest.raises(NotImplementedError, match="A6"):
-        tcli(["rl", "a.raw", "b.raw", "--shape", "8", "8", "--frames", "1",
-              "--psf", "p.npy"])
+    with pytest.raises(SystemExit):  # rl is ported; --psf is required
+        tcli(["rl", "a.raw", "b.raw", "--shape", "8", "8", "--frames", "1"])
     with pytest.raises(SystemExit):
         tcli(["wow", "a.raw", "b.raw"])  # --shape and --frames required
     out = subprocess.run([sys.executable, "-m", "wavelets_tpu_torch",
                           "--help"], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0 and "wow" in out.stdout
+
+
+RL_CLI = {
+    "default": ["--iterations", "3"],
+    "hard-fft": ["--iterations", "2", "--hard", "--fft", "--denoise", "4",
+                 "2"],
+    "uniform-init": ["--iterations", "2", "--uniform-init"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(RL_CLI))
+def test_rl_cli_matches_jax(stack_file, tmp_path, case):
+    # python -m wavelets_tpu_torch rl against the JAX package's command and
+    # against per-frame richardson_lucy of the port
+    path, _ = stack_file
+    h = np.hanning(7)[1:-1]
+    psf = np.outer(h, h) / np.outer(h, h).sum()
+    np.save(tmp_path / "psf.npy", psf)
+    args = [path, "--shape", "128", "128", "--frames", "3", "--dtype",
+            "uint16", "--psf", str(tmp_path / "psf.npy")] + RL_CLI[case]
+    assert jcli(["rl"] + args[:1] + [str(tmp_path / "j.raw")] + args[1:]) \
+        == 0
+    assert tcli(["rl"] + args[:1] + [str(tmp_path / "t.raw")] + args[1:]
+                + ["--device", "cpu"]) == 0
+    want, got = (np.fromfile(tmp_path / f"{p}.raw", np.float32)
+                 for p in "jt")
+    assert got.size == want.size == 3 * 128 * 128
+    assert_close_scaled(got, want, 5e-6)
+    kw = dict(iterations=int(RL_CLI[case][1]),
+              threshold_type="hard" if "--hard" in RL_CLI[case] else "soft",
+              fft="--fft" in RL_CLI[case],
+              uniform_init="--uniform-init" in RL_CLI[case])
+    if "--denoise" in RL_CLI[case]:
+        kw["denoise_coefficients"] = (4.0, 2.0)
+    with frameio.FrameStack(path, 3, (128, 128), dtype="uint16") as fs:
+        for k in range(3):
+            one = T.richardson_lucy(fs[k], psf.astype(np.float32),
+                                    device="cpu", **kw)
+            assert np.array_equal(got.reshape(3, 128, 128)[k], one.numpy())
 
 
 @pytest.mark.parametrize("case", ["plain", "bilateral-noise", "volume"])

@@ -1,10 +1,13 @@
 """watroo-compatible object façade over the functional core.
 
-Counterpart of ``wavelets_tpu/api.py`` for the ported slice:
-``AtrousTransform`` (standard and bilateral), ``B3spline``/``Triangle``
-(classes instantiated with ``n_dim``) and ``Coefficients`` (per-scale
-rows or a cube, ``noise``, ``get_noise``, ``significance``, ``denoise``,
-item assignment, ``__array__``).
+Counterpart of ``wavelets_tpu/api.py``: ``AtrousTransform`` (standard
+and bilateral, ``recursive=True``), ``B3spline``/``Triangle`` (classes
+instantiated with ``n_dim``, with the reference's kernel methods and
+``compute_noise_weights``), ``Coefficients`` (per-scale rows or a cube,
+``noise``, ``get_noise``, ``significance``, ``denoise``, item
+assignment, ``__array__``) and the free functions ``convolution``,
+``atrous_convolution`` and ``sdev_loc`` (plain PyTorch: no TPU kernel
+computes them either).
 
 Devices: a ``torch.Tensor`` input keeps its device, which is how a
 caller asks for the CPU.  Anything else (numpy, lists) goes to the
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from .core.transform import decompose, normalize_bilateral
+from .ops import conv as _conv
 from .ops import stats as _stats
 from .ops.filters import B3SPLINE, TRIANGLE, ScalingFunction
 from .ops.layout import stack_planes
@@ -32,6 +36,9 @@ __all__ = [
     "B3spline",
     "Coefficients",
     "AtrousTransform",
+    "convolution",
+    "atrous_convolution",
+    "sdev_loc",
 ]
 
 # Input dtypes the reference recasts to float64 (watroo/wavelets.py:297).
@@ -110,8 +117,36 @@ class AbstractScalingFunction:
     def spec(self) -> ScalingFunction:
         return self._spec
 
+    @property
+    def coefficients_2d(self):
+        return self._spec.kernel_nd(2)
+
+    @property
+    def coefficients_3d(self):
+        return self._spec.kernel_nd(3)
+
+    def make_kernel(self):
+        return self._spec.kernel_nd(self.n_dim)
+
+    def atrous_kernel(self, scale: int):
+        """Dense dilated kernel (watroo/wavelets.py:191-197), for
+        compatibility only: the engine never materializes the holes."""
+        return self._spec.atrous_kernel_nd(self.n_dim, scale)
+
     def sigma_e(self, bilateral=None):
         return self._spec.sigma_e(self.n_dim, bilateral is not None)
+
+    def compute_noise_weights(self, n_scales, n_trials=100, bilateral=None,
+                              seed=0, fuse=True, device=DEFAULT_DEVICE):
+        """Monte-Carlo regeneration of the σ_e tables
+        (watroo/wavelets.py:221-229) on ``device``, the card by default:
+        :func:`~wavelets_tpu_torch.utils.noise_calibration.
+        compute_noise_weights`."""
+        from .utils.noise_calibration import compute_noise_weights
+
+        return compute_noise_weights(
+            self._spec, self.n_dim, n_scales, n_trials=n_trials,
+            bilateral=bilateral, seed=seed, fuse=fuse, device=device)
 
 
 class Triangle(AbstractScalingFunction):
@@ -139,6 +174,58 @@ def _spec_of(scaling_function) -> ScalingFunction:
     ):
         return scaling_function._spec
     raise TypeError(f"Not a scaling function: {scaling_function!r}")
+
+
+def _warn_output_ignored(output, fn_name):
+    if output is not None:
+        import warnings
+
+        warnings.warn(
+            f"{fn_name}(output=...) is accepted for signature parity but "
+            "IGNORED: the engine is functional, the supplied buffer is "
+            "never filled (the reference writes the result into it, "
+            "watroo/wavelets.py:57-64).  Use the return value.",
+            stacklevel=3)
+
+
+def convolution(arr, scaling_function, s=0, output=None,
+                device=DEFAULT_DEVICE):
+    """Dense separable dilated smoothing ≡ reference ``convolution``
+    (watroo/wavelets.py:35-71), with the per-ndim boundary (``symmetric``
+    for 2-D/3-D, ``reflect`` for 1-D).
+
+    .. warning:: ``output`` is accepted for signature parity but
+       **ignored**, as in the JAX package: the buffer is never filled,
+       and passing one emits a ``UserWarning``.  Use the return value."""
+    _warn_output_ignored(output, "convolution")
+    arr = _as_tensor(arr, device)
+    return _conv.smooth(arr, _spec_of(scaling_function), scale=s)
+
+
+def sdev_loc(image, scaling_function, s=0, variance=False,
+             device=DEFAULT_DEVICE):
+    """Local std (or variance) under the scaling window
+    (watroo/wavelets.py:24-32)."""
+    image = _as_tensor(image, device)
+    return _conv.sdev_loc(image, _spec_of(scaling_function), scale=s,
+                          variance=variance)
+
+
+def atrous_convolution(image, kernel, bilateral_variance=None, s=0,
+                       mode="symmetric", output=None, device=DEFAULT_DEVICE):
+    """Generic n-D à trous convolution and its bilateral variant
+    (watroo/wavelets.py:74-105).  ``kernel`` is the dense *undilated*
+    kernel (numpy); ``mode`` one of numpy's ``symmetric``, ``reflect``,
+    ``wrap`` or ``edge``; ``bilateral_variance`` goes to ``image``'s
+    device.  ``output`` is ignored with a ``UserWarning``, see
+    :func:`convolution`."""
+    _warn_output_ignored(output, "atrous_convolution")
+    image = _as_tensor(image, device)
+    if bilateral_variance is not None:
+        bilateral_variance = _as_tensor(bilateral_variance, image.device)
+    return _conv.atrous_conv_nd(image, np.asarray(kernel), scale=s,
+                                bilateral_variance=bilateral_variance,
+                                boundary=mode)
 
 
 class Coefficients:
@@ -266,15 +353,15 @@ class AtrousTransform:
         self.bilateral = bilateral
         self.bilateral_scaling = bilateral_scaling
 
-    def __call__(self, arr, level, recursive=False, device=DEFAULT_DEVICE):
+    def __call__(self, arr, level, recursive=False, fuse=True,
+                 device=DEFAULT_DEVICE):
         """Decompose ``arr`` over ``level`` scales → ``Coefficients`` with
         ``level+1`` planes, through :func:`~.core.transform.decompose`
-        (kernel C on the card for float32, kernel F when bilateral).  A
+        (kernel C on the card for float32, kernel F when bilateral;
+        ``fuse=False`` the plain chain).  ``recursive=True`` gives the
+        reference recursive algorithm's output: the same interior, the
+        borders of one symmetric pad by ``half_width·2^(level−1)``.  A
         tensor stays on its device; other input goes to ``device``."""
-        if recursive:
-            raise NotImplementedError(
-                "recursive=True is not ported yet "
-                "(ROADMAP.md queue A: transform options)")
         if np.ndim(arr) > 3:
             raise ValueError("Unsupported number of dimensions")
         arr = _as_tensor(arr, device)
@@ -282,11 +369,17 @@ class AtrousTransform:
         planes = decompose(arr, level, sf_compat.spec,
                            bilateral=normalize_bilateral(self.bilateral,
                                                          level),
-                           bilateral_scaling=self.bilateral_scaling)
+                           bilateral_scaling=self.bilateral_scaling,
+                           recursive_borders=bool(recursive), fuse=fuse)
         return Coefficients(planes, sf_compat, self.bilateral)
 
+    # Parity aliases of the reference's method names
+    # (watroo/wavelets.py:330, :408): the plane cube as a numpy array.
     def atrous_standard(self, arr, level, scaling_function=None,
                         device=DEFAULT_DEVICE):
-        """Parity alias of the reference's method
-        (watroo/wavelets.py:408): the plane cube as a numpy array."""
         return np.asarray(self(arr, level, device=device).data.cpu())
+
+    def atrous_recursive(self, arr, level, scaling_function=None,
+                         device=DEFAULT_DEVICE):
+        return np.asarray(self(arr, level, recursive=True,
+                               device=device).data.cpu())

@@ -11,9 +11,12 @@ Counterpart of ``wavelets_tpu/cli.py`` with its arguments plus
     python -m wavelets_tpu_torch decompose in.raw coeffs.npz \\
         --shape 2048 2048 --dtype float32 --level 6
 
-``rl`` and ``bench`` parse their arguments, then raise
-``NotImplementedError``: Richardson-Lucy and the benchmark are not
-ported yet.
+    # Richardson-Lucy deconvolve each frame of a stack, write f32 raw
+    python -m wavelets_tpu_torch rl in.raw out.raw --frames 4 \\
+        --shape 1024 1024 --dtype uint16 --psf psf.npy --iterations 10
+
+``bench`` parses its arguments, then raises ``NotImplementedError``: the
+benchmark is not ported yet.
 """
 
 from __future__ import annotations
@@ -77,7 +80,7 @@ def _parser():
                     choices=["b3spline", "triangle"])
 
     rl = sub.add_parser(
-        "rl", help="Richardson-Lucy deconvolve a frame stack (not ported)")
+        "rl", help="Richardson-Lucy deconvolve a frame stack")
     _add_stack_args(rl)
     rl.add_argument("--frames", type=int, required=True)
     rl.add_argument("--psf", required=True,
@@ -98,9 +101,6 @@ def main(argv=None):
 
     if args.cmd == "bench":
         raise _not_ported("the bench command", "A1, the benchmark")
-    if args.cmd == "rl":
-        raise _not_ported("the rl command",
-                          "A6, models/richardson_lucy.py")
 
     from .api import B3spline, Triangle
 
@@ -152,6 +152,25 @@ def main(argv=None):
                               anscombe=args.anscombe, device=args.device)
                 out.cpu().numpy().astype(np.float32).tofile(out_f)
         print(f"denoised {args.frames} frames -> {args.output}")
+        return 0
+
+    if args.cmd == "rl":
+        from .models.richardson_lucy import richardson_lucy
+
+        psf = np.load(args.psf).astype(np.float32)
+        with FrameStack(args.input, args.frames, tuple(args.shape),
+                        dtype=args.dtype, offset=args.offset) as fs, \
+                open(args.output, "wb") as out_f:
+            for k in range(args.frames):
+                out = richardson_lucy(
+                    fs[k].astype(np.float32), psf,
+                    iterations=args.iterations,
+                    denoise_coefficients=tuple(args.denoise),
+                    threshold_type="hard" if args.hard else "soft",
+                    uniform_init=args.uniform_init, fft=args.fft,
+                    device=args.device)
+                out.cpu().numpy().astype(np.float32).tofile(out_f)
+        print(f"deconvolved {args.frames} frames -> {args.output}")
         return 0
     return 1
 

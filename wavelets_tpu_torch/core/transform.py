@@ -18,6 +18,13 @@ bilateral 3-D volumes run the plain chain, as the JAX package runs them
 in XLA (no Pallas kernel takes them; ``fuse=False`` is its
 ``use_pallas=False``).  Each wrapper runs its kernel on a CUDA tensor and
 its plain version on a CPU tensor.
+
+``recursive_borders=True`` gives the reference's recursive algorithm's
+output (watroo/wavelets.py:330-406): the input padded once, numpy
+``symmetric``, by ``half_width·2^(level−1)`` on the transform axes, the
+standard decomposition of the padded input (kernel C or F like any
+frame), then cropped.  The decimated recursion itself is a CPU cache
+device with no counterpart here, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -27,12 +34,13 @@ from typing import Optional, Tuple
 import torch
 
 from ..ops import hopper_bilateral, hopper_conv
-from ..ops.conv import bilateral_smooth, boundary_for_ndim, smooth
+from ..ops.conv import (bilateral_smooth, boundary_for_ndim, boundary_index,
+                        smooth)
 from ..ops.filters import ScalingFunction
 from ..ops.layout import stack_planes
 
 __all__ = ["decompose", "decompose_pieces", "assemble_pieces", "synthesize",
-           "normalize_bilateral"]
+           "normalize_bilateral", "pad_symmetric"]
 
 
 def normalize_bilateral(bilateral, level: int):
@@ -50,12 +58,6 @@ def normalize_bilateral(bilateral, level: int):
     return tuple(float(s) for s in sig)
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to wavelets_tpu_torch yet "
-        f"(ROADMAP.md queue A: {item})")
-
-
 def _axes_and_boundary(x, axes, boundary):
     if axes is None:
         axes = tuple(range(x.ndim))
@@ -65,9 +67,16 @@ def _axes_and_boundary(x, axes, boundary):
     return axes, boundary
 
 
-def _check_options(recursive_borders):
-    if recursive_borders:
-        raise _not_ported("recursive_borders=True", "transform options")
+def pad_symmetric(x: torch.Tensor, pad: int, axes) -> torch.Tensor:
+    """``np.pad(x, pad, mode="symmetric")`` on ``axes`` (any pad width,
+    also wider than the extent: repeated reflection) by the boundary
+    index map; ``F.pad(mode="reflect")`` is numpy's ``reflect``, not
+    ``symmetric``."""
+    for ax in axes:
+        n = x.shape[ax]
+        x = x.index_select(ax, boundary_index(n, -pad, "symmetric",
+                                              x.device, n + 2 * pad))
+    return x
 
 
 def _smooth_step(c, s, sf, axes, boundary, bilateral, bilateral_scaling):
@@ -116,10 +125,22 @@ def decompose(
     axes are a batch.  ``bilateral`` is the per-scale σ_b, already
     normalized to ``level+1`` entries (:func:`normalize_bilateral`).
     ``scale_offset`` starts the dilation ladder at ``2^offset``.
-    ``fuse=False`` runs the plain chain.  ``recursive_borders`` raises
-    ``NotImplementedError``."""
-    _check_options(recursive_borders)
+    ``fuse=False`` runs the plain chain.  ``recursive_borders=True`` pads
+    by ``half_width·2^(level−1)`` (numpy ``symmetric``), decomposes and
+    crops (the reference's recursive algorithm's borders, watroo/
+    wavelets.py:394-395); the interior equals the standard path's."""
     axes, boundary = _axes_and_boundary(x, axes, boundary)
+    if recursive_borders:
+        if scale_offset:
+            raise ValueError("recursive_borders takes no scale_offset")
+        hw = sf.half_width * 2 ** (level - 1) if level > 0 else 0
+        planes = decompose(pad_symmetric(x, hw, axes), level, sf, axes=axes,
+                           bilateral=bilateral,
+                           bilateral_scaling=bilateral_scaling,
+                           boundary=boundary, fuse=fuse)
+        crop = tuple(slice(hw, x.shape[a] + hw) if a in axes
+                     else slice(None) for a in range(x.ndim))
+        return planes[(slice(None),) + crop].contiguous()
     if fuse and scale_offset == 0:
         if _can_fuse(x, level, axes, boundary):
             if bilateral is not None:

@@ -12,7 +12,8 @@ the Hopper kernels (``ops/hopper_conv.py``) are held against.
   ``torch.nn.functional.pad`` has no such mode.  ``reflect`` is
   numpy's whole-sample reflection (reflect-101), period ``2n − 2``.
   2-D/3-D transforms use ``symmetric``, 1-D uses ``reflect``
-  (watroo/wavelets.py:35-69, SURVEY §2.4).
+  (watroo/wavelets.py:35-69, SURVEY §2.4); ``wrap`` and ``edge`` are
+  numpy's modes of those names, for ``atrous_convolution(mode=...)``.
 * Symmetric taps fold pairwise in the JAX package's order,
   ``x·t_c + Σ_j t_{c+j}·(x←jd + x→jd)``, axis by axis in the order
   given, so float64 parity stays at round-off and float32 is bitwise.
@@ -45,11 +46,13 @@ def boundary_for_ndim(n_dim: int) -> str:
 
 
 def boundary_index(n: int, shift: int, boundary: str,
-                   device=None) -> torch.Tensor:
-    """Source index of every output sample ``i`` for the value at
-    ``i + shift`` on an extent ``n`` extended by ``boundary`` — the
-    index form of ``np.pad(..., mode=boundary)`` for any pad width."""
-    i = torch.arange(n, device=device, dtype=torch.int64) + shift
+                   device=None, length: Optional[int] = None) -> torch.Tensor:
+    """Source index of every output sample ``i < length`` (default
+    ``n``) for the value at ``i + shift`` on an extent ``n`` extended by
+    ``boundary`` — the index form of ``np.pad(..., mode=boundary)`` for
+    any pad width: ``symmetric``, ``reflect``, ``wrap`` or ``edge``."""
+    i = torch.arange(n if length is None else length, device=device,
+                     dtype=torch.int64) + shift
     if boundary == "symmetric":
         p = torch.remainder(i, 2 * n)
         return torch.where(p < n, p, 2 * n - 1 - p)
@@ -58,6 +61,10 @@ def boundary_index(n: int, shift: int, boundary: str,
             return torch.zeros_like(i)
         p = torch.remainder(i, 2 * n - 2)
         return torch.where(p < n, p, 2 * n - 2 - p)
+    if boundary == "wrap":
+        return torch.remainder(i, n)
+    if boundary == "edge":
+        return torch.clamp(i, 0, n - 1)
     raise ValueError(f"unsupported boundary {boundary!r}")
 
 
