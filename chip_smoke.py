@@ -99,6 +99,24 @@ CUDA toolkit.  It
    device-busy ms per run, the idle share against the CUDA-event time,
    and the kernels that take the most device time.
 
+The bfloat16 slice adds: the bfloat16 forms of kernel A (group, g = 3
+and 4, at 4096², 1000×1536, 257×513, a batch of 3 and one of 4 at
+4096², ``need_cube`` on
+and off, soft, hard and unmasked; deep step s = 4..9 at 4096², an odd
+shape and a batch) and of kernel E ((7, 8) at 4096², (4, 5) at 512², a
+batch), each bitwise to its bfloat16 plain version, inputs unchanged,
+the measured max abs error of the 4096² checks in the ``kernels`` line;
+the paths ``wow_4k_L6_bf16_known_noise`` and ``wow_4k_L10_bf16``, with
+exact bfloat16 launch counts and no float32 kernel, and on the plain
+route (no launch) a bfloat16 S1 (``wow_stack`` 4×4096² L6 serving, a
+plain frame at a time as the JAX ``wow_stack`` runs it), float16
+``wow`` 4096² L10 and bfloat16 ``richardson_lucy`` 1024² direct
+(no launch; ``fft=True`` raises), each recon within 2e-2·max of the
+float32 kernels on the same zero-mean frame, a 512² crop within 2^-8 of
+the same route on the CPU, and timed against ``fuse=False`` and the
+float32 kernels; the three bfloat16 kernels timed at 4096² beside their
+2-byte bounds.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero before that line.  It imports nothing of JAX.
@@ -204,7 +222,8 @@ def main():
     # the H100's peaks and the kernels' operation counts (one owner)
     from wavelets_tpu_torch.utils.profiling import (
         BIL_OPS, BIL_TAPS, BIL_WHITEN_OPS, EXPF_OPS, FOLD_OPS, PEAK_F32_INSTR,
-        PEAK_SFU, bound_ms)
+        PEAK_SFU, WHITEN_SCALE_OPS, bound_ms, group_bytes, pair_bytes,
+        step_bytes)
     from wavelets_tpu_torch.core.transform import decompose, decompose_pieces
     from wavelets_tpu_torch.models.wow import (_wow_body_fused,
                                                _wow_body_merged)
@@ -706,6 +725,115 @@ def main():
               "bitwise to the five-launch reference; vs plain 4096² max abs "
               f"err white {err_g['white']:.3e} carry {err_g['carry']:.3e}")
 
+    # ---- 3h. the bfloat16 forms of kernels A and E: bitwise -------------
+    def bf16_frame(shape, b=None, mean=10.0):
+        return frame(shape, b, mean).to(torch.bfloat16)
+
+    with Phase("bfloat16 kernel checks"):
+        n_lp = {"whiten_group_bf16": 0, "whiten_step_bf16": 0,
+                "whiten_pair_bf16": 0}
+        # measured max abs error against the plain version, over every
+        # output of the 4096² checks (the group at g = 3 and 4, a frame
+        # and a batch of 4; the steps s = 4..9; the pair (7, 8))
+        err_lp = dict.fromkeys(n_lp, 0.0)
+
+        def check_lp(name, got, ref, what, shape):
+            check_bitwise(got, ref, what)
+            if shape == (4096, 4096):
+                err_lp[name] = max(err_lp[name], max_err(got, ref))
+        thr4 = torch.tensor([9.0 * float(sig[k]) for k in range(4)],
+                            device=dev)
+
+        def counted(name, fn):
+            n0 = _build.LAUNCHES[name]
+            out = fn()
+            require(_build.LAUNCHES[name] == n0 + 1,
+                    f"{name}: not one launch")
+            n_lp[name] += 1
+            return out
+
+        # A's group, g = 3 and 4 (the merged route's), need_cube on and
+        # off, soft, hard and unmasked, a batch of 3 and one of 4 at 4096²
+        for shape, b in (((4096, 4096), None), ((1000, 1536), None),
+                         ((257, 513), None), ((512, 512), 3),
+                         ((4096, 4096), 4)):
+            x = bf16_frame(shape, b)
+            x0 = x.clone()
+            for g in (3, 4):
+                for need_cube in (True, False):
+                    for mode in ("soft", "hard", "unmasked"):
+                        args = ([1.0, 2.0, 0.5, 1.5][:g], thr4[:g], g,
+                                B3SPLINE)
+                        kw = dict(soft=mode == "soft", need_cube=need_cube,
+                                  masked=(mode != "unmasked",) * (g - 1)
+                                  + (False,))
+                        rows_k, acc_k = counted(
+                            "whiten_group_bf16",
+                            lambda: hopper_conv.fused_wow_group(
+                                x, *args, **kw))
+                        rows_p, acc_p = hopper_conv.fused_wow_group_plain(
+                            x, *args, **kw)
+                        torch.cuda.synchronize()
+                        what = (f"bf16 group {shape} b={b} g={g} {mode} "
+                                f"need_cube={need_cube}")
+                        require(len(rows_k) == len(rows_p), what + " rows")
+                        for a, r in zip(rows_k, rows_p):
+                            check_lp("whiten_group_bf16", a, r, what, shape)
+                        check_lp("whiten_group_bf16", acc_k, acc_p,
+                                 what + " acc", shape)
+            check_bitwise(x, x0, f"bf16 group {shape}: input changed")
+        # A's deep step, s = 4..9 at 4096², an odd shape, a batch of 3
+        for shape, b, scales in (((4096, 4096), 1, range(4, 10)),
+                                 ((257, 513), 1, (4, 6)),
+                                 ((512, 512), 3, (4, 5))):
+            x = bf16_frame(shape, b)
+            x0 = x.clone()
+            recon = bf16_frame(shape, b, mean=0.0)
+            thr = torch.full((b,), 0.9, device=dev)
+            for s_ in scales:
+                for mode in ("soft", "hard", "unmasked"):
+                    kw = dict(sf=B3SPLINE, scale=s_, weight=1.5,
+                              soft=mode == "soft", masked=mode != "unmasked")
+                    r_k, r_p = recon.clone(), recon.clone()
+                    w_k, _, c_k = counted(
+                        "whiten_step_bf16",
+                        lambda: hopper_deep.deep_whiten_step(x, r_k, thr,
+                                                             **kw))
+                    w_p, _, c_p = hopper_deep.deep_whiten_step_plain(
+                        x, r_p, thr, **kw)
+                    torch.cuda.synchronize()
+                    what = f"bf16 step {shape} b={b} s={s_} {mode}"
+                    for a, r in ((w_k, w_p), (c_k, c_p), (r_k, r_p)):
+                        check_lp("whiten_step_bf16", a, r, what, shape)
+            check_bitwise(x, x0, f"bf16 step {shape}: input changed")
+        # kernel E at (7, 8) on 4096², (4, 5) on 512², a batch of 3
+        for shape, b, s_ in (((4096, 4096), 1, 7), ((512, 512), 1, 4),
+                             ((512, 512), 3, 4)):
+            x = bf16_frame(shape, b)
+            x0 = x.clone()
+            for with_recon in (True, False):
+                recon = bf16_frame(shape, b, mean=0.0) if with_recon else None
+                r_k = recon.clone() if with_recon else None
+                r_p = recon.clone() if with_recon else None
+                kw = dict(sf=B3SPLINE, scale=s_, weights=(1.5, 0.5),
+                          soft=True, masked=(True, False))
+                thr2 = torch.full((2, b), 0.9, device=dev)
+                out_k = counted("whiten_pair_bf16",
+                                lambda: hopper_deep.deep_whiten_step2(
+                                    x, r_k, thr2, **kw))
+                out_p = hopper_deep.deep_whiten_step2_plain(x, r_p, thr2,
+                                                            **kw)
+                torch.cuda.synchronize()
+                what = f"bf16 pair {shape} b={b} s={s_} recon={with_recon}"
+                for a, r in zip(out_k, out_p):
+                    if a is not None:
+                        check_lp("whiten_pair_bf16", a, r, what, shape)
+            check_bitwise(x, x0, f"bf16 pair {shape}: input changed")
+        del x, x0, recon
+        print(f"bfloat16 kernels: {n_lp} checks, every output bitwise to "
+              "the bfloat16 plain version, inputs unchanged; measured max "
+              f"abs err at 4096² {err_lp}")
+
     # ---- 4. the paths ----------------------------------------------------
     launches = {}
 
@@ -797,6 +925,108 @@ def main():
             check_wow(what, recon, coeffs, r_p, c_p, n_scales + 1)
         small_vs_cpu("main path 256²", lambda x, **d: wt.wow(
             x, denoise_coefficients=[5, 2], **d)[0])
+
+    # the low-precision paths: the JAX rows wow_4k_L6_bf16_known_noise
+    # and wow_4k_L10_bf16 (the bfloat16 merged route: A's group g = 4,
+    # deep steps from 4, E where H >> s <= 32), and on their plain routes
+    # a bfloat16 S1 (the JAX wow_stack merges float32 stacks only: its
+    # frames run one by one), float16 and bfloat16 RL.  Zero-mean frames:
+    # on a mean of 10 the residual's std falls below the carry's bfloat16
+    # spacing and the JAX package's own bfloat16 path strays 15% from its
+    # float32
+    lowp_out, lowp_main = {}, {}
+    xb4k = bf16_frame((4096, 4096), mean=0.0)
+    xs4 = bf16_frame((4096, 4096), b=4, mean=0.0)
+    lowp = {
+        "wow_4k_L6_bf16_known_noise":
+            (lambda x, **k: wt.wow(x, **k)[0], xb4k,
+             dict(n_scales=6, denoise_coefficients=[5, 2], noise=1.0),
+             {"whiten_group_bf16": 1, "whiten_step_bf16": 2}),
+        "wow_4k_L10_bf16":
+            (lambda x, **k: wt.wow(x, **k)[0], xb4k,
+             dict(n_scales=10, noise=0.0),
+             {"whiten_group_bf16": 1, "whiten_step_bf16": 4,
+              "whiten_pair_bf16": 1}),
+        "bf16 S1 wow_stack 4×4096² L6 [5, 2] noise 1.0 serving":
+            (lambda x, **k: wt.wow_stack(x, **k)[0], xs4,
+             dict(n_scales=6, denoise_coefficients=[5, 2], noise=1.0,
+                  with_coefficients=False), {}),
+        "float16 wow 4096² L10 (plain route)":
+            (lambda x, **k: wt.wow(x, **k)[0], xb4k.to(torch.float16),
+             dict(n_scales=10, noise=0.0), {}),
+    }
+    for what, (run, x, kw, expect) in lowp.items():
+        with Phase(what):
+            got, run_l = drive(what, lambda: run(x, **kw), expect)
+            if expect:
+                lowp_main[what] = run_l
+            on_card(got, what, x.shape, x.dtype)
+            x32 = x.float()
+            ref32 = run(x32, **kw)
+            plain = run(x, fuse=False, **kw)
+            torch.cuda.synchronize()
+            scale = max(float(ref32.abs().max()), 1.0)
+            e32 = max_err(got, ref32)
+            require(e32 <= 2e-2 * scale, f"{what}: recon {e32} from "
+                    f"float32's, more than 2e-2 * {scale}")
+            e_p = max_err(got, plain)
+            print(f"  recon vs the float32 kernels: max abs err {e32:.4g} "
+                  f"(scale {scale:.4g}, {e32 / scale:.3e} relative); vs "
+                  f"fuse=False in {x.dtype}: {e_p:.4g}")
+            if x.ndim == 3:
+                # per-frame statistics: a frame keeps its bits whatever
+                # frames stand beside it
+                one = run(x[:1], **kw)
+                check_bitwise(got[:1], one, what + " frame 0 vs a stack of 1")
+                print("  frame 0 bitwise to a stack of one")
+            # the same route on a small frame against the CPU's plain
+            # versions of the same kernels
+            small = x[..., :512, :512].contiguous()
+            on_cpu = run(small.cpu(), **kw)
+            e_c = max_err(run(small, **kw).cpu(), on_cpu)
+            require(e_c <= 2 ** -8 * max(float(on_cpu.abs().max()), 1.0),
+                    f"{what}: 512² on the card vs the CPU {e_c}")
+            t32 = timed(lambda: run(x32, **kw), torch)
+            print(f"  512² on the card vs the CPU: max abs err {e_c:.4g}; "
+                  f"float32 kernels on the same frame {t32:.3f} ms")
+            lowp_out[what] = dict(recon_vs_f32_max_abs_err=e32,
+                                  f32_scale=scale, vs_plain_max_abs_err=e_p,
+                                  small_vs_cpu_max_abs_err=e_c, f32_ms=t32,
+                                  launches=run_l)
+            paths[what] = (lambda run=run, x=x, kw=kw: run(x, **kw),
+                           lambda run=run, x=x, kw=kw: run(x, fuse=False,
+                                                           **kw))
+    what = "bf16 richardson_lucy 1024² direct 5×5, 10 iterations"
+    with Phase(what):
+        hann5 = np.outer(np.hanning(7)[1:-1], np.hanning(7)[1:-1])
+        hann5 = (hann5 / hann5.sum()).astype(np.float32)
+        xr = frame((1024, 1024)).abs().to(torch.bfloat16)
+        got, _ = drive(what, lambda: wt.richardson_lucy(
+            xr, hann5, fft=False), {})
+        on_card(got, what, xr.shape, torch.bfloat16)
+        on_cpu = wt.richardson_lucy(xr[:256, :256].cpu(), hann5, fft=False)
+        e_c = max_err(wt.richardson_lucy(xr[:256, :256].contiguous(), hann5,
+                                         fft=False).cpu(), on_cpu)
+        require(e_c <= 2 ** -8 * float(on_cpu.abs().max()),
+                f"{what}: 256² on the card vs the CPU {e_c}")
+        xr32 = xr.float()
+        ref32 = wt.richardson_lucy(xr32, hann5, fft=False)
+        e32 = max_err(got, ref32) / float(ref32.abs().max())
+        try:
+            wt.richardson_lucy(xr, hann5, fft=True)
+            require(False, what + ": fft=True ran in bfloat16")
+        except ValueError:
+            pass
+        t32 = timed(lambda: wt.richardson_lucy(xr32, hann5, fft=False),
+                    torch, n=5)
+        print(f"  256² on the card vs the CPU: {e_c:.4g}; vs float32 "
+              f"{e32:.3e} relative (10 iterations); fft=True raises "
+              f"ValueError; float32 {t32:.3f} ms")
+        lowp_out[what] = dict(small_vs_cpu_max_abs_err=e_c,
+                              vs_f32_relative=e32, f32_ms=t32)
+        paths[what] = (lambda: wt.richardson_lucy(xr, hann5, fft=False),
+                       lambda: wt.richardson_lucy(xr, hann5, fft=False,
+                                                  fuse=False))
 
     # P1: decomposition
     with Phase("P1 AtrousTransform 4096² L6"):
@@ -1764,6 +1994,92 @@ def main():
             library="none: PyTorch has no bilateral filter"))
         del xf, xg, rg
 
+    # the bfloat16 forms of kernels A and E (2-byte bounds)
+    with Phase("timings: bfloat16 kernels"):
+        n = 4096 * 4096
+        xb = bf16_frame((4096, 4096))
+        thr4 = torch.tensor([1.0, 1.0, 1.0, 0.0], device=dev)
+        gkw = dict(masked=(True, True, True, False))
+        g_k = {c: timed(lambda: hopper_conv.fused_wow_group(
+            xb, [1.0] * 4, thr4, 4, B3SPLINE, need_cube=c, **gkw), torch)
+            for c in (True, False)}
+        g_p = timed(lambda: hopper_conv.fused_wow_group_plain(
+            xb, [1.0] * 4, thr4, 4, B3SPLINE, **gkw), torch)
+        b_g = bound_ms(group_bytes(n, 4, True, 2), 4 * n * WHITEN_SCALE_OPS)
+        print(f"  bf16 group 4096² g=4: {g_k[True]:.3f} ms, need_cube off "
+              f"{g_k[False]:.3f} ms, plain {g_p:.3f} ms, bound "
+              f"{b_g[0]:.3f} ({b_g[1]})")
+        kernels_out.append(dict(
+            name="whiten_group_bf16", route="cuda",
+            source="wavelets_tpu_torch/csrc/whiten_group.cu",
+            replaces="wavelets_tpu/ops/pallas_conv.py:607",
+            launches=launches.get("whiten_group_bf16", 0),
+            main_path_launches={k: v.get("whiten_group_bf16", 0)
+                                for k, v in lowp_main.items()},
+            max_abs_err=err_lp["whiten_group_bf16"], ms=g_k[True],
+            plain_ms=g_p, bound_ms=b_g[0],
+            bound_by=b_g[1], library_ms=None, ms_need_cube_off=g_k[False],
+            bound_ms_need_cube_off=bound_ms(group_bytes(n, 4, False, 2),
+                                            4 * n * WHITEN_SCALE_OPS)[0],
+            checks=n_lp["whiten_group_bf16"],
+            timed="one bfloat16 group, scales 0-3 at 4096², need_cube on",
+            library="none: PyTorch has no numpy-symmetric pad or dilated "
+                    "smooth in one call"))
+        xs = xb[None]
+        rb = torch.zeros_like(xs)
+        thr1 = torch.tensor([1.0], device=dev)
+        s_k, s_p, per = 0.0, 0.0, {}
+        for s_ in range(4, 10):
+            kw = dict(sf=B3SPLINE, scale=s_, weight=1.0, soft=True,
+                      masked=s_ < 6)
+            per[s_] = timed(lambda: hopper_deep.deep_whiten_step(
+                xs, rb, thr1, **kw), torch)
+            s_k += per[s_]
+            s_p += timed(lambda: hopper_deep.deep_whiten_step_plain(
+                xs, rb, thr1, **kw), torch, n=5)
+        b_s = bound_ms(6 * step_bytes(n, itemsize=2), 6 * n * WHITEN_SCALE_OPS)
+        print(f"  bf16 steps 4096² s=4..9: {s_k:.3f} ms ("
+              + ", ".join(f"{v:.3f}" for v in per.values())
+              + f"), plain {s_p:.3f} ms, bound {b_s[0]:.3f} ({b_s[1]})")
+        kernels_out.append(dict(
+            name="whiten_step_bf16", route="cuda",
+            source="wavelets_tpu_torch/csrc/whiten_step.cu",
+            replaces="wavelets_tpu/ops/pallas_deep.py:514",
+            launches=launches.get("whiten_step_bf16", 0),
+            main_path_launches={k: v.get("whiten_step_bf16", 0)
+                                for k, v in lowp_main.items()},
+            max_abs_err=err_lp["whiten_step_bf16"], ms=s_k, plain_ms=s_p,
+            bound_ms=b_s[0],
+            bound_by=b_s[1], library_ms=None, per_scale_ms=per,
+            checks=n_lp["whiten_step_bf16"],
+            timed="bfloat16 scales 4-9 at 4096², one step each, recon +=",
+            library="none: PyTorch has no numpy-symmetric pad or dilated "
+                    "smooth in one call"))
+        thr2 = torch.tensor([[1.0], [0.0]], device=dev)
+        pkw = dict(sf=B3SPLINE, scale=7, weights=(1.0, 1.0), soft=True,
+                   masked=(True, False))
+        p_k = timed(lambda: hopper_deep.deep_whiten_step2(xs, rb, thr2,
+                                                          **pkw), torch)
+        p_p = timed(lambda: hopper_deep.deep_whiten_step2_plain(
+            xs, rb, thr2, **pkw), torch, n=5)
+        b_p = bound_ms(pair_bytes(n, itemsize=2), 2 * n * WHITEN_SCALE_OPS)
+        print(f"  bf16 pair (7, 8) 4096²: {p_k:.3f} ms, plain {p_p:.3f} "
+              f"ms, bound {b_p[0]:.3f} ({b_p[1]})")
+        kernels_out.append(dict(
+            name="whiten_pair_bf16", route="cuda",
+            source="wavelets_tpu_torch/csrc/whiten_pair.cu",
+            replaces="wavelets_tpu/ops/pallas_deep.py:929",
+            launches=launches.get("whiten_pair_bf16", 0),
+            main_path_launches={k: v.get("whiten_pair_bf16", 0)
+                                for k, v in lowp_main.items()},
+            max_abs_err=err_lp["whiten_pair_bf16"], ms=p_k, plain_ms=p_p,
+            bound_ms=b_p[0],
+            bound_by=b_p[1], library_ms=None,
+            checks=n_lp["whiten_pair_bf16"],
+            timed="the bfloat16 pair (7, 8) at 4096², recon +=",
+            library="none: PyTorch has no numpy-symmetric pad"))
+        del xb, xs, rb
+
     # ---- 6. where the time goes ----------------------------------------
     with Phase("profile"):
         from torch.autograd import DeviceType
@@ -1800,6 +2116,7 @@ def main():
                     for k, v in e2e.items()},
         "stack_fps": fps_out,
         "richardson_lucy": rl_out,
+        "low_precision": lowp_out,
         "kernels": kernels_out,
     }
     print(json.dumps(summary))

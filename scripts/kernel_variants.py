@@ -29,6 +29,10 @@ are only timed.
 * kernel A's group (``whiten_group.cu``), scales 0-2 at 4096²: as built
   (32-row tile); a 64-row tile; the taps at run time; no whitening
   epilogue; one fold a lane at a time (no four-way overlap);
+* the bfloat16 forms (``whiten_group_bf16``, ``whiten_step_bf16``,
+  ``whiten_pair_bf16``): the group g = 4 (scales 0-3) at 4096² as
+  planned, with a 16-, 32- and 64-row tile; the deep step s = 4, 6, 9;
+  the pair (7, 8);
 * kernel B (``median_select.cu``), median(|x|) at 4096² and 512²: as
   built, with the device time of each of its four launches;
 * kernel F (``bilateral_group.cu``, ``wt_ring.cuh``), a group of 3 at
@@ -87,6 +91,12 @@ VARIANTS = {
     "group, no whitening epilogue": ("whiten_group", ("NO_EPILOGUE",),
                                      None),
     "group, one fold a lane": ("whiten_group", ("ONE_FOLD",), None),
+    "group bf16": ("whiten_group_bf16", (), None),
+    "group bf16, 16-row tile": ("whiten_group_bf16", (), "tile 16"),
+    "group bf16, 32-row tile": ("whiten_group_bf16", (), "tile 32"),
+    "group bf16, 64-row tile": ("whiten_group_bf16", (), "tile 64"),
+    "step bf16": ("whiten_step_bf16", (), None),
+    "pair bf16": ("whiten_pair_bf16", (), None),
     "median": ("median_select", (), None),
     "bilateral group": ("bilateral_group", (), None),
     "bilateral group, 2048-column segments": ("bilateral_group", (),
@@ -243,11 +253,14 @@ def main():
     zero1 = torch.zeros(1, device=dev)
     group_plan, pair_plan = hopper_conv.group_plan, hopper_deep.pair_plan
 
-    def tile64(*a):
-        p = group_plan(*a)
-        return dataclasses.replace(
-            p, tile_h=64, grid=(p.grid[0], -(-a[1] // 64), p.grid[2]),
-            smem_bytes=hopper_conv._group_smem(64, p.halo, p.halo_cols))
+    def tile(th):
+        def plan(*a):
+            p = group_plan(*a)
+            return dataclasses.replace(
+                p, tile_h=th, grid=(p.grid[0], -(-a[1] // th), p.grid[2]),
+                smem_bytes=hopper_conv._group_smem(th, p.halo, p.halo_cols,
+                                                   *a[6:]))
+        return plan
 
     bil_plan = hopper_bilateral.bilateral_plan
 
@@ -286,7 +299,9 @@ def main():
                            three_launches),
         "pieces whole rows": (hopper_wow, "pieces_plan", pieces_whole),
         "seg 2048": (hopper_bilateral, "bilateral_plan", seg2048),
-        "tile 64": (hopper_conv, "group_plan", tile64),
+        "tile 16": (hopper_conv, "group_plan", tile(16)),
+        "tile 32": (hopper_conv, "group_plan", tile(32)),
+        "tile 64": (hopper_conv, "group_plan", tile(64)),
         "cluster 1": (hopper_deep, "pair_plan", lambda *a: dataclasses
                       .replace(pair_plan(*a), cluster=1)),
     }
@@ -317,8 +332,25 @@ def main():
                                                  **kw)
         return recon.add_(hopper_deep.deep_whiten_plane(x, thr3d[1], **kw))
 
+    xh = x.to(torch.bfloat16)
+    thr4 = torch.tensor([1.0, 1.0, 1.0, 0.0], device=dev)
+
     def runs(kernel):
-        if kernel == "whiten_plane":
+        if kernel == "whiten_group_bf16":
+            yield "scales 0-3", lambda: hopper_conv.fused_wow_group(
+                xh[0], [1.0] * 4, thr4, 4, B3SPLINE,
+                masked=(True, True, True, False))
+        elif kernel == "whiten_step_bf16":
+            rh = torch.zeros_like(xh)
+            for s in (4, 6, 9):
+                yield f"s={s}", lambda s=s: hopper_deep.deep_whiten_step(
+                    xh, rh, zero1, sf=B3SPLINE, scale=s, weight=1.0)
+        elif kernel == "whiten_pair_bf16":
+            rh = torch.zeros_like(xh)
+            yield "(7, 8)", lambda: hopper_deep.deep_whiten_step2(
+                xh, rh, thr2, sf=B3SPLINE, scale=7, weights=(1.0, 1.0),
+                masked=(True, False))
+        elif kernel == "whiten_plane":
             yield "pieces 0-2", lambda: hopper_wow.fused_whiten_pieces(
                 *pieces_args, write_gamma=True)
             for s in range(3, 10):
@@ -385,6 +417,14 @@ def main():
                         same = torch.equal(fn(), hopper_conv
                                            .fused_group_plain(
                                                src, g, B3SPLINE, off, so))
+                        print(f"      bitwise to the plain version: {same}")
+                    if kernel == "whiten_group_bf16" and rnd == 0:
+                        rows, acc = fn()
+                        rp, ap = hopper_conv.fused_wow_group_plain(
+                            xh[0], [1.0] * 4, thr4, 4, B3SPLINE,
+                            masked=(True, True, True, False))
+                        same = all(torch.equal(a, b) for a, b in
+                                   zip((*rows, acc), (*rp, ap)))
                         print(f"      bitwise to the plain version: {same}")
                     if (kernel == "whiten_plane" and rnd == 0
                             and what.startswith("pieces")

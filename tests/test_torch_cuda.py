@@ -1150,3 +1150,144 @@ def test_noise_calibration_on_the_card(dev):
     p = tcal.batch_sigma_sum(noise, B3SPLINE, 4, fuse=False)
     assert torch.equal(k, p)
     assert np.array_equal(got, (k / 8).cpu().numpy())
+
+
+# ---------------------------------------------------------------------
+# The bfloat16 forms of kernels A (group and deep step) and E: bitwise
+# to their bfloat16 plain versions on the card, inputs unchanged
+# ---------------------------------------------------------------------
+
+def _bf16(rng, shape, dev, mean=10.0):
+    x = rng.normal(size=shape).astype(np.float32) * 3 + mean
+    return torch.from_numpy(x).to(dev).to(torch.bfloat16)
+
+
+def _bitwise(got, ref):
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    assert torch.equal(got, ref), float((got.float() - ref.float())
+                                        .abs().max())
+
+
+@pytest.mark.parametrize("shape", [(80, 72), (2, 257, 130), (256, 256)])
+@pytest.mark.parametrize("g,offset", [(4, 0), (3, 0), (3, 1)])
+@pytest.mark.parametrize("mode", ["soft", "hard", "unmasked"])
+@pytest.mark.parametrize("need_cube", [True, False])
+def test_bf16_group_kernel_bitwise(dev, shape, g, offset, mode, need_cube):
+    rng = np.random.default_rng(g + offset)
+    x = _bf16(rng, shape, dev)
+    x0 = x.clone()
+    masked = (mode != "unmasked",) * (g - 1) + (False,)
+    args = ([1.0, 2.0, 0.5, 1.5][:g],
+            torch.tensor([0.9, 0.5, 0.0, 0.2][:g], device=dev), g, B3SPLINE)
+    kw = dict(offset=offset, soft=mode == "soft", masked=masked,
+              need_cube=need_cube)
+    _build.reset_counters()
+    rows_k, acc_k = hopper_conv.fused_wow_group(x, *args, **kw)
+    assert dict(_build.LAUNCHES) == {"whiten_group_bf16": 1}
+    rows_p, acc_p = hopper_conv.fused_wow_group_plain(x, *args, **kw)
+    torch.cuda.synchronize()
+    assert len(rows_k) == len(rows_p) == (g + 1 if need_cube else 1)
+    for a, b in zip(rows_k, rows_p):
+        _bitwise(a, b)
+    _bitwise(acc_k, acc_p)
+    _bitwise(x, x0)
+
+
+@pytest.mark.parametrize("shape", [(1, 64, 96), (2, 257, 130)])
+@pytest.mark.parametrize("s", [0, 3, 5])
+@pytest.mark.parametrize("mode", ["soft", "hard", "unmasked"])
+def test_bf16_deep_step_kernel_bitwise(dev, shape, s, mode):
+    rng = np.random.default_rng(s)
+    x = _bf16(rng, shape, dev)
+    recon = _bf16(rng, shape, dev, mean=0.0)
+    x0 = x.clone()
+    thr = torch.tensor([0.9, 0.0][:shape[0]], device=dev)
+    kw = dict(sf=B3SPLINE, scale=s, weight=1.5, soft=mode == "soft",
+              masked=mode != "unmasked")
+    r_k, r_p = recon.clone(), recon.clone()
+    _build.reset_counters()
+    w_k, _, c_k = hopper_deep.deep_whiten_step(x, r_k, thr, **kw)
+    assert dict(_build.LAUNCHES) == {"whiten_step_bf16": 1}
+    w_p, _, c_p = hopper_deep.deep_whiten_step_plain(x, r_p, thr, **kw)
+    torch.cuda.synchronize()
+    for a, b in ((w_k, w_p), (c_k, c_p), (r_k, r_p), (x, x0)):
+        _bitwise(a, b)
+
+
+@pytest.mark.parametrize("shape,s", [((1, 256, 256), 4), ((2, 64, 96), 3),
+                                     ((1, 512, 512), 4)])
+@pytest.mark.parametrize("masked", [(True, False), (False, False)])
+@pytest.mark.parametrize("with_recon", [False, True])
+def test_bf16_pair_kernel_bitwise(dev, shape, s, masked, with_recon):
+    rng = np.random.default_rng(s)
+    x = _bf16(rng, shape, dev)
+    x0 = x.clone()
+    recon = _bf16(rng, shape, dev, mean=0.0) if with_recon else None
+    thr = torch.full((2, shape[0]), 0.7, device=dev)
+    kw = dict(sf=B3SPLINE, scale=s, weights=(1.5, 0.5), soft=True,
+              masked=masked)
+    r_k = recon.clone() if with_recon else None
+    r_p = recon.clone() if with_recon else None
+    _build.reset_counters()
+    w1k, w2k, _, ck = hopper_deep.deep_whiten_step2(x, r_k, thr, **kw)
+    assert dict(_build.LAUNCHES) == {"whiten_pair_bf16": 1}
+    w1p, w2p, _, cp = hopper_deep.deep_whiten_step2_plain(x, r_p, thr, **kw)
+    torch.cuda.synchronize()
+    for a, b in ((w1k, w1p), (w2k, w2p), (ck, cp), (x, x0)):
+        _bitwise(a, b)
+    if with_recon:
+        _bitwise(r_k, r_p)
+
+
+@pytest.mark.parametrize("shape,launched", [
+    ((512, 512), {"whiten_group_bf16": 1, "whiten_pair_bf16": 1}),
+    ((1024, 1024), {"whiten_group_bf16": 1, "whiten_step_bf16": 2}),
+])
+def test_bf16_wow_merged_on_the_card(dev, shape, launched):
+    # zero mean: a mean of 10 puts the carry's bfloat16 spacing above the
+    # residual's std, and the JAX package's own bfloat16 path then strays
+    # 15% from its float32 one (JAX wow._wow_body_merged at 512², both)
+    x = _bf16(np.random.default_rng(7), shape, dev, mean=0.0)
+    kw = dict(n_scales=6, denoise_coefficients=[5, 2], noise=1.0)
+    _build.reset_counters()
+    r_k, c_k = wow(x, **kw)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == launched
+    assert dict(_build.PLAIN_CALLS) == {}
+    assert r_k.dtype == torch.bfloat16 and bool(torch.isfinite(r_k).all())
+    # the same frame through the plain versions on the CPU
+    _build.reset_counters()
+    r_c, c_c = wow(x.cpu(), **kw)
+    assert dict(_build.LAUNCHES) == {}
+    scale = float(r_c.float().abs().max())
+    assert_close_scaled(r_k, r_c, 2 ** -8, scale)
+    for k in range(len(c_c)):
+        assert_close_scaled(c_k[k], c_c[k], 2 ** -8, scale)
+    # and within JAX's bfloat16 standard of the float32 kernels
+    r32, _ = wow(x.float(), **kw)
+    assert_close_scaled(r_k, r32, 2e-2)
+
+
+def test_bf16_merged_route_raises_without_its_kernel(dev, monkeypatch):
+    x = _bf16(np.random.default_rng(8), (512, 512), dev)
+
+    def no_kernel():
+        raise RuntimeError("the bfloat16 group kernel did not build")
+
+    monkeypatch.setattr(hopper_conv, "_lib_group", no_kernel)
+    _build.reset_counters()
+    with pytest.raises(RuntimeError, match="did not build"):
+        wow(x, n_scales=6, noise=1.0)
+    assert not _build.PLAIN_CALLS
+    # float16 has no kernel form: the wrappers refuse it on the card
+    h = x.to(torch.float16)[None]
+    with pytest.raises(TypeError):
+        hopper_deep.deep_whiten_step(h, None, torch.zeros(1, device=dev),
+                                     sf=B3SPLINE, scale=4, weight=1.0)
+    with pytest.raises(TypeError):
+        hopper_conv.fused_wow_group(h, [1.0], torch.zeros(1, device=dev), 1,
+                                    B3SPLINE)
+    # and float16 WOW on the card runs the plain bodies by the dtype rule
+    _build.reset_counters()
+    r, _ = wow(h[0], n_scales=6, noise=1.0)
+    assert r.dtype == torch.float16 and r.is_cuda and not _build.LAUNCHES

@@ -83,6 +83,34 @@ def test_group_plan_halo_and_shared_memory(sf, offset, g):
             hopper_conv.SMEM_TWO_PER_SM)
 
 
+@pytest.mark.parametrize("sf", list(SFS), ids=list(SFS))
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("g", [1, 2, 3, 4])
+def test_group_plan_bf16(sf, offset, g):
+    # kernel A's bfloat16 group: 2-byte tiles, halo columns in 8-element
+    # (16-byte) copies, the 64-row tile tried first for two blocks an SM
+    hw = SFS[sf].half_width
+    plan = hopper_conv.group_plan(1, 4096, 4096, g, hw, offset, 2)
+    halo = pallas_conv._wow_group_halo(hw, offset, g)
+    if plan is None:
+        sw = 64 + 2 * (-(-halo // 8) * 8)
+        assert 2 * (2 * (16 + 2 * halo) * sw + 8 * sw) > hopper_conv.SMEM_OPTIN
+        return
+    assert plan.halo == halo
+    assert plan.halo_cols >= halo and plan.halo_cols % 8 == 0
+    sw = hopper_conv.GROUP_TILE_W + 2 * plan.halo_cols
+    assert plan.smem_bytes == 2 * (2 * (plan.tile_h + 2 * halo) * sw + 8 * sw)
+    assert plan.smem_bytes <= hopper_conv.SMEM_OPTIN
+    per_sm = (228 * 1024) // (plan.smem_bytes + 1024)
+    if (g, offset, hw) == (4, 0, 2):
+        # the merged bfloat16 path's group (JAX's plan: scales 0-3)
+        assert (plan.tile_h, plan.halo, plan.halo_cols) == (64, 46, 48)
+        assert plan.smem_bytes == 102400 and per_sm >= 2
+    if plan.tile_h != 64:
+        assert hopper_conv._group_smem(64, halo, plan.halo_cols, 2) > (
+            hopper_conv.SMEM_TWO_PER_SM)
+
+
 @pytest.mark.parametrize("shape", [(1, 4096, 4096), (1, 1000, 1536),
                                    (1, 257, 513), (3, 16, 16), (2, 37, 70)])
 @pytest.mark.parametrize("offset", [0, 1])

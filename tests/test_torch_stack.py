@@ -217,7 +217,29 @@ def test_wow_core_stack_axes(stack):
         twow.wow_core(x, noise, axes=(0, 1), **st)
 
 
-@pytest.mark.parametrize("bad", ["2d", "4d", "kwarg", "bf16", "noise"])
+@pytest.mark.parametrize("dtype", ["bf16", "f16"])
+def test_wow_stack_low_precision(dtype):
+    # once refused: a serving stack below float32 runs the per-frame
+    # plain loop, as the JAX _stack_core does (it merges float32 stacks
+    # only), though a 256² bfloat16 frame alone takes the bfloat16 merged
+    # body; it matches the JAX package's wow_stack within 2^-8·max (CPU
+    # tensors)
+    jd, td = ((jnp.bfloat16, torch.bfloat16) if dtype == "bf16"
+              else (jnp.float16, torch.float16))
+    j = jnp.asarray(np.random.default_rng(6).normal(size=(2, 256, 256))
+                    .astype(np.float32)).astype(jd)
+    x = torch.from_numpy(to_np(j).astype(np.float32)).to(td)
+    kw = dict(n_scales=5, denoise_coefficients=[3, 1])
+    _build.reset_counters()
+    r, p = T.wow_stack(x, noise=0.5, with_coefficients=False, **kw)
+    assert p is None and r.dtype == td
+    assert not _build.PLAIN_CALLS and not _build.LAUNCHES
+    r_j, _ = J.wow_stack(j, noise=0.5, with_coefficients=False, **kw)
+    assert_close_scaled(to_np(r).astype(np.float32),
+                        to_np(r_j).astype(np.float32), 2 ** -8)
+
+
+@pytest.mark.parametrize("bad", ["2d", "4d", "kwarg", "noise"])
 def test_wow_stack_errors(bad):
     cpu = dict(device="cpu")
     calls = {
@@ -226,8 +248,6 @@ def test_wow_stack_errors(bad):
                lambda: T.wow_stack(np.zeros((1, 2, 64, 64)), **cpu)),
         "kwarg": (TypeError, lambda: T.wow_stack(np.zeros((2, 64, 64)),
                                                  nonsense=1, **cpu)),
-        "bf16": (NotImplementedError, lambda: T.wow_stack(
-            torch.zeros(2, 64, 64, dtype=torch.bfloat16))),
         "noise": (RuntimeError, lambda: T.wow_stack(
             np.zeros((2, 64, 64)), noise=[1.0, 2.0, 3.0], **cpu)),
     }

@@ -87,5 +87,12 @@ def test_volume_route():
     assert dict(_build.PLAIN_CALLS) == {"median_select": 1}
     assert not _build.LAUNCHES
     assert torch.equal(r, r_p)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        T.wow(torch.zeros(8, 32, 32, dtype=torch.float16))
+    # float16 (once refused): the plain per-scale loop in float16, as the
+    # JAX package sends it to XLA, within 2^-8 of JAX's reconstruction
+    h = (x[:8, :32, :32] * 3).astype(np.float16)
+    _build.reset_counters()
+    r16, c16 = T.wow(torch.from_numpy(h), denoise_coefficients=[5, 2])
+    assert r16.dtype == torch.float16 and not _build.LAUNCHES
+    assert "decompose_group" not in _build.PLAIN_CALLS
+    assert_close_scaled(r16.float(), np.asarray(J.wow(
+        h, denoise_coefficients=[5, 2])[0], np.float32), 2 ** -8)

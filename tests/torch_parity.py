@@ -7,8 +7,13 @@ import torch
 
 
 def to_np(t):
+    """numpy of a tensor (a bfloat16 one as float32, which holds it
+    exactly) or of any array."""
     if isinstance(t, torch.Tensor):
-        return t.detach().cpu().numpy()
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    if getattr(t, "dtype", None) is not None and str(t.dtype) == "bfloat16":
+        return np.asarray(t, np.float32)
     return np.asarray(t)
 
 

@@ -66,6 +66,15 @@
 // c_next2 is bitwise equal to two kernel A steps and to two plain steps;
 // the whites differ from the plain version only through erff.
 //
+// bfloat16.  wt_whiten_pair_bf16 loads a bfloat16 carry into the same
+// float32 tori and stores c_next2, the whites and recon in bfloat16: the
+// JAX pair's bfloat16 form (pallas_deep.py:914-920), whose middle carry
+// stays float32, so its scale s+1 is not two bfloat16 steps'.  recon
+// takes the whites a plane at a time, each rounded to bfloat16 first (the
+// JAX package's deferred tail adds the two planes to the reconstruction
+// one XLA add each, models/wow.py:240-268).  A cluster's lanes then load
+// 16 of a sector's 32 bytes.
+//
 // Launch.  The grid, cluster width and shared-memory bytes are the
 // wrapper's plan (pair_plan), passed in and checked here, so the plan the
 // CPU tests hold is the one launched.  Variant builds (wt_tile.cuh):
@@ -154,12 +163,16 @@ __device__ __forceinline__ float fold_v(const float* a, const Taps& t, int u,
   for (int u = threadIdx.y; u < Lr; u += blockDim.y)        \
     for (int v = threadIdx.x; v < Lc; v += blockDim.x)
 
+// S: the storage type of the carry, c_next2, the whites and recon; the
+// tori in shared memory are float32 for both (the middle carry never
+// rounds, as in the JAX pair's float32 rings, pallas_deep.py:914-920).
+template <class S>
 struct PairArgs {
-  const float* carry;
-  float* c_next2;
-  float* white1;
-  float* white2;
-  float* recon;
+  const S* carry;
+  S* c_next2;
+  S* white1;
+  S* white2;
+  S* recon;
   const float* thr;  // (2, B)
   float fac1, fac2;
   int masked1, masked2, soft;
@@ -172,8 +185,8 @@ struct PairArgs {
 // holds column class q0 + e (v < N) or the mirror class D-1-q0-(cw-1)+e
 // (v >= N), owned by block rank e or cw-1-e.  Calls f(u, v, image offset
 // within the frame, owner rank) for this block's share.
-template <class F>
-__device__ __forceinline__ void for_each_sector(const PairArgs& a, int rank,
+template <class S, class F>
+__device__ __forceinline__ void for_each_sector(const PairArgs<S>& a, int rank,
                                                 int q0, long long r, F f) {
   const int Lc = 2 * a.N, items = 2 * a.M * Lc, cw = a.cw;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
@@ -197,8 +210,8 @@ __device__ __forceinline__ void for_each_sector(const PairArgs& a, int rank,
 
 // Grid: x over column classes q (clusters of cw adjacent ones), y over
 // row class pairs r, z over frames.
-template <int HW, bool FAST>
-__global__ void whiten_pair(PairArgs a) {
+template <class S, int HW, bool FAST>
+__global__ void whiten_pair(PairArgs<S> a) {
   extern __shared__ float sm[];
   cg::cluster_group cluster = cg::this_cluster();
   const int M = a.M, N = a.N;
@@ -211,14 +224,15 @@ __global__ void whiten_pair(PairArgs a) {
   const int q0 = static_cast<int>(blockIdx.x) - rank;
   const long long r = blockIdx.y, b = blockIdx.z;
   const Taps& taps = a.taps;
-  const float* src = a.carry + b * a.H * a.W;
+  const S* src = a.carry + b * a.H * a.W;
 
   for_each_sector(a, rank, q0, r,
                   [&](int u, int v, long long off, int owner) {
 #ifdef WT_VARIANT_NO_MEMORY
-                    if (off < 0) X[0] = src[off];  // never true
+                    if (off < 0) X[0] = wt::to_f32(src[off]);  // never
 #else
-                    cluster.map_shared_rank(X, owner)[u * Lc + v] = src[off];
+                    cluster.map_shared_rank(X, owner)[u * Lc + v] =
+                        wt::to_f32(src[off]);
 #endif
                   });
   cluster.sync();
@@ -275,61 +289,48 @@ __global__ void whiten_pair(PairArgs a) {
                     const float w1 = cluster.map_shared_rank(X, owner)[i];
                     const float w2 = cluster.map_shared_rank(C1, owner)[i];
                     const long long g = frame + off;
-                    a.c_next2[g] = cluster.map_shared_rank(C2, owner)[i];
-                    if (a.white1) a.white1[g] = w1;
-                    if (a.white2) a.white2[g] = w2;
+                    a.c_next2[g] = wt::from_f32<S>(
+                        cluster.map_shared_rank(C2, owner)[i]);
+                    if (a.white1) a.white1[g] = wt::from_f32<S>(w1);
+                    if (a.white2) a.white2[g] = wt::from_f32<S>(w2);
+                    // a plane at a time, as two kernel A steps add
                     if (a.recon)
-                      a.recon[g] = __fadd_rn(__fadd_rn(a.recon[g], w1), w2);
+                      a.recon[g] = wt::add_rounded<S>(
+                          wt::add_rounded<S>(a.recon[g], w1), w2);
                   });
   // a block's shared memory must outlive its peers' reads
   cluster.sync();
 }
 
-template <int HW, bool FAST>
-int launch(const cudaLaunchConfig_t& cfg, const PairArgs& a) {
+template <class S, int HW, bool FAST>
+int launch(const cudaLaunchConfig_t& cfg, const PairArgs<S>& a) {
   static std::atomic<int> optin[wt::kMaxDevices];
-  cudaError_t err = wt::smem_optin(
-      whiten_pair<HW, FAST>, static_cast<int>(cfg.dynamicSmemBytes), optin);
+  cudaError_t err =
+      wt::smem_optin(whiten_pair<S, HW, FAST>,
+                     static_cast<int>(cfg.dynamicSmemBytes), optin);
   if (err == cudaSuccess)
-    err = cudaLaunchKernelEx(&cfg, whiten_pair<HW, FAST>, a);
+    err = cudaLaunchKernelEx(&cfg, whiten_pair<S, HW, FAST>, a);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-extern "C" {
-
-const char* wt_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
-// Scales s and s+1 (D = 2^s) of a contiguous (B, H, W) float32 carry on
-// the device: c_next2 (B, H, W) receives the scale-(s+1) smooth; white1,
-// white2 (B, H, W) or null; recon (B, H, W) or null, += white1 then
-// white2 in place.  thr: (2, B) per-scale, per-frame thresholds on the
-// device (read where masked1 / masked2).  The launch is the wrapper's
-// plan (ops/hopper_deep.py::pair_plan): grid_x column classes by
-// grid_y row class pairs, clusters of `cluster` adjacent column classes,
-// smem_bytes of shared memory; it is checked against what the kernel
-// needs and launched as given.  Returns cudaErrorInvalidValue where the
-// gate refuses the shape or the plan does not fit it, else the launch's
-// error, or 0.
-int wt_whiten_pair_f32(const float* carry, float* c_next2, float* white1,
-                       float* white2, float* recon, const float* thr,
-                       float fac1, float fac2, int masked1, int masked2,
-                       int soft, const double* taps, int n_taps, long long B,
-                       long long H, long long W, long long D,
-                       long long grid_x, long long grid_y, int cluster,
-                       long long smem_bytes, void* stream) {
-  PairArgs a;
+// Scales s and s+1 of a contiguous (B, H, W) carry of S (see the entries).
+template <class S>
+int whiten_pair_entry(const S* carry, S* c_next2, S* white1, S* white2,
+                      S* recon, const float* thr, float fac1, float fac2,
+                      int masked1, int masked2, int soft, const double* taps,
+                      int n_taps, long long B, long long H, long long W,
+                      long long D, long long grid_x, long long grid_y,
+                      int cluster, long long smem_bytes, void* stream) {
+  PairArgs<S> a;
   if (!wt::make_taps(taps, n_taps, &a.taps) || !carry || !c_next2 ||
       B < 1 || B > 65535 || H < 1 || W < 1 || D < 1 || H % D || W % D ||
       D / 2 > 65535 || (D & (D - 1)) != 0 ||
       ((masked1 || masked2) && !thr) || (!recon && !(white1 && white2)))
     return static_cast<int>(cudaErrorInvalidValue);
   // the plan: one block per column class and row class pair, a cluster
-  // of a power of two (at most 8) adjacent classes, four 2M x 2N tori
+  // of a power of two (at most 8) adjacent classes, four 2M x 2N float32
+  // tori
   const long long classes = D >= 2 ? D / 2 : 1;
   if (grid_x != classes || grid_y != classes || cluster < 1 ||
       cluster > 8 || (cluster & (cluster - 1)) != 0 ||
@@ -375,8 +376,58 @@ int wt_whiten_pair_f32(const float* carry, float* c_next2, float* white1,
 #endif
   return wt::dispatch_hw(a.taps.hw, [&](auto hw) {
     constexpr int HW = decltype(hw)::value;
-    return fast ? launch<HW, true>(cfg, a) : launch<HW, false>(cfg, a);
+    return fast ? launch<S, HW, true>(cfg, a) : launch<S, HW, false>(cfg, a);
   });
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* wt_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Scales s and s+1 (D = 2^s) of a contiguous (B, H, W) float32 carry on
+// the device: c_next2 (B, H, W) receives the scale-(s+1) smooth; white1,
+// white2 (B, H, W) or null; recon (B, H, W) or null, += white1 then
+// white2 in place.  thr: (2, B) per-scale, per-frame thresholds on the
+// device (read where masked1 / masked2).  The launch is the wrapper's
+// plan (ops/hopper_deep.py::pair_plan): grid_x column classes by
+// grid_y row class pairs, clusters of `cluster` adjacent column classes,
+// smem_bytes of shared memory; it is checked against what the kernel
+// needs and launched as given.  Returns cudaErrorInvalidValue where the
+// gate refuses the shape or the plan does not fit it, else the launch's
+// error, or 0.
+int wt_whiten_pair_f32(const float* carry, float* c_next2, float* white1,
+                       float* white2, float* recon, const float* thr,
+                       float fac1, float fac2, int masked1, int masked2,
+                       int soft, const double* taps, int n_taps, long long B,
+                       long long H, long long W, long long D,
+                       long long grid_x, long long grid_y, int cluster,
+                       long long smem_bytes, void* stream) {
+  return whiten_pair_entry<float>(carry, c_next2, white1, white2, recon, thr,
+                                  fac1, fac2, masked1, masked2, soft, taps,
+                                  n_taps, B, H, W, D, grid_x, grid_y, cluster,
+                                  smem_bytes, stream);
+}
+
+// The same pair on a bfloat16 carry: c_next2, the whites and recon
+// bfloat16 (recon += white_s, then += white_s+1, each white rounded to
+// bfloat16, the sum in float32, one rounding), the tori and the
+// thresholds float32.
+int wt_whiten_pair_bf16(const __nv_bfloat16* carry, __nv_bfloat16* c_next2,
+                        __nv_bfloat16* white1, __nv_bfloat16* white2,
+                        __nv_bfloat16* recon, const float* thr, float fac1,
+                        float fac2, int masked1, int masked2, int soft,
+                        const double* taps, int n_taps, long long B,
+                        long long H, long long W, long long D,
+                        long long grid_x, long long grid_y, int cluster,
+                        long long smem_bytes, void* stream) {
+  return whiten_pair_entry<__nv_bfloat16>(
+      carry, c_next2, white1, white2, recon, thr, fac1, fac2, masked1,
+      masked2, soft, taps, n_taps, B, H, W, D, grid_x, grid_y, cluster,
+      smem_bytes, stream);
 }
 
 }  // extern "C"

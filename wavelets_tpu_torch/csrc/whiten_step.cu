@@ -43,11 +43,58 @@
 // division; erff may differ from torch.erf in the last place, which
 // bounds |white - plain| well inside 5e-6*max.
 //
+// bfloat16.  wt_whiten_step_bf16 is the same two launches on a bfloat16
+// carry (the JAX kernel's bfloat16 stream, pallas_deep.py:329-340): the
+// folds read the carry as float32, the detail between the launches stays
+// float32, and c_next, the white and acc round to bfloat16 on store
+// (acc += white: the white rounded first, the sum in float32, one
+// rounding, as the JAX package's XLA add of the two planes).
+//
 // Launch.  Segment width, grid, shared-memory bytes and offset width are
 // the wrapper's plan (step_plan), passed in and checked here, so the
 // plan the CPU tests hold is the one launched.
 
 #include "wt_step.cuh"
+
+namespace {
+
+// One scale of kernel A's deep form with planes stored as S (float or
+// __nv_bfloat16); the detail scratch is float32 for both.
+template <class S>
+int whiten_step(const S* carry, S* c_next, float* detail, S* white, S* acc,
+                int acc_mode, const float* thr, float fac, int masked,
+                int soft, const double* taps, int n_taps, long long B,
+                long long H, long long W, long long D, long long seg,
+                long long grid_rows, long long grid_segs, long long frames,
+                long long smem_bytes, int index_bits, void* stream) {
+  wt::StepArgsT<S> a = {};
+  const wt::StepPlan p = {seg, grid_rows, grid_segs, frames, smem_bytes,
+                          index_bits};
+  if (!wt::make_taps(taps, n_taps, &a.taps) || !carry || !c_next ||
+      !detail || (acc_mode != 0 && !acc) || (masked && !thr) ||
+      !wt::step_plan_ok(p, a.taps.hw, B, H, W, D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.carry = carry;
+  a.c_next = c_next;
+  a.detail = detail;
+  a.H = static_cast<int>(H);
+  a.W = static_cast<int>(W);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err = wt::run_step_pass<false>(a, p, B, D, s);
+  if (err) return err;
+  a.carry = nullptr;
+  a.c_next = nullptr;
+  a.white = white;
+  a.acc = acc;
+  a.thr = thr;
+  a.fac = fac;
+  a.acc_mode = acc_mode;
+  a.masked = masked;
+  a.soft = soft;
+  return wt::run_step_pass<true>(a, p, B, D, s);
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -75,31 +122,26 @@ int wt_whiten_step_f32(const float* carry, float* c_next, float* detail,
                        long long grid_rows, long long grid_segs,
                        long long frames, long long smem_bytes,
                        int index_bits, void* stream) {
-  wt::StepArgs a = {};
-  const wt::StepPlan p = {seg, grid_rows, grid_segs, frames, smem_bytes,
-                          index_bits};
-  if (!wt::make_taps(taps, n_taps, &a.taps) || !carry || !c_next ||
-      !detail || (acc_mode != 0 && !acc) || (masked && !thr) ||
-      !wt::step_plan_ok(p, a.taps.hw, B, H, W, D))
-    return static_cast<int>(cudaErrorInvalidValue);
-  a.carry = carry;
-  a.c_next = c_next;
-  a.detail = detail;
-  a.H = static_cast<int>(H);
-  a.W = static_cast<int>(W);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err = wt::run_step_pass<false>(a, p, B, D, s);
-  if (err) return err;
-  a.carry = nullptr;
-  a.c_next = nullptr;
-  a.white = white;
-  a.acc = acc;
-  a.thr = thr;
-  a.fac = fac;
-  a.acc_mode = acc_mode;
-  a.masked = masked;
-  a.soft = soft;
-  return wt::run_step_pass<true>(a, p, B, D, s);
+  return whiten_step<float>(carry, c_next, detail, white, acc, acc_mode, thr,
+                            fac, masked, soft, taps, n_taps, B, H, W, D, seg,
+                            grid_rows, grid_segs, frames, smem_bytes,
+                            index_bits, stream);
+}
+
+// The same scale on a bfloat16 carry: c_next, white and acc bfloat16, the
+// detail scratch and the thresholds float32.
+int wt_whiten_step_bf16(const __nv_bfloat16* carry, __nv_bfloat16* c_next,
+                        float* detail, __nv_bfloat16* white,
+                        __nv_bfloat16* acc, int acc_mode, const float* thr,
+                        float fac, int masked, int soft, const double* taps,
+                        int n_taps, long long B, long long H, long long W,
+                        long long D, long long seg, long long grid_rows,
+                        long long grid_segs, long long frames,
+                        long long smem_bytes, int index_bits, void* stream) {
+  return whiten_step<__nv_bfloat16>(
+      carry, c_next, detail, white, acc, acc_mode, thr, fac, masked, soft,
+      taps, n_taps, B, H, W, D, seg, grid_rows, grid_segs, frames,
+      smem_bytes, index_bits, stream);
 }
 
 }  // extern "C"

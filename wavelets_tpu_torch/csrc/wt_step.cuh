@@ -50,6 +50,8 @@
 // wt_common.cuh's fold_rows/fold_cols, so c_next and the detail are
 // bitwise equal to the plain PyTorch version on the same card, and the
 // second pass's lp to wt_common.cuh's rows_pass<true> + cols_whiten.
+// With bfloat16 storage (StepArgsT<__nv_bfloat16>) the folds read the
+// carry as float32 and only c_next, the white and acc round, on store.
 //
 // Linkage.  The launch helpers are static (internal linkage): each
 // library that includes this header has its own shared-memory opt-in
@@ -67,13 +69,19 @@ constexpr int kStepThreads = 256;
 // frames one launch takes: the grid's z
 constexpr long long kMaxFrames = 65535;
 
-struct StepArgs {
-  const float* carry;  // FIRST: the source
-  float* c_next;       // FIRST
-  float* detail;       // FIRST: written unless null; SECOND: the source
-  float* white;        // SECOND, may be null
-  float* acc;          // SECOND, acc_mode 1 or 2
-  const float* thr;    // SECOND, one per frame, read where masked
+// S is the storage type of the carry, c_next, white and acc (float, or
+// __nv_bfloat16 for kernel A's bfloat16 deep step); the detail plane
+// between the two passes is float32 either way, as the JAX package's deep
+// stream keeps the chain smooth and the detail in float32.
+template <class S>
+struct StepArgsT {
+  using storage = S;
+  const S* carry;   // FIRST: the source
+  S* c_next;        // FIRST
+  float* detail;    // FIRST: written unless null; SECOND: the source
+  S* white;         // SECOND, may be null
+  S* acc;           // SECOND, acc_mode 1 or 2
+  const float* thr; // SECOND, one per frame, read where masked
   float fac;
   int acc_mode, masked, soft;
   int H, W;
@@ -81,6 +89,7 @@ struct StepArgs {
   int seg;    // 0: whole rows
   Taps taps;
 };
+using StepArgs = StepArgsT<float>;
 
 // Kernel D's deep-plane form: the SECOND pass's arguments and the gamma
 // sum and per-frame factors.
@@ -120,8 +129,12 @@ __global__ void __launch_bounds__(kStepThreads) step_pass(Args a) {
   const int span = WHOLE ? W : 2 * hw * S + (windows ? a.seg : n_out);
   float* T = sm;
   float* ctr = sm + span;
-  const float* src = SECOND ? a.detail : a.carry;
-  const float* __restrict__ cen = src + roff[hw];
+  using Store = typename Args::storage;
+  using Src = std::conditional_t<SECOND, float, Store>;
+  const Src* src;
+  if constexpr (SECOND) src = a.detail;
+  else src = a.carry;
+  const Src* __restrict__ cen = src + roff[hw];
   for (int v = threadIdx.x; v < span; v += kStepThreads) {
     int c = v;
     if (!WHOLE) {
@@ -132,11 +145,12 @@ __global__ void __launch_bounds__(kStepThreads) step_pass(Args a) {
         c = sym32(w0 - hw * S + v, W);
       }
     }
-    const float x0 = cen[c];
+    const float x0 = to_f32(cen[c]);
     float o = __fmul_rn(SECOND ? __fmul_rn(x0, x0) : x0, a.taps.t[0]);
 #pragma unroll
     for (int j = 1; j <= hw; ++j) {
-      float l = src[roff[hw - j] + c], r = src[roff[hw + j] + c];
+      float l = to_f32(src[roff[hw - j] + c]);
+      float r = to_f32(src[roff[hw + j] + c]);
       if (SECOND) {
         l = __fmul_rn(l, l);
         r = __fmul_rn(r, r);
@@ -162,7 +176,8 @@ __global__ void __launch_bounds__(kStepThreads) step_pass(Args a) {
     }
     const Idx g = row + w;
     if (!SECOND) {
-      a.c_next[g] = f;
+      // the detail from the unrounded smooth, as the JAX stream forms it
+      a.c_next[g] = from_f32<Store>(f);
       if (a.detail) a.detail[g] = __fsub_rn(ctr[o], f);
     } else {
       float wc;
@@ -170,9 +185,9 @@ __global__ void __launch_bounds__(kStepThreads) step_pass(Args a) {
                                     is_plane<Args> ? facb : a.fac,
                                     a.masked ? a.thr + b : nullptr, a.soft,
                                     &wc);
-      if (a.white) a.white[g] = v2;
-      if (a.acc_mode == 1) a.acc[g] = v2;
-      else if (a.acc_mode == 2) a.acc[g] = __fadd_rn(a.acc[g], v2);
+      if (a.white) a.white[g] = from_f32<Store>(v2);
+      if (a.acc_mode == 1) a.acc[g] = from_f32<Store>(v2);
+      else if (a.acc_mode == 2) a.acc[g] = add_rounded<Store>(a.acc[g], v2);
       if constexpr (is_plane<Args>) {
         if (a.gamma_mode == 1) a.gamma[g] = wc;
         else if (a.gamma_mode == 2) a.gamma[g] = __fadd_rn(a.gamma[g], wc);
@@ -223,7 +238,8 @@ static int launch_step_pass(const Args& a, dim3 grid, int bytes,
   return static_cast<int>(cudaGetLastError());
 }
 
-inline float* shift(float* p, long long n) { return p ? p + n : p; }
+template <class P>
+inline P* shift(P* p, long long n) { return p ? p + n : p; }
 
 // One step pass of a checked plan `p` on B frames, at the true dilation
 // D: a launch per p.frames consecutive frames.  a's pointers are those of

@@ -90,7 +90,7 @@ __device__ __forceinline__ int sym32(int k, int n) {
 }
 
 // One 16-byte asynchronous copy global -> shared (both 16-byte aligned).
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(gmem));

@@ -14,10 +14,13 @@ The PSF convolutions, which the JAX package leaves to XLA (no Pallas
 kernel), are plain PyTorch: the direct path is a correlation with a
 symmetric border (cv2 ``BORDER_REFLECT``, watroo/utils.py:257), the FFT
 path a product with the centred, rolled PSF spectrum
-(``torch.fft.rfft2``, :245-250).  ``fft="auto"`` keeps the JAX rule, FFT
-above :data:`_FFT_AUTO_TAPS` taps, so ``auto`` gives the JAX package's
-answer; that crossover was measured on a TPU, and ``chip_smoke.py``
-measures the H100's (PERF.md).
+(``torch.fft.rfft2``, :245-250).  Below float32 (bfloat16, float16) the
+correlation is the JAX package's shift-add, rounded after every tap, and
+the FFT path raises ``ValueError`` on every device, as JAX's ``rfft``
+refuses those dtypes (cuFFT would take float16 on the card).
+``fft="auto"`` keeps the JAX rule, FFT above :data:`_FFT_AUTO_TAPS`
+taps, so ``auto`` gives the JAX package's answer; that crossover was
+measured on a TPU, and ``chip_smoke.py`` measures the H100's (PERF.md).
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import torch.nn.functional as F
 
 from ..api import DEFAULT_DEVICE, _as_tensor
 from ..core.transform import decompose, synthesize
-from ..ops.conv import boundary_index
+from ..ops.conv import boundary_index, low_precision
 from ..ops.filters import B3SPLINE, ScalingFunction
 from ..ops.layout import stack_planes
 from ..ops.stats import mad_noise, mad_noise_frames, significance
@@ -71,7 +74,12 @@ def _correlate2d_symmetric(x: torch.Tensor, psf: torch.Tensor) -> torch.Tensor:
     the reference flips the PSF for the forward blur and leaves it for
     the adjoint.  cuDNN computes a float32 convolution in TF32 by
     default; it is turned off here, so the result is float32 (checked on
-    the card against :func:`_correlate2d_shift_add`)."""
+    the card against :func:`_correlate2d_shift_add`).  Below float32 it
+    is :func:`_correlate2d_shift_add` on every device: ``F.conv2d``
+    accumulates in float32 and rounds once, the JAX package's shift-add
+    after every tap."""
+    if low_precision(x.dtype):
+        return _correlate2d_shift_add(x, psf)
     ph, pw = psf.shape
     xp = _pad_psf_symmetric(x, ph, pw)
     lead = x.shape[:-2]
@@ -137,6 +145,10 @@ def richardson_lucy_core(
     """One frame ``(H, W)`` or a stack ``(B, H, W)`` (per-frame noise
     statistics and initialization) on ``data``'s device; ``psf`` is a 2-D
     tensor of ``data``'s dtype and device, ``fft`` resolved to a bool."""
+    if fft and low_precision(data.dtype):
+        # jnp.fft.rfft2's refusal, raised here on every device
+        raise ValueError(f"RFFT input must be float32 or float64, got "
+                         f"{data.dtype}: pass fft=False for {data.dtype}")
     batched = data.ndim == 3
     sp_axes = (1, 2) if batched else None
     level = len(denoise_coefficients)

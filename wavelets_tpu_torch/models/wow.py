@@ -1,9 +1,9 @@
 """WOW — Wavelets Optimized Whitening (reference: watroo/utils.py:105-219).
 
 Counterpart of ``wavelets_tpu/models/wow.py`` for WOW, standard and
-bilateral, on a 2-D float32 or float64 frame, a 3-D volume and a
-``(B, H, W)`` frame stack (``wow_stack``, per-frame statistics), with
-three bodies:
+bilateral, on a 2-D frame (float64, float32, bfloat16 or float16), a
+3-D volume and a ``(B, H, W)`` frame stack (``wow_stack``, per-frame
+statistics), with three bodies:
 
 * ``_wow_body_merged`` — standard WOW (whitening, ``h == 0``, no
   ``preserve_variance``), the main path: lazy MAD noise from ``w0 = data
@@ -39,8 +39,16 @@ CUDA tensor, their plain versions on a CPU tensor); ``fuse=False`` or a
 float64 tensor runs the plain versions, as the JAX package sends float64
 to XLA.  The bilateral σ_e table is read wherever the transform is
 bilateral; the power smooth stays plain either way (watroo/utils.py:194).
-Options outside this slice raise ``NotImplementedError`` on every
-device.
+
+bfloat16 and float16 follow the JAX package's low-precision rule
+(wavelets_tpu/models/wow.py:921-941): a bfloat16 frame, or a bfloat16
+``(B, H, W)`` stack in serving mode, with ``fuse``, standard WOW and
+known noise takes ``_wow_body_merged`` on the bfloat16 forms of kernels
+A and E, with the JAX plan's geometry (:func:`_lowp_merges`); every other
+bfloat16 case and every float16 case runs the plain bodies in the input
+dtype on the input's device, as the JAX package sends them to XLA.
+:func:`wow_stack` never merges below float32 (the JAX ``_stack_core``
+merges float32 only): its frames run the plain bodies one by one.
 
 Paper: Auchère et al. 2023, A&A 670, A66 (reference README.md:111).
 """
@@ -59,9 +67,9 @@ from ..api import (DEFAULT_DEVICE, B3spline, Coefficients, _as_tensor,
 from ..core.transform import (assemble_pieces, decompose_pieces,
                               normalize_bilateral, synthesize)
 from ..ops import hopper_conv, hopper_deep, hopper_wow
-from ..ops.conv import smooth
+from ..ops.conv import low_precision, smooth, weak_scalar
 from ..ops.filters import ScalingFunction
-from ..ops.hopper_conv import N_FAST
+from ..ops.hopper_conv import N_FAST, group_plan
 from ..ops.layout import stack_planes
 from ..ops.stats import mad_noise, mad_noise_frames, significance
 
@@ -71,6 +79,101 @@ __all__ = ["wow", "wow_core", "wow_stack", "normalize_wow_params", "N_FAST"]
 #: at most this many rows per residue class, ``H >> s`` — the JAX
 #: package's dispatch rule (wavelets_tpu/models/wow.py:219-247)
 PAIR_MAX_CLASS_ROWS = 32
+
+# ---------------------------------------------------------------------
+# The bfloat16 merged route's geometry.  In float32 the kernels are
+# bitwise to the plain chain, so the port chose its own group and deep
+# steps; in bfloat16 the group rounds after every pass, the deep stream
+# only on store and the pair not at its middle carry, so the scales each
+# route takes decide the bits.  These are the parts of the JAX package's
+# plan that do (``_deep_start``, ``plan_wow_prefix``, ``can_deep``,
+# ``can_deep2``; wavelets_tpu/models/wow.py:501-515, ops/pallas_conv.py:
+# 808, ops/pallas_deep.py:98-129, :688-710), without its TPU VMEM budgets
+# (``_stream_rows``, ``_stream2_rows``, ``_plan_tiles``): where only such
+# a budget made the JAX package refuse a kernel (a stream wider than
+# about 25000 columns, a pair wider than about 13800), the port takes its
+# kernel, and its bits may differ from a TPU's there.  The JAX cost model
+# always plans one group of the scales below the first deep one; the port
+# takes that group where kernel A's tile fits, and kernel E where its
+# torus fits the shared memory (else two deep steps, whose middle carry
+# rounds: the bits of scale s+1 may differ from a TPU's there).
+# ---------------------------------------------------------------------
+
+#: the first scale of the JAX deep stream: a mirror of ``hw·2^s`` at
+#: least this many columns (pallas_deep.py:119-123)
+STREAM_MIN_REACH = 32
+
+
+def _stream_rows_ok(H: int, D: int) -> bool:
+    # a stream block height of 32, 16 or 8 rows divides D and H
+    return any(D % t == 0 and H % t == 0 for t in (32, 16, 8))
+
+
+def _lowp_can_deep(H: int, W: int, sf: ScalingFunction, s: int) -> bool:
+    """The JAX ``can_deep`` for a bfloat16 carry (its stream; the
+    BlockSpec fallback is float32 only), budget aside: ``W % 128 == 0``,
+    one reflection (``2hw·D ≤ H``), ``hw·D ≥ 32``, ``D | H`` and
+    ``H/D ≥ 2hw``."""
+    D, hw = 1 << s, sf.half_width
+    return (W % 128 == 0 and 2 * hw * D <= H
+            and hw * D >= STREAM_MIN_REACH and H % D == 0
+            and H // D >= 2 * hw and _stream_rows_ok(H, D))
+
+
+def _lowp_can_pair(H: int, W: int, sf: ScalingFunction, s: int) -> bool:
+    """The JAX ``can_deep2`` for a bfloat16 carry, budget aside:
+    ``W % 128 == 0``, ``hw·D ≥ 32``, ``D | H``, ``H/D ≥ 5hw + 1`` and
+    ``W ≥ 4hw·D``."""
+    D, hw = 1 << s, sf.half_width
+    return (W % 128 == 0 and hw * D >= STREAM_MIN_REACH and H % D == 0
+            and H // D >= 5 * hw + 1 and W >= 4 * hw * D
+            and _stream_rows_ok(H, D))
+
+
+def _lowp_padded_deep(H: int, W: int, sf: ScalingFunction, s: int) -> bool:
+    # the JAX _padded_deep_plan: the stream on the carry padded by the
+    # scale's reach, where the padded area stays under 1.8x
+    D = 1 << s
+    reach = 2 * sf.half_width * D
+    Hp = -(-(H + 2 * reach) // D) * D
+    Wp = -(-(W + 2 * reach) // 128) * 128
+    return Hp * Wp <= 1.8 * H * W and _lowp_can_deep(Hp, Wp, sf, s)
+
+
+def _lowp_deep_start(H: int, W: int, sf: ScalingFunction) -> int:
+    """The first scale the JAX deep stream owns, directly or padded
+    (``_deep_start``): 4 for the B3spline and 5 for the Triangle on a
+    frame of 256-multiple sides."""
+    s = 0
+    while not (_lowp_can_deep(H, W, sf, s) or _lowp_padded_deep(H, W, sf, s)):
+        s += 1
+        if s > 16:
+            return 16
+    return s
+
+
+def _lowp_merges(data: torch.Tensor, sf: ScalingFunction, n_scales: int,
+                 lazy: bool, need_planes: bool) -> bool:
+    """The JAX package's bfloat16 merged gate (wow.py:921-941,
+    ``_can_merge_whiten``) on the shape: a bfloat16 frame, or a stack
+    with ``need_planes=False``, no lazy masked noise, sides that are
+    multiples of 256, the group of the scales below
+    :func:`_lowp_deep_start` within kernel A's tile, and every deeper scale
+    on the stream (:func:`_lowp_can_deep`).  Float16 never merges: the JAX
+    gate admits float32 and bfloat16 only."""
+    if data.dtype != torch.bfloat16 or lazy:
+        return False
+    if data.ndim == 3 and need_planes:
+        return False
+    B = data.shape[0] if data.ndim == 3 else 1
+    H, W = data.shape[-2:]
+    if H % 256 or W % 256:
+        return False
+    n_fast = min(n_scales, _lowp_deep_start(H, W, sf))
+    if n_fast and group_plan(B, H, W, n_fast, sf.half_width, 0,
+                             data.element_size()) is None:
+        return False
+    return all(_lowp_can_deep(H, W, sf, s) for s in range(n_fast, n_scales))
 
 
 def normalize_wow_params(spec, n_scales, weights, denoise_coefficients,
@@ -125,8 +228,9 @@ def _check_slice(data, axes):
     transformed over all three axes) or ``"stack"`` (``(B, H, W)`` with
     ``axes=(1, 2)``); raise for every option outside the ported slice, on
     every device: no option may run without its kernel."""
-    if data.dtype not in (torch.float32, torch.float64):
-        raise _not_ported(f"WOW in {data.dtype}", "bfloat16 and float16")
+    if data.dtype not in (torch.float64, torch.float32, torch.bfloat16,
+                          torch.float16):
+        raise TypeError(f"WOW takes a floating-point frame, not {data.dtype}")
     spatial = (None if axes is None
                else tuple(a % max(data.ndim, 1) for a in axes))
     if data.ndim == 2 and spatial in (None, (0, 1)):
@@ -193,7 +297,9 @@ def _deep_tail_scales(carry, recon, thr_of, sf, start, n_scales, weights,
     s ≤ 32`` and kernel E's gate admits the shape; elsewhere, and where
     the gate refuses, each scale is one ``deep_whiten_step`` (kernel A),
     the JAX package's rule when ``can_deep2`` is false
-    (wavelets_tpu/ops/pallas_deep.py:688-710).  ``kernels`` selects the
+    (wavelets_tpu/ops/pallas_deep.py:688-710); a carry below float32 also
+    needs the JAX pair gate (:func:`_lowp_can_pair`), since there the pair
+    and two steps round differently.  ``kernels`` selects the
     wrappers over their plain versions.  ``carry`` and ``recon`` are one
     frame ``(H, W)`` or a stack ``(B, H, W)`` with ``thr_of(s)`` per frame
     ``(B,)``.  Returns ``(rows, residual)``."""
@@ -228,7 +334,9 @@ def _deep_tail_scales(carry, recon, thr_of, sf, start, n_scales, weights,
             continue
         if (s + 1 < n_scales
                 and (carry.shape[-2] >> s) <= PAIR_MAX_CLASS_ROWS
-                and hopper_deep.can_deep2(carry, sf, s)):
+                and hopper_deep.can_deep2(carry, sf, s)
+                and (not low_precision(carry.dtype)
+                     or _lowp_can_pair(*carry.shape[-2:], sf, s))):
             w1, w2, _, carry = pair(
                 carry, acc, torch.stack([thr_of(s), thr_of(s + 1)])
                 .reshape(2, -1), sf=sf, scale=s,
@@ -248,12 +356,22 @@ def _deep_tail_scales(carry, recon, thr_of, sf, start, n_scales, weights,
     return rows, row(carry)
 
 
+def _pop_std(x: torch.Tensor) -> torch.Tensor:
+    """The population std of ``x`` as ``jnp.std`` computes it: below
+    float32 the variance in float32, rounded to ``x``'s dtype, then the
+    square root in that dtype."""
+    if not low_precision(x.dtype):
+        return torch.std(x, correction=0)
+    x32 = x.float()
+    var = torch.mean((x32 - torch.mean(x32)) ** 2)
+    return torch.sqrt(var.to(x.dtype))
+
+
 def _residual_std(residual, batched=False):
     """``(std, clamped std)`` of the residual plane, per frame
     ``(B, 1, 1)`` with ``batched``: the population std (``jnp.std``),
     clamped ``≤0 → 1e-15`` for the whitening (watroo/utils.py:185-191)."""
-    std = _frame_bcast(_per_frame(lambda r: torch.std(r, correction=0),
-                                  residual, batched), batched)
+    std = _frame_bcast(_per_frame(_pop_std, residual, batched), batched)
     return std, torch.where(std <= 0, 1e-15, std)
 
 
@@ -269,7 +387,7 @@ def _gamma_blend(recon, gamma_scaled, gamma, gamma_min, gamma_max, h,
     gmax = (bound(torch.max) if gamma_max is None
             else torch.tensor(gamma_max, dtype=recon.dtype))
     gs = (gamma_scaled - gmin) / (gmax - gmin)
-    gs = torch.clamp(gs, 0.0, 1.0) ** (1.0 / gamma)
+    gs = torch.clamp(gs, 0.0, 1.0) ** weak_scalar(1.0 / gamma, gs.dtype)
     return (1 - h) * recon + h * gs
 
 
@@ -280,10 +398,18 @@ def _wow_body_merged(data, noise, has_noise, sf, n_scales, weights,
     per-frame statistics (noise ``(B,)``, a scalar broadcast; thresholds
     ``(g, B)``; the residual's std per frame) → ``(recon, rows)``;
     ``kernels`` selects the kernels' wrappers over their plain
-    versions."""
+    versions.
+
+    A bfloat16 ``data`` (known noise only, :func:`_lowp_merges`) takes the
+    JAX plan's geometry: one group of the scales below
+    :func:`_lowp_deep_start` (0-3 for the B3spline), then the deep steps
+    and pairs of ``_deep_tail_scales``; thresholds stay float32, and the
+    recon takes each deep white a plane at a time in bfloat16, as the
+    JAX package's deferred tail adds them (wow.py:240-268)."""
     group = (hopper_conv.fused_wow_group if kernels
              else hopper_conv.fused_wow_group_plain)
     batched = data.ndim == 3
+    lowp = low_precision(data.dtype)
     sigma_e = sf.sigma_e(2, False)
     if not has_noise and any(
         d != 0 for d in denoise_coefficients[:n_scales]
@@ -293,9 +419,12 @@ def _wow_body_merged(data, noise, has_noise, sf, n_scales, weights,
             w0, float(sigma_e[0]), fuse=kernels)
     if batched:
         noise = _frame_noise(noise, True, data)
+    elif lowp:
+        noise = noise.float()
     thr_of = _threshold_fn(noise, sigma_e, denoise_coefficients)
 
-    n_fast = min(n_scales, N_FAST)
+    n_fast = min(n_scales,
+                 _lowp_deep_start(*data.shape[-2:], sf) if lowp else N_FAST)
     out_rows, recon, carry = [], None, data
     if n_fast:
         rows, recon = group(
@@ -458,7 +587,7 @@ def _wow_body(planes, noise, has_noise, sf, n_scales, weights, whitening,
         c = planes[s]
         power = c * c
         if preserve_variance:
-            power_norm = (torch.std(c, correction=0) if s == n_scales
+            power_norm = (_pop_std(c) if s == n_scales
                           else torch.sqrt(torch.mean(power)))
         else:
             power_norm = one
@@ -476,7 +605,8 @@ def _wow_body(planes, noise, has_noise, sf, n_scales, weights, whitening,
                                      float(sigma_e[s]), soft_threshold)
         if h > 0:
             gamma_scaled = gamma_scaled + c
-        c = c * (float(weights[s]) * power_norm / local_power)
+        c = c * (weak_scalar(float(weights[s]), c.dtype) * power_norm
+                 / local_power)
         out_planes.append(c)
 
     if planes_layout == "rows":
@@ -540,30 +670,40 @@ def wow_core(
     ``wow_core`` calls (the JAX package's per-frame ``vmap``);
     ``whitening=False``, ``h ≥ 1``, a volume and the plain route of the
     options above take ``_wow_body`` over the decomposition (kernel C's
-    volume pass for a float32 volume)."""
+    volume pass for a float32 volume).  Below float32 the JAX package's
+    low-precision rule holds (:func:`_lowp_merges`: the bfloat16 merged
+    body, or the plain bodies in the input dtype; a stack that does not
+    merge runs per-frame plain calls, the JAX package's per-frame XLA
+    ``vmap``)."""
     mode = _check_slice(data, axes)
+    lowp = low_precision(data.dtype)
     kernels = bool(fuse) and data.dtype == torch.float32
     bil = dict(bilateral=bilateral, bilateral_scaling=bilateral_scaling)
     standard = (whitening and h == 0 and not preserve_variance
                 and bilateral is None)
     fast = kernels and whitening and h < 1
-    if mode == "stack" and not fast:
+    lazy = not has_noise and any(
+        d != 0 for d in denoise_coefficients[:n_scales])
+    if lowp:
+        # the JAX low-precision rule: the bfloat16 merged body or plain
+        merged = (bool(fuse) and standard and mode != "volume"
+                  and _lowp_merges(data, sf, n_scales, lazy, need_planes))
+    else:
+        merged = standard and (mode == "frame" or (
+            mode == "stack" and not need_planes and not lazy))
+    if mode == "stack" and not (merged if lowp else fast):
         return _stack_frames(data, noise, need_planes, dict(
             sf=sf, n_scales=n_scales, weights=weights, whitening=whitening,
             denoise_coefficients=denoise_coefficients, **bil,
             soft_threshold=soft_threshold,
             preserve_variance=preserve_variance, gamma=gamma,
             gamma_min=gamma_min, gamma_max=gamma_max, h=h,
-            has_noise=has_noise, fuse=fuse))
-    lazy = not has_noise and any(
-        d != 0 for d in denoise_coefficients[:n_scales])
-    merged = standard and (mode == "frame" or (
-        mode == "stack" and not need_planes and not lazy))
+            has_noise=has_noise, fuse=fuse and not lowp))
     sp_axes = None if mode == "volume" else (-2, -1)
     if merged:
         recon, rows = _wow_body_merged(
             data, noise, has_noise, sf, n_scales, weights,
-            denoise_coefficients, soft_threshold, kernels,
+            denoise_coefficients, soft_threshold, kernels or lowp,
             need_planes=need_planes)
         if mode == "stack":
             out = torch.stack(rows, dim=1) if need_planes else None
@@ -753,9 +893,14 @@ def _stack_core(data, noise_arr, with_coefficients, statics, fuse=True):
     ``_stack_core``, wavelets_tpu/models/wow.py:1166-1204): ``wow_core``
     with ``axes=(1, 2)`` and ``need_planes=with_coefficients``, which
     takes the batched bodies where the kernels' route admits them and the
-    per-frame loop elsewhere.  ``noise_arr`` is ``(B,)`` on ``data``'s
-    device."""
-    return wow_core(data, noise_arr, axes=(1, 2), fuse=fuse,
+    per-frame loop elsewhere.  Below float32 every stack runs the
+    per-frame loop of plain bodies: the JAX ``_stack_core`` merges
+    float32 stacks only (its ``serving_merge``) and its pieces route is
+    float32 only, so a bfloat16 stack never takes the bfloat16 kernels
+    that a bfloat16 frame takes.  ``noise_arr`` is ``(B,)`` on
+    ``data``'s device."""
+    return wow_core(data, noise_arr, axes=(1, 2),
+                    fuse=fuse and not low_precision(data.dtype),
                     need_planes=with_coefficients, **statics)
 
 

@@ -15,7 +15,9 @@ Nothing here runs at import time: the CPU tests import every module.
 The launch counters also live here: ``LAUNCHES[name]`` is incremented
 by a kernel's wrapper each time it launches the kernel, and
 ``PLAIN_CALLS[name]`` each time the kernel's plain PyTorch version runs.
-A caller clears both to see which path a run took.
+A kernel's bfloat16 form counts under its own name, the kernel's with
+``_bf16`` (:func:`counter`).  A caller clears both to see which path a
+run took.
 """
 
 from __future__ import annotations
@@ -34,8 +36,9 @@ from typing import Dict, Tuple
 
 import torch
 
-__all__ = ["LAUNCHES", "PLAIN_CALLS", "reset_counters", "load", "build_all",
-           "check", "stream_ptr", "CSRC_DIR", "BUILD_DIR"]
+__all__ = ["LAUNCHES", "PLAIN_CALLS", "reset_counters", "dtype_suffix",
+           "counter", "load",
+           "build_all", "check", "stream_ptr", "CSRC_DIR", "BUILD_DIR"]
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -53,6 +56,19 @@ BUILD_LOG: Dict[str, Tuple[float, str]] = {}
 def reset_counters() -> None:
     LAUNCHES.clear()
     PLAIN_CALLS.clear()
+
+
+def dtype_suffix(dtype) -> str:
+    """The suffix of a kernel's entry for tensors of ``dtype``: ``bf16``
+    (its bfloat16 form) for bfloat16, else ``f32``."""
+    return "bf16" if dtype == torch.bfloat16 else "f32"
+
+
+def counter(name: str, dtype) -> str:
+    """The counter of kernel ``name`` on tensors of ``dtype``: its own
+    for float32, ``name`` and the entry's suffix for another form."""
+    sfx = dtype_suffix(dtype)
+    return name if sfx == "f32" else f"{name}_{sfx}"
 
 
 def _nvcc() -> str:

@@ -36,7 +36,28 @@ from .filters import ScalingFunction
 
 __all__ = ["boundary_for_ndim", "boundary_index", "separable_smooth_axis",
            "smooth", "local_variance", "sdev_loc", "atrous_conv_nd",
-           "bilateral_smooth"]
+           "bilateral_smooth", "low_precision", "widen",
+           "weak_scalar"]
+
+
+def low_precision(dtype) -> bool:
+    """Whether ``dtype`` is a float type narrower than float32 (bfloat16,
+    float16), which the JAX package sends to XLA and whose kernels' plain
+    versions fold in float32 and round where the JAX kernels store."""
+    return dtype.is_floating_point and torch.finfo(dtype).bits < 32
+
+
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32 below float32 (:func:`low_precision`), else as it
+    is: where a kernel's plain version folds."""
+    return x.float() if low_precision(x.dtype) else x
+
+
+def weak_scalar(v: float, dtype):
+    """A Python scalar as the JAX package's weakly typed one meets an array
+    of ``dtype``: rounded to it below float32 (torch would compute with
+    the scalar at float32 precision), else as it is."""
+    return torch.tensor(v, dtype=dtype) if low_precision(dtype) else v
 
 
 def boundary_for_ndim(n_dim: int) -> str:

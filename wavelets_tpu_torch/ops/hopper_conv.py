@@ -29,6 +29,18 @@ step of kernel A's deep form, ``csrc/whiten_step.cu`` (counter
 tensor the plain PyTorch versions below run, along the same route.
 There is no fallback between kernel and plain version: a CUDA tensor the
 kernel cannot take raises.  The same holds for kernel C.
+
+Kernel A has a bfloat16 form of both its entries (``wt_whiten_group_bf16``
+and ``wt_whiten_step_bf16``, counters ``whiten_group_bf16`` and
+``whiten_step_bf16``), the JAX package's bfloat16 instantiations of
+``_fused_wow_group`` and ``deep_whiten_step``: every fold in float32,
+the values rounded to bfloat16 where the JAX kernels store them (the
+group: after each separable pass, the detail, its square and the whites,
+carry and acc; the deep step: only c_next, the white and the recon add),
+thresholds and factors float32.  The plain versions take the same
+rounding points for any dtype below float32 (:func:`low_precision`).
+Kernel C has no bfloat16 form: the JAX package sends a bfloat16
+decomposition to XLA (pallas_conv.py:517-519).
 """
 
 from __future__ import annotations
@@ -40,7 +52,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from . import _build
-from .conv import separable_smooth_axis, smooth
+from .conv import low_precision, separable_smooth_axis, smooth, widen
 from .filters import ScalingFunction
 from .layout import stack_planes
 
@@ -48,7 +60,8 @@ __all__ = ["N_FAST", "fused_group", "fused_group_plain", "group_pieces",
            "fused_decompose_pieces", "fused_decompose",
            "fused_volume_decompose", "fused_wow_group",
            "fused_wow_group_plain", "whiten_scale_plain",
-           "whiten_detail_plain", "GroupPlan", "group_halo", "group_plan",
+           "whiten_detail_plain", "whiten_power_plain", "threshold_dtype",
+           "GroupPlan", "group_halo", "group_plan",
            "StepPlan", "step_plan", "step_smem", "map_step", "MAX_FRAMES",
            "decompose_buffers", "SMEM_OPTIN", "STEP_STATIC_SMEM"]
 
@@ -80,6 +93,12 @@ SMEM_TWO_PER_SM = 115712
 #: the group kernel's output tile: 64 columns, a row of the tile per warp
 GROUP_TILE_W = 64
 GROUP_TILE_HS = (64, 32, 16)
+#: the tile height tried first where two blocks fit an SM, by element
+#: size: 32 rows for float32 (g = 3: 6% faster than 64, more blocks in
+#: flight), 64 for bfloat16 (g = 4, halo 46: 1.72 against 2.26 ms of
+#: device time at 4096², the halo recomputed less; scripts/
+#: kernel_variants.py on an H100 80GB HBM3 at 700 W)
+GROUP_TILE_TWO_PER_SM = {4: 32, 2: 64}
 GROUP_WARPS = 8
 #: the row-buffer pass (kernel A's deep step, kernels C and G): whole
 #: rows while a row buffer and the centre row fit, else segments of the
@@ -101,9 +120,9 @@ class GroupPlan:
     """The group kernel's launch, passed to ``csrc/whiten_group.cu`` as
     it stands (the kernel checks it and launches it): a ``tile_h ×``
     :data:`GROUP_TILE_W` output tile per block with ``halo`` rows and
-    ``halo_cols`` columns of halo (rounded up to 4 for 16-byte copies),
-    ``smem_bytes`` of shared memory, ``grid = (column tiles, row tiles,
-    frames)``."""
+    ``halo_cols`` columns of halo (rounded up to 16 bytes: 4 float32 or 8
+    bfloat16 elements, for 16-byte copies), ``smem_bytes`` of shared
+    memory, ``grid = (column tiles, row tiles, frames)``."""
     tile_h: int
     halo: int
     halo_cols: int
@@ -111,32 +130,39 @@ class GroupPlan:
     grid: Tuple[int, int, int]
 
 
-def _group_smem(tile_h: int, halo: int, halo_cols: int) -> int:
+def _group_smem(tile_h: int, halo: int, halo_cols: int,
+                itemsize: int = 4) -> int:
     # two (tile_h + 2·halo) × (64 + 2·halo_cols) planes, a row buffer a warp
     sw = GROUP_TILE_W + 2 * halo_cols
-    return 4 * (2 * (tile_h + 2 * halo) * sw + GROUP_WARPS * sw)
+    return itemsize * (2 * (tile_h + 2 * halo) * sw + GROUP_WARPS * sw)
 
 
-def group_plan(B: int, H: int, W: int, g: int, hw: int,
-               offset: int) -> Optional[GroupPlan]:
+def group_plan(B: int, H: int, W: int, g: int, hw: int, offset: int,
+               itemsize: int = 4) -> Optional[GroupPlan]:
     """The tile of :func:`fused_wow_group` on the card, from the shape,
-    group depth, half width of the taps and scale offset alone: a 32-row
-    tile where two blocks fit an SM, else the tallest tile of 64, 32 or
-    16 rows that fits the opt-in shared memory, else None (the scales
-    then run as deep steps).  At offset 0, g = 3 the 32-row tile ran a
-    few percent faster than the 64-row one on an H100
-    (``scripts/kernel_variants.py``): more blocks in flight outweigh its
-    larger halo share.  A 16-row tile is never taken for the second
-    block on an SM: its halo would be recomputed 5-6 times."""
+    group depth, half width of the taps, scale offset and element size
+    (4 for float32, 2 for bfloat16) alone: a tile of
+    :data:`GROUP_TILE_TWO_PER_SM` rows (32 for float32, 64 for bfloat16)
+    where two blocks fit an SM, else the tallest tile of 64, 32 or 16
+    rows that fits the opt-in shared memory, else None (the scales then
+    run as deep steps).  The bfloat16 group of the merged path, g = 4 at
+    offset 0 (halo 46), takes the 64-row tile in 100 KB, two blocks an
+    SM; in float32 the same group would need 200 KB, one block an SM.
+    At offset 0, g = 3 the float32 32-row tile ran a few percent faster
+    than the 64-row one on an H100 (``scripts/kernel_variants.py``): more
+    blocks in flight outweigh its larger halo share.  A 16-row tile is
+    never taken for the second block on an SM: its halo would be
+    recomputed 5-6 times."""
     if g < 1:
         raise ValueError("a group needs at least one scale")
     if offset + g > 20:
         return None
     halo = group_halo(hw, offset, g)
-    halo_cols = -(-halo // 4) * 4
-    for th, limit in ((32, SMEM_TWO_PER_SM),
+    vec = 16 // itemsize
+    halo_cols = -(-halo // vec) * vec
+    for th, limit in ((GROUP_TILE_TWO_PER_SM[itemsize], SMEM_TWO_PER_SM),
                       *((t, SMEM_OPTIN) for t in GROUP_TILE_HS)):
-        smem = _group_smem(th, halo, halo_cols)
+        smem = _group_smem(th, halo, halo_cols, itemsize)
         if smem <= limit:
             grid = (-(-W // GROUP_TILE_W), -(-H // th), B)
             return GroupPlan(th, halo, halo_cols, smem, grid)
@@ -212,23 +238,26 @@ def step_plan(B: int, H: int, W: int, D: int, hw: int) -> StepPlan:
 
 def _lib():
     lib = _build.load(KERNEL)
-    fn = lib.wt_whiten_step_f32
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int] + [ctypes.c_longlong] * 9
-                   + [ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    for sfx in ("f32", "bf16"):
+        fn = getattr(lib, f"wt_whiten_step_{sfx}")
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+                       + [ctypes.c_longlong] * 9
+                       + [ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     return lib
 
 
 def _lib_group():
     lib = _build.load(GROUP_KERNEL)
-    fn = lib.wt_whiten_group_f32
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p, ctypes.c_int]
-                   + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3
-                   + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    for sfx in ("f32", "bf16"):
+        fn = getattr(lib, f"wt_whiten_group_{sfx}")
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p, ctypes.c_int]
+                       + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3
+                       + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -237,12 +266,13 @@ def _ptr(t):
 
 
 def check_kernel_input(x: torch.Tensor, sf: ScalingFunction,
-                       what: str) -> None:
-    """Raise unless ``x`` is a contiguous float32 CUDA tensor and ``sf``
-    has the symmetric taps the kernel folds pairwise."""
-    if x.dtype != torch.float32:
-        raise TypeError(f"{what}: the CUDA kernel takes float32, "
-                        f"got {x.dtype}")
+                       what: str, bf16: bool = False) -> None:
+    """Raise unless ``x`` is a contiguous float32 CUDA tensor (or
+    bfloat16, for a kernel with a bfloat16 form: ``bf16``) and ``sf`` has
+    the symmetric taps the kernel folds pairwise."""
+    if x.dtype != torch.float32 and not (bf16 and x.dtype == torch.bfloat16):
+        raise TypeError(f"{what}: the CUDA kernel takes float32"
+                        f"{' or bfloat16' if bf16 else ''}, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError(f"{what}: the CUDA kernel needs a contiguous tensor")
     if not sf.is_symmetric or sf.half_width > 8:
@@ -253,21 +283,23 @@ def check_kernel_input(x: torch.Tensor, sf: ScalingFunction,
 def launch_whiten_step(carry, c_next, detail, white, acc, acc_mode, thr,
                        fac, masked, soft, sf, scale) -> None:
     """One scale of kernel A's deep form (two launches) on ``(B, H, W)``
-    float32 CUDA tensors; ``detail`` is scratch that the caller holds by
-    name until the launches are queued.  The launch counter is
-    incremented here and nowhere else."""
+    CUDA tensors, float32 or (the bfloat16 form) a bfloat16 carry,
+    c_next, white and acc; ``detail`` is float32 scratch that the caller
+    holds by name until the launches are queued, ``thr`` float32.  The
+    launch counter is incremented here and nowhere else."""
     lib = _lib()
     B, H, W = carry.shape
     plan = step_plan(B, H, W, 1 << scale, sf.half_width)
     taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
-    code = lib.wt_whiten_step_f32(
+    entry = getattr(lib, f"wt_whiten_step_{_build.dtype_suffix(carry.dtype)}")
+    code = entry(
         _ptr(carry), _ptr(c_next), _ptr(detail), _ptr(white), _ptr(acc),
         int(acc_mode), _ptr(thr), float(fac), int(bool(masked)),
         int(bool(soft)), taps, len(sf.taps), B, H, W, 1 << scale, plan.seg,
         plan.grid[0], plan.grid[1], plan.grid[2], plan.smem_bytes,
         plan.index_bits, _build.stream_ptr(carry.device))
     _build.check(lib, code, "whiten_step")
-    _build.LAUNCHES[KERNEL] += 1
+    _build.LAUNCHES[_build.counter(KERNEL, carry.dtype)] += 1
 
 
 def whiten_detail_plain(c: torch.Tensor, fac, thr, sf: ScalingFunction,
@@ -278,7 +310,16 @@ def whiten_detail_plain(c: torch.Tensor, fac, thr, sf: ScalingFunction,
     no mask) giving ``wc``, then ``white = wc·(fac/lp)``.  ``fac`` is a
     float or a tensor and ``thr`` a tensor, each broadcasting against
     ``c`` (a scalar, or ``(B, 1, 1)`` per frame)."""
-    lp = smooth(c * c, sf, scale=scale, axes=(-2, -1))
+    return whiten_power_plain(c, smooth(c * c, sf, scale=scale,
+                                        axes=(-2, -1)), fac, thr, soft,
+                              masked)
+
+
+def whiten_power_plain(c: torch.Tensor, lp: torch.Tensor, fac, thr,
+                       soft: bool, masked: bool = True):
+    """The whitening epilogue of :func:`whiten_detail_plain` from the
+    detail ``c`` and its power smooth ``lp`` (same dtype) → ``(white,
+    wc)``."""
     lp = torch.sqrt(torch.where(lp <= 0, 1e-15, lp))
     if masked:
         safe_t = torch.where(thr == 0, torch.ones_like(thr), thr)
@@ -316,9 +357,26 @@ def _group_args(x, factors, thresholds, g, masked):
     masked = tuple(bool(m) for m in masked) or (False,) * g
     if len(factors) != g or len(masked) != g:
         raise ValueError("factors and masked need one entry per scale")
-    thr = torch.as_tensor(thresholds, dtype=x.dtype, device=x.device)
+    # thresholds stay float32 below float32, as the JAX kernels take them
+    thr = torch.as_tensor(thresholds, dtype=threshold_dtype(x.dtype),
+                          device=x.device)
     thr = thr.reshape(g, -1).expand(g, B)
     return batched, xb, factors, masked, thr
+
+
+def threshold_dtype(dtype):
+    """The dtype the kernels and their plain versions take thresholds
+    in: float32 for a carry below float32, else the carry's."""
+    return torch.float32 if low_precision(dtype) else dtype
+
+
+def _pass(x: torch.Tensor, sf: ScalingFunction, scale: int,
+          axis: int) -> torch.Tensor:
+    """One separable pass, in float32 below float32 and rounded back to
+    ``x``'s dtype: a pass of the JAX group kernel into its scratch of the
+    input dtype (pallas_conv.py:_conv_pass_ref)."""
+    return separable_smooth_axis(widen(x), sf.taps, scale, axis,
+                                 "symmetric").to(x.dtype)
 
 
 def fused_wow_group_plain(x: torch.Tensor, factors: Sequence[float],
@@ -327,21 +385,31 @@ def fused_wow_group_plain(x: torch.Tensor, factors: Sequence[float],
                           masked: Tuple[bool, ...] = (),
                           need_cube: bool = True):
     """Plain PyTorch version of :func:`fused_wow_group` (any dtype or
-    device)."""
-    _build.PLAIN_CALLS[GROUP_KERNEL] += 1
+    device).  Below float32 it keeps the rounding points of the JAX
+    group kernel in that dtype (pallas_conv.py:137, :300-376): each pass
+    of the chain smooth, the detail, its square and each pass of the
+    power smooth round to the input dtype; the mask and the whitening
+    run in float32, the whites round on store, acc sums in float32 and
+    rounds once.  At float32 and above every rounding is a no-op."""
+    _build.PLAIN_CALLS[_build.counter(GROUP_KERNEL, x.dtype)] += 1
     batched, xb, factors, masked, thr = _group_args(
         x, factors, thresholds, g, masked)
     rows, acc, cur = [], None, xb
     for k in range(g):
-        white, cur = whiten_scale_plain(
-            cur, thr[k][:, None, None], factors[k], sf, offset + k, soft,
-            masked[k])
+        s = offset + k
+        c_next = _pass(_pass(cur, sf, s, -2), sf, s, -1)
+        detail = cur - c_next
+        power = _pass(_pass(detail * detail, sf, s, -2), sf, s, -1)
+        white, _ = whiten_power_plain(
+            widen(detail), widen(power), factors[k], thr[k][:, None, None],
+            soft, masked[k])
         acc = white if acc is None else acc + white
         if need_cube:
-            rows.append(white)
-    if g == 1:
-        acc = acc.clone()  # its own tensor, as the kernel's acc is
+            rows.append(white.to(xb.dtype))
+        cur = c_next
+    # its own tensor, as the kernel's acc is, also where g = 1
     rows.append(cur)
+    acc = acc.to(xb.dtype, copy=g == 1)
     if not batched:
         return tuple(r[0] for r in rows), acc[0]
     return tuple(rows), acc
@@ -361,18 +429,19 @@ def fused_wow_group(x: torch.Tensor, factors: Sequence[float], thresholds,
     of shape ``(g,)`` or ``(g, B)`` on ``x``'s device, used for the scales
     with ``masked[k]``.
 
-    Route, by :func:`group_plan` (shape, ``g``, taps and ``offset``
-    only): where a tile fits, one launch of ``csrc/whiten_group.cu`` on a
-    CUDA ``x`` (:func:`fused_wow_group_plain` on a CPU ``x``); where none
-    fits (the B3spline from offset 2 at g = 3), one
+    Route, by :func:`group_plan` (shape, ``g``, taps, ``offset`` and
+    element size only): where a tile fits, one launch of
+    ``csrc/whiten_group.cu`` on a CUDA ``x`` (its bfloat16 form for a
+    bfloat16 ``x``; :func:`fused_wow_group_plain` on a CPU ``x``); where
+    none fits (the float32 B3spline from offset 2 at g = 3), one
     :func:`~.hopper_deep.deep_whiten_step` per scale (kernel A's deep
     form on a CUDA ``x``, its plain version on a CPU ``x``).  A CUDA
-    ``x`` the kernels cannot take raises."""
+    ``x`` the kernels cannot take (float16, float64) raises."""
     from .hopper_deep import deep_whiten_step
     batched, xb, factors, masked, thr = _group_args(
         x, factors, thresholds, g, masked)
     B, H, W = xb.shape
-    plan = group_plan(B, H, W, g, sf.half_width, offset)
+    plan = group_plan(B, H, W, g, sf.half_width, offset, x.element_size())
     if plan is None:
         rows, acc, cur = [], None, xb
         for k in range(g):
@@ -389,14 +458,15 @@ def fused_wow_group(x: torch.Tensor, factors: Sequence[float], thresholds,
         return fused_wow_group_plain(x, factors, thresholds, g, sf, offset,
                                      soft, masked, need_cube)
     else:
-        check_kernel_input(x, sf, "fused_wow_group")
+        check_kernel_input(x, sf, "fused_wow_group", bf16=True)
         thr = thr.contiguous()
         acc = torch.empty_like(xb)
         cur = torch.empty_like(xb)
         rows = [torch.empty_like(xb) for _ in range(g)] if need_cube else []
         lib = _lib_group()
         taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
-        code = lib.wt_whiten_group_f32(
+        entry = getattr(lib, f"wt_whiten_group_{_build.dtype_suffix(x.dtype)}")
+        code = entry(
             _ptr(xb), (ctypes.c_void_p * g)(*[r.data_ptr() for r in rows])
             if need_cube else None, _ptr(cur), _ptr(acc), _ptr(thr),
             (ctypes.c_float * g)(*factors),
@@ -405,7 +475,7 @@ def fused_wow_group(x: torch.Tensor, factors: Sequence[float], thresholds,
             plan.halo_cols, plan.grid[0], plan.grid[1], plan.smem_bytes,
             _build.stream_ptr(x.device))
         _build.check(lib, code, "whiten_group")
-        _build.LAUNCHES[GROUP_KERNEL] += 1
+        _build.LAUNCHES[_build.counter(GROUP_KERNEL, x.dtype)] += 1
     rows.append(cur)
     if not batched:
         return tuple(r[0] for r in rows), acc[0]

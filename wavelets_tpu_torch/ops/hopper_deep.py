@@ -37,6 +37,15 @@ Counterpart of ``wavelets_tpu/ops/pallas_deep.py`` (signatures minus
   earlier five per-pixel launches, an independent reference on the card
   for kernels F and G that no path calls.
 
+Kernel A's deep step and kernel E have bfloat16 forms (counters
+``whiten_step_bf16``, ``whiten_pair_bf16``), the JAX package's bfloat16
+stream (pallas_deep.py:329-340, :914-920): the carry read as float32,
+every fold, the detail and the pair's middle carry in float32, and
+``c_next``, the whites and the recon add rounded to bfloat16 on store;
+thresholds float32.  Their plain versions do the same for any dtype
+below float32.  Kernels D and G have none: the JAX package runs them in
+float32 only.
+
 A CPU tensor runs each kernel's plain version; a CUDA tensor runs the
 kernel or raises.
 """
@@ -50,11 +59,12 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .conv import bilateral_smooth
+from .conv import bilateral_smooth, widen
 from .filters import ScalingFunction
 from .hopper_bilateral import MAX_HW, bilateral_plan, kernel_weights
-from .hopper_conv import (KERNEL, SMEM_OPTIN, _ptr, check_kernel_input,
-                          launch_whiten_step, step_plan, whiten_detail_plain,
+from .hopper_conv import (KERNEL, SMEM_OPTIN, _ptr,
+                          check_kernel_input, launch_whiten_step, step_plan,
+                          threshold_dtype, whiten_detail_plain,
                           whiten_scale_plain)
 from .hopper_wow import KERNEL as PLANE_KERNEL
 from .hopper_wow import launch_whiten_plane, launch_whiten_plane_ref
@@ -74,6 +84,12 @@ BILATERAL_KERNEL = "bilateral_step"
 BILATERAL_REF = "bilateral_step_ref"
 
 
+def _check_same_dtype(carry, recon, what):
+    if recon.dtype != carry.dtype:
+        raise TypeError(f"{what}: recon is {recon.dtype}, the carry "
+                        f"{carry.dtype}")
+
+
 def _check_args(carry, recon, write_plane, what="deep_whiten_step"):
     if carry.ndim != 3:
         raise ValueError(f"{what} takes a (B, H, W) carry")
@@ -89,14 +105,18 @@ def deep_whiten_step_plain(carry: torch.Tensor,
                            scale: int, weight: float, soft: bool = True,
                            masked: bool = False, write_plane: bool = True):
     """Plain PyTorch version of :func:`deep_whiten_step` (any dtype or
-    device); like the kernel it adds into ``recon`` in place."""
-    _build.PLAIN_CALLS[KERNEL] += 1
+    device; below float32 the bfloat16 form's rounding); like the kernel
+    it adds into ``recon`` in place."""
+    _build.PLAIN_CALLS[_build.counter(KERNEL, carry.dtype)] += 1
     _check_args(carry, recon, write_plane)
-    thr = torch.as_tensor(threshold, dtype=carry.dtype,
+    thr = torch.as_tensor(threshold, dtype=threshold_dtype(carry.dtype),
                           device=carry.device).reshape(-1)
     thr = thr.expand(carry.shape[0])[:, None, None]
-    white, c_next = whiten_scale_plain(carry, thr, weight, sf, scale, soft,
-                                       masked)
+    # below float32 in float32 from the carry, rounded on store, as the
+    # JAX package's low-precision stream does
+    white, c_next = whiten_scale_plain(widen(carry), thr, weight, sf, scale,
+                                       soft, masked)
+    white, c_next = white.to(carry.dtype), c_next.to(carry.dtype)
     if recon is not None:
         recon.add_(white)
     return (white if write_plane else None), recon, c_next
@@ -115,23 +135,25 @@ def deep_whiten_step(carry: torch.Tensor, recon: Optional[torch.Tensor],
     ``recon' = recon += white``, which saves the separate read of
     ``white`` an out-of-place sum would cost; ``white`` is None when
     ``write_plane=False`` (then ``recon`` is required).  A CPU carry runs
-    :func:`deep_whiten_step_plain`; a CUDA carry runs kernel A or
-    raises."""
+    :func:`deep_whiten_step_plain`; a float32 or bfloat16 CUDA carry
+    runs kernel A's deep form in that dtype; any other raises."""
     if not carry.is_cuda:
         return deep_whiten_step_plain(
             carry, recon, threshold, sf=sf, scale=scale, weight=weight,
             soft=soft, masked=masked, write_plane=write_plane)
-    check_kernel_input(carry, sf, "deep_whiten_step")
+    check_kernel_input(carry, sf, "deep_whiten_step", bf16=True)
     _check_args(carry, recon, write_plane)
     if recon is not None:
-        check_kernel_input(recon, sf, "deep_whiten_step")
+        _check_same_dtype(carry, recon, "deep_whiten_step")
+        check_kernel_input(recon, sf, "deep_whiten_step", bf16=True)
     thr = torch.as_tensor(threshold, dtype=torch.float32,
                           device=carry.device).reshape(-1)
     thr = thr.expand(carry.shape[0]).contiguous()
     white = torch.empty_like(carry) if write_plane else None
     c_next = torch.empty_like(carry)
-    # scratch held by name until the launches are queued
-    detail = torch.empty_like(carry)
+    # float32 scratch, held by name until the launches are queued
+    detail = torch.empty(carry.shape, dtype=torch.float32,
+                         device=carry.device)
     launch_whiten_step(carry, c_next, detail, white, recon,
                        0 if recon is None else 2, thr, weight, masked, soft,
                        sf, scale)
@@ -185,12 +207,13 @@ def can_deep2(carry: torch.Tensor, sf: ScalingFunction, scale: int) -> bool:
 
 def _lib_pair():
     lib = _build.load(PAIR_KERNEL)
-    fn = lib.wt_whiten_pair_f32
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_float] * 2
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int]
-                   + [ctypes.c_longlong] * 6 + [ctypes.c_int,
-                   ctypes.c_longlong, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    for sfx in ("f32", "bf16"):
+        fn = getattr(lib, f"wt_whiten_pair_{sfx}")
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_float] * 2
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int]
+                       + [ctypes.c_longlong] * 6 + [ctypes.c_int,
+                       ctypes.c_longlong, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -199,7 +222,7 @@ def _pair_args(carry, recon, thresholds, weights, masked, write_plane):
     if len(weights) != 2 or len(masked) != 2:
         raise ValueError("deep_whiten_step2 takes two weights and two "
                          "masked flags")
-    thr = torch.as_tensor(thresholds, dtype=carry.dtype,
+    thr = torch.as_tensor(thresholds, dtype=threshold_dtype(carry.dtype),
                           device=carry.device).reshape(2, -1)
     return thr.expand(2, carry.shape[0]).contiguous()
 
@@ -212,18 +235,22 @@ def deep_whiten_step2_plain(carry: torch.Tensor,
                             write_plane: bool = True):
     """Plain PyTorch version of :func:`deep_whiten_step2` (any dtype or
     device): two plain steps; like the kernel it adds into ``recon`` in
-    place, scale ``s`` first."""
-    _build.PLAIN_CALLS[PAIR_KERNEL] += 1
+    place, scale ``s`` first.  Below float32 both steps run in float32
+    from the carry, so the middle carry never rounds, and the whites and
+    ``c_next2`` round on store (the JAX pair's bfloat16 form)."""
+    _build.PLAIN_CALLS[_build.counter(PAIR_KERNEL, carry.dtype)] += 1
     thr = _pair_args(carry, recon, thresholds, weights, masked, write_plane)
-    whites, cur = [], carry
+    dt = carry.dtype
+    whites, cur = [], widen(carry)
     for k in range(2):
         white, cur = whiten_scale_plain(
             cur, thr[k][:, None, None], float(weights[k]), sf, scale + k,
             soft, bool(masked[k]))
+        white = white.to(dt)
         if recon is not None:
             recon.add_(white)
         whites.append(white if write_plane else None)
-    return whites[0], whites[1], recon, cur
+    return whites[0], whites[1], recon, cur.to(dt)
 
 
 def deep_whiten_step2(carry: torch.Tensor, recon: Optional[torch.Tensor],
@@ -237,16 +264,17 @@ def deep_whiten_step2(carry: torch.Tensor, recon: Optional[torch.Tensor],
     accumulated in place, ``(recon + white_s) + white_s1``, the order of
     two :func:`deep_whiten_step` calls; the whites are None when
     ``write_plane=False``.  Gate with :func:`can_deep2`.  A CPU carry runs
-    :func:`deep_whiten_step2_plain`; a CUDA carry runs kernel E or
-    raises."""
+    :func:`deep_whiten_step2_plain`; a float32 or bfloat16 CUDA carry
+    runs kernel E in that dtype; any other raises."""
     if not carry.is_cuda:
         return deep_whiten_step2_plain(
             carry, recon, thresholds, sf=sf, scale=scale, weights=weights,
             soft=soft, masked=masked, write_plane=write_plane)
-    check_kernel_input(carry, sf, "deep_whiten_step2")
+    check_kernel_input(carry, sf, "deep_whiten_step2", bf16=True)
     thr = _pair_args(carry, recon, thresholds, weights, masked, write_plane)
     if recon is not None:
-        check_kernel_input(recon, sf, "deep_whiten_step2")
+        _check_same_dtype(carry, recon, "deep_whiten_step2")
+        check_kernel_input(recon, sf, "deep_whiten_step2", bf16=True)
     B, H, W = carry.shape
     plan = pair_plan(B, H, W, scale)
     if plan is None:
@@ -257,14 +285,15 @@ def deep_whiten_step2(carry: torch.Tensor, recon: Optional[torch.Tensor],
     w2 = torch.empty_like(carry) if write_plane else None
     lib = _lib_pair()
     taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
-    code = lib.wt_whiten_pair_f32(
+    entry = getattr(lib, f"wt_whiten_pair_{_build.dtype_suffix(carry.dtype)}")
+    code = entry(
         _ptr(carry), _ptr(c_next), _ptr(w1), _ptr(w2), _ptr(recon), _ptr(thr),
         float(weights[0]), float(weights[1]), int(bool(masked[0])),
         int(bool(masked[1])), int(bool(soft)), taps, len(sf.taps), B, H, W,
         1 << scale, plan.grid[0], plan.grid[1], plan.cluster,
         plan.smem_bytes, _build.stream_ptr(carry.device))
     _build.check(lib, code, "whiten_pair")
-    _build.LAUNCHES[PAIR_KERNEL] += 1
+    _build.LAUNCHES[_build.counter(PAIR_KERNEL, carry.dtype)] += 1
     return w1, w2, recon, c_next
 
 

@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from . import hopper_stats
+from .conv import weak_scalar
 from .layout import stack_planes
 
 __all__ = ["MAD_TO_SIGMA", "generalized_anscombe", "median_abs", "mad_noise",
@@ -17,6 +18,14 @@ __all__ = ["MAD_TO_SIGMA", "generalized_anscombe", "median_abs", "mad_noise",
 
 #: MAD → σ conversion constant for a Gaussian (watroo/wavelets.py:127).
 MAD_TO_SIGMA = 0.6745
+
+
+def _div_scalars(x: torch.Tensor, *scalars) -> torch.Tensor:
+    """``x / s_0 / s_1 ...`` as the JAX package computes it, each Python
+    scalar a weakly typed one (:func:`~.conv.weak_scalar`)."""
+    for v in scalars:
+        x = x / weak_scalar(v, x.dtype)
+    return x
 
 
 def generalized_anscombe(signal, alpha=1.0, g=0.0, sigma=0.0, inverse=False):
@@ -52,7 +61,7 @@ def mad_noise(w0: torch.Tensor, sigma_e0: float,
               fuse: bool = True) -> torch.Tensor:
     """Noise level from the finest detail plane via the MAD estimator:
     ``median(|w0|) / 0.6745 / σ_e[0]`` (watroo/wavelets.py:126-127)."""
-    return median_abs(w0, fuse) / MAD_TO_SIGMA / sigma_e0
+    return _div_scalars(median_abs(w0, fuse), MAD_TO_SIGMA, sigma_e0)
 
 
 def median_abs_frames(x: torch.Tensor, fuse: bool = True) -> torch.Tensor:
@@ -69,7 +78,7 @@ def mad_noise_frames(w0: torch.Tensor, sigma_e0: float,
                      fuse: bool = True) -> torch.Tensor:
     """Per-frame MAD noise over a stack of finest detail planes ``(B, H,
     W)`` → ``(B,)``."""
-    return median_abs_frames(w0, fuse) / MAD_TO_SIGMA / sigma_e0
+    return _div_scalars(median_abs_frames(w0, fuse), MAD_TO_SIGMA, sigma_e0)
 
 
 def significance_soft(w: torch.Tensor, threshold) -> torch.Tensor:
@@ -88,9 +97,14 @@ def significance(w: torch.Tensor, sigma: float, noise, sigma_e_scale: float,
     (watroo/wavelets.py:129-143).  The ``sigma == 0`` shortcut is the
     caller's; a zero threshold (``noise == 0``) yields ones, the
     reference's explicit ``noise == 0`` branch (:133-135), without a
-    host-side branch on the value."""
-    t = torch.as_tensor(sigma * noise * sigma_e_scale, dtype=w.dtype,
-                        device=w.device)
+    host-side branch on the value.  A ``noise`` tensor below float32
+    takes the scalars rounded to its dtype, as the JAX package does."""
+    if isinstance(noise, torch.Tensor):
+        t = (weak_scalar(sigma, noise.dtype) * noise
+             * weak_scalar(sigma_e_scale, noise.dtype))
+    else:
+        t = sigma * noise * sigma_e_scale
+    t = torch.as_tensor(t, dtype=w.dtype, device=w.device)
     safe_t = torch.where(t == 0, torch.ones_like(t), t)
     if soft_threshold:
         mask = significance_soft(w, safe_t)

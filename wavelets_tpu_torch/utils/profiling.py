@@ -28,7 +28,8 @@ from ..api import DEFAULT_DEVICE, _target_device
 from ..ops.filters import ScalingFunction
 
 __all__ = ["StageTimer", "Cost", "decompose_cost", "wow_cost", "roofline",
-           "device_sync", "trace", "bound_ms", "H100_HBM_GBPS",
+           "device_sync", "trace", "bound_ms", "group_bytes", "step_bytes",
+           "pair_bytes", "WHITEN_SCALE_OPS", "H100_HBM_GBPS",
            "H100_F32_GFLOPS"]
 
 # ---- the card: NVIDIA H100 SXM, published peaks (data sheet, 700 W) ----
@@ -63,6 +64,38 @@ BIL_OPS = 19 + 20 + BIL_TAPS * (7 + EXPF_OPS) + 3
 #: kernel G's power smooth (two folds, five squares) and whitening
 #: epilogue (clamp, sqrt, mask, division, product, recon add)
 BIL_WHITEN_OPS = 2 * FOLD_OPS + 5 + 12
+
+
+#: one whitened scale per pixel (kernels A and E): the chain smooth and
+#: the power smooth, two separable folds each, and 8 more (detail,
+#: square, clamp, sqrt, mask, division, product, sum); the bfloat16 forms
+#: fold in float32 too
+WHITEN_SCALE_OPS = 4 * FOLD_OPS + 8
+
+
+# ---- bytes of kernels A and E: each input read once, each output
+# written once, ``itemsize`` bytes an element (4 float32, 2 bfloat16) ----
+
+def group_bytes(pixels: int, g: int, need_cube: bool = True,
+                itemsize: int = 4) -> int:
+    """Kernel A's group of ``g`` scales: read the frame, write the ``g``
+    whites (with ``need_cube``), the carry and acc."""
+    return pixels * itemsize * (1 + (g if need_cube else 0) + 2)
+
+
+def step_bytes(pixels: int, recon: bool = True, white: bool = True,
+               itemsize: int = 4) -> int:
+    """Kernel A's deep step: read the carry (and recon), write c_next, the
+    white and recon; the float32 detail between its two launches is
+    scratch, not the function's."""
+    return pixels * itemsize * (2 + int(white) + 2 * int(recon))
+
+
+def pair_bytes(pixels: int, recon: bool = True, whites: bool = True,
+               itemsize: int = 4) -> int:
+    """Kernel E: read the carry (and recon), write c_next2, two whites and
+    recon."""
+    return pixels * itemsize * (2 + 2 * int(whites) + 2 * int(recon))
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> Tuple[float, str]:
