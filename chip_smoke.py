@@ -117,6 +117,26 @@ the same route on the CPU, and timed against ``fuse=False`` and the
 float32 kernels; the three bfloat16 kernels timed at 4096² beside their
 2-byte bounds.
 
+The sharded slice adds: kernel A's deep step in halo mode (the sharded
+engine's band tail), 4096² on a batch of 3 and 257×513 split into 4 row
+bands, each extended as the engine extends them (s = 9 at 4096² needs a
+gathered window), s = 3..9, soft, hard and unmasked, every output bitwise
+to its plain version and the bands concatenated bitwise to the
+single-frame deep step; the bfloat16 pair with a float32 middle carry
+(two launches of kernel A's bfloat16 step, where kernel E's tori do not
+fit) bitwise to ``deep_whiten_step2_plain``; and the paths M1-M4 of
+``wavelets_tpu_torch.parallel`` on a one-rank NCCL group set up in this
+process — M1 ``sharded_wow_1chip_4k_L6_serving`` (stage 1, bitwise to
+``wow_stack``), M2 ``sharded_wow`` of one 4096² frame, L10, denoise [5, 2],
+lazy noise (stage 2: kernel A's group on the reflected block, the band
+tail on the halo step, the bisection median; held to ``wow``), M3
+``sharded_decompose`` 4096² L6 (held to ``AtrousTransform``) and M4
+``process_stack(mesh=)`` on S5's file (bitwise to S5's output) — each
+with its launches and its collectives (``count_collectives``).  A mesh
+of more ranks cannot run on one card: NCCL refuses two ranks on one
+device and gloo has no CUDA send or receive, so the 4-rank checks are
+the gloo tests on the CPU (tests/test_torch_parallel.py).
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero before that line.  It imports nothing of JAX.
@@ -222,8 +242,8 @@ def main():
     # the H100's peaks and the kernels' operation counts (one owner)
     from wavelets_tpu_torch.utils.profiling import (
         BIL_OPS, BIL_TAPS, BIL_WHITEN_OPS, EXPF_OPS, FOLD_OPS, PEAK_F32_INSTR,
-        PEAK_SFU, WHITEN_SCALE_OPS, bound_ms, group_bytes, pair_bytes,
-        step_bytes)
+        PEAK_SFU, WHITEN_SCALE_OPS, bound_ms, group_bytes, halo_step_bytes,
+        halo_step_ops, pair_bytes, step_bytes)
     from wavelets_tpu_torch.core.transform import decompose, decompose_pieces
     from wavelets_tpu_torch.models.wow import (_wow_body_fused,
                                                _wow_body_merged)
@@ -833,6 +853,99 @@ def main():
         print(f"bfloat16 kernels: {n_lp} checks, every output bitwise to "
               "the bfloat16 plain version, inputs unchanged; measured max "
               f"abs err at 4096² {err_lp}")
+
+    # ---- 3i. kernel A's deep step in halo mode: bitwise -----------------
+    # the sharded engine's band tail: a frame split into 4 row bands, each
+    # extended as the engine extends it (a neighbour's rows, the border's
+    # reflection, past a band a window of the gathered plane through the
+    # symmetric map: s = 9 at 4096²), held bitwise to the plain version,
+    # and the bands concatenated bitwise to the single-frame step
+    from wavelets_tpu_torch.ops.conv import boundary_index
+    err_halo = {"white": 0.0, "carry": 0.0}
+    with Phase("kernel A halo-mode checks"):
+        n_halo = 0
+        for shape, b in (((4096, 4096), 3), ((257, 513), 1)):
+            H = shape[0]
+            x = frame(shape, b=b)
+            recon = frame(shape, b=b, mean=0.0)
+            x0 = x.clone()
+            thr = torch.full((b,), 9.0 * float(sig[5]), device=dev)
+            for s_ in range(3, 10):
+                R = 2 * B3SPLINE.half_width << s_
+                for mode in ("soft", "hard", "unmasked"):
+                    kw = dict(sf=B3SPLINE, scale=s_, weight=1.5,
+                              soft=mode == "soft",
+                              masked=mode != "unmasked")
+                    r_1 = recon.clone()
+                    w_1, _, c_1 = hopper_deep.deep_whiten_step(x, r_1, thr,
+                                                               **kw)
+                    hb = -(-H // 4)
+                    parts = []
+                    for k in range(4):
+                        lo, hi = k * hb, min(H, (k + 1) * hb)
+                        ext = x.index_select(1, boundary_index(
+                            H, lo - R, "symmetric", dev,
+                            hi - lo + 2 * R)).contiguous()
+                        r_k = recon[:, lo:hi].contiguous()
+                        r_p = r_k.clone()
+                        n0 = _build.LAUNCHES["whiten_step_halo"]
+                        out_k = hopper_deep.deep_whiten_step(
+                            ext, r_k, thr, halo=R, **kw)
+                        out_p = hopper_deep.deep_whiten_step_plain(
+                            ext, r_p, thr, halo=R, **kw)
+                        torch.cuda.synchronize()
+                        what = (f"halo step {shape} b={b} s={s_} {mode} "
+                                f"band {k}")
+                        require(_build.LAUNCHES["whiten_step_halo"] == n0 + 1,
+                                what + ": not one launch")
+                        for a, r_, nm in zip(out_k, out_p,
+                                             ("white", "recon", "carry")):
+                            check_bitwise(a, r_, f"{what} {nm}")
+                            if H == 4096 and nm != "recon":
+                                err_halo[nm] = max(err_halo[nm],
+                                                   max_err(a, r_))
+                        parts.append(out_k)
+                        n_halo += 1
+                    what = f"halo bands {shape} s={s_} {mode}"
+                    for j, ref in enumerate((w_1, r_1, c_1)):
+                        check_bitwise(torch.cat([p_[j] for p_ in parts], 1),
+                                      ref, f"{what} vs the frame's step")
+            check_bitwise(x, x0, f"halo step {shape}: input changed")
+            del x, x0, recon, parts, ext
+        print(f"kernel A halo mode: {n_halo} band checks bitwise to the "
+              "plain version, the bands concatenated bitwise to the "
+              "single-frame step (s = 3..9, 4096² b=3 and 257×513)")
+
+    # ---- 3j. the bfloat16 pair with a float32 middle carry (C1) ---------
+    with Phase("bfloat16 split pair checks"):
+        n_split = 0
+        for shape, b, s_ in (((512, 4096), 1, 4), ((1024, 8192), 1, 5),
+                             ((512, 4096), 3, 4), ((4096, 4096), 1, 7)):
+            x = bf16_frame(shape, b, mean=0.0)
+            acc = bf16_frame(shape, b, mean=0.0)
+            x0 = x.clone()
+            for masked in ((True, False), (False, True)):
+                kw = dict(sf=B3SPLINE, scale=s_, weights=(1.25, 0.75),
+                          masked=masked)
+                thr2 = torch.full((2, b), 0.9, device=dev)
+                a_k, a_p = acc.clone(), acc.clone()
+                n0 = _build.LAUNCHES["whiten_step_bf16"]
+                out_k = hopper_deep.deep_whiten_step2_split(x, a_k, thr2,
+                                                            **kw)
+                out_p = hopper_deep.deep_whiten_step2_plain(x, a_p, thr2,
+                                                            **kw)
+                torch.cuda.synchronize()
+                what = f"split pair {shape} b={b} s={s_} masked={masked}"
+                require(_build.LAUNCHES["whiten_step_bf16"] == n0 + 2,
+                        what + ": not two launches")
+                for a, r_ in zip(out_k, out_p):
+                    check_bitwise(a, r_, what)
+                n_split += 1
+            check_bitwise(x, x0, f"split pair {shape}: input changed")
+        del x, x0, acc
+        print(f"bfloat16 split pair: {n_split} checks bitwise to "
+              "deep_whiten_step2_plain (kernel E's tori do not fit at "
+              "(4, 5) on 512×4096 and (5, 6) on 1024×8192)")
 
     # ---- 4. the paths ----------------------------------------------------
     launches = {}
@@ -1630,6 +1743,131 @@ def main():
         rl_out["c1_s"] = c1_s
         del host, got, want
 
+    # ---- 4m. the sharded engine (parallel/) on a one-rank NCCL group ---
+    # M1-M4, the mesh set up in this process.  More ranks cannot run on one
+    # card (NCCL refuses two ranks on one device, and gloo has no CUDA send
+    # or receive): the 4-rank checks are the gloo tests on the CPU
+    # (tests/test_torch_parallel.py).
+    import socket
+
+    import torch.distributed as dist
+    from wavelets_tpu_torch import parallel as wpar
+    from wavelets_tpu_torch.parallel.mesh import init_distributed
+    from wavelets_tpu_torch.utils.profiling import count_collectives
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    init_distributed(f"tcp://localhost:{port}", 1, 0, "nccl")
+    mesh1 = wpar.make_mesh(1, 1, 1)
+    sharded_main, sharded_out = {}, {}
+
+    def sharded_drive(what, fn, expect):
+        """``drive`` with the collectives the call issued."""
+        box = {}
+        coll = count_collectives(
+            lambda: box.update(res=drive(what, fn, expect)))
+        print(f"  collectives: {coll}")
+        out, run = box["res"]
+        sharded_main[what] = run
+        sharded_out[what] = dict(launches=run, collectives=coll)
+        return out
+
+    what = "M1 sharded_wow_1chip_4k_L6_serving"
+    with Phase(what):
+        # stage 1: the frame stack of one on a data-only mesh
+        m1 = dict(n_scales=6, denoise_coefficients=[5, 2], noise=1.0,
+                  with_coefficients=False)
+        m1_r, m1_p = sharded_drive(what, lambda: wpar.sharded_wow(
+            big[None], mesh1, **m1), {"whiten_group": 1, "whiten_step": 3})
+        require(m1_p is None, what + ": planes in serving mode")
+        m1_got = m1_r.full_tensor()
+        on_card(m1_got, what, (1, 4096, 4096))
+        check_bitwise(m1_got, wt.wow_stack(big[None], **m1)[0],
+                      what + " vs wow_stack")
+        print("  bitwise to wow_stack of the same frame")
+        paths[what] = (lambda: wpar.sharded_wow(big[None], mesh1, **m1),
+                       lambda: wt.wow_stack(big[None], **m1))
+
+    what = "M2 sharded_wow 4096² L10 [5, 2] lazy, 1x1x1 mesh"
+    with Phase(what):
+        # stage 2: kernel A's group on the reflected block, the band tail
+        # on kernel A's halo step, the exact median by bisection
+        m2 = dict(denoise_coefficients=[5, 2])
+        m2_r, m2_p = sharded_drive(what, lambda: wpar.sharded_wow(
+            x4k, mesh1, **m2), {"whiten_group": 1, "whiten_step_halo": 7})
+        m2_got, m2_planes = m2_r.full_tensor(), m2_p.full_tensor()
+        on_card(m2_got, what, (4096, 4096))
+        on_card(m2_planes, what + " planes", (11, 4096, 4096))
+        r_w, c_w = wt.wow(x4k, **m2)
+        for k in range(10):
+            check_bitwise(m2_planes[k], c_w[k], f"{what} plane {k} vs wow")
+        # the residual plane is the last carry over its std, 4e-4 of its
+        # mean on this mean-10 frame: the engine sums the std in float64,
+        # wow takes torch.std in float32; both against the float64 std
+        carry = wt.AtrousTransform()(x4k, 10)[10].double()
+        ref10 = (carry / carry.std(correction=0)).float()
+        e_s = check_white(m2_planes[10], ref10,
+                          what + " residual vs the float64 std")
+        e_w = max_err(c_w[10], ref10)
+        check_white(m2_got, r_w - c_w[10] + m2_planes[10],
+                          what + " recon vs wow's details + its residual")
+        print(f"  details bitwise to wow; the residual plane vs the float64 "
+              f"std: max abs err {e_s:.3e} (wow's {e_w:.3e}, scale "
+              f"{float(ref10.abs().max()):.4g}); recon vs wow "
+              f"{max_err(m2_got, r_w):.3e}")
+        # a zero-mean frame, where the residual is well conditioned
+        xz = bil_frame((4096, 4096))
+        rz = wpar.sharded_wow(xz, mesh1, **m2)[0].full_tensor()
+        e_z = check_white(rz, wt.wow(xz, **m2)[0], what + " zero mean")
+        print(f"  zero-mean 4096² frame vs wow: recon max abs err {e_z:.3e}")
+        sharded_out[what].update(residual_vs_f64_std=e_s,
+                                 wow_residual_vs_f64_std=e_w,
+                                 recon_vs_wow=max_err(m2_got, r_w),
+                                 zero_mean_recon_vs_wow=e_z)
+        paths[what] = (lambda: wpar.sharded_wow(x4k, mesh1, **m2),
+                       lambda: wt.wow(x4k, **m2))
+        del m2_got, m2_planes, m2_r, m2_p, c_w, carry, ref10, xz, rz
+
+    what = "M3 sharded_decompose 4096² L6, 1x1x1 mesh"
+    with Phase(what):
+        # the halo chain: one rank's smooths are the plain separable ones
+        m3_d = sharded_drive(what, lambda: wpar.sharded_decompose(
+            x4k, 6, B3SPLINE, mesh1), {})
+        m3_got = m3_d.full_tensor()
+        on_card(m3_got, what, (7, 4096, 4096))
+        m3_ref = wt.AtrousTransform()(x4k, 6).data
+        e = check_white(m3_got, m3_ref, what + " vs AtrousTransform")
+        print(f"  vs AtrousTransform (kernel C): max abs err {e:.3e}, "
+              f"bitwise: {bool(torch.equal(m3_got, m3_ref))}")
+        sharded_out[what].update(max_abs_err=e)
+        paths[what] = (
+            lambda: wpar.sharded_decompose(x4k, 6, B3SPLINE, mesh1),
+            lambda: wt.AtrousTransform()(x4k, 6))
+        del m3_got, m3_ref, m3_d
+
+    what = "M4 process_stack(mesh=) 10×4096² uint16, batch 4, L6 [5, 2] lazy"
+    out_m4 = Path(tmp_dir.name) / "out_mesh.raw"
+    with Phase(what):
+        def m4():
+            return wt.process_stack(str(raw), str(out_m4), 10, (4096, 4096),
+                                    batch=4, mesh=mesh1, **l6)
+
+        n, secs, fps = sharded_drive(
+            what, m4, {"decompose_group": 3, "median_select": 10,
+                       "whiten_plane": 3, "whiten_step": 9})
+        m4_got = np.fromfile(out_m4, np.float32)
+        s5_out = np.fromfile(Path(tmp_dir.name) / "out_kernels.raw",
+                             np.float32)
+        require(m4_got.shape == s5_out.shape
+                and np.array_equal(m4_got, s5_out),
+                what + ": not bitwise to S5's output file")
+        print(f"  {n} frames in {secs:.3f} s = {fps:.2f} frames/s (first "
+              "call); bitwise to S5's output file")
+        paths[what] = (m4, lambda: s5())
+        stack_fps[what] = 10
+        del m4_got, s5_out
+
     # ---- 5. timings -----------------------------------------------------
     print(f"timings on {card}: median of {N_TIMED} runs, CUDA events")
     e2e = {}
@@ -1643,7 +1881,8 @@ def main():
             t_k = timed(run_k, torch)
             t_p = timed(run_p, torch)
             e2e[what] = (t_k, t_p)
-            label = "merged" if what.startswith("route") else "plain"
+            label = ("merged" if what.startswith("route")
+                     else "single-device" if what[:1] == "M" else "plain")
             print(f"  {what}: kernels {t_k:.3f} ms, {label} {t_p:.3f} ms")
         del x_vol
         fps_out = {what: {"frames_per_s": n / e2e[what][0] * 1e3,
@@ -1724,6 +1963,47 @@ def main():
             timed="scales 3-9 at 4096², one step each",
             library="none: PyTorch has no numpy-symmetric pad or dilated "
                     "smooth in one call"))
+
+        # kernel A in halo mode: M2's band tail, the 4096² frame as one
+        # band extended by R = 2hw·2^s rows a side, s = 3..9
+        recon = torch.zeros_like(x)
+        halo_k = halo_p = 0.0
+        halo_bytes = halo_ops = 0
+        per_halo = {}
+        for s in range(3, 10):
+            R = 2 * B3SPLINE.half_width << s
+            ext = x.index_select(1, boundary_index(
+                4096, -R, "symmetric", dev, 4096 + 2 * R)).contiguous()
+            kw = dict(sf=B3SPLINE, scale=s, weight=1.0, soft=True,
+                      masked=False, halo=R)
+            per_halo[s] = timed(lambda: hopper_deep.deep_whiten_step(
+                ext, recon, zero1, **kw), torch)
+            halo_k += per_halo[s]
+            halo_p += timed(lambda: hopper_deep.deep_whiten_step_plain(
+                ext, recon, zero1, **kw), torch, n=5)
+            halo_bytes += halo_step_bytes(4096, 4096, R)
+            halo_ops += halo_step_ops(4096, 4096, R)
+        del ext
+        b_h = bound_ms(halo_bytes, halo_ops)
+        print(f"  kernel A halo step 4096² s=3..9: {halo_k:.3f} ms ("
+              + ", ".join(f"{v:.3f}" for v in per_halo.values())
+              + f"), plain {halo_p:.3f} ms, bound {b_h[0]:.3f} ({b_h[1]})")
+        m2_name = "M2 sharded_wow 4096² L10 [5, 2] lazy, 1x1x1 mesh"
+        kernels_out.append(dict(
+            name="whiten_step_halo", route="cuda",
+            source="wavelets_tpu_torch/csrc/whiten_step.cu",
+            replaces="wavelets_tpu/ops/pallas_deep.py:514 (halo mode, "
+                     ":545-558; pallas_call :593)",
+            launches=launches.get("whiten_step_halo", 0),
+            main_path_launches=sharded_main[m2_name].get(
+                "whiten_step_halo", 0),
+            max_abs_err=err_halo["white"],
+            carry_max_abs_err=err_halo["carry"],
+            ms=halo_k, plain_ms=halo_p, bound_ms=b_h[0], bound_by=b_h[1],
+            library_ms=None, per_scale_ms=per_halo,
+            timed="M2's band tail: scales 3-9, the 4096² frame extended by "
+                  "2hw·2^s rows a side, one halo step each",
+            library="none: PyTorch has no dilated smooth in one call"))
 
         # kernel B
         med = {}
@@ -2106,6 +2386,7 @@ def main():
                       f"{e.key[:40]} {e.self_device_time_total / 5e3:.3f}"
                       f" (x{e.count // 5})" for e in top))
 
+    dist.destroy_process_group()
     tmp_dir.cleanup()
     require(not raw.exists(), "S5's frame file was not deleted")
 
@@ -2117,6 +2398,7 @@ def main():
         "stack_fps": fps_out,
         "richardson_lucy": rl_out,
         "low_precision": lowp_out,
+        "sharded": sharded_out,
         "kernels": kernels_out,
     }
     print(json.dumps(summary))

@@ -23,7 +23,8 @@ from tests.torch_parity import assert_close_scaled, to_np
 from wavelets_tpu.ops import pallas_conv, pallas_deep
 from wavelets_tpu.ops.filters import B3SPLINE as JB3
 from wavelets_tpu.ops.filters import TRIANGLE as JTRI
-from wavelets_tpu_torch.ops import _build, hopper_deep
+from wavelets_tpu_torch.models import lowp_route
+from wavelets_tpu_torch.ops import _build, hopper_conv, hopper_deep
 from wavelets_tpu_torch.ops.filters import B3SPLINE, TRIANGLE
 
 JW = importlib.import_module("wavelets_tpu.models.wow")
@@ -123,17 +124,109 @@ def test_merged_serving_bitwise_to_its_twin(merged_jax, case):
         np.testing.assert_array_equal(to_np(r_stack[b]), to_np(r_one))
 
 
+def test_merged_wow_matches_jax_bf16_wide():
+    # ROADMAP C1: at 512x4096 L8 the JAX plan pairs (4, 5), whose float32
+    # tori kernel E cannot hold; the port ran 4, (5, 6), 7 and missed the
+    # recon by 0.0112*max.  Now the split pair keeps the JAX rounding.
+    # Reference: JAX's _wow_body_merged in interpret mode (about 17 s).
+    j, t = _pair((512, 4096), 11, mean=0.0)
+    r_j, rows_j = JW._wow_body_merged(
+        j, jnp.asarray(1.0, jnp.bfloat16), True, JB3, 8, (1.0,) * 9,
+        (0.0,) * 9, True, need_planes=True, planes_layout="rows")
+    _build.reset_counters()
+    r_t, planes = TW.wow_core(t, torch.tensor(1.0, dtype=torch.bfloat16),
+                              planes_layout="rows",
+                              **_statics((0.0,) * 9, n=8))
+    assert dict(_build.PLAIN_CALLS) == {"whiten_group_bf16": 1,
+                                        "whiten_step_bf16": 4}
+    scale = float(np.abs(to_np(r_j)).max())
+    assert_close_scaled(r_t, r_j, RTOL)
+    for k in range(9):
+        assert_close_scaled(planes[k], rows_j[k], RTOL, scale)
+
+
+def test_split_pair_bitwise_to_the_pair_plain():
+    # the float32-carry pair: two bfloat16 steps of kernel A's plain
+    # version, the middle carry float32, bitwise the pair's plain version
+    _, t = _pair((2, 256, 384), 5, mean=0.0)
+    acc = torch.randn((2, 256, 384)).to(torch.bfloat16)
+    thr = torch.tensor([[0.4, 0.6], [0.0, 0.3]])
+    for s, masked in ((4, (True, False)), (5, (False, True))):
+        kw = dict(sf=B3SPLINE, scale=s, weights=(1.25, 0.75),
+                  masked=masked)
+        a1, a2 = acc.clone(), acc.clone()
+        _build.reset_counters()
+        got = hopper_deep.deep_whiten_step2_split(t, a1, thr, **kw)
+        assert dict(_build.PLAIN_CALLS) == {"whiten_step_bf16": 2}
+        ref = hopper_deep.deep_whiten_step2_plain(t, a2, thr, **kw)
+        for g, r in zip(got, ref):
+            assert g.dtype == torch.bfloat16
+            np.testing.assert_array_equal(to_np(g), to_np(r))
+
+
+def test_bf16_group_without_tile_runs_plain():
+    # the documented dispatch rule: a bfloat16 group that kernel A's tile
+    # cannot hold runs the plain group body, never deep steps (which
+    # round elsewhere); float32 keeps its deep steps (bitwise there)
+    _, t = _pair((256, 512), 7, mean=0.0)
+    thr = torch.tensor([0.5])
+    assert hopper_conv.group_plan(1, 256, 512, 1, 2, 7, 2) is None
+    _build.reset_counters()
+    rows, acc = hopper_conv.fused_wow_group(t, (1.0,), thr, 1, B3SPLINE,
+                                           offset=7, masked=(True,))
+    assert dict(_build.PLAIN_CALLS) == {"whiten_group_bf16": 1}
+    r_rows, r_acc = hopper_conv.fused_wow_group_plain(
+        t, (1.0,), thr, 1, B3SPLINE, offset=7, masked=(True,))
+    for g, r in zip(rows + (acc,), r_rows + (r_acc,)):
+        np.testing.assert_array_equal(to_np(g), to_np(r))
+    _build.reset_counters()
+    hopper_conv.fused_wow_group(t.float(), (1.0,), thr, 1, B3SPLINE,
+                                offset=7, masked=(True,))
+    assert dict(_build.PLAIN_CALLS) == {"whiten_step": 1}
+
+
+def test_bf16_wide_route_runs_the_jax_groups():
+    # 256x25600 L8: the JAX stream refuses every scale, so JAX merges the
+    # groups (0,4), (4,1), (5,2), (7,1); the port runs them, the deep
+    # groups on the plain group body (no deep step, no pair)
+    _, t = _pair((256, 25600), 9, mean=0.0)
+    _build.reset_counters()
+    r, _ = TW.wow_core(t, torch.tensor(1.0, dtype=torch.bfloat16),
+                       need_planes=False, **_statics((0.0,) * 9, n=8))
+    assert dict(_build.PLAIN_CALLS) == {"whiten_group_bf16": 4}
+    assert r.dtype == torch.bfloat16 and bool(torch.isfinite(r).all())
+
+
 # ---------------------------------------------------------------------
 # (f) the route and its geometry against the JAX plan
 # ---------------------------------------------------------------------
 
 GEOMETRY = [(256, 256), (512, 512), (1024, 1024), (4096, 4096), (256, 512),
             (512, 256), (4096, 1024), (768, 1280), (2048, 4096),
-            (300, 512), (512, 300), (96, 128)]
+            (300, 512), (512, 300), (96, 128),
+            # ROADMAP C1: wide frames, where the JAX stream's and pair
+            # stream's budgets and kernel E's shared memory refuse
+            (512, 4096), (1024, 4096), (1024, 8192), (2048, 8192),
+            (1024, 14080), (4096, 16384), (8192, 16384), (256, 25600)]
+
+
+class _Shape:
+    """A bfloat16 array's shape alone: the JAX gates read no values, and
+    the widest frames here would take 268 MB each as arrays."""
+
+    dtype = jnp.dtype(jnp.bfloat16)
+
+    def __init__(self, shape):
+        self.shape = tuple(shape)
+        self.ndim = len(self.shape)
+
+    def __getitem__(self, key):
+        assert key is None
+        return _Shape((1,) + self.shape)
 
 
 def _jax_tail(H, W, jsf, n_fast, n):
-    probe = jnp.zeros((1, H, W), jnp.bfloat16)
+    probe = _Shape((1, H, W))
     plan, s = [], n_fast
     while s < n:
         if (s + 1 < n and (H >> s) <= 32
@@ -146,13 +239,32 @@ def _jax_tail(H, W, jsf, n_fast, n):
     return plan
 
 
+def _port_tail(H, W, tsf, n_fast, n):
+    """The scales of the port's bfloat16 ``_deep_tail_scales`` and the
+    route of each pair: kernel E where its tori fit, else the split pair
+    (two steps of kernel A with a float32 middle carry)."""
+    probe = torch.empty((1, H, W), dtype=torch.bfloat16, device="meta")
+    plan, routes, s = [], [], n_fast
+    while s < n:
+        if (s + 1 < n and (H >> s) <= 32
+                and TW._lowp_can_pair(H, W, tsf, s)):
+            plan.append((s, s + 1))
+            routes.append("pair" if hopper_deep.can_deep2(probe, tsf, s)
+                          else "split")
+            s += 2
+        else:
+            plan.append(s)
+            s += 1
+    return plan, routes
+
+
 @pytest.mark.parametrize("shape", GEOMETRY)
 @pytest.mark.parametrize("sf", ["b3", "tri"])
 def test_lowp_geometry_matches_jax(shape, sf):
     jsf, tsf = {"b3": (JB3, B3SPLINE), "tri": (JTRI, TRIANGLE)}[sf]
     H, W = shape
-    x_j = jnp.zeros(shape, jnp.bfloat16)
-    x_t = torch.zeros(shape, dtype=torch.bfloat16)
+    x_j = _Shape(shape)
+    x_t = torch.empty(shape, dtype=torch.bfloat16, device="meta")
     ds = JW._deep_start(x_j, jsf)
     assert TW._lowp_deep_start(H, W, tsf) == ds
     for n in (2, 4, 5, 6, 8, 10):
@@ -164,24 +276,34 @@ def test_lowp_geometry_matches_jax(shape, sf):
         if not gate:
             continue
         n_fast = min(n, ds)
-        assert pallas_conv.plan_wow_prefix(H, W, n_fast, jsf.half_width,
-                                           2) == ([(0, n_fast)], n_fast)
-        probe = torch.zeros((1, H, W), dtype=torch.bfloat16)
+        # the JAX plan's groups below the deep start, where the recon rounds
+        assert lowp_route.lowp_groups(H, W, n_fast, tsf.half_width) == \
+            pallas_conv.plan_wow_prefix(H, W, n_fast, jsf.half_width, 2)
         for s in range(n_fast, n):
             assert TW._lowp_can_deep(H, W, tsf, s) == pallas_deep.can_deep(
                 x_j[None], jsf, s, None)
-        ours = []
-        s = n_fast
-        while s < n:
-            if (s + 1 < n and (H >> s) <= 32
-                    and TW._lowp_can_pair(H, W, tsf, s)
-                    and hopper_deep.can_deep2(probe, tsf, s)):
-                ours.append((s, s + 1))
-                s += 2
-            else:
-                ours.append(s)
-                s += 1
-        assert ours == _jax_tail(H, W, jsf, n_fast, n)
+        assert _port_tail(H, W, tsf, n_fast, n)[0] == \
+            _jax_tail(H, W, jsf, n_fast, n)
+
+
+@pytest.mark.parametrize("shape,n,tail,routes,groups", [
+    # ROADMAP C1's table: the JAX tail, and where kernel E's tori do not
+    # fit, the split pair
+    ((512, 4096), 8, [(4, 5), 6, 7], ["split"], [(0, 4)]),
+    ((1024, 4096), 8, [4, (5, 6), 7], ["split"], [(0, 4)]),
+    ((1024, 8192), 8, [4, (5, 6), 7], ["split"], [(0, 4)]),
+    ((2048, 8192), 8, [4, 5, (6, 7)], ["split"], [(0, 4)]),
+    ((2048, 8192), 10, [4, 5, (6, 7), 8, 9], ["split"], [(0, 4)]),
+    ((1024, 14080), 8, [4, 5, 6, 7], [], [(0, 4)]),
+    ((4096, 16384), 10, [4, 5, 6, 7, 8, 9], [], [(0, 4)]),
+    ((8192, 16384), 10, [4, 5, 6, 7, 8, 9], [], [(0, 4)]),
+    ((256, 25600), 8, [], [], [(0, 4), (4, 1), (5, 2), (7, 1)]),
+])
+def test_c1_route_pinned(shape, n, tail, routes, groups):
+    H, W = shape
+    n_fast = min(n, TW._lowp_deep_start(H, W, B3SPLINE))
+    assert lowp_route.lowp_groups(H, W, n_fast, 2) == (groups, n_fast)
+    assert _port_tail(H, W, B3SPLINE, n_fast, n) == (tail, routes)
 
 
 @pytest.mark.parametrize("shape,n,expect", [

@@ -1291,3 +1291,93 @@ def test_bf16_merged_route_raises_without_its_kernel(dev, monkeypatch):
     _build.reset_counters()
     r, _ = wow(h[0], n_scales=6, noise=1.0)
     assert r.dtype == torch.float16 and r.is_cuda and not _build.LAUNCHES
+
+
+# ---------------------------------------------------------------------
+# kernel A's deep step in halo mode (the sharded band tail) and the
+# bfloat16 pair with a float32 middle carry (C1)
+# ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(64, 96), (37, 70)])
+@pytest.mark.parametrize("s", [0, 3, 6])
+@pytest.mark.parametrize("mode", ["soft", "hard", "unmasked"])
+def test_halo_step_kernel_bitwise(dev, shape, s, mode):
+    # 2 bands extended as the sharded engine extends them: every output
+    # bitwise to the plain version, the bands concatenated bitwise to the
+    # frame's deep step
+    from wavelets_tpu_torch.ops.conv import boundary_index
+
+    rng = np.random.default_rng(s)
+    H = shape[0]
+    x = torch.from_numpy(rng.normal(size=(2,) + shape).astype(np.float32))
+    recon = torch.from_numpy(rng.normal(size=(2,) + shape)
+                             .astype(np.float32))
+    x, recon = x.to(dev), recon.to(dev)
+    thr = torch.tensor([0.1, 0.0], device=dev)
+    kw = dict(sf=B3SPLINE, scale=s, weight=1.5, soft=mode == "soft",
+              masked=mode != "unmasked")
+    r_1 = recon.clone()
+    w_1, _, c_1 = hopper_deep.deep_whiten_step(x, r_1, thr, **kw)
+    R = 2 * B3SPLINE.half_width << s
+    hb = -(-H // 2)
+    parts = []
+    for lo in (0, hb):
+        hi = min(H, lo + hb)
+        ext = x.index_select(1, boundary_index(H, lo - R, "symmetric", dev,
+                                               hi - lo + 2 * R)).contiguous()
+        r_k = recon[:, lo:hi].contiguous()
+        r_p = r_k.clone()
+        n0 = _build.LAUNCHES["whiten_step_halo"]
+        out_k = hopper_deep.deep_whiten_step(ext, r_k, thr, halo=R, **kw)
+        out_p = hopper_deep.deep_whiten_step_plain(ext, r_p, thr, halo=R,
+                                                   **kw)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["whiten_step_halo"] == n0 + 1
+        for a, b in zip(out_k, out_p):
+            assert torch.equal(a, b)
+        parts.append(out_k)
+    for k, ref in enumerate((w_1, r_1, c_1)):
+        assert torch.equal(torch.cat([p[k] for p in parts], 1), ref)
+
+
+def test_halo_step_raises_on_bf16(dev):
+    x = torch.zeros((1, 64 + 64, 128), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        hopper_deep.deep_whiten_step(x, None, torch.zeros(1, device=dev),
+                                     sf=B3SPLINE, scale=3, weight=1.0,
+                                     halo=32)
+
+
+@pytest.mark.parametrize("shape,s", [((256, 2048), 4), ((512, 256), 5)])
+def test_bf16_split_pair_bitwise(dev, shape, s):
+    # two launches of kernel A's bfloat16 step, the middle carry float32,
+    # bitwise the pair's plain version
+    rng = np.random.default_rng(s)
+    x = torch.from_numpy(rng.normal(size=(2,) + shape).astype(np.float32))
+    x = x.to(dev).to(torch.bfloat16)
+    acc = torch.zeros_like(x)
+    thr = torch.tensor([[0.4, 0.0], [0.2, 0.6]], device=dev)
+    kw = dict(sf=B3SPLINE, scale=s, weights=(1.25, 0.75),
+              masked=(True, True))
+    a_k, a_p = acc.clone(), acc.clone()
+    n0 = _build.LAUNCHES["whiten_step_bf16"]
+    out_k = hopper_deep.deep_whiten_step2_split(x, a_k, thr, **kw)
+    out_p = hopper_deep.deep_whiten_step2_plain(x, a_p, thr, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["whiten_step_bf16"] == n0 + 2
+    for a, b in zip(out_k, out_p):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b)
+
+
+def test_bf16_group_without_tile_runs_plain_on_the_card(dev):
+    # the documented rule: a bfloat16 group no tile holds runs the plain
+    # group body on the card (no launch), never deep steps
+    x = torch.from_numpy(np.random.default_rng(7).normal(size=(256, 512))
+                         .astype(np.float32)).to(dev).to(torch.bfloat16)
+    thr = torch.tensor([0.5], device=dev)
+    _build.reset_counters()
+    rows, acc = hopper_conv.fused_wow_group(x, (1.0,), thr, 1, B3SPLINE,
+                                           offset=7, masked=(True,))
+    assert not _build.LAUNCHES
+    assert dict(_build.PLAIN_CALLS) == {"whiten_group_bf16": 1}
+    assert rows[0].is_cuda and acc.dtype == torch.bfloat16

@@ -146,7 +146,14 @@ def test_process_stack_matches_jax(stack_file, tmp_path, batch):
 
 
 def test_process_stack_known_noise_and_mesh(stack_file, tmp_path):
-    # the output is wow_stack of each batch as read; a mesh is not ported
+    # the output is wow_stack of each batch as read; on a one-rank mesh
+    # (a gloo group in this process) the sharded engine's stage 1 gives
+    # the same bits (the 4-rank runs: tests/test_torch_parallel.py)
+    import torch.distributed as dist
+
+    from wavelets_tpu_torch.parallel import make_mesh
+    from wavelets_tpu_torch.parallel.mesh import init_distributed
+
     path, frames = stack_file
     kw = dict(n_scales=3, noise=100.0, denoise_coefficients=[3])
     T.process_stack(path, str(tmp_path / "t.raw"), 5, (128, 128), batch=3,
@@ -156,9 +163,15 @@ def test_process_stack_known_noise_and_mesh(stack_file, tmp_path):
                                   with_coefficients=False, device="cpu",
                                   **kw)[0] for b0 in (0, 3)])
     assert torch.equal(torch.from_numpy(got), want)
-    with pytest.raises(NotImplementedError, match="A9"):
+    init_distributed(f"file://{tmp_path / 'rdzv'}", 1, 0, "gloo")
+    try:
         T.process_stack(path, str(tmp_path / "m.raw"), 5, (128, 128),
-                        mesh=object(), device="cpu")
+                        batch=3, mesh=make_mesh(device_type="cpu"), **kw)
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_array_equal(
+        np.fromfile(tmp_path / "m.raw", np.float32).reshape(5, 128, 128),
+        got)
 
 
 CLI = {

@@ -69,9 +69,11 @@ from ..core.transform import (assemble_pieces, decompose_pieces,
 from ..ops import hopper_conv, hopper_deep, hopper_wow
 from ..ops.conv import low_precision, smooth, weak_scalar
 from ..ops.filters import ScalingFunction
-from ..ops.hopper_conv import N_FAST, group_plan
+from ..ops.hopper_conv import N_FAST
 from ..ops.layout import stack_planes
-from ..ops.stats import mad_noise, mad_noise_frames, significance
+from ..ops.stats import (MAD_TO_SIGMA, _div_scalars, mad_noise,
+                         mad_noise_frames, median_abs, significance)
+from . import lowp_route
 
 __all__ = ["wow", "wow_core", "wow_stack", "normalize_wow_params", "N_FAST"]
 
@@ -80,76 +82,12 @@ __all__ = ["wow", "wow_core", "wow_stack", "normalize_wow_params", "N_FAST"]
 #: package's dispatch rule (wavelets_tpu/models/wow.py:219-247)
 PAIR_MAX_CLASS_ROWS = 32
 
-# ---------------------------------------------------------------------
-# The bfloat16 merged route's geometry.  In float32 the kernels are
-# bitwise to the plain chain, so the port chose its own group and deep
-# steps; in bfloat16 the group rounds after every pass, the deep stream
-# only on store and the pair not at its middle carry, so the scales each
-# route takes decide the bits.  These are the parts of the JAX package's
-# plan that do (``_deep_start``, ``plan_wow_prefix``, ``can_deep``,
-# ``can_deep2``; wavelets_tpu/models/wow.py:501-515, ops/pallas_conv.py:
-# 808, ops/pallas_deep.py:98-129, :688-710), without its TPU VMEM budgets
-# (``_stream_rows``, ``_stream2_rows``, ``_plan_tiles``): where only such
-# a budget made the JAX package refuse a kernel (a stream wider than
-# about 25000 columns, a pair wider than about 13800), the port takes its
-# kernel, and its bits may differ from a TPU's there.  The JAX cost model
-# always plans one group of the scales below the first deep one; the port
-# takes that group where kernel A's tile fits, and kernel E where its
-# torus fits the shared memory (else two deep steps, whose middle carry
-# rounds: the bits of scale s+1 may differ from a TPU's there).
-# ---------------------------------------------------------------------
-
-#: the first scale of the JAX deep stream: a mirror of ``hw·2^s`` at
-#: least this many columns (pallas_deep.py:119-123)
-STREAM_MIN_REACH = 32
-
-
-def _stream_rows_ok(H: int, D: int) -> bool:
-    # a stream block height of 32, 16 or 8 rows divides D and H
-    return any(D % t == 0 and H % t == 0 for t in (32, 16, 8))
-
-
-def _lowp_can_deep(H: int, W: int, sf: ScalingFunction, s: int) -> bool:
-    """The JAX ``can_deep`` for a bfloat16 carry (its stream; the
-    BlockSpec fallback is float32 only), budget aside: ``W % 128 == 0``,
-    one reflection (``2hw·D ≤ H``), ``hw·D ≥ 32``, ``D | H`` and
-    ``H/D ≥ 2hw``."""
-    D, hw = 1 << s, sf.half_width
-    return (W % 128 == 0 and 2 * hw * D <= H
-            and hw * D >= STREAM_MIN_REACH and H % D == 0
-            and H // D >= 2 * hw and _stream_rows_ok(H, D))
-
-
-def _lowp_can_pair(H: int, W: int, sf: ScalingFunction, s: int) -> bool:
-    """The JAX ``can_deep2`` for a bfloat16 carry, budget aside:
-    ``W % 128 == 0``, ``hw·D ≥ 32``, ``D | H``, ``H/D ≥ 5hw + 1`` and
-    ``W ≥ 4hw·D``."""
-    D, hw = 1 << s, sf.half_width
-    return (W % 128 == 0 and hw * D >= STREAM_MIN_REACH and H % D == 0
-            and H // D >= 5 * hw + 1 and W >= 4 * hw * D
-            and _stream_rows_ok(H, D))
-
-
-def _lowp_padded_deep(H: int, W: int, sf: ScalingFunction, s: int) -> bool:
-    # the JAX _padded_deep_plan: the stream on the carry padded by the
-    # scale's reach, where the padded area stays under 1.8x
-    D = 1 << s
-    reach = 2 * sf.half_width * D
-    Hp = -(-(H + 2 * reach) // D) * D
-    Wp = -(-(W + 2 * reach) // 128) * 128
-    return Hp * Wp <= 1.8 * H * W and _lowp_can_deep(Hp, Wp, sf, s)
-
-
-def _lowp_deep_start(H: int, W: int, sf: ScalingFunction) -> int:
-    """The first scale the JAX deep stream owns, directly or padded
-    (``_deep_start``): 4 for the B3spline and 5 for the Triangle on a
-    frame of 256-multiple sides."""
-    s = 0
-    while not (_lowp_can_deep(H, W, sf, s) or _lowp_padded_deep(H, W, sf, s)):
-        s += 1
-        if s > 16:
-            return 16
-    return s
+# The bfloat16 merged route's geometry is the JAX plan's, copied as shape
+# predicates (lowp_route.py); the names below are the ones the route and
+# its tests use.
+_lowp_can_deep = lowp_route.lowp_can_deep
+_lowp_can_pair = lowp_route.lowp_can_pair
+_lowp_deep_start = lowp_route.lowp_deep_start
 
 
 def _lowp_merges(data: torch.Tensor, sf: ScalingFunction, n_scales: int,
@@ -157,21 +95,20 @@ def _lowp_merges(data: torch.Tensor, sf: ScalingFunction, n_scales: int,
     """The JAX package's bfloat16 merged gate (wow.py:921-941,
     ``_can_merge_whiten``) on the shape: a bfloat16 frame, or a stack
     with ``need_planes=False``, no lazy masked noise, sides that are
-    multiples of 256, the group of the scales below
-    :func:`_lowp_deep_start` within kernel A's tile, and every deeper scale
-    on the stream (:func:`_lowp_can_deep`).  Float16 never merges: the JAX
-    gate admits float32 and bfloat16 only."""
+    multiples of 256, the JAX group planner covering every scale below
+    :func:`_lowp_deep_start` (:func:`~.lowp_route.lowp_groups`), and
+    every deeper scale on the JAX stream (:func:`_lowp_can_deep`).
+    Float16 never merges: the JAX gate admits float32 and bfloat16
+    only."""
     if data.dtype != torch.bfloat16 or lazy:
         return False
     if data.ndim == 3 and need_planes:
         return False
-    B = data.shape[0] if data.ndim == 3 else 1
     H, W = data.shape[-2:]
     if H % 256 or W % 256:
         return False
     n_fast = min(n_scales, _lowp_deep_start(H, W, sf))
-    if n_fast and group_plan(B, H, W, n_fast, sf.half_width, 0,
-                             data.element_size()) is None:
+    if lowp_route.lowp_groups(H, W, n_fast, sf.half_width)[1] != n_fast:
         return False
     return all(_lowp_can_deep(H, W, sf, s) for s in range(n_fast, n_scales))
 
@@ -297,9 +234,11 @@ def _deep_tail_scales(carry, recon, thr_of, sf, start, n_scales, weights,
     s ≤ 32`` and kernel E's gate admits the shape; elsewhere, and where
     the gate refuses, each scale is one ``deep_whiten_step`` (kernel A),
     the JAX package's rule when ``can_deep2`` is false
-    (wavelets_tpu/ops/pallas_deep.py:688-710); a carry below float32 also
-    needs the JAX pair gate (:func:`_lowp_can_pair`), since there the pair
-    and two steps round differently.  ``kernels`` selects the
+    (wavelets_tpu/ops/pallas_deep.py:688-710).  A carry below float32
+    pairs where the JAX pair gate does (:func:`_lowp_can_pair`), since
+    there the pair and two steps round differently: on kernel E, or
+    where its tori do not fit, on ``deep_whiten_step2_split`` (two steps
+    of kernel A with a float32 middle carry).  ``kernels`` selects the
     wrappers over their plain versions.  ``carry`` and ``recon`` are one
     frame ``(H, W)`` or a stack ``(B, H, W)`` with ``thr_of(s)`` per frame
     ``(B,)``.  Returns ``(rows, residual)``."""
@@ -307,6 +246,8 @@ def _deep_tail_scales(carry, recon, thr_of, sf, start, n_scales, weights,
             else hopper_deep.deep_whiten_step_plain)
     pair = (hopper_deep.deep_whiten_step2 if kernels
             else hopper_deep.deep_whiten_step2_plain)
+    split = (hopper_deep.deep_whiten_step2_split if kernels
+             else hopper_deep.deep_whiten_step2_split_plain)
     bil_step = (hopper_deep.deep_bilateral_whiten_step if kernels
                 else hopper_deep.deep_bilateral_whiten_step_plain)
     batched = carry.ndim == 3
@@ -332,12 +273,16 @@ def _deep_tail_scales(carry, recon, thr_of, sf, start, n_scales, weights,
                 rows.append(row(white))
             s += 1
             continue
+        fits = hopper_deep.can_deep2(carry, sf, s)
         if (s + 1 < n_scales
                 and (carry.shape[-2] >> s) <= PAIR_MAX_CLASS_ROWS
-                and hopper_deep.can_deep2(carry, sf, s)
-                and (not low_precision(carry.dtype)
-                     or _lowp_can_pair(*carry.shape[-2:], sf, s))):
-            w1, w2, _, carry = pair(
+                and (_lowp_can_pair(*carry.shape[-2:], sf, s)
+                     if low_precision(carry.dtype) else fits)):
+            # below float32 the JAX pair's rounding: kernel E, or where its
+            # float32 tori do not fit, two steps with a float32 middle carry
+            run = (pair if fits or not low_precision(carry.dtype)
+                   else split)
+            w1, w2, _, carry = run(
                 carry, acc, torch.stack([thr_of(s), thr_of(s + 1)])
                 .reshape(2, -1), sf=sf, scale=s,
                 weights=(weights[s], weights[s + 1]), soft=soft_threshold,
@@ -376,15 +321,18 @@ def _residual_std(residual, batched=False):
 
 
 def _gamma_blend(recon, gamma_scaled, gamma, gamma_min, gamma_max, h,
-                 batched=False):
+                 batched=False, rops=None):
     """Gamma-blend tone mapping (watroo/utils.py:205-217), its bounds per
-    frame with ``batched``."""
+    frame with ``batched``, or from ``rops`` (the sharded engine's
+    collectives) where given."""
     def bound(fn):
         return _frame_bcast(_per_frame(fn, gamma_scaled, batched), batched)
 
-    gmin = (bound(torch.min) if gamma_min is None
+    gmin = ((rops.min(gamma_scaled) if rops else bound(torch.min))
+            if gamma_min is None
             else torch.tensor(gamma_min, dtype=recon.dtype))
-    gmax = (bound(torch.max) if gamma_max is None
+    gmax = ((rops.max(gamma_scaled) if rops else bound(torch.max))
+            if gamma_max is None
             else torch.tensor(gamma_max, dtype=recon.dtype))
     gs = (gamma_scaled - gmin) / (gmax - gmin)
     gs = torch.clamp(gs, 0.0, 1.0) ** weak_scalar(1.0 / gamma, gs.dtype)
@@ -423,21 +371,31 @@ def _wow_body_merged(data, noise, has_noise, sf, n_scales, weights,
         noise = noise.float()
     thr_of = _threshold_fn(noise, sigma_e, denoise_coefficients)
 
-    n_fast = min(n_scales,
-                 _lowp_deep_start(*data.shape[-2:], sf) if lowp else N_FAST)
+    if lowp:
+        # the JAX plan's groups below its deep start: where the recon
+        # rounds (a group sums its whites in float32 and rounds once)
+        n_fast = min(n_scales, _lowp_deep_start(*data.shape[-2:], sf))
+        groups = lowp_route.lowp_groups(*data.shape[-2:], n_fast,
+                                        sf.half_width)[0]
+    else:
+        n_fast = min(n_scales, N_FAST)
+        groups = [(0, n_fast)] if n_fast else []
     out_rows, recon, carry = [], None, data
-    if n_fast:
-        rows, recon = group(
-            data, weights[:n_fast],
-            torch.stack([thr_of(k) for k in range(n_fast)]), n_fast, sf,
-            offset=0, soft=soft_threshold,
-            masked=tuple(denoise_coefficients[k] != 0
-                         for k in range(n_fast)),
+    for off, g in groups:
+        rows, acc = group(
+            carry, weights[off:off + g],
+            torch.stack([thr_of(off + k) for k in range(g)]), g, sf,
+            offset=off, soft=soft_threshold,
+            masked=tuple(denoise_coefficients[off + k] != 0
+                         for k in range(g)),
             need_cube=need_planes)
         out_rows.extend(rows[:-1])
+        carry = rows[-1]
+        recon = acc if recon is None else recon + acc
+    if n_fast:
         # recon accumulates in place inside the deep steps
         deep_rows, carry = _deep_tail_scales(
-            rows[-1], recon, thr_of, sf, n_fast, n_scales, weights,
+            carry, recon, thr_of, sf, n_fast, n_scales, weights,
             denoise_coefficients, soft_threshold, kernels, need_planes)
         out_rows.extend(deep_rows)
 
@@ -567,19 +525,55 @@ def _wow_body_fused(pieces, layout, tail, noise, has_noise, sf, n_scales,
     return recon, stack_planes(out_rows)
 
 
+class LocalReduceOps:
+    """The single-device global reductions of :func:`_wow_body` over a
+    whole plane (JAX ``LocalReduceOps``); the sharded engine substitutes
+    collective ones (``parallel.sharded.ShardedReduceOps``), so the body
+    is written once for both.  ``fuse`` sends the median through kernel
+    B's wrapper, else its plain version."""
+
+    def __init__(self, fuse: bool = True):
+        self.fuse = fuse
+
+    def median_abs(self, x):
+        return median_abs(x, self.fuse)
+
+    def mean(self, x):
+        return torch.mean(x)
+
+    def std(self, x):
+        return _pop_std(x)
+
+    def min(self, x):
+        return torch.min(x)
+
+    def max(self, x):
+        return torch.max(x)
+
+
 def _wow_body(planes, noise, has_noise, sf, n_scales, weights, whitening,
               denoise_coefficients, soft_threshold, preserve_variance, gamma,
               gamma_min, gamma_max, h, fuse=True, planes_layout="cube",
-              bilateral=False):
+              bilateral=False, smooth_fn=None, rops=None, n_dim=None):
     """The per-scale whitening loop (watroo/utils.py:157-219) over the
     coefficient cube ``(n_scales+1, H, W)`` in plain PyTorch; the lazy
     MAD noise goes through kernel B's wrapper unless ``fuse=False``.
-    ``bilateral`` is a flag: it selects the bilateral σ_e table."""
-    sigma_e = sf.sigma_e(planes.ndim - 1, bilateral)
+    ``bilateral`` is a flag: it selects the bilateral σ_e table.
+    ``smooth_fn(x, s)``, ``rops`` (the reductions) and ``n_dim`` (the
+    σ_e table's dimensionality) default to the single-device ones; the
+    sharded engine passes halo-exchange smoothing and collective
+    reductions over a block's planes ``(n_scales+1, [B,] h, w)``."""
+    if smooth_fn is None:
+        smooth_fn = lambda x, s: smooth(x, sf, scale=s)  # noqa: E731
+    if rops is None:
+        rops = LocalReduceOps(fuse)
+    sigma_e = sf.sigma_e(planes.ndim - 1 if n_dim is None else n_dim,
+                         bilateral)
     if not has_noise and any(
         d != 0 for d in denoise_coefficients[:n_scales]
     ):
-        noise = mad_noise(planes[0], float(sigma_e[0]), fuse=fuse)
+        noise = _div_scalars(rops.median_abs(planes[0]), MAD_TO_SIGMA,
+                             float(sigma_e[0]))
     one = torch.ones((), dtype=planes.dtype)
     gamma_scaled = torch.zeros_like(planes[0]) if h > 0 else None
     out_planes = []
@@ -587,16 +581,19 @@ def _wow_body(planes, noise, has_noise, sf, n_scales, weights, whitening,
         c = planes[s]
         power = c * c
         if preserve_variance:
-            power_norm = (_pop_std(c) if s == n_scales
-                          else torch.sqrt(torch.mean(power)))
+            power_norm = (rops.std(c) if s == n_scales
+                          else torch.sqrt(rops.mean(power)))
         else:
             power_norm = one
         if s == n_scales:
-            local_power = (_residual_std(c)[1] if whitening and h < 1
-                           else one)
+            if whitening and h < 1:
+                lp = rops.std(c)
+                local_power = torch.where(lp <= 0, 1e-15, lp)
+            else:
+                local_power = one
         else:
             if whitening and h < 1:
-                lp = smooth(power, sf, scale=s)
+                lp = smooth_fn(power, s)
                 local_power = torch.sqrt(torch.where(lp <= 0, 1e-15, lp))
             else:
                 local_power = one
@@ -619,7 +616,7 @@ def _wow_body(planes, noise, has_noise, sf, n_scales, weights, whitening,
         recon = synthesize(out)
     if h > 0:
         recon = _gamma_blend(recon, gamma_scaled, gamma, gamma_min,
-                             gamma_max, h)
+                             gamma_max, h, rops=rops)
     return recon, out
 
 

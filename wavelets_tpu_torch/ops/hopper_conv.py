@@ -202,7 +202,8 @@ def step_smem(W: int, D: int, hw: int, seg: int) -> int:
     return 4 * (2 * seg + 2 * hw * min(map_step(D, W), seg))
 
 
-def step_plan(B: int, H: int, W: int, D: int, hw: int) -> StepPlan:
+def step_plan(B: int, H: int, W: int, D: int, hw: int,
+              src_rows: int = 0) -> StepPlan:
     """The row-buffer pass's launch on the card, from the shape, the true
     dilation and the half width of the taps: whole rows where two rows
     fit the shared memory beside the static tap-row table
@@ -210,10 +211,13 @@ def step_plan(B: int, H: int, W: int, D: int, hw: int) -> StepPlan:
     :data:`STEP_SEGS` whose buffer fits (at any dilation: past the
     segment the buffer holds the tap windows only); raises where the
     taps' reach (:func:`map_step`) passes 32-bit index math, a side
-    reaches 2^30 or a row more than 65535 segments (2^28 columns)."""
+    reaches 2^30 or a row more than 65535 segments (2^28 columns).
+    ``src_rows`` is halo mode (kernel A's deep step on a pre-extended
+    band): the ``H`` output rows read a source of ``src_rows`` rows a
+    frame at the true dilation, without reflection."""
     if not 1 <= D < 2 ** 63:
         raise ValueError(f"step_plan: dilation {D} not in 1..2^62")
-    if max(H, W) >= 2 ** 30:
+    if max(H, W, src_rows) >= 2 ** 30:
         raise ValueError(f"step_plan: a {H}x{W} frame passes 32-bit "
                          "index math (2^30 a side)")
     budget = SMEM_OPTIN - STEP_STATIC_SMEM
@@ -221,8 +225,10 @@ def step_plan(B: int, H: int, W: int, D: int, hw: int) -> StepPlan:
         seg = 0
     else:
         seg = next(s for s in STEP_SEGS if step_smem(W, D, hw, s) <= budget)
-    Dr, Dc = map_step(D, H), map_step(D, W)
-    if max(H + hw * Dr, W + seg + hw * Dc) >= 2 ** 31:
+    Dr = D if src_rows else map_step(D, H)
+    Dc = map_step(D, W)
+    Hi = max(H, src_rows)
+    if max(Hi + hw * Dr, W + seg + hw * Dc) >= 2 ** 31:
         raise ValueError(f"step_plan: the taps of a {H}x{W} frame at "
                          f"dilation {D} reach past 32-bit index math "
                          "(2^31)")
@@ -233,19 +239,39 @@ def step_plan(B: int, H: int, W: int, D: int, hw: int) -> StepPlan:
         raise ValueError(f"step_plan: {grid[1]} segments of a {W}-column "
                          "row pass the grid's 65535")
     return StepPlan(seg, step_smem(W, D, hw, seg), grid,
-                    32 if frames * H * W < 2 ** 31 else 64)
+                    32 if frames * Hi * W < 2 ** 31 else 64)
+
+
+#: kernel A's deep-step entries by (carry, c_next) dtype: the float32 and
+#: bfloat16 forms, and the two halves of the bfloat16 pair with a float32
+#: middle carry (hopper_deep.deep_whiten_step2_split)
+_STEP_ENTRIES = {
+    (torch.float32, torch.float32): "wt_whiten_step_f32",
+    (torch.bfloat16, torch.bfloat16): "wt_whiten_step_bf16",
+    (torch.bfloat16, torch.float32): "wt_whiten_step_bf16_f32next",
+    (torch.float32, torch.bfloat16): "wt_whiten_step_bf16_f32carry",
+}
+# pointers, acc_mode, thr, fac, masked, soft, taps, n_taps
+_STEP_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p,
+              ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+              ctypes.c_int])
+# a plan: seg, grid rows, grid segments, frames, shared bytes; index bits
+_PLAN_ARGS = [ctypes.c_longlong] * 5 + [ctypes.c_int]
 
 
 def _lib():
     lib = _build.load(KERNEL)
-    for sfx in ("f32", "bf16"):
-        fn = getattr(lib, f"wt_whiten_step_{sfx}")
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
-                       + [ctypes.c_longlong] * 9
-                       + [ctypes.c_int, ctypes.c_void_p])
+    for entry in _STEP_ENTRIES.values():
+        fn = getattr(lib, entry)
+        # B, H, W, D, then the plan
+        fn.argtypes = (_STEP_ARGS + [ctypes.c_longlong] * 4 + _PLAN_ARGS
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    fn = lib.wt_whiten_step_halo_f32
+    # B, H, W, D, halo, then the two passes' plans
+    fn.argtypes = (_STEP_ARGS + [ctypes.c_longlong] * 5 + _PLAN_ARGS * 2
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
     return lib
 
 
@@ -284,14 +310,23 @@ def launch_whiten_step(carry, c_next, detail, white, acc, acc_mode, thr,
                        fac, masked, soft, sf, scale) -> None:
     """One scale of kernel A's deep form (two launches) on ``(B, H, W)``
     CUDA tensors, float32 or (the bfloat16 form) a bfloat16 carry,
-    c_next, white and acc; ``detail`` is float32 scratch that the caller
-    holds by name until the launches are queued, ``thr`` float32.  The
-    launch counter is incremented here and nowhere else."""
+    c_next, white and acc, or one half of the bfloat16 pair with a
+    float32 middle carry (a float32 ``c_next`` or carry beside bfloat16
+    white and acc, :data:`_STEP_ENTRIES`); ``detail`` is float32 scratch
+    that the caller holds by name until the launches are queued, ``thr``
+    float32.  The launch counter, the white's dtype's, is incremented here
+    and nowhere else."""
     lib = _lib()
     B, H, W = carry.shape
     plan = step_plan(B, H, W, 1 << scale, sf.half_width)
     taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
-    entry = getattr(lib, f"wt_whiten_step_{_build.dtype_suffix(carry.dtype)}")
+    store = (white if white is not None else acc if acc is not None
+             else c_next).dtype
+    if carry.dtype != store and c_next.dtype != store:
+        raise TypeError("launch_whiten_step: carry, c_next and the stores "
+                        "must share a dtype, bar the pair's float32 "
+                        "middle carry")
+    entry = getattr(lib, _STEP_ENTRIES[(carry.dtype, c_next.dtype)])
     code = entry(
         _ptr(carry), _ptr(c_next), _ptr(detail), _ptr(white), _ptr(acc),
         int(acc_mode), _ptr(thr), float(fac), int(bool(masked)),
@@ -299,7 +334,7 @@ def launch_whiten_step(carry, c_next, detail, white, acc, acc_mode, thr,
         plan.grid[0], plan.grid[1], plan.grid[2], plan.smem_bytes,
         plan.index_bits, _build.stream_ptr(carry.device))
     _build.check(lib, code, "whiten_step")
-    _build.LAUNCHES[_build.counter(KERNEL, carry.dtype)] += 1
+    _build.LAUNCHES[_build.counter(KERNEL, store)] += 1
 
 
 def whiten_detail_plain(c: torch.Tensor, fac, thr, sf: ScalingFunction,
@@ -435,13 +470,23 @@ def fused_wow_group(x: torch.Tensor, factors: Sequence[float], thresholds,
     bfloat16 ``x``; :func:`fused_wow_group_plain` on a CPU ``x``); where
     none fits (the float32 B3spline from offset 2 at g = 3), one
     :func:`~.hopper_deep.deep_whiten_step` per scale (kernel A's deep
-    form on a CUDA ``x``, its plain version on a CPU ``x``).  A CUDA
-    ``x`` the kernels cannot take (float16, float64) raises."""
+    form on a CUDA ``x``, its plain version on a CPU ``x``), bitwise the
+    group in float32.  A bfloat16 group no tile holds (the JAX plan's
+    deep groups of a frame wider than its stream's budget, 256×25600)
+    runs :func:`fused_wow_group_plain` on any device, the JAX group's
+    rounding.  A CUDA ``x`` the kernels cannot take (float16, float64)
+    raises."""
     from .hopper_deep import deep_whiten_step
     batched, xb, factors, masked, thr = _group_args(
         x, factors, thresholds, g, masked)
     B, H, W = xb.shape
     plan = group_plan(B, H, W, g, sf.half_width, offset, x.element_size())
+    if plan is None and low_precision(x.dtype):
+        # a documented dispatch rule, as float64 runs plain: below float32
+        # the deep steps would round elsewhere than the JAX group (after
+        # every pass), so a group no tile holds runs the plain group body
+        return fused_wow_group_plain(x, factors, thresholds, g, sf, offset,
+                                     soft, masked, need_cube)
     if plan is None:
         rows, acc, cur = [], None, xb
         for k in range(g):

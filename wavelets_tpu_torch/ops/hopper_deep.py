@@ -1,7 +1,7 @@
 """The deep WOW scales: one scale, a scale pair, one given plane.
 
 Counterpart of ``wavelets_tpu/ops/pallas_deep.py`` (signatures minus
-``interpret`` and ``halo``):
+``interpret``):
 
 * :func:`deep_whiten_step` — one scale from the carry, on kernel A's
   deep form (``csrc/whiten_step.cu``): two launches, each a rows fold
@@ -9,7 +9,16 @@ Counterpart of ``wavelets_tpu/ops/pallas_deep.py`` (signatures minus
   writing ``c_next`` and the detail, the second the white and ``recon``
   (launch sizes: :func:`~.hopper_conv.step_plan`).  The shallow scales'
   group tile (``csrc/whiten_group.cu``) cannot hold a deep scale's halo,
-  as on the TPU.
+  as on the TPU.  ``halo=R`` is the JAX kernel's halo mode, which only
+  the sharded engine's band tail runs (``parallel/sharded.py``): the
+  carry is a row band extended by ``R = 2·hw·2^scale`` rows a side, read
+  without row reflection, and the outputs are its interior rows
+  (counter ``whiten_step_halo``, float32 only, as the JAX package's
+  sharded gate sends it).
+* :func:`deep_whiten_step2_split` — the bfloat16 pair ``(s, s+1)`` as
+  two launches of kernel A's bfloat16 deep step with the middle carry
+  stored in float32: the JAX pair's rounding where kernel E's float32
+  tori do not fit the shared memory.
 * :func:`deep_whiten_step2` — scales ``(s, s+1)`` from the carry in one
   launch of kernel E (``csrc/whiten_pair.cu``), the middle carry kept in
   shared memory, the torus loaded and stored in whole 32-byte sectors by
@@ -59,25 +68,28 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .conv import bilateral_smooth, widen
+from .conv import bilateral_smooth, low_precision, separable_smooth_axis, widen
 from .filters import ScalingFunction
 from .hopper_bilateral import MAX_HW, bilateral_plan, kernel_weights
-from .hopper_conv import (KERNEL, SMEM_OPTIN, _ptr,
+from .hopper_conv import (KERNEL, SMEM_OPTIN, _lib as _lib_step, _ptr,
                           check_kernel_input, launch_whiten_step, step_plan,
                           threshold_dtype, whiten_detail_plain,
-                          whiten_scale_plain)
+                          whiten_power_plain, whiten_scale_plain)
 from .hopper_wow import KERNEL as PLANE_KERNEL
 from .hopper_wow import launch_whiten_plane, launch_whiten_plane_ref
 
 __all__ = ["deep_whiten_step", "deep_whiten_step_plain", "can_deep2",
-           "PairPlan", "pair_plan",
+           "halo_step_plans", "PairPlan", "pair_plan",
            "deep_whiten_step2", "deep_whiten_step2_plain",
+           "deep_whiten_step2_split", "deep_whiten_step2_split_plain",
            "deep_whiten_plane", "deep_whiten_plane_plain",
            "deep_whiten_plane_ref",
            "can_deep_bilateral", "deep_bilateral_whiten_step",
            "deep_bilateral_whiten_step_plain",
            "deep_bilateral_whiten_step_ref"]
 
+#: the launch counter of kernel A's deep step in halo mode
+HALO_KERNEL = "whiten_step_halo"
 PAIR_KERNEL = "whiten_pair"
 BILATERAL_KERNEL = "bilateral_step"
 #: the launch counter of kernel G's check-only reference entry
@@ -99,33 +111,150 @@ def _check_args(carry, recon, write_plane, what="deep_whiten_step"):
         raise ValueError(f"{what}: recon must match the carry")
 
 
-def deep_whiten_step_plain(carry: torch.Tensor,
-                           recon: Optional[torch.Tensor],
-                           threshold: torch.Tensor, *, sf: ScalingFunction,
-                           scale: int, weight: float, soft: bool = True,
-                           masked: bool = False, write_plane: bool = True):
-    """Plain PyTorch version of :func:`deep_whiten_step` (any dtype or
-    device; below float32 the bfloat16 form's rounding); like the kernel
-    it adds into ``recon`` in place."""
-    _build.PLAIN_CALLS[_build.counter(KERNEL, carry.dtype)] += 1
+def _halo_rows(carry: torch.Tensor, halo: int, sf: ScalingFunction,
+               scale: int) -> int:
+    """The interior rows of a halo-mode carry, after checking ``halo``
+    (the JAX assertion, pallas_deep.py:555-557), the dtype and taps."""
+    if halo != 2 * sf.half_width * (1 << scale):
+        raise ValueError(f"deep_whiten_step: halo mode requires halo == "
+                         f"2*hw*2^scale = {2 * sf.half_width << scale}, "
+                         f"got {halo}")
+    if low_precision(carry.dtype):
+        raise TypeError("deep_whiten_step: halo mode is float32 only, as "
+                        "the JAX package's sharded gate sends it (stage 2 "
+                        "takes float32 frames, parallel/sharded.py)")
+    if not sf.is_symmetric:
+        raise ValueError("deep_whiten_step: halo mode folds symmetric taps")
+    H = carry.shape[-2] - 2 * halo
+    if carry.ndim != 3 or H < 1:
+        raise ValueError(f"deep_whiten_step: a halo-mode carry is (B, H + "
+                         f"2*{halo}, W) with H >= 1, got {tuple(carry.shape)}")
+    return H
+
+
+def _check_halo_recon(carry, recon, H, write_plane):
+    if recon is None and not write_plane:
+        raise ValueError("deep_whiten_step: recon=None needs write_plane")
+    if recon is not None and tuple(recon.shape) != (carry.shape[0], H,
+                                                    carry.shape[2]):
+        raise ValueError("deep_whiten_step: in halo mode recon covers the "
+                         "carry's interior rows")
+
+
+def _rows_fold(x: torch.Tensor, taps, D: int, off: int,
+               n: int) -> torch.Tensor:
+    """Rows ``off .. off+n−1`` of the rows fold of ``x`` at dilation
+    ``D``, every tap read inside ``x`` (no reflection), in the fold order
+    of :func:`~.conv.separable_smooth_axis`."""
+    hw = (len(taps) - 1) // 2
+
+    def rows(o):
+        return x[..., off + o:off + o + n, :]
+
+    out = rows(0) * taps[hw]
+    for j in range(1, hw + 1):
+        out = out + taps[hw + j] * (rows(-j * D) + rows(j * D))
+    return out
+
+
+def _step_halo_plain(carry, recon, thr, sf, scale, weight, soft, masked,
+                     write_plane, halo):
+    H = _halo_rows(carry, halo, sf, scale)
+    _check_halo_recon(carry, recon, H, write_plane)
+    D, r = 1 << scale, halo // 2
+    # the detail of the interior and of hw·D rows either side, which the
+    # power smooth reads; columns reflect at the band's full width
+    c_ext = separable_smooth_axis(_rows_fold(carry, sf.taps, D, r, H + halo),
+                                  sf.taps, scale, -1, "symmetric")
+    detail = carry[..., r:r + H + halo, :] - c_ext
+    lp = separable_smooth_axis(_rows_fold(detail * detail, sf.taps, D, r, H),
+                               sf.taps, scale, -1, "symmetric")
+    white, _ = whiten_power_plain(detail[..., r:r + H, :], lp, weight, thr,
+                                  soft, masked)
+    if recon is not None:
+        recon.add_(white)
+    return (white if write_plane else None), recon, c_ext[..., r:r + H, :]
+
+
+def _step_plain(carry, recon, threshold, sf, scale, weight, soft, masked,
+                write_plane, store, nxt):
+    """Plain kernel A deep step: the folds in float32 from the carry (any
+    dtype), the white and ``recon`` stored as ``store``, ``c_next`` as
+    ``nxt``, counted under the store's counter."""
+    _build.PLAIN_CALLS[_build.counter(KERNEL, store)] += 1
     _check_args(carry, recon, write_plane)
-    thr = torch.as_tensor(threshold, dtype=threshold_dtype(carry.dtype),
+    thr = torch.as_tensor(threshold, dtype=threshold_dtype(store),
                           device=carry.device).reshape(-1)
     thr = thr.expand(carry.shape[0])[:, None, None]
     # below float32 in float32 from the carry, rounded on store, as the
     # JAX package's low-precision stream does
     white, c_next = whiten_scale_plain(widen(carry), thr, weight, sf, scale,
                                        soft, masked)
-    white, c_next = white.to(carry.dtype), c_next.to(carry.dtype)
+    white, c_next = white.to(store), c_next.to(nxt)
     if recon is not None:
         recon.add_(white)
     return (white if write_plane else None), recon, c_next
 
 
+def deep_whiten_step_plain(carry: torch.Tensor,
+                           recon: Optional[torch.Tensor],
+                           threshold: torch.Tensor, *, sf: ScalingFunction,
+                           scale: int, weight: float, soft: bool = True,
+                           masked: bool = False, write_plane: bool = True,
+                           halo: int = 0):
+    """Plain PyTorch version of :func:`deep_whiten_step` (any dtype or
+    device; below float32 the bfloat16 form's rounding; halo mode in
+    float32 and float64); like the kernel it adds into ``recon`` in
+    place."""
+    if halo:
+        _build.PLAIN_CALLS[HALO_KERNEL] += 1
+        thr = torch.as_tensor(threshold, dtype=carry.dtype,
+                              device=carry.device).reshape(-1)
+        return _step_halo_plain(
+            carry, recon, thr.expand(carry.shape[0])[:, None, None], sf,
+            scale, weight, soft, masked, write_plane, halo)
+    return _step_plain(carry, recon, threshold, sf, scale, weight, soft,
+                       masked, write_plane, carry.dtype, carry.dtype)
+
+
+def halo_step_plans(B: int, H: int, W: int, scale: int, hw: int):
+    """The plans of kernel A's two passes in halo mode on a band of ``H``
+    interior rows: the first over the ``H + R`` rows whose detail the
+    power smooth reads (source ``H + 2R`` rows), the second over the
+    interior (source the ``H + R`` detail rows), ``R = 2·hw·2^scale``."""
+    D = 1 << scale
+    R = 2 * hw * D
+    return (step_plan(B, H + R, W, D, hw, src_rows=H + 2 * R),
+            step_plan(B, H, W, D, hw, src_rows=H + R))
+
+
+def _launch_step_halo(carry, c_next, detail, white, recon, thr, weight,
+                      masked, soft, sf, scale, halo):
+    lib = _lib_step()
+    B, _, W = carry.shape
+    H = c_next.shape[1]
+    p1, p2 = halo_step_plans(B, H, W, scale, sf.half_width)
+    taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
+
+    def plan_args(p):
+        return (p.seg, p.grid[0], p.grid[1], p.grid[2], p.smem_bytes,
+                p.index_bits)
+
+    code = lib.wt_whiten_step_halo_f32(
+        _ptr(carry), _ptr(c_next), _ptr(detail), _ptr(white), _ptr(recon),
+        0 if recon is None else 2, _ptr(thr), float(weight),
+        int(bool(masked)), int(bool(soft)), taps, len(sf.taps), B, H, W,
+        1 << scale, halo, *plan_args(p1), *plan_args(p2),
+        _build.stream_ptr(carry.device))
+    _build.check(lib, code, "whiten_step_halo")
+    _build.LAUNCHES[HALO_KERNEL] += 1
+
+
 def deep_whiten_step(carry: torch.Tensor, recon: Optional[torch.Tensor],
                      threshold: torch.Tensor, *, sf: ScalingFunction,
                      scale: int, weight: float, soft: bool = True,
-                     masked: bool = False, write_plane: bool = True):
+                     masked: bool = False, write_plane: bool = True,
+                     halo: int = 0):
     """One WOW scale at dilation ``2^scale``: returns ``(white, recon',
     c_next)`` where ``c_next`` is the next scale's carry.
 
@@ -136,28 +265,106 @@ def deep_whiten_step(carry: torch.Tensor, recon: Optional[torch.Tensor],
     ``white`` an out-of-place sum would cost; ``white`` is None when
     ``write_plane=False`` (then ``recon`` is required).  A CPU carry runs
     :func:`deep_whiten_step_plain`; a float32 or bfloat16 CUDA carry
-    runs kernel A's deep form in that dtype; any other raises."""
+    runs kernel A's deep form in that dtype; any other raises.
+
+    ``halo > 0`` is halo mode (the sharded engine's band tail): ``carry``
+    is ``(B, H + 2·halo, W)``, a band extended by its neighbours' rows or
+    the image's reflection, ``halo == 2·hw·2^scale``; rows are read
+    without reflection, columns reflect as ever, and ``white``,
+    ``recon`` and ``c_next`` cover the ``H`` interior rows.  Float32
+    only (a bfloat16 carry raises: the JAX package's stage-2 gate sends
+    float32 alone), on kernel A's halo entry on the card (counter
+    ``whiten_step_halo``)."""
     if not carry.is_cuda:
         return deep_whiten_step_plain(
             carry, recon, threshold, sf=sf, scale=scale, weight=weight,
-            soft=soft, masked=masked, write_plane=write_plane)
-    check_kernel_input(carry, sf, "deep_whiten_step", bf16=True)
-    _check_args(carry, recon, write_plane)
+            soft=soft, masked=masked, write_plane=write_plane, halo=halo)
+    check_kernel_input(carry, sf, "deep_whiten_step", bf16=not halo)
+    if halo:
+        H = _halo_rows(carry, halo, sf, scale)
+        _check_halo_recon(carry, recon, H, write_plane)
+        out_shape = (carry.shape[0], H, carry.shape[2])
+        detail_shape = (carry.shape[0], H + halo, carry.shape[2])
+    else:
+        _check_args(carry, recon, write_plane)
+        out_shape = detail_shape = carry.shape
     if recon is not None:
         _check_same_dtype(carry, recon, "deep_whiten_step")
         check_kernel_input(recon, sf, "deep_whiten_step", bf16=True)
     thr = torch.as_tensor(threshold, dtype=torch.float32,
                           device=carry.device).reshape(-1)
     thr = thr.expand(carry.shape[0]).contiguous()
-    white = torch.empty_like(carry) if write_plane else None
-    c_next = torch.empty_like(carry)
+    white = (torch.empty(out_shape, dtype=carry.dtype, device=carry.device)
+             if write_plane else None)
+    c_next = torch.empty(out_shape, dtype=carry.dtype, device=carry.device)
     # float32 scratch, held by name until the launches are queued
-    detail = torch.empty(carry.shape, dtype=torch.float32,
+    detail = torch.empty(detail_shape, dtype=torch.float32,
                          device=carry.device)
-    launch_whiten_step(carry, c_next, detail, white, recon,
-                       0 if recon is None else 2, thr, weight, masked, soft,
-                       sf, scale)
+    if halo:
+        _launch_step_halo(carry, c_next, detail, white, recon, thr, weight,
+                          masked, soft, sf, scale, halo)
+    else:
+        launch_whiten_step(carry, c_next, detail, white, recon,
+                           0 if recon is None else 2, thr, weight, masked,
+                           soft, sf, scale)
     return white, recon, c_next
+
+
+def deep_whiten_step2_split_plain(carry: torch.Tensor,
+                                  recon: torch.Tensor, thresholds, *,
+                                  sf: ScalingFunction, scale: int, weights,
+                                  soft: bool = True, masked=(False, False),
+                                  write_plane: bool = True):
+    """Plain PyTorch version of :func:`deep_whiten_step2_split`: two plain
+    steps, the middle carry kept in float32 (bitwise
+    :func:`deep_whiten_step2_plain`), counted as two plain calls of the
+    bfloat16 step."""
+    thr = _pair_args(carry, recon, thresholds, weights, masked, write_plane)
+    w1, _, mid = _step_plain(carry, recon, thr[0], sf, scale,
+                             float(weights[0]), soft, bool(masked[0]),
+                             write_plane, carry.dtype, torch.float32)
+    w2, _, c_next = _step_plain(mid, recon, thr[1], sf, scale + 1,
+                                float(weights[1]), soft, bool(masked[1]),
+                                write_plane, carry.dtype, carry.dtype)
+    return w1, w2, recon, c_next
+
+
+def deep_whiten_step2_split(carry: torch.Tensor, recon: torch.Tensor,
+                            thresholds, *, sf: ScalingFunction, scale: int,
+                            weights, soft: bool = True,
+                            masked=(False, False), write_plane: bool = True):
+    """The bfloat16 pair ``(scale, scale+1)`` as two launches of kernel A's
+    bfloat16 deep step, the middle carry stored in float32: the rounding
+    of the JAX pair (whose middle carry never leaves VMEM) where kernel
+    E's float32 tori do not fit the shared memory (:func:`can_deep2`
+    false).  The signature and returns of :func:`deep_whiten_step2`, with
+    ``recon`` required (the tail always accumulates).  A CPU carry runs
+    :func:`deep_whiten_step2_split_plain`; a bfloat16 CUDA carry the two
+    launches (``wt_whiten_step_bf16_f32next``, then
+    ``wt_whiten_step_bf16_f32carry``, each counted as ``whiten_step_bf16``);
+    any other raises."""
+    if not carry.is_cuda:
+        return deep_whiten_step2_split_plain(
+            carry, recon, thresholds, sf=sf, scale=scale, weights=weights,
+            soft=soft, masked=masked, write_plane=write_plane)
+    if carry.dtype != torch.bfloat16 or recon is None:
+        raise TypeError("deep_whiten_step2_split: a bfloat16 carry and "
+                        "recon (the float32-carry pair is bfloat16's)")
+    check_kernel_input(carry, sf, "deep_whiten_step2_split", bf16=True)
+    check_kernel_input(recon, sf, "deep_whiten_step2_split", bf16=True)
+    thr = _pair_args(carry, recon, thresholds, weights, masked, write_plane)
+    mid = torch.empty(carry.shape, dtype=torch.float32, device=carry.device)
+    c_next = torch.empty_like(carry)
+    whites = []
+    for k, (src, dst) in enumerate(((carry, mid), (mid, c_next))):
+        white = torch.empty_like(carry) if write_plane else None
+        detail = torch.empty(carry.shape, dtype=torch.float32,
+                             device=carry.device)
+        launch_whiten_step(src, dst, detail, white, recon, 2,
+                           thr[k].contiguous(), float(weights[k]),
+                           bool(masked[k]), soft, sf, scale + k)
+        whites.append(white)
+    return whites[0], whites[1], recon, c_next
 
 
 # ---------------------------------------------------------------------

@@ -30,7 +30,8 @@ from ..ops.filters import ScalingFunction
 __all__ = ["StageTimer", "Cost", "decompose_cost", "wow_cost", "roofline",
            "device_sync", "trace", "bound_ms", "group_bytes", "step_bytes",
            "pair_bytes", "WHITEN_SCALE_OPS", "H100_HBM_GBPS",
-           "H100_F32_GFLOPS"]
+           "H100_F32_GFLOPS", "count_collectives", "halo_step_bytes",
+           "halo_step_ops"]
 
 # ---- the card: NVIDIA H100 SXM, published peaks (data sheet, 700 W) ----
 #: device memory, bytes/s
@@ -96,6 +97,20 @@ def pair_bytes(pixels: int, recon: bool = True, whites: bool = True,
     """Kernel E: read the carry (and recon), write c_next2, two whites and
     recon."""
     return pixels * itemsize * (2 + 2 * int(whites) + 2 * int(recon))
+
+
+def halo_step_bytes(H: int, W: int, halo: int, itemsize: int = 4) -> int:
+    """Kernel A's deep step in halo mode on a band of ``H`` interior rows:
+    read the carry extended by ``halo`` rows a side and recon, write
+    c_next, the white and recon."""
+    return W * itemsize * ((H + 2 * halo) + 4 * H)
+
+
+def halo_step_ops(H: int, W: int, halo: int) -> int:
+    """Its float32 operations: the chain smooth and the detail on the
+    ``H + halo`` rows the power smooth reads, then the power smooth and
+    the epilogue on the ``H`` interior rows."""
+    return W * ((H + halo) * (2 * FOLD_OPS + 1) + H * (2 * FOLD_OPS + 7))
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> Tuple[float, str]:
@@ -268,3 +283,21 @@ def roofline(fn: Callable, args: tuple, cost: Cost, iters: int = 10,
         "achieved_gbps": cost.hbm_bytes / dt / 1e9,
         "achieved_gflops": cost.flops / dt / 1e9,
     }
+
+
+def count_collectives(fn: Callable, *args) -> Dict[str, int]:
+    """The collectives that one call ``fn(*args)`` issued from this rank,
+    by the JAX package's HLO names (``all-reduce``, ``all-gather``,
+    ``reduce-scatter``, ``collective-permute``, ``all-to-all``; JAX
+    ``utils/profiling.py:191``).  The counts are the sharded engine's own
+    (``parallel.mesh.COLLECTIVES``, kept by its wrappers), so they are
+    the calls made at run time: a loop of collectives counts each round,
+    where JAX counts the op once in the compiled program; a halo exchange
+    counts two permutes, JAX's two ``ppermute``."""
+    from ..parallel.mesh import COLLECTIVES
+
+    before = dict(COLLECTIVES)
+    fn(*args)
+    return {op: COLLECTIVES[op] - before.get(op, 0)
+            for op in ("all-reduce", "all-gather", "reduce-scatter",
+                       "collective-permute", "all-to-all")}
