@@ -99,9 +99,11 @@ CUDA toolkit.  It
    device-busy ms per run, the idle share against the CUDA-event time,
    and the kernels that take the most device time.
 
-The bfloat16 slice adds: the bfloat16 forms of kernel A (group, g = 3
-and 4, at 4096², 1000×1536, 257×513, a batch of 3 and one of 4 at
-4096², ``need_cube`` on
+The bfloat16 slice adds: the bfloat16 forms of kernel A (the streamed
+group, g = 3 and 4 at offsets 0-2, the B3spline and the Triangle, at
+4096², 1000×1536, 257×513, 300×1020, 16², a batch of 3 and one of 4 at
+4096², the groups of the wide frames 512×4096, 1024×14080 and
+256×25600, ``need_cube`` on
 and off, soft, hard and unmasked; deep step s = 4..9 at 4096², an odd
 shape and a batch) and of kernel E ((7, 8) at 4096², (4, 5) at 512², a
 batch), each bitwise to its bfloat16 plain version, inputs unchanged,
@@ -115,7 +117,8 @@ plain frame at a time as the JAX ``wow_stack`` runs it), float16
 float32 kernels on the same zero-mean frame, a 512² crop within 2^-8 of
 the same route on the CPU, and timed against ``fuse=False`` and the
 float32 kernels; the three bfloat16 kernels timed at 4096² beside their
-2-byte bounds.
+2-byte bounds, and the streamed group's computed issue floor on a line
+of its own (not measured).
 
 The sharded slice adds: kernel A's deep step in halo mode (the sharded
 engine's band tail), 4096² on a batch of 3 and 257×513 split into 4 row
@@ -250,7 +253,7 @@ def main():
     from wavelets_tpu_torch.ops import (_build, hopper_bilateral,
                                         hopper_conv, hopper_deep,
                                         hopper_stats, hopper_wow)
-    from wavelets_tpu_torch.ops.filters import B3SPLINE
+    from wavelets_tpu_torch.ops.filters import B3SPLINE, TRIANGLE
 
     require("jax" not in sys.modules, "the port imported jax")
 
@@ -267,9 +270,9 @@ def main():
     sig = B3SPLINE.sigma_e(2)
     plane_bytes = 4096 * 4096 * 4
 
-    def frame(shape, b=None, mean=10.0):
+    def frame(shape, b=None, mean=10.0, gen=None):
         size = shape if b is None else (b,) + shape
-        x = rng.normal(size=size).astype(np.float32) * 3 + mean
+        x = (gen or rng).normal(size=size).astype(np.float32) * 3 + mean
         return torch.from_numpy(x).to(dev)
 
     def bil_frame(shape, b=None):
@@ -746,8 +749,8 @@ def main():
               f"err white {err_g['white']:.3e} carry {err_g['carry']:.3e}")
 
     # ---- 3h. the bfloat16 forms of kernels A and E: bitwise -------------
-    def bf16_frame(shape, b=None, mean=10.0):
-        return frame(shape, b, mean).to(torch.bfloat16)
+    def bf16_frame(shape, b=None, mean=10.0, gen=None):
+        return frame(shape, b, mean, gen).to(torch.bfloat16)
 
     with Phase("bfloat16 kernel checks"):
         n_lp = {"whiten_group_bf16": 0, "whiten_step_bf16": 0,
@@ -772,19 +775,39 @@ def main():
             n_lp[name] += 1
             return out
 
-        # A's group, g = 3 and 4 (the merged route's), need_cube on and
-        # off, soft, hard and unmasked, a batch of 3 and one of 4 at 4096²
-        for shape, b in (((4096, 4096), None), ((1000, 1536), None),
-                         ((257, 513), None), ((512, 512), 3),
-                         ((4096, 4096), 4)):
-            x = bf16_frame(shape, b)
+        # A's group (the streamed design): g = 3 and 4 (the merged route's)
+        # at offsets 0-2, the B3spline and the Triangle, need_cube on and
+        # off, soft, hard and unmasked; a batch of 3 and one of 4 at 4096²;
+        # a frame smaller than the halo (16²); widths off 8 columns (513,
+        # 1020); the groups of ROADMAP C1's wide frames: (0, 4) of 512×4096
+        # L8 and 1024×14080, (0, 4) and (4, 1) of 256×25600 (its (5, 2) and
+        # (7, 1) have no plan: the documented plain rule).  The shapes
+        # after the first five take frames of their own generator, so every
+        # later phase draws the same frames from rng as before they came
+        b3, tri = B3SPLINE, TRIANGLE
+        own = np.random.default_rng(12)
+        group_cases = (
+            ((4096, 4096), None, ((3, 0, b3), (4, 0, b3), (4, 1, b3),
+                                  (3, 2, b3), (4, 0, tri))),
+            ((1000, 1536), None, ((3, 0, b3), (4, 0, b3))),
+            ((257, 513), None, ((3, 0, b3), (4, 0, b3), (4, 1, tri),
+                                (3, 2, b3))),
+            ((512, 512), 3, ((3, 0, b3), (4, 0, b3))),
+            ((4096, 4096), 4, ((3, 0, b3), (4, 0, b3))),
+            ((16, 16), None, ((4, 0, b3), (4, 1, tri))),
+            ((300, 1020), None, ((4, 0, b3),)),
+            ((512, 4096), None, ((4, 0, b3),)),
+            ((1024, 14080), None, ((4, 0, b3),)),
+            ((256, 25600), None, ((4, 0, b3), (1, 4, b3))))
+        for i, (shape, b, groups) in enumerate(group_cases):
+            x = bf16_frame(shape, b, gen=own if i >= 5 else None)
             x0 = x.clone()
-            for g in (3, 4):
+            for g, off, sf in groups:
                 for need_cube in (True, False):
                     for mode in ("soft", "hard", "unmasked"):
-                        args = ([1.0, 2.0, 0.5, 1.5][:g], thr4[:g], g,
-                                B3SPLINE)
-                        kw = dict(soft=mode == "soft", need_cube=need_cube,
+                        args = ([1.0, 2.0, 0.5, 1.5][:g], thr4[:g], g, sf)
+                        kw = dict(offset=off, soft=mode == "soft",
+                                  need_cube=need_cube,
                                   masked=(mode != "unmasked",) * (g - 1)
                                   + (False,))
                         rows_k, acc_k = counted(
@@ -794,7 +817,8 @@ def main():
                         rows_p, acc_p = hopper_conv.fused_wow_group_plain(
                             x, *args, **kw)
                         torch.cuda.synchronize()
-                        what = (f"bf16 group {shape} b={b} g={g} {mode} "
+                        what = (f"bf16 group {shape} b={b} g={g} "
+                                f"offset={off} hw={sf.half_width} {mode} "
                                 f"need_cube={need_cube}")
                         require(len(rows_k) == len(rows_p), what + " rows")
                         for a, r in zip(rows_k, rows_p):
@@ -802,6 +826,7 @@ def main():
                         check_lp("whiten_group_bf16", acc_k, acc_p,
                                  what + " acc", shape)
             check_bitwise(x, x0, f"bf16 group {shape}: input changed")
+            del x, x0
         # A's deep step, s = 4..9 at 4096², an odd shape, a batch of 3
         for shape, b, scales in (((4096, 4096), 1, range(4, 10)),
                                  ((257, 513), 1, (4, 6)),
@@ -2289,6 +2314,20 @@ def main():
         print(f"  bf16 group 4096² g=4: {g_k[True]:.3f} ms, need_cube off "
               f"{g_k[False]:.3f} ms, plain {g_p:.3f} ms, bound "
               f"{b_g[0]:.3f} ({b_g[1]})")
+        # the streamed group's own work, from its plan: the folds it
+        # computes (the strip's margins and each band's warm-up included)
+        # and the whitening epilogue, one float32 instruction an operation
+        sp = hopper_conv.stream_plan(1, 4096, 4096, 4, 2, 0)
+        hd_, ec_, ecar_ = hopper_conv.stream_margins(4, 2, 0)
+        width = sum(4 * sp.strip_w + 2 * (ecar_[k] + ec_[k] + hd_[k]
+                                          + hd_[k] % 2) for k in range(4))
+        rows = sum(8 * -(-(min(sp.band_h, 4096 - h0) + 2 * sp.halo) // 8)
+                   for h0 in range(0, 4096, sp.band_h))
+        folds = sp.grid[0] * rows * width / n
+        print(f"  bf16 group computed floor, not measured: instruction issue "
+              f"{n * (folds * FOLD_OPS + 4 * 8) / PEAK_F32_INSTR * 1e3:.3f} "
+              f"ms at 4096² g=4 ({folds:.1f} folds an output pixel on "
+              f"{sp.strip_w}-column strips and {sp.band_h}-row bands)")
         kernels_out.append(dict(
             name="whiten_group_bf16", route="cuda",
             source="wavelets_tpu_torch/csrc/whiten_group.cu",

@@ -28,10 +28,16 @@ are only timed.
   built; the taps at run time;
 * kernel A's group (``whiten_group.cu``), scales 0-2 at 4096²: as built
   (32-row tile); a 64-row tile; the taps at run time; no whitening
-  epilogue; one fold a lane at a time (no four-way overlap);
+  epilogue; one fold a lane at a time (no four-way overlap); the streamed
+  group's float32 instantiation (``stream_plan`` of 4-byte elements, no
+  path's);
 * the bfloat16 forms (``whiten_group_bf16``, ``whiten_step_bf16``,
   ``whiten_pair_bf16``): the group g = 4 (scales 0-3) at 4096² as
-  planned, with a 16-, 32- and 64-row tile; the deep step s = 4, 6, 9;
+  planned (the streamed group: 128-column strips, 512-row bands), with
+  strips of 96 and 64 columns (bands filling one wave), rings of float32
+  holding the bfloat16 values (``stream_plan``'s search over their
+  layout: 64-column strips, 109 KB), no whitening epilogue,
+  its bits held against the plain version; the deep step s = 4, 6, 9;
   the pair (7, 8);
 * kernel B (``median_select.cu``), median(|x|) at 4096² and 512²: as
   built, with the device time of each of its four launches;
@@ -91,10 +97,14 @@ VARIANTS = {
     "group, no whitening epilogue": ("whiten_group", ("NO_EPILOGUE",),
                                      None),
     "group, one fold a lane": ("whiten_group", ("ONE_FOLD",), None),
+    "group, streamed": ("whiten_group", (), "streamed"),
     "group bf16": ("whiten_group_bf16", (), None),
-    "group bf16, 16-row tile": ("whiten_group_bf16", (), "tile 16"),
-    "group bf16, 32-row tile": ("whiten_group_bf16", (), "tile 32"),
-    "group bf16, 64-row tile": ("whiten_group_bf16", (), "tile 64"),
+    "group bf16, 96-column strips": ("whiten_group_bf16", (), "strip 96"),
+    "group bf16, 64-column strips": ("whiten_group_bf16", (), "strip 64"),
+    "group bf16, float32 rings": ("whiten_group_bf16", ("F32_RINGS",),
+                                  "f32 rings"),
+    "group bf16, no whitening epilogue": ("whiten_group_bf16",
+                                          ("NO_EPILOGUE",), None),
     "step bf16": ("whiten_step_bf16", (), None),
     "pair bf16": ("whiten_pair_bf16", (), None),
     "median": ("median_select", (), None),
@@ -114,6 +124,12 @@ PARTS = {"median_select", "decompose_group", "bilateral_step",
          "whiten_plane"}
 
 
+def source(kernel):
+    """The source (and library) of a kernel: a bfloat16 form is built
+    from its float32 kernel's source."""
+    return kernel.removesuffix("_bf16")
+
+
 def build_variants(_build, kernels):
     """One ``nvcc`` per variant with hooks of ``kernels``, all at once;
     name → CDLL."""
@@ -126,7 +142,7 @@ def build_variants(_build, kernels):
         so = out_dir / f"v{i}.so"
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS,
                *(f"-DWT_VARIANT_{h}" for h in hooks), "-o", str(so),
-               str(_build.CSRC_DIR / f"{kernel}.cu")]
+               str(_build.CSRC_DIR / f"{source(kernel)}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        so)
@@ -258,9 +274,41 @@ def main():
             p = group_plan(*a)
             return dataclasses.replace(
                 p, tile_h=th, grid=(p.grid[0], -(-a[1] // th), p.grid[2]),
-                smem_bytes=hopper_conv._group_smem(th, p.halo, p.halo_cols,
-                                                   *a[6:]))
+                smem_bytes=hopper_conv._group_smem(th, p.halo, p.halo_cols))
         return plan
+
+    stream_plan = getattr(hopper_conv, "stream_plan", None)
+
+    def strip(ws):
+        # a strip of ws columns, the band that fills one wave
+        def plan(B, H, W, g, hw, off, itemsize=4):
+            smem = hopper_conv.stream_smem(ws, g, hw, off, itemsize)
+            slots = hopper_conv.H100_SMS * (
+                2 if smem <= hopper_conv.SMEM_TWO_PER_SM else 1)
+            bands = max(1, slots // (-(-W // ws) * B))
+            hb = -(-(-(-H // bands)) // 8) * 8
+            return dataclasses.replace(
+                stream_plan(B, H, W, g, hw, off, itemsize), strip_w=ws,
+                band_h=hb, grid=(-(-W // ws), -(-H // hb), B),
+                smem_bytes=smem)
+        return plan
+
+    def f32_rings(B, H, W, g, hw, off, itemsize=2):
+        # stream_plan's search over the layout of -DWT_VARIANT_F32_RINGS:
+        # the float32 layout with the input's ring in bfloat16
+        smem4 = hopper_conv.stream_smem
+
+        def input_ring(ws, size):
+            hd, _, ecar = hopper_conv.stream_margins(g, hw, off)
+            rc = -(-ecar[0] // (16 // size)) * (16 // size)
+            n = (2 * hd[0] + 2 * hopper_conv.STREAM_ROWS) * (ws + 2 * rc)
+            return -(-n * size // 16) * 16
+
+        def smem(ws, *a):
+            return smem4(ws, g, hw, off, 4) - input_ring(ws, 4) + input_ring(
+                ws, 2)
+        with replaced(hopper_conv, "stream_smem", smem):
+            return stream_plan.__wrapped__(B, H, W, g, hw, off, itemsize)
 
     bil_plan = hopper_bilateral.bilateral_plan
 
@@ -299,9 +347,12 @@ def main():
                            three_launches),
         "pieces whole rows": (hopper_wow, "pieces_plan", pieces_whole),
         "seg 2048": (hopper_bilateral, "bilateral_plan", seg2048),
-        "tile 16": (hopper_conv, "group_plan", tile(16)),
-        "tile 32": (hopper_conv, "group_plan", tile(32)),
         "tile 64": (hopper_conv, "group_plan", tile(64)),
+        "strip 96": (hopper_conv, "group_plan", strip(96)),
+        "strip 64": (hopper_conv, "group_plan", strip(64)),
+        "f32 rings": (hopper_conv, "group_plan", f32_rings),
+        "streamed": (hopper_conv, "group_plan", lambda *a: stream_plan(
+            *a[:6], 4)),
         "cluster 1": (hopper_deep, "pair_plan", lambda *a: dataclasses
                       .replace(pair_plan(*a), cluster=1)),
     }
@@ -399,7 +450,7 @@ def main():
             with contextlib.ExitStack() as stack:
                 if lib is not None:
                     stack.enter_context(replaced(
-                        _build, "load", lambda n, k=kernel, lib=lib:
+                        _build, "load", lambda n, k=source(kernel), lib=lib:
                         lib if n == k else load(n)))
                 if plan is not None:
                     stack.enter_context(replaced(*plans[plan]))

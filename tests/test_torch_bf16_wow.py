@@ -165,9 +165,10 @@ def test_split_pair_bitwise_to_the_pair_plain():
 
 
 def test_bf16_group_without_tile_runs_plain():
-    # the documented dispatch rule: a bfloat16 group that kernel A's tile
-    # cannot hold runs the plain group body, never deep steps (which
-    # round elsewhere); float32 keeps its deep steps (bitwise there)
+    # the documented dispatch rule: a bfloat16 group whose rings kernel
+    # A's streamed group cannot hold runs the plain group body, never
+    # deep steps (which round elsewhere); float32 keeps its deep steps
+    # (bitwise there)
     _, t = _pair((256, 512), 7, mean=0.0)
     thr = torch.tensor([0.5])
     assert hopper_conv.group_plan(1, 256, 512, 1, 2, 7, 2) is None
@@ -187,8 +188,10 @@ def test_bf16_group_without_tile_runs_plain():
 
 def test_bf16_wide_route_runs_the_jax_groups():
     # 256x25600 L8: the JAX stream refuses every scale, so JAX merges the
-    # groups (0,4), (4,1), (5,2), (7,1); the port runs them, the deep
-    # groups on the plain group body (no deep step, no pair)
+    # groups (0,4), (4,1), (5,2), (7,1); the port runs them as groups (no
+    # deep step, no pair), here each on its plain version (on the card
+    # (0,4) and (4,1) launch the streamed group, (5,2) and (7,1) run the
+    # plain group body)
     _, t = _pair((256, 25600), 9, mean=0.0)
     _build.reset_counters()
     r, _ = TW.wow_core(t, torch.tensor(1.0, dtype=torch.bfloat16),

@@ -251,7 +251,14 @@ def test_plan_variants_run_and_keep_the_bits(dev, monkeypatch, variant):
     ("bilateral step", dict(grid=(100, 1, 1))), ("plane", dict(seg=64)),
     ("plane", dict(grid=(100, 1, 1))), ("pieces", dict(smem_bytes=64)),
     ("pieces", dict(grid=(1, 1, 1))),
-    ("pieces", dict(seg=1, grid=(128, 128, 1)))])
+    ("pieces", dict(seg=1, grid=(128, 128, 1))),
+    # the streamed group: shared bytes below its rings, a grid, strip or
+    # band that does not cover the frame, a strip off 8 columns, a halo
+    # or column margin other than the group's
+    ("group bf16", dict(smem_bytes=4096)), ("group bf16", dict(grid=(1, 1, 1))),
+    ("group bf16", dict(strip_w=12)), ("group bf16", dict(band_h=0)),
+    ("group bf16", dict(band_h=200)), ("group bf16", dict(halo=40)),
+    ("group bf16", dict(halo_cols=40))])
 def test_a_plan_the_kernel_cannot_run_is_refused(dev, monkeypatch, kernel,
                                                  change):
     # the C entry checks the plan it is given and refuses it before any
@@ -259,9 +266,12 @@ def test_a_plan_the_kernel_cannot_run_is_refused(dev, monkeypatch, kernel,
     x = torch.from_numpy(np.random.default_rng(6).normal(size=(1, 128, 128))
                          .astype(np.float32)).to(dev)
     thr = torch.zeros((3, 1), device=dev)
+    xh = x.to(torch.bfloat16)
     runs = {
         "group": (hopper_conv, "group_plan", lambda: hopper_conv
                   .fused_wow_group(x, [1.0] * 3, thr, 3, B3SPLINE)),
+        "group bf16": (hopper_conv, "group_plan", lambda: hopper_conv
+                       .fused_wow_group(xh, [1.0] * 3, thr, 3, B3SPLINE)),
         "step": (hopper_conv, "step_plan", lambda: hopper_deep
                  .deep_whiten_step(x, None, thr[0], sf=B3SPLINE, scale=3,
                                    weight=1.0)),
@@ -1168,17 +1178,24 @@ def _bitwise(got, ref):
                                         .abs().max())
 
 
-@pytest.mark.parametrize("shape", [(80, 72), (2, 257, 130), (256, 256)])
-@pytest.mark.parametrize("g,offset", [(4, 0), (3, 0), (3, 1)])
+@pytest.mark.parametrize("shape", [(80, 72), (2, 257, 130), (256, 256),
+                                   (16, 16), (300, 204)])
+@pytest.mark.parametrize("g,offset", [(4, 0), (3, 0), (3, 1), (4, 1),
+                                      (3, 2)])
+@pytest.mark.parametrize("sf", [B3SPLINE, TRIANGLE], ids=["b3", "tri"])
 @pytest.mark.parametrize("mode", ["soft", "hard", "unmasked"])
 @pytest.mark.parametrize("need_cube", [True, False])
-def test_bf16_group_kernel_bitwise(dev, shape, g, offset, mode, need_cube):
+def test_bf16_group_kernel_bitwise(dev, shape, g, offset, sf, mode,
+                                   need_cube):
+    # the streamed group: offsets 0-2, both taps, a frame smaller than the
+    # halo (16x16), widths off 8 columns (130, 300x204's 204), and bands
+    # that end inside the frame (300 rows)
     rng = np.random.default_rng(g + offset)
     x = _bf16(rng, shape, dev)
     x0 = x.clone()
     masked = (mode != "unmasked",) * (g - 1) + (False,)
     args = ([1.0, 2.0, 0.5, 1.5][:g],
-            torch.tensor([0.9, 0.5, 0.0, 0.2][:g], device=dev), g, B3SPLINE)
+            torch.tensor([0.9, 0.5, 0.0, 0.2][:g], device=dev), g, sf)
     kw = dict(offset=offset, soft=mode == "soft", masked=masked,
               need_cube=need_cube)
     _build.reset_counters()
@@ -1191,6 +1208,56 @@ def test_bf16_group_kernel_bitwise(dev, shape, g, offset, mode, need_cube):
         _bitwise(a, b)
     _bitwise(acc_k, acc_p)
     _bitwise(x, x0)
+
+
+@pytest.mark.parametrize("strip_w,band_h", [(128, 16), (64, 40), (8, 100),
+                                             (16, 7), (32, 100)])
+def test_bf16_group_stream_plan_variants_keep_the_bits(dev, monkeypatch,
+                                                       strip_w, band_h):
+    # the kernel launches the strip and band it is given: other legal
+    # plans (bands ending inside the frame, strips of 8 columns) give the
+    # bits of the plain version
+    x = _bf16(np.random.default_rng(3), (2, 100, 300), dev)
+    args = ([1.0, 2.0, 0.5, 1.5], torch.tensor([0.9, 0.5, 0.0, 0.2],
+                                               device=dev), 4, B3SPLINE)
+    kw = dict(masked=(True, True, False, True))
+    plan = hopper_conv.stream_plan(2, 100, 300, 4, 2, 0)
+    _replan(monkeypatch, hopper_conv, "group_plan", strip_w=strip_w,
+            band_h=band_h, grid=(-(-300 // strip_w), -(-100 // band_h), 2),
+            smem_bytes=hopper_conv.stream_smem(strip_w, 4, 2, 0))
+    assert plan.band_h != band_h or plan.strip_w != strip_w
+    _build.reset_counters()
+    rows_k, acc_k = hopper_conv.fused_wow_group(x, *args, **kw)
+    assert dict(_build.LAUNCHES) == {"whiten_group_bf16": 1}
+    rows_p, acc_p = hopper_conv.fused_wow_group_plain(x, *args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip((*rows_k, acc_k), (*rows_p, acc_p)):
+        _bitwise(a, b)
+
+
+@pytest.mark.parametrize("shape", [(1, 4096, 4096), (2, 257, 130),
+                                   (16, 16)])
+@pytest.mark.parametrize("g,offset", [(3, 0), (3, 1), (2, 2)])
+def test_stream_f32_bitwise_to_the_tile(dev, monkeypatch, shape, g, offset):
+    # the streamed group's float32 instantiation (no path's) against the
+    # float32 tile: the same folds and epilogue in another order of
+    # blocks, so every output bitwise
+    x = torch.from_numpy(np.random.default_rng(g).normal(size=shape)
+                         .astype(np.float32) * 3 + 10).to(dev)
+    args = ([1.0, 2.0, 0.5][:g], torch.tensor([0.9, 0.5, 0.0][:g],
+                                              device=dev), g, B3SPLINE)
+    kw = dict(offset=offset, masked=(True, True, False)[:g])
+    _build.reset_counters()
+    rows_t, acc_t = hopper_conv.fused_wow_group(x, *args, **kw)
+    assert dict(_build.LAUNCHES) == {"whiten_group": 1}
+    stream = hopper_conv.stream_plan
+    monkeypatch.setattr(hopper_conv, "group_plan", lambda *a: stream(
+        *a[:6], 4))
+    rows_s, acc_s = hopper_conv.fused_wow_group(x, *args, **kw)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"whiten_group": 2}
+    for a, b in zip((*rows_s, acc_s), (*rows_t, acc_t)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("shape", [(1, 64, 96), (2, 257, 130)])
@@ -1369,9 +1436,29 @@ def test_bf16_split_pair_bitwise(dev, shape, s):
         assert a.dtype == torch.bfloat16 and torch.equal(a, b)
 
 
+def test_bf16_wide_route_launches_the_groups_the_plan_takes(dev):
+    # 256x25600 L8: JAX's groups (0, 4), (4, 1), (5, 2), (7, 1); the
+    # streamed group's plan takes the first two, the documented rule runs
+    # the other two on the plain group body
+    from wavelets_tpu_torch.models.wow import wow_core
+    x = _bf16(np.random.default_rng(9), (256, 25600), dev, mean=0.0)
+    _build.reset_counters()
+    r, _ = wow_core(
+        x, torch.tensor(1.0, dtype=torch.bfloat16, device=dev),
+        need_planes=False, sf=B3SPLINE, n_scales=8, weights=(1.0,) * 9,
+        whitening=True, denoise_coefficients=(0.0,) * 9, bilateral=None,
+        bilateral_scaling=False, soft_threshold=True,
+        preserve_variance=False, gamma=3.2, gamma_min=None, gamma_max=None,
+        h=0.0, has_noise=True)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {"whiten_group_bf16": 2}
+    assert dict(_build.PLAIN_CALLS) == {"whiten_group_bf16": 2}
+    assert r.dtype == torch.bfloat16 and bool(torch.isfinite(r).all())
+
+
 def test_bf16_group_without_tile_runs_plain_on_the_card(dev):
-    # the documented rule: a bfloat16 group no tile holds runs the plain
-    # group body on the card (no launch), never deep steps
+    # the documented rule: a bfloat16 group whose rings no strip holds
+    # runs the plain group body on the card (no launch), never deep steps
     x = torch.from_numpy(np.random.default_rng(7).normal(size=(256, 512))
                          .astype(np.float32)).to(dev).to(torch.bfloat16)
     thr = torch.tensor([0.5], device=dev)

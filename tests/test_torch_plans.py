@@ -83,32 +83,92 @@ def test_group_plan_halo_and_shared_memory(sf, offset, g):
             hopper_conv.SMEM_TWO_PER_SM)
 
 
+def _tile_took_bf16(g, hw, offset):
+    """Whether the bfloat16 tile of the earlier design took a group: a
+    tile of 64, 32 or 16 rows of 2-byte elements, halo columns in 8s,
+    within the opt-in shared memory."""
+    if offset + g > 20:
+        return False
+    halo = hopper_conv.group_halo(hw, offset, g)
+    sw = 64 + 2 * (-(-halo // 8) * 8)
+    return any(2 * (2 * (th + 2 * halo) * sw + 8 * sw)
+               <= hopper_conv.SMEM_OPTIN for th in (64, 32, 16))
+
+
 @pytest.mark.parametrize("sf", list(SFS), ids=list(SFS))
 @pytest.mark.parametrize("offset", [0, 1, 2, 3])
 @pytest.mark.parametrize("g", [1, 2, 3, 4])
 def test_group_plan_bf16(sf, offset, g):
-    # kernel A's bfloat16 group: 2-byte tiles, halo columns in 8-element
-    # (16-byte) copies, the 64-row tile tried first for two blocks an SM
+    # kernel A's bfloat16 group is the streamed design: group_plan with
+    # 2-byte elements is stream_plan, which takes every group the
+    # bfloat16 tile took, its rings within the opt-in shared memory
     hw = SFS[sf].half_width
     plan = hopper_conv.group_plan(1, 4096, 4096, g, hw, offset, 2)
-    halo = pallas_conv._wow_group_halo(hw, offset, g)
+    assert plan == hopper_conv.stream_plan(1, 4096, 4096, g, hw, offset)
+    if _tile_took_bf16(g, hw, offset):
+        assert plan is not None
     if plan is None:
-        sw = 64 + 2 * (-(-halo // 8) * 8)
-        assert 2 * (2 * (16 + 2 * halo) * sw + 8 * sw) > hopper_conv.SMEM_OPTIN
+        assert all(hopper_conv.stream_smem(ws, g, hw, offset)
+                   > hopper_conv.SMEM_OPTIN
+                   for ws in hopper_conv.STREAM_STRIPS)
         return
-    assert plan.halo == halo
-    assert plan.halo_cols >= halo and plan.halo_cols % 8 == 0
-    sw = hopper_conv.GROUP_TILE_W + 2 * plan.halo_cols
-    assert plan.smem_bytes == 2 * (2 * (plan.tile_h + 2 * halo) * sw + 8 * sw)
+    assert plan.halo == pallas_conv._wow_group_halo(hw, offset, g)
+    assert plan.halo_cols % 8 == 0
+    assert plan.halo_cols >= hopper_conv.stream_margins(g, hw, offset)[2][0]
+    assert plan.smem_bytes == hopper_conv.stream_smem(plan.strip_w, g, hw,
+                                                      offset)
     assert plan.smem_bytes <= hopper_conv.SMEM_OPTIN
-    per_sm = (228 * 1024) // (plan.smem_bytes + 1024)
     if (g, offset, hw) == (4, 0, 2):
-        # the merged bfloat16 path's group (JAX's plan: scales 0-3)
-        assert (plan.tile_h, plan.halo, plan.halo_cols) == (64, 46, 48)
-        assert plan.smem_bytes == 102400 and per_sm >= 2
-    if plan.tile_h != 64:
-        assert hopper_conv._group_smem(64, halo, plan.halo_cols, 2) > (
-            hopper_conv.SMEM_TWO_PER_SM)
+        # the merged bfloat16 path's group (JAX's plan: scales 0-3): two
+        # blocks an SM, one wave that fills at least 90% of the slots
+        assert plan.halo == 46
+        assert plan.smem_bytes <= hopper_conv.SMEM_TWO_PER_SM
+        blocks = plan.grid[0] * plan.grid[1]
+        assert 0.9 * 2 * hopper_conv.H100_SMS <= blocks <= (
+            2 * hopper_conv.H100_SMS)
+
+
+@pytest.mark.parametrize("hw", [1, 2, 3, 8])
+def test_stream_plan_takes_what_the_tile_took(hw):
+    # every depth and offset the bfloat16 tile took, at any shape
+    for g in range(1, 9):
+        for offset in range(20):
+            took = _tile_took_bf16(g, hw, offset)
+            for shape in ((1, 4096, 4096), (3, 16, 16), (1, 257, 25600)):
+                plan = hopper_conv.stream_plan(*shape, g, hw, offset)
+                assert plan is not None or not took, (g, offset, shape)
+
+
+@pytest.mark.parametrize("shape", [(1, 4096, 4096), (4, 4096, 4096),
+                                   (1, 1000, 1536), (1, 257, 513),
+                                   (3, 16, 16), (2, 37, 70), (1, 512, 4096),
+                                   (1, 1024, 14080), (1, 256, 25600)])
+@pytest.mark.parametrize("g,offset,sf", [(4, 0, "b3"), (3, 0, "b3"),
+                                         (4, 1, "tri"), (3, 2, "b3"),
+                                         (1, 4, "b3"), (5, 0, "tri")])
+def test_stream_plan_covers_the_frame(shape, g, offset, sf):
+    # strips and bands cover the frame once, the grid within its limits,
+    # the rings within the shared memory, one or two blocks an SM
+    B, H, W = shape
+    plan = hopper_conv.stream_plan(B, H, W, g, SFS[sf].half_width, offset)
+    gx, gy, gz = plan.grid
+    assert gz == B and gy <= 65535
+    assert gx * plan.strip_w >= W > (gx - 1) * plan.strip_w
+    assert gy * plan.band_h >= H > (gy - 1) * plan.band_h
+    assert plan.strip_w in hopper_conv.STREAM_STRIPS
+    assert plan.band_h <= H
+    assert plan.smem_bytes <= hopper_conv.SMEM_OPTIN
+
+
+def test_stream_plan_refuses_rings_past_the_shared_memory():
+    # 256x25600 L8's deep groups (5, 2) and (7, 1): no strip's rings fit,
+    # so they keep the documented plain rule; (4, 1) now launches
+    assert hopper_conv.stream_plan(1, 256, 25600, 2, 2, 5) is None
+    assert hopper_conv.stream_plan(1, 256, 25600, 1, 2, 7) is None
+    assert hopper_conv.group_plan(1, 256, 25600, 1, 2, 4, 2) is not None
+    # float32 keeps the tile
+    assert isinstance(hopper_conv.group_plan(1, 4096, 4096, 3, 2, 0),
+                      hopper_conv.GroupPlan)
 
 
 @pytest.mark.parametrize("shape", [(1, 4096, 4096), (1, 1000, 1536),
@@ -224,6 +284,161 @@ def test_group_tile_algorithm_replayed(shape, offset, sf):
     for k in range(3):
         assert_close_scaled(torch.from_numpy(whites[k]), rows[k], 5e-6)
     assert_close_scaled(torch.from_numpy(acc), acc_p, 5e-6)
+
+
+def _replay_stream(x, plan, g, taps, offset, facs, thrs, masked, soft):
+    """whiten_group.cu's streamed group on a (B, H, W) bfloat16 stack,
+    in float32 torch with the kernel's rounding points.  Per block (a
+    strip of columns, a band of rows, a frame) the input rows of virtual
+    row ``a0 + q`` (``a0``: the band's first row less the halo) enter the
+    input's ring through the symmetric map, 8 a step.  Per step and
+    scale k: the rows fold and cols fold of 8 rows of carry_k (those
+    that scale k - 1 wrote this step, less ``hd``) into carry_(k+1)'s
+    ring, the detail and its square into sq_k's ring; then the power
+    smooth of the 8 rows ``hd`` behind, the whitening and the float32
+    acc ring.  Row q
+    sits in slot ``q mod rows`` of a ring; rings start as NaN, so a value
+    read before it was written, or after it was overwritten, shows."""
+    bf = torch.bfloat16
+
+    def rnd(a):
+        return a.to(bf).float()
+
+    B, H, W = x.shape
+    hw = (len(taps) - 1) // 2
+    t = torch.tensor(taps[hw:], dtype=torch.float32)
+    rs = hopper_conv.STREAM_ROWS
+    hd, ec, ecar = hopper_conv.stream_margins(g, hw, offset)
+    eq = [hopper_conv._even(h) for h in hd]
+    R, rc, ws, hb = plan.halo, plan.halo_cols, plan.strip_w, plan.band_h
+    rows_c = ([2 * hd[0] + 2 * rs] + [2 * h + rs for h in hd[1:]]
+              + [hd[g - 1] + rs])
+    rows_q = [2 * h + rs for h in hd]
+    rows_a = R - 2 * hd[0] + rs
+    xs = x.float()
+    whites = torch.full((g, B, H, W), float("nan"))
+    carry = torch.full((B, H, W), float("nan"))
+    acc = torch.full((B, H, W), float("nan"))
+
+    def sym(k, n):
+        p = np.mod(k, 2 * n)
+        return torch.from_numpy(np.where(p < n, p, 2 * n - 1 - p))
+
+    def vfold(ring, q, d, lo, hi):
+        # rows q (8 of them) folded at dilation d, columns lo..hi-1
+        n = ring.shape[0]
+        cols = slice(rc + lo, rc + hi)
+        out = ring[q % n][:, cols] * t[0]
+        for j in range(1, hw + 1):
+            out = out + t[j] * (ring[(q - j * d) % n][:, cols]
+                                + ring[(q + j * d) % n][:, cols])
+        return rnd(out)
+
+    def hfold(a, d, lo, hi):
+        # columns lo..hi-1 of rows a (origin rc), dilation d
+        out = a[:, rc + lo:rc + hi] * t[0]
+        for j in range(1, hw + 1):
+            out = out + t[j] * (a[:, rc + lo - j * d:rc + hi - j * d]
+                                + a[:, rc + lo + j * d:rc + hi + j * d])
+        return rnd(out)
+
+    def put(dst, gh, h0, h1, w0, vals):
+        for i in np.nonzero((gh >= h0) & (gh < h1))[0]:
+            n = min(ws, W - w0)
+            dst[gh[i], w0:w0 + n] = vals[i, :n]
+
+    width = ws + 2 * rc
+    r8 = np.arange(rs)
+    for b in range(B):
+        for h0 in range(0, H, hb):
+            for w0 in range(0, W, ws):
+                h1, a0 = min(h0 + hb, H), h0 - R
+                steps = -(-(h1 - h0 + 2 * R) // rs)
+                cr = [torch.full((n, width), float("nan")) for n in rows_c]
+                qr = [torch.full((n, width), float("nan")) for n in rows_q]
+                ar = torch.full((rows_a, ws), float("nan"))
+                cols = sym(np.arange(w0 - rc, w0 + ws + rc), W)
+
+                def fetch(step):
+                    q = step * rs + r8
+                    cr[0][q % rows_c[0]] = xs[b][sym(a0 + q, H)][:, cols]
+
+                fetch(0)
+                for step in range(steps):
+                    if step + 1 < steps:
+                        fetch(step + 1)
+                    for k in range(g):
+                        # this step's c_next rows of scale k
+                        d = 1 << (offset + k)
+                        u = step * rs - hd[0] * ((2 << k) - 1) + r8
+                        tmp = torch.full((rs, width), float("nan"))
+                        tmp[:, rc - ecar[k]:rc + ws + ecar[k]] = vfold(
+                            cr[k], u, d, -ecar[k], ws + ecar[k])
+                        c = hfold(tmp, d, -ec[k], ws + ec[k])
+                        cr[k + 1][u % rows_c[k + 1],
+                                  rc - ec[k]:rc + ws + ec[k]] = c
+                        e = rnd(cr[k][u % rows_c[k]][
+                            :, rc - eq[k]:rc + ws + eq[k]]
+                            - c[:, ec[k] - eq[k]:ec[k] + ws + eq[k]])
+                        qr[k][u % rows_q[k], rc - eq[k]:rc + ws + eq[k]] = (
+                            rnd(e * e))
+                        if k == g - 1:
+                            put(carry[b], a0 + u, h0, h1, w0,
+                                c[:, ec[k]:ec[k] + ws])
+                        p = u - hd[k]
+                        tmp = torch.full((rs, width), float("nan"))
+                        tmp[:, rc - eq[k]:rc + ws + eq[k]] = vfold(
+                            qr[k], p, d, -eq[k], ws + eq[k])
+                        lp = hfold(tmp, d, 0, ws)
+                        e = rnd(cr[k][p % rows_c[k]][:, rc:rc + ws]
+                                - cr[k + 1][p % rows_c[k + 1]][:, rc:rc + ws])
+                        lp = torch.sqrt(torch.where(lp <= 0, 1e-15, lp))
+                        if masked[k] and thrs[k] != 0:
+                            thr = torch.tensor(thrs[k], dtype=torch.float32)
+                            m = (torch.erf(torch.abs(e / thr)) if soft
+                                 else (torch.abs(e) > thr).float())
+                            e = e * m
+                        v = e * torch.div(torch.tensor(facs[k]), lp)
+                        put(whites[k, b], a0 + p, h0, h1, w0, v)
+                        if k > 0:
+                            v = ar[p % rows_a] + v
+                        ar[p % rows_a] = v
+                        if k == g - 1:
+                            put(acc[b], a0 + p, h0, h1, w0, v)
+    return ([w.to(bf) for w in whites] + [carry.to(bf)]), acc.to(bf)
+
+
+@pytest.mark.parametrize("shape,g,offset,sf,band", [
+    ((1, 37, 70), 4, 0, "b3", None),   # W not a multiple of 8, ragged
+    ((1, 16, 16), 4, 0, "b3", None),   # a frame smaller than the halo 46
+    ((1, 80, 72), 4, 1, "tri", None),
+    ((1, 100, 300), 4, 0, "b3", (64, 40)),   # bands end at rows 40, 80
+    ((1, 61, 45), 3, 0, "b3", (32, 16)),
+    ((2, 37, 70), 3, 0, "b3", None),   # a batch of 2
+    ((1, 50, 91), 3, 2, "tri", None),
+])
+def test_group_stream_algorithm_replayed(shape, g, offset, sf, band):
+    import dataclasses
+    spec = SFS[sf]
+    x = torch.from_numpy((np.random.default_rng(g + offset).normal(
+        size=shape) * 3 + 10).astype(np.float32)).to(torch.bfloat16)
+    facs = (2.0, 1.0, 0.5, 1.5)[:g]
+    masked = (True, True, False, True)[:g]
+    thrs = (0.9, 0.0, 0.01, 0.2)[:g]
+    plan = hopper_conv.stream_plan(*shape, g, spec.half_width, offset)
+    if band is not None:
+        ws, hb = band
+        plan = dataclasses.replace(
+            plan, strip_w=ws, band_h=hb,
+            grid=(-(-shape[2] // ws), -(-shape[1] // hb), shape[0]))
+    for soft in (True, False):
+        rows, acc = _replay_stream(x, plan, g, spec.taps, offset, facs, thrs,
+                                   masked, soft)
+        ref, ref_acc = hopper_conv.fused_wow_group_plain(
+            x, list(facs), torch.tensor(thrs), g, spec, offset=offset,
+            soft=soft, masked=masked)
+        for got, want in zip(rows + [acc], list(ref) + [ref_acc]):
+            assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("need_cube", [True, False])

@@ -17,9 +17,10 @@ port keeps its rounding another way:
 * a pair whose float32 tori do not fit kernel E's shared memory runs as
   two bfloat16 deep steps of kernel A with a float32 middle carry
   (``hopper_deep.deep_whiten_step2_split``);
-* a group that kernel A's bfloat16 tile cannot hold
-  (``hopper_conv.group_plan(...) is None``) runs the plain group body
-  on the card (``hopper_conv.fused_wow_group``), as float64 runs plain.
+* a group whose rings kernel A's streamed bfloat16 group cannot hold
+  (``hopper_conv.group_plan(...) is None``: 256×25600 L8's ``(5, 2)``
+  and ``(7, 1)``) runs the plain group body on the card
+  (``hopper_conv.fused_wow_group``), as float64 runs plain.
 """
 
 from __future__ import annotations

@@ -25,13 +25,18 @@ kernel ``csrc/whiten_group.cu`` (counter ``whiten_group``) on the
 shared-memory tile that :func:`group_plan` sizes; where no tile fits (a
 rule on the shape, scale offset and taps alone), each scale is one deep
 step of kernel A's deep form, ``csrc/whiten_step.cu`` (counter
-``whiten_step``, two launches sized by :func:`step_plan`).  On a CPU
+``whiten_step``, two launches sized by :func:`step_plan`).  In bfloat16
+the group is the same source's streamed design, sized by
+:func:`stream_plan`: a block walks a band of rows down a strip of
+columns with each scale on rings of rows, so the vertical halo is
+computed once a band, not once a tile.  On a CPU
 tensor the plain PyTorch versions below run, along the same route.
 There is no fallback between kernel and plain version: a CUDA tensor the
 kernel cannot take raises.  The same holds for kernel C.
 
-Kernel A has a bfloat16 form of both its entries (``wt_whiten_group_bf16``
-and ``wt_whiten_step_bf16``, counters ``whiten_group_bf16`` and
+Kernel A has a bfloat16 form of both its entries (``wt_whiten_group_bf16``,
+the streamed group, and ``wt_whiten_step_bf16``, counters
+``whiten_group_bf16`` and
 ``whiten_step_bf16``), the JAX package's bfloat16 instantiations of
 ``_fused_wow_group`` and ``deep_whiten_step``: every fold in float32,
 the values rounded to bfloat16 where the JAX kernels store them (the
@@ -46,6 +51,7 @@ decomposition to XLA (pallas_conv.py:517-519).
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
@@ -61,7 +67,8 @@ __all__ = ["N_FAST", "fused_group", "fused_group_plain", "group_pieces",
            "fused_volume_decompose", "fused_wow_group",
            "fused_wow_group_plain", "whiten_scale_plain",
            "whiten_detail_plain", "whiten_power_plain", "threshold_dtype",
-           "GroupPlan", "group_halo", "group_plan",
+           "GroupPlan", "group_halo", "group_plan", "StreamPlan",
+           "stream_plan", "stream_smem", "stream_margins",
            "StepPlan", "step_plan", "step_smem", "map_step", "MAX_FRAMES",
            "decompose_buffers", "SMEM_OPTIN", "STEP_STATIC_SMEM"]
 
@@ -93,13 +100,18 @@ SMEM_TWO_PER_SM = 115712
 #: the group kernel's output tile: 64 columns, a row of the tile per warp
 GROUP_TILE_W = 64
 GROUP_TILE_HS = (64, 32, 16)
-#: the tile height tried first where two blocks fit an SM, by element
-#: size: 32 rows for float32 (g = 3: 6% faster than 64, more blocks in
-#: flight), 64 for bfloat16 (g = 4, halo 46: 1.72 against 2.26 ms of
-#: device time at 4096², the halo recomputed less; scripts/
-#: kernel_variants.py on an H100 80GB HBM3 at 700 W)
-GROUP_TILE_TWO_PER_SM = {4: 32, 2: 64}
+#: the tile height tried first where two blocks fit an SM: 32 rows
+#: (g = 3: 6% faster than 64, more blocks in flight)
+GROUP_TILE_TWO_PER_SM = 32
 GROUP_WARPS = 8
+#: the streamed group (bfloat16): rows a step (one a warp), the table at
+#: the front of its shared memory, the strip widths and band heights its
+#: plan weighs, and the SMs of an H100 SXM that it fills
+STREAM_ROWS = 8
+STREAM_TABLE_BYTES = 1024
+STREAM_STRIPS = (128, 96, 64, 32, 16, 8)
+STREAM_BANDS = (1024, 512, 256, 128, 64, 32, 16, 8)
+H100_SMS = 132
 #: the row-buffer pass (kernel A's deep step, kernels C and G): whole
 #: rows while a row buffer and the centre row fit, else segments of the
 #: first of these widths whose buffer fits
@@ -130,43 +142,164 @@ class GroupPlan:
     grid: Tuple[int, int, int]
 
 
-def _group_smem(tile_h: int, halo: int, halo_cols: int,
-                itemsize: int = 4) -> int:
-    # two (tile_h + 2·halo) × (64 + 2·halo_cols) planes, a row buffer a warp
+def _group_smem(tile_h: int, halo: int, halo_cols: int) -> int:
+    # two (tile_h + 2·halo) × (64 + 2·halo_cols) float planes, a row
+    # buffer a warp
     sw = GROUP_TILE_W + 2 * halo_cols
-    return itemsize * (2 * (tile_h + 2 * halo) * sw + GROUP_WARPS * sw)
+    return 4 * (2 * (tile_h + 2 * halo) * sw + GROUP_WARPS * sw)
 
 
 def group_plan(B: int, H: int, W: int, g: int, hw: int, offset: int,
-               itemsize: int = 4) -> Optional[GroupPlan]:
-    """The tile of :func:`fused_wow_group` on the card, from the shape,
+               itemsize: int = 4):
+    """The launch of :func:`fused_wow_group` on the card, from the shape,
     group depth, half width of the taps, scale offset and element size
-    (4 for float32, 2 for bfloat16) alone: a tile of
-    :data:`GROUP_TILE_TWO_PER_SM` rows (32 for float32, 64 for bfloat16)
-    where two blocks fit an SM, else the tallest tile of 64, 32 or 16
-    rows that fits the opt-in shared memory, else None (the scales then
-    run as deep steps).  The bfloat16 group of the merged path, g = 4 at
-    offset 0 (halo 46), takes the 64-row tile in 100 KB, two blocks an
-    SM; in float32 the same group would need 200 KB, one block an SM.
-    At offset 0, g = 3 the float32 32-row tile ran a few percent faster
+    alone.  Float32 (``itemsize`` 4) takes the tile: 32 rows where two
+    blocks fit an SM, else the tallest tile of 64, 32 or 16 rows that
+    fits the opt-in shared memory, else None (the scales then run as deep
+    steps).  At offset 0, g = 3 the 32-row tile ran a few percent faster
     than the 64-row one on an H100 (``scripts/kernel_variants.py``): more
     blocks in flight outweigh its larger halo share.  A 16-row tile is
     never taken for the second block on an SM: its halo would be
-    recomputed 5-6 times."""
+    recomputed 5-6 times.  Bfloat16 (``itemsize`` 2) takes the streamed
+    group, :func:`stream_plan`."""
     if g < 1:
         raise ValueError("a group needs at least one scale")
+    if itemsize != 4:
+        return stream_plan(B, H, W, g, hw, offset, itemsize)
     if offset + g > 20:
         return None
     halo = group_halo(hw, offset, g)
-    vec = 16 // itemsize
-    halo_cols = -(-halo // vec) * vec
-    for th, limit in ((GROUP_TILE_TWO_PER_SM[itemsize], SMEM_TWO_PER_SM),
+    halo_cols = -(-halo // 4) * 4
+    for th, limit in ((GROUP_TILE_TWO_PER_SM, SMEM_TWO_PER_SM),
                       *((t, SMEM_OPTIN) for t in GROUP_TILE_HS)):
-        smem = _group_smem(th, halo, halo_cols, itemsize)
+        smem = _group_smem(th, halo, halo_cols)
         if smem <= limit:
             grid = (-(-W // GROUP_TILE_W), -(-H // th), B)
             return GroupPlan(th, halo, halo_cols, smem, grid)
     return None
+
+
+@dataclass(frozen=True)
+class StreamPlan:
+    """The streamed group's launch (``csrc/whiten_group.cu``,
+    ``wt_whiten_group_bf16``), passed to the kernel as it stands (it
+    lays out its rings, checks the plan against them and launches it): a
+    strip of ``strip_w`` output columns and a band of ``band_h`` output
+    rows a block, the group's reach ``halo`` in rows, the input ring's
+    column margin ``halo_cols`` (the scales' margins rounded up to 16
+    bytes), ``smem_bytes`` of shared memory, ``grid = (strips, bands,
+    frames)``."""
+    strip_w: int
+    band_h: int
+    halo: int
+    halo_cols: int
+    smem_bytes: int
+    grid: Tuple[int, int, int]
+
+
+def stream_margins(g: int, hw: int, offset: int):
+    """The streamed group's column margins, scale by scale: ``(hd, ec,
+    ecar)``, the reach ``hw·2^(offset+k)`` of each scale, the margin of
+    its c_next and that of its chain's rows fold (and of its carry's
+    ring), each even (a lane folds two columns), from the last scale
+    back: ``ec_k = even(max(hd_k, ecar_(k+1)))``, ``ecar_k = even(ec_k +
+    hd_k)``."""
+    hd = [hw << (offset + k) for k in range(g)]
+    ec, ecar, nxt = [0] * g, [0] * g, 0
+    for k in reversed(range(g)):
+        ec[k] = _even(max(hd[k], nxt))
+        ecar[k] = nxt = _even(ec[k] + hd[k])
+    return hd, ec, ecar
+
+
+def _even(n: int) -> int:
+    return n + (n & 1)
+
+
+def stream_smem(strip_w: int, g: int, hw: int, offset: int,
+                itemsize: int = 2) -> int:
+    """Shared bytes of a streamed block, as ``csrc/whiten_group.cu::
+    stream_layout`` lays them out, each region on 16 bytes: the block's
+    table (:data:`STREAM_TABLE_BYTES`); the input's ring of ``2hd_0 +
+    2·8`` rows (one step read, the next arriving) of the strip and
+    ``halo_cols`` a side; per scale the ring of its c_next, ``2hd_(k+1) +
+    8`` rows (the last one ``hd + 8``) and that of its squared detail,
+    ``2hd_k + 8`` rows; the float32 sums of the whites, ``R − 2hd_0 + 8``
+    rows of the strip; a row a warp."""
+    rs = STREAM_ROWS
+    hd, ec, ecar = stream_margins(g, hw, offset)
+    vec = 16 // itemsize
+    rc = -(-ecar[0] // vec) * vec
+    halo = group_halo(hw, offset, g)
+    regions = [(2 * hd[0] + 2 * rs) * (strip_w + 2 * rc) * itemsize]
+    regions += [(2 * hd[k] + rs) * (strip_w + 2 * ec[k - 1]) * itemsize
+                for k in range(1, g)]
+    regions.append((hd[g - 1] + rs) * (strip_w + 2 * ec[g - 1]) * itemsize)
+    regions += [(2 * hd[k] + rs) * (strip_w + 2 * _even(hd[k])) * itemsize
+                for k in range(g)]
+    regions.append((halo - 2 * hd[0] + rs) * strip_w * 4)
+    regions.append(rs * (strip_w + 2 * ecar[0]) * itemsize)
+    return STREAM_TABLE_BYTES + sum(-(-n // 16) * 16 for n in regions)
+
+
+def _stream_step_cost(strip_w: int, g: int, hw: int, offset: int) -> int:
+    # a warp's column-pair passes in one step of every scale: the chain's
+    # two folds, the power smooth's two, 64 columns a pass
+    hd, ec, ecar = stream_margins(g, hw, offset)
+    cols = [w for k in range(g) for w in (
+        strip_w + 2 * ecar[k], strip_w + 2 * ec[k],
+        strip_w + 2 * _even(hd[k]), strip_w)]
+    return sum(-(-w // 64) for w in cols)
+
+
+@functools.lru_cache(maxsize=None)
+def stream_plan(B: int, H: int, W: int, g: int, hw: int, offset: int,
+                itemsize: int = 2) -> Optional[StreamPlan]:
+    """The streamed group's launch on an H100 from the shape, group
+    depth, half width of the taps, scale offset and element size alone:
+    of the strips of :data:`STREAM_STRIPS` columns whose rings fit the
+    opt-in shared memory (:func:`stream_smem`) and the bands of
+    :data:`STREAM_BANDS` rows or of the frame cut into 1..64 bands
+    (rounded up to 8 rows), the pair that takes the fewest steps on the
+    busiest SM, counting two blocks an SM where two fit
+    (:data:`SMEM_TWO_PER_SM`), each step priced by its column-pair
+    passes; ties go to the taller band, then the wider strip.  At 4096²,
+    g = 4 (the bfloat16 route's group): 128 columns by 512 rows, 256
+    blocks of 104 KB, two an SM; narrower strips ran slower on an H100
+    (``scripts/kernel_variants.py``: their margins' folds grow faster
+    than the blocks help).  None where no strip fits (a dilation whose
+    rings pass 227 KB: 256×25600 L8's ``(5, 2)`` and ``(7, 1)``)."""
+    if g < 1:
+        raise ValueError("a group needs at least one scale")
+    if g > 8 or offset + g > 20 or (hw << (offset + g - 1)) > 1 << 20:
+        return None
+    halo = group_halo(hw, offset, g)
+    best = None
+    for ws in STREAM_STRIPS:
+        smem = stream_smem(ws, g, hw, offset, itemsize)
+        if smem > SMEM_OPTIN:
+            continue
+        slots = H100_SMS * (2 if smem <= SMEM_TWO_PER_SM else 1)
+        step = _stream_step_cost(ws, g, hw, offset)
+        cuts = {-(-(-(-H // n)) // STREAM_ROWS) * STREAM_ROWS
+                for n in range(1, 65)}
+        for hb in sorted({min(b, H) for b in (*STREAM_BANDS, *cuts)},
+                         reverse=True):
+            bands = -(-H // hb)
+            if bands > 65535:
+                continue
+            blocks = -(-W // ws) * bands * B
+            steps = -(-(hb + 2 * halo) // STREAM_ROWS)
+            cost = -(-blocks // slots) * steps * step
+            if best is None or cost < best[0]:
+                best = (cost, ws, hb, smem)
+    if best is None:
+        return None
+    _, ws, hb, smem = best
+    vec = 16 // itemsize
+    halo_cols = -(-stream_margins(g, hw, offset)[2][0] // vec) * vec
+    return StreamPlan(ws, hb, halo, halo_cols, smem,
+                      (-(-W // ws), -(-H // hb), B))
 
 
 def map_step(D: int, n: int) -> int:
@@ -275,13 +408,22 @@ def _lib():
     return lib
 
 
+#: the group's entries: the float32 tile, the streamed group in bfloat16
+#: and its float32 instantiation (no path's: a streamed plan of float32,
+#: as scripts/kernel_variants.py and the GPU tests pass one), and the
+#: number of plan integers after the shape (tile_h or strip_w and
+#: band_h, then halo and halo_cols)
+_GROUP_ENTRIES = {"wt_whiten_group_f32": 3, "wt_whiten_group_bf16": 4,
+                  "wt_whiten_group_stream_f32": 4}
+
+
 def _lib_group():
     lib = _build.load(GROUP_KERNEL)
-    for sfx in ("f32", "bf16"):
-        fn = getattr(lib, f"wt_whiten_group_{sfx}")
+    for name, n_plan in _GROUP_ENTRIES.items():
+        fn = getattr(lib, name)
         fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
                        + [ctypes.c_void_p, ctypes.c_int]
-                       + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3
+                       + [ctypes.c_longlong] * 3 + [ctypes.c_int] * n_plan
                        + [ctypes.c_longlong] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return lib
@@ -465,15 +607,16 @@ def fused_wow_group(x: torch.Tensor, factors: Sequence[float], thresholds,
     with ``masked[k]``.
 
     Route, by :func:`group_plan` (shape, ``g``, taps, ``offset`` and
-    element size only): where a tile fits, one launch of
-    ``csrc/whiten_group.cu`` on a CUDA ``x`` (its bfloat16 form for a
-    bfloat16 ``x``; :func:`fused_wow_group_plain` on a CPU ``x``); where
-    none fits (the float32 B3spline from offset 2 at g = 3), one
-    :func:`~.hopper_deep.deep_whiten_step` per scale (kernel A's deep
-    form on a CUDA ``x``, its plain version on a CPU ``x``), bitwise the
-    group in float32.  A bfloat16 group no tile holds (the JAX plan's
-    deep groups of a frame wider than its stream's budget, 256×25600)
-    runs :func:`fused_wow_group_plain` on any device, the JAX group's
+    element size only): where a plan fits, one launch of
+    ``csrc/whiten_group.cu`` on a CUDA ``x`` (the float32 tile, or the
+    streamed group for a bfloat16 ``x``; :func:`fused_wow_group_plain`
+    on a CPU ``x``); where no float32 tile fits (the B3spline from
+    offset 2 at g = 3), one :func:`~.hopper_deep.deep_whiten_step` per
+    scale (kernel A's deep form on a CUDA ``x``, its plain version on a
+    CPU ``x``), bitwise the group in float32.  A bfloat16 group whose
+    rings pass the shared memory (:func:`stream_plan` None: the JAX
+    plan's deep groups ``(5, 2)`` and ``(7, 1)`` of 256×25600) runs
+    :func:`fused_wow_group_plain` on any device, the JAX group's
     rounding.  A CUDA ``x`` the kernels cannot take (float16, float64)
     raises."""
     from .hopper_deep import deep_whiten_step
@@ -484,7 +627,7 @@ def fused_wow_group(x: torch.Tensor, factors: Sequence[float], thresholds,
     if plan is None and low_precision(x.dtype):
         # a documented dispatch rule, as float64 runs plain: below float32
         # the deep steps would round elsewhere than the JAX group (after
-        # every pass), so a group no tile holds runs the plain group body
+        # every pass), so a group no plan holds runs the plain group body
         return fused_wow_group_plain(x, factors, thresholds, g, sf, offset,
                                      soft, masked, need_cube)
     if plan is None:
@@ -510,13 +653,20 @@ def fused_wow_group(x: torch.Tensor, factors: Sequence[float], thresholds,
         rows = [torch.empty_like(xb) for _ in range(g)] if need_cube else []
         lib = _lib_group()
         taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
-        entry = getattr(lib, f"wt_whiten_group_{_build.dtype_suffix(x.dtype)}")
+        if isinstance(plan, StreamPlan):
+            entry = (lib.wt_whiten_group_bf16 if x.dtype == torch.bfloat16
+                     else lib.wt_whiten_group_stream_f32)
+            shape = (plan.strip_w, plan.band_h)
+        else:
+            if x.dtype != torch.float32:
+                raise TypeError("fused_wow_group: the tile takes float32")
+            entry, shape = lib.wt_whiten_group_f32, (plan.tile_h,)
         code = entry(
             _ptr(xb), (ctypes.c_void_p * g)(*[r.data_ptr() for r in rows])
             if need_cube else None, _ptr(cur), _ptr(acc), _ptr(thr),
             (ctypes.c_float * g)(*factors),
             (ctypes.c_int * g)(*[int(m) for m in masked]), int(bool(soft)),
-            g, offset, taps, len(sf.taps), B, H, W, plan.tile_h, plan.halo,
+            g, offset, taps, len(sf.taps), B, H, W, *shape, plan.halo,
             plan.halo_cols, plan.grid[0], plan.grid[1], plan.smem_bytes,
             _build.stream_ptr(x.device))
         _build.check(lib, code, "whiten_group")
