@@ -146,6 +146,7 @@ exits non-zero before that line.  It imports nothing of JAX.
 """
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1118,18 +1119,35 @@ def main():
                 check_bitwise(got[:1], one, what + " frame 0 vs a stack of 1")
                 print("  frame 0 bitwise to a stack of one")
             # the same route on a small frame against the CPU's plain
-            # versions of the same kernels
+            # versions of the same kernels.  In bfloat16: at most one
+            # bfloat16 unit of the CPU result's top binade, 2^(floor(log2
+            # max) - 7), a pixel, and at most 1 pixel in 4096 off at all
+            # (the card's float32 erf and division flip a rounding now and
+            # then: 4 pixels over 24 frames of L6; a route that leaves
+            # JAX's rounding points differs at a third of the pixels by
+            # about three units); float16 (the plain route) within 2^-8·max
             small = x[..., :512, :512].contiguous()
             on_cpu = run(small.cpu(), **kw)
-            e_c = max_err(run(small, **kw).cpu(), on_cpu)
-            require(e_c <= 2 ** -8 * max(float(on_cpu.abs().max()), 1.0),
-                    f"{what}: 512² on the card vs the CPU {e_c}")
+            diff = (run(small, **kw).cpu().float() - on_cpu.float()).abs()
+            e_c, n_c = float(diff.max()), int((diff > 0).sum())
+            top = float(on_cpu.float().abs().max())
+            if x.dtype == torch.bfloat16:
+                unit = 2.0 ** (math.floor(math.log2(top)) - 7)
+                require(e_c <= unit and n_c * 4096 <= diff.numel(),
+                        f"{what}: 512² on the card vs the CPU {e_c} "
+                        f"(one bfloat16 unit {unit}) at {n_c} of "
+                        f"{diff.numel()} pixels")
+            else:
+                require(e_c <= 2 ** -8 * max(top, 1.0),
+                        f"{what}: 512² on the card vs the CPU {e_c}")
             t32 = timed(lambda: run(x32, **kw), torch)
-            print(f"  512² on the card vs the CPU: max abs err {e_c:.4g}; "
+            print(f"  512² on the card vs the CPU: max abs err {e_c:.4g} at "
+                  f"{n_c} of {diff.numel()} pixels (max {top:.4g}); "
                   f"float32 kernels on the same frame {t32:.3f} ms")
             lowp_out[what] = dict(recon_vs_f32_max_abs_err=e32,
                                   f32_scale=scale, vs_plain_max_abs_err=e_p,
-                                  small_vs_cpu_max_abs_err=e_c, f32_ms=t32,
+                                  small_vs_cpu_max_abs_err=e_c,
+                                  small_vs_cpu_pixels=n_c, f32_ms=t32,
                                   launches=run_l)
             paths[what] = (lambda run=run, x=x, kw=kw: run(x, **kw),
                            lambda run=run, x=x, kw=kw: run(x, fuse=False,
@@ -2017,8 +2035,9 @@ def main():
         kernels_out.append(dict(
             name="whiten_step_halo", route="cuda",
             source="wavelets_tpu_torch/csrc/whiten_step.cu",
-            replaces="wavelets_tpu/ops/pallas_deep.py:514 (halo mode, "
-                     ":545-558; pallas_call :593)",
+            replaces="wavelets_tpu/ops/pallas_deep.py:311 (the stream, "
+                     "halo mode :343-350; deep_whiten_step :514, "
+                     "pallas_call :593)",
             launches=launches.get("whiten_step_halo", 0),
             main_path_launches=sharded_main[m2_name].get(
                 "whiten_step_halo", 0),
@@ -2363,7 +2382,8 @@ def main():
         kernels_out.append(dict(
             name="whiten_step_bf16", route="cuda",
             source="wavelets_tpu_torch/csrc/whiten_step.cu",
-            replaces="wavelets_tpu/ops/pallas_deep.py:514",
+            replaces="wavelets_tpu/ops/pallas_deep.py:311 (the stream's "
+                     "bfloat16 form; deep_whiten_step :514)",
             launches=launches.get("whiten_step_bf16", 0),
             main_path_launches={k: v.get("whiten_step_bf16", 0)
                                 for k, v in lowp_main.items()},

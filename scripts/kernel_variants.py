@@ -37,8 +37,14 @@ are only timed.
   strips of 96 and 64 columns (bands filling one wave), rings of float32
   holding the bfloat16 values (``stream_plan``'s search over their
   layout: 64-column strips, 109 KB), no whitening epilogue,
-  its bits held against the plain version; the deep step s = 4, 6, 9;
-  the pair (7, 8);
+  its bits held against the plain version; the deep step s = 4..9 and
+  s = 4 without recon (the residue-class stream, one launch a scale; the
+  parent's two launches apart with ``--root``), with one column a thread
+  in place of a pair, and with no whitening epilogue; the pair (7, 8);
+* kernel A's deep step in halo mode (``whiten_step_halo``, float32), one
+  scale each of s = 3..9 on M2's band: the 4096² frame extended by
+  ``R = 2hw·2^s`` rows a side, as the sharded engine's band tail on one
+  rank takes it, launch by launch; also with no whitening epilogue;
 * kernel B (``median_select.cu``), median(|x|) at 4096² and 512²: as
   built, with the device time of each of its four launches;
 * kernel F (``bilateral_group.cu``, ``wt_ring.cuh``), a group of 3 at
@@ -106,6 +112,13 @@ VARIANTS = {
     "group bf16, no whitening epilogue": ("whiten_group_bf16",
                                           ("NO_EPILOGUE",), None),
     "step bf16": ("whiten_step_bf16", (), None),
+    "step halo": ("whiten_step_halo", (), None),
+    "step bf16, one column a thread": ("whiten_step_bf16",
+                                       ("STREAM_SCALAR",), None),
+    "step bf16, no whitening epilogue": ("whiten_step_bf16",
+                                         ("NO_EPILOGUE",), None),
+    "step halo, no whitening epilogue": ("whiten_step_halo",
+                                         ("NO_EPILOGUE",), None),
     "pair bf16": ("whiten_pair_bf16", (), None),
     "median": ("median_select", (), None),
     "bilateral group": ("bilateral_group", (), None),
@@ -121,13 +134,13 @@ VARIANTS = {
 }
 #: kernels whose device time is printed launch by launch
 PARTS = {"median_select", "decompose_group", "bilateral_step",
-         "whiten_plane"}
+         "whiten_plane", "whiten_step_bf16", "whiten_step_halo"}
 
 
 def source(kernel):
-    """The source (and library) of a kernel: a bfloat16 form is built
-    from its float32 kernel's source."""
-    return kernel.removesuffix("_bf16")
+    """The source (and library) of a kernel: a bfloat16 form and the
+    halo mode are built from the float32 kernel's source."""
+    return kernel.removesuffix("_bf16").removesuffix("_halo")
 
 
 def build_variants(_build, kernels):
@@ -337,8 +350,8 @@ def main():
 
     pieces_plan = getattr(hopper_wow, "pieces_plan", None)
 
-    def pieces_whole(B, H, W, n, hw):
-        p = pieces_plan(B, H, W, n, hw)
+    def pieces_whole(B, H, W, n, hw, rows=1):
+        p = pieces_plan(B, H, W, n, hw, rows)
         return dataclasses.replace(p, seg=0, grid=(H, 1, p.grid[2]),
                                    smem_bytes=8 * n * W)
 
@@ -393,9 +406,21 @@ def main():
                 masked=(True, True, True, False))
         elif kernel == "whiten_step_bf16":
             rh = torch.zeros_like(xh)
-            for s in (4, 6, 9):
+            for s in range(4, 10):
                 yield f"s={s}", lambda s=s: hopper_deep.deep_whiten_step(
                     xh, rh, zero1, sf=B3SPLINE, scale=s, weight=1.0)
+            yield "s=4, no recon", lambda: hopper_deep.deep_whiten_step(
+                xh, None, zero1, sf=B3SPLINE, scale=4, weight=1.0)
+        elif kernel == "whiten_step_halo":
+            from wavelets_tpu_torch.ops.conv import boundary_index
+            for s in range(3, 10):
+                R = 2 * B3SPLINE.half_width << s
+                ext = x.index_select(1, boundary_index(
+                    4096, -R, "symmetric", dev, 4096 + 2 * R)).contiguous()
+                yield f"s={s}", lambda s=s, ext=ext, R=R: (
+                    hopper_deep.deep_whiten_step(
+                        ext, recon, zero1, sf=B3SPLINE, scale=s, weight=1.0,
+                        halo=R))
         elif kernel == "whiten_pair_bf16":
             rh = torch.zeros_like(xh)
             yield "(7, 8)", lambda: hopper_deep.deep_whiten_step2(

@@ -1468,3 +1468,156 @@ def test_bf16_group_without_tile_runs_plain_on_the_card(dev):
     assert not _build.LAUNCHES
     assert dict(_build.PLAIN_CALLS) == {"whiten_group_bf16": 1}
     assert rows[0].is_cuda and acc.dtype == torch.bfloat16
+
+
+# ---------------------------------------------------------------------
+# kernel A's deep step on the residue-class stream (one launch a scale,
+# the detail on chip): the bfloat16 step, the split pair's two halves and
+# halo mode, at the paths' shapes and on forced plans (runs of columns,
+# tap windows, chunks, a grid smaller than the items)
+# ---------------------------------------------------------------------
+
+def _m2_band(x, R):
+    """M2's band tail on one rank: the whole frame extended by R rows a
+    side with its symmetric reflection, as the sharded engine builds it."""
+    from wavelets_tpu_torch.ops.conv import boundary_index
+    H = x.shape[1]
+    return x.index_select(1, boundary_index(H, -R, "symmetric", x.device,
+                                            H + 2 * R)).contiguous()
+
+
+@pytest.mark.parametrize("shape,s", [((4096, 4096), 4), ((4096, 4096), 9),
+                                     ((256, 25600), 4), ((256, 25600), 6)])
+def test_stream_bf16_and_split_bitwise_at_the_paths_shapes(dev, shape, s):
+    rng = np.random.default_rng(s)
+    x = _bf16(rng, (1,) + shape, dev)
+    recon = _bf16(rng, (1,) + shape, dev, mean=0.0)
+    thr = torch.tensor([0.9], device=dev)
+    kw = dict(sf=B3SPLINE, scale=s, weight=1.5, soft=True, masked=True)
+    r_k, r_p = recon.clone(), recon.clone()
+    _build.reset_counters()
+    out_k = hopper_deep.deep_whiten_step(x, r_k, thr, **kw)
+    assert dict(_build.LAUNCHES) == {"whiten_step_bf16": 1}
+    out_p = hopper_deep.deep_whiten_step_plain(x, r_p, thr, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(out_k, out_p):
+        _bitwise(a, b)
+    s2 = min(s, 8)
+    thr2 = torch.tensor([[0.4], [0.0]], device=dev)
+    kw2 = dict(sf=B3SPLINE, scale=s2, weights=(1.25, 0.75),
+               masked=(True, False))
+    a_k, a_p = recon.clone(), recon.clone()
+    out_k = hopper_deep.deep_whiten_step2_split(x, a_k, thr2, **kw2)
+    assert dict(_build.LAUNCHES) == {"whiten_step_bf16": 3}
+    out_p = hopper_deep.deep_whiten_step2_split_plain(x, a_p, thr2, **kw2)
+    torch.cuda.synchronize()
+    for a, b in zip(out_k, out_p):
+        _bitwise(a, b)
+
+
+@pytest.mark.parametrize("shape,scales", [((4096, 4096), (3, 9)),
+                                          ((256, 25600), (5,))])
+def test_stream_halo_m2_band_bitwise(dev, shape, scales):
+    # one rank's band: the frame extended by R rows a side; the kernel
+    # bitwise to its plain version and to the frame's float32 step
+    rng = np.random.default_rng(len(scales))
+    x = torch.from_numpy(rng.normal(size=(1,) + shape).astype(np.float32))
+    recon = torch.from_numpy(rng.normal(size=(1,) + shape).astype(np.float32))
+    x, recon = x.to(dev), recon.to(dev)
+    thr = torch.tensor([0.3], device=dev)
+    for s in scales:
+        R = 2 * B3SPLINE.half_width << s
+        kw = dict(sf=B3SPLINE, scale=s, weight=1.5, soft=True, masked=True)
+        ext = _m2_band(x, R)
+        r_k, r_p, r_1 = recon.clone(), recon.clone(), recon.clone()
+        _build.reset_counters()
+        out_k = hopper_deep.deep_whiten_step(ext, r_k, thr, halo=R, **kw)
+        assert dict(_build.LAUNCHES) == {"whiten_step_halo": 1}
+        out_p = hopper_deep.deep_whiten_step_plain(ext, r_p, thr, halo=R,
+                                                   **kw)
+        out_1 = hopper_deep.deep_whiten_step(x, r_1, thr, **kw)
+        torch.cuda.synchronize()
+        for a, b, c in zip(out_k, out_p, out_1):
+            assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def _forced_stream_plan(seg, chunk, grid):
+    """A stand-in for hopper_conv.stream_step_plan: the given run width,
+    chunk length (at most a class's rows) and grid (at most the items),
+    with the shared bytes the layout needs."""
+    def plan(B, H, W, D, hw, ci=2, si=2, halo=False):
+        sg = seg if seg < W else 0
+        _, n_cls, P, _ = hopper_conv.stream_classes(H, D, halo)
+        ch = min(chunk, P)
+        runs = -(-W // sg) if sg else 1
+        items = B * runs * n_cls * -(-P // ch)
+        return hopper_conv.StreamStepPlan(
+            sg, ch, hopper_conv.stream_step_smem(W, D, hw, sg, ci, si),
+            min(grid, items))
+    return plan
+
+
+@pytest.mark.parametrize("plan", [(0, 1, 1), (0, 2, 7), (8, 3, 5),
+                                  (16, 1, 64), (64, 2, 3)])
+@pytest.mark.parametrize("shape,s", [((3, 37, 70), 1), ((3, 37, 70), 3),
+                                     ((3, 37, 70), 6), ((1, 8, 129), 4),
+                                     ((2, 19, 40), 9), ((2, 64, 70), 3)])
+@pytest.mark.parametrize("sf", [B3SPLINE, TRIANGLE], ids=["b3", "tri"])
+def test_stream_forced_plans_bitwise(dev, monkeypatch, plan, shape, s, sf):
+    # runs of 8, 16 and 64 columns (tap windows where Dc passes the run),
+    # chunks of 1-3 positions, grids below the items (grid-stride), H not
+    # a multiple of D, D >= H, odd widths, three frames: every form
+    # bitwise to its plain version
+    monkeypatch.setattr(hopper_conv, "stream_step_plan",
+                        _forced_stream_plan(*plan))
+    rng = np.random.default_rng(s)
+    x = _bf16(rng, shape, dev)
+    recon = _bf16(rng, shape, dev, mean=0.0)
+    B = shape[0]
+    thr = torch.tensor([0.9, 0.0, 0.5][:B], device=dev)
+    kw = dict(sf=sf, scale=s, weight=1.5, soft=True, masked=True)
+    r_k, r_p = recon.clone(), recon.clone()
+    out_k = hopper_deep.deep_whiten_step(x, r_k, thr, **kw)
+    out_p = hopper_deep.deep_whiten_step_plain(x, r_p, thr, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(out_k, out_p):
+        _bitwise(a, b)
+    thr2 = torch.stack([thr, thr.flip(0)])
+    kw2 = dict(sf=sf, scale=s, weights=(1.25, 0.75), masked=(True, False))
+    a_k, a_p = recon.clone(), recon.clone()
+    out_k = hopper_deep.deep_whiten_step2_split(x, a_k, thr2, **kw2)
+    out_p = hopper_deep.deep_whiten_step2_split_plain(x, a_p, thr2, **kw2)
+    torch.cuda.synchronize()
+    for a, b in zip(out_k, out_p):
+        _bitwise(a, b)
+    xf = x.float()
+    R = 2 * sf.half_width << s
+    ext = _m2_band(xf, R)
+    r_k, r_p = recon.float(), recon.float()
+    out_k = hopper_deep.deep_whiten_step(ext, r_k, thr, halo=R, **kw)
+    out_p = hopper_deep.deep_whiten_step_plain(ext, r_p, thr, halo=R, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(out_k, out_p):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("wrong", ["smem", "seg", "chunk", "grid"])
+def test_stream_entry_refuses_a_wrong_plan(dev, monkeypatch, wrong):
+    # the C entry lays out the shared memory itself and refuses a plan it
+    # cannot run (cudaErrorInvalidValue), before any launch
+    real = hopper_conv.stream_step_plan
+
+    def bad(*args):
+        p = real(*args)
+        return dataclasses.replace(p, **{
+            "smem": dict(smem_bytes=p.smem_bytes - 16),
+            "seg": dict(seg=12),
+            "chunk": dict(chunk=1 << 20),
+            "grid": dict(grid=1 << 20)}[wrong])
+    monkeypatch.setattr(hopper_conv, "stream_step_plan", bad)
+    x = _bf16(np.random.default_rng(0), (1, 64, 96), dev)
+    _build.reset_counters()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        hopper_deep.deep_whiten_step(x, None, torch.zeros(1, device=dev),
+                                     sf=B3SPLINE, scale=3, weight=1.0)
+    assert not _build.LAUNCHES

@@ -94,18 +94,3 @@ def test_halo_mode_arguments():
                                            **kw)
     assert w.shape == c.shape == (1, 64, 48) and r is None
 
-
-def test_halo_step_plans():
-    # the two passes: H + R rows reading H + 2R, then H reading H + R, at
-    # the true row dilation (no reflection: no map_step on the rows)
-    p1, p2 = hopper_deep.halo_step_plans(3, 1024, 4096, 9, 2)
-    assert p1.grid == (3072, 1, 3) and p2.grid == (1024, 1, 3)
-    assert p1.index_bits == p2.index_bits == 32
-    # 8 interior rows, R = 2048: 2056 rows in residue-class order of the
-    # true dilation 512, five rows a class, the last class short
-    p1, p2 = hopper_deep.halo_step_plans(1, 8, 64, 9, 2)
-    assert p1.grid[0] == 512 * 5 and p2.grid[0] == 8
-    # offsets span the source: 64 frames of 8192 (pass 1) and of 6144
-    # (pass 2) rows of 4096
-    p1, p2 = hopper_deep.halo_step_plans(64, 4096, 4096, 9, 2)
-    assert p1.index_bits == 64 and p2.index_bits == 32

@@ -1,95 +1,121 @@
 // One WOW scale on the card (kernel A, deep form): chain smooth, detail,
-// power smooth, mask, whiten, accumulate, in two launches.  Plain C
-// interface, loaded with ctypes (wavelets_tpu_torch/ops/_build.py);
-// wrapper and host-side plan in ops/hopper_conv.py (launch_whiten_step,
-// step_plan), called by ops/hopper_deep.py::deep_whiten_step.
+// power smooth, mask, whiten, accumulate.  Plain C interface, loaded with
+// ctypes (wavelets_tpu_torch/ops/_build.py); wrappers and host-side plans
+// in ops/hopper_conv.py (launch_whiten_step and step_plan for float32,
+// launch_whiten_stream and stream_step_plan for the rest), called by
+// ops/hopper_deep.py::deep_whiten_step and deep_whiten_step2_split.
 //
-// Replaces wavelets_tpu/ops/pallas_deep.py::deep_whiten_step
-// (_make_stream_kernel / _make_deep_kernel), one deep scale per launch on
-// row streams.  The TPU kernel's residue-class streams and MXU mirrors
-// exist because Mosaic has no `rev` and VMEM windows are tiled; none of
-// that carries over.  (The shallow group, pallas_conv._fused_wow_group,
-// is whiten_group.cu; this kernel runs its scales only where no group
-// tile fits the shared memory.)
+// Replaces wavelets_tpu/ops/pallas_deep.py::deep_whiten_step (:514), one
+// deep scale per launch, and its residue-class stream _make_stream_kernel
+// (:311), with its bfloat16 form and its halo mode.  (The shallow group,
+// pallas_conv._fused_wow_group, is whiten_group.cu; this kernel runs its
+// scales only where no group tile fits the shared memory.)
 //
-// Design.  Two launches of wt_step.cuh's row-buffer pass at dilation D:
+// Two designs, one per form.
+//
+// Float32 (wt_whiten_step_f32, the main path's step): two launches of
+// wt_step.cuh's row-buffer pass at dilation D:
 //   launch 1 (FIRST): rows fold of the carry, cols fold -> c_next,
 //             detail = carry - c_next;
 //   launch 2 (SECOND): rows fold of detail^2, cols fold -> lp, the
 //             whitening epilogue (wt::whiten_value) -> white (optional),
 //             acc (set, += or none).
-// Each folds a row into a shared-memory row buffer, with the raw centre
-// row beside it, and the cols fold out of it, blocks in residue-class
-// row order (wt_step.cuh).  So the rows-pass scratch plane of the
-// earlier four launches (tmp) never reaches device memory: a scale moves
-// about 7 planes (reads: carry, detail, acc; writes: c_next, detail,
-// white, acc) in 2 launches against 11 in 4.  Kernels C
-// (decompose_group.cu) and G (bilateral_step.cu) launch the same pass.
-//
 // Bound: device memory, 5 planes by the function's bytes (read carry and
 // acc, write white, c_next and acc: 0.100 ms at 4096^2); the detail
-// plane between the launches adds 2, 0.140 ms for the 7.  Measured on an
-// H100 80GB HBM3 at 700 W: 0.29-0.36 ms per scale at 4096^2 for
-// s = 0..9 around the call (chip_smoke.py), 0.21-0.23 ms of device time
-// (scripts/kernel_variants.py), flat in the dilation (the earlier four
-// launches: 1.03-1.19 ms); 0.43-0.48 ms of device time with the taps at
-// run time, a loop over the Taps argument that the compiler copies to
-// local memory.
+// plane between the launches adds 2.  Measured on an H100 80GB HBM3 at
+// 700 W: 0.21-0.23 ms of device time per scale at 4096^2
+// (scripts/kernel_variants.py), flat in the dilation.
 //
-// Rounding.  The folds round step by step in the JAX package's order,
-// as wt_common.cuh's fold_rows/fold_cols, so c_next and the detail are
-// bitwise equal to the plain PyTorch version on the same card and to
-// the earlier four-launch kernel.  The epilogue uses IEEE sqrt and
-// division; erff may differ from torch.erf in the last place, which
-// bounds |white - plain| well inside 5e-6*max.
+// The residue-class stream (deep_stream below; wt_whiten_step_bf16, the
+// halves of the bfloat16 pair wt_whiten_step_bf16_f32next/_f32carry, and
+// the halo mode wt_whiten_step_halo_f32), one launch a scale.  What bounds
+// it on the H100: the function moves 10 bytes a pixel in bfloat16 (read
+// carry and acc, write c_next, white and acc: 0.050 ms at 4096^2), so the
+// two-launch pass's float32 detail plane (8 bytes a pixel more, and in
+// halo mode H + R rows each way) and its five reads of every tap row a
+// pass were most of its traffic; what is left is instruction issue: four
+// folds a pixel and the epilogue's IEEE square root and division (with
+// erff and a second division where masked).  The design keeps every
+// intermediate on chip and folds each value once:
+//   - a block owns a frame, a residue class r of the rows' dilation D, a
+//     chunk of that class's rows (positions p: rows r + pD) and a run of
+//     columns (whole rows where they fit), and walks down the positions
+//     one tick at a time; blocks take such items grid-stride, so any
+//     batch is one launch;
+//   - each tick one carry row enters a ring of 2hw+2 rows in the carry's
+//     own type (16-byte cp.async a tick ahead where the chunk lies inside
+//     the frame on a 16-byte boundary), the chain's rows fold runs over
+//     the class's 2hw+1 ring rows into a row buffer, and its cols fold
+//     gives c_next (rounded to N on store) and the float32 detail, which
+//     goes into a ring of 2hw+1 rows;
+//   - one tick behind, the power smooth's rows fold squares the detail
+//     ring's rows into a second buffer, and its cols fold, the epilogue
+//     and the acc row (fetched by cp.async in the same tick) give white
+//     and acc: two barriers a tick;
+//   - a chunk warms up on the 2hw positions before it (4hw carry rows),
+//     which the plan weighs against filling 132 SMs; where D divides H a
+//     work item walks a class and its mirror class D - 1 - r as one
+//     stream of 2P positions (position P + k of class r is the mirror's
+//     position P - 1 - k), so a class's reflected ends are rows it owns;
+//   - a thread takes a pair of columns at a time, read as float2 or
+//     __nv_bfloat162 and stored in pairs where aligned.
+// Borders: a position outside [0, P) reads row sym(r + pD) directly.
+// The folds are symmetric, so the smooth and the detail there equal those
+// of the reflected row bit for bit (the JAX stream's identity,
+// pallas_deep.py:321-333), for any H (sym has period 2H); where D >= H the
+// rows take map_step(D, H) (wt_tile.cuh).  Halo mode: the band arrives
+// extended by R = 2hw*D rows a side, so every position is a real row at
+// an offset and nothing reflects; the outputs are the H interior rows.
+// Columns: whole rows reflect in the cols folds (symmetric index map);
+// a run of seg columns lays its buffers out as wt_step.cuh's segments,
+// shared index v holding column w0 + (v / S - e) * Dc + v % S with
+// S = min(Dc, seg) and e = 2hw for the carry and the chain's rows fold
+// (the chain smooth is needed 2hw*Dc beyond the run), e = hw for the
+// detail and the power smooth: a contiguous margin where Dc <= seg, the
+// tap windows side by side beyond, at the cost of the chain smooth
+// computed again on the windows.
 //
-// bfloat16.  wt_whiten_step_bf16 is the same two launches on a bfloat16
-// carry (the JAX kernel's bfloat16 stream, pallas_deep.py:329-340): the
-// folds read the carry as float32, the detail between the launches stays
-// float32, and c_next, the white and acc round to bfloat16 on store
-// (acc += white: the white rounded first, the sum in float32, one
-// rounding, as the JAX package's XLA add of the two planes).  Its halves
-// with a float32 c_next or carry (wt_whiten_step_bf16_f32next, _f32carry)
-// run the JAX pair's rounding, the middle carry unrounded, as two
-// launches where kernel E's float32 tori do not fit.
+// Rounding (both designs).  The folds round step by step in the JAX
+// package's order, as wt_common.cuh's fold_rows/fold_cols: x*t_0, then
+// t_j*(l + r) added for j = 1..hw.  The carry is read as float32, the
+// detail (from the unrounded smooth) stays float32, and c_next, the white
+// and acc round to their types on store (acc += white: the white rounded
+// first, the sum in float32, one rounding, as the JAX package's XLA add
+// of two planes).  So every output is bitwise equal to the plain PyTorch
+// version on the same card.  The epilogue uses IEEE sqrt and division;
+// erff may differ from torch.erf in the last place, which the bfloat16
+// rounding on store hides or bounds well inside 5e-6*max in float32.
 //
-// Halo mode.  wt_whiten_step_halo_f32 is the JAX stream's halo mode
-// (pallas_deep.py:343-406, :545-558, halo_blocks > 0), which only the
-// sharded engine's band tail runs (parallel/sharded.py): the carry is a
-// row band extended by R = 2*hw*D rows a side with its neighbours' rows
-// (or the image's reflection), so rows are read without reflection and
-// the outputs cover the H interior rows; columns reflect as ever.  The
-// same two launches, on wt_step.cuh's HaloArgs (a compile-time switch:
-// kernels A, C, D and G keep their instantiations): the first over the
-// H + R rows whose detail the power smooth reads (source H + 2R rows,
-// c_next written for the interior only), the second over the interior.
-// Bound: device memory, (H + 2R)*W read for the carry, recon read,
-// three planes written (ops/hopper_deep.py::halo_step_plans, utils/
-// profiling.py::halo_step_bytes); the detail scratch adds H + R rows
-// each way.  Float32 only, as the JAX package's stage-2 gate sends it.
-// Symmetric taps fold each pair in either order, so a reflected halo
-// gives the in-kernel reflection's bits: bands concatenated are bitwise
-// the single-frame step (chip_smoke.py).
+// Measured (scripts/kernel_variants.py, NVIDIA H100 80GB HBM3, 700 W,
+// device ms a scale at 4096^2, PERF.md): bfloat16 0.186-0.240 against
+// the two launches' 0.219-0.245 on the same card, halo mode on a
+// 4096-row band 0.186-0.280 against 0.246-0.313.  The stream moves a
+// third of the bytes but stays bound by issue and latency: without the
+// whitening epilogue it takes 0.17-0.22, with one column a thread instead
+// of a pair 0.27-0.32; 1024 threads gained 2%, the acc row read into
+// registers instead of by cp.async lost 28%.  Variant hooks
+// (scripts/kernel_variants.py):
+// STREAM_SCALAR (one column a thread), NO_EPILOGUE (the white is c + lp).
 //
-// Launch.  Segment width, grid, shared-memory bytes and offset width are
-// the wrapper's plan (step_plan), passed in and checked here, so the
-// plan the CPU tests hold is the one launched.
+// Launch.  Each form's plan (segment width, grid, shared-memory bytes,
+// offset width; the stream's chunk length) is the wrapper's, passed in,
+// checked here and launched as given, so the plan the CPU tests hold is
+// the one launched.
 
 #include "wt_step.cuh"
 
 namespace {
 
-// One scale of kernel A's deep form with planes stored as S (float or
-// __nv_bfloat16), the carry read as C and c_next stored as N (S unless
-// one half of the float32-carry pair); the detail scratch is float32.
-template <class S, class C = S, class N = S>
-int whiten_step(const C* carry, N* c_next, float* detail, S* white, S* acc,
-                int acc_mode, const float* thr, float fac, int masked,
-                int soft, const double* taps, int n_taps, long long B,
-                long long H, long long W, long long D, long long seg,
-                long long grid_rows, long long grid_segs, long long frames,
-                long long smem_bytes, int index_bits, void* stream) {
-  wt::StepArgsT<S, C, N> a = {};
+// One scale of the float32 deep step: two launches of the row-buffer
+// pass, the detail plane (scratch) between them.
+int whiten_step_f32(const float* carry, float* c_next, float* detail,
+                    float* white, float* acc, int acc_mode, const float* thr,
+                    float fac, int masked, int soft, const double* taps,
+                    int n_taps, long long B, long long H, long long W,
+                    long long D, long long seg, long long grid_rows,
+                    long long grid_segs, long long frames,
+                    long long smem_bytes, int index_bits, void* stream) {
+  wt::StepArgs a = {};
   const wt::StepPlan p = {seg, grid_rows, grid_segs, frames, smem_bytes,
                           index_bits};
   if (!wt::make_taps(taps, n_taps, &a.taps) || !carry || !c_next ||
@@ -116,47 +142,509 @@ int whiten_step(const C* carry, N* c_next, float* detail, S* white, S* acc,
   return wt::run_step_pass<true>(a, p, B, D, s);
 }
 
-// Halo mode: carry is (B, H + 2*halo, W) with halo = 2*hw*D, the band
-// extended by its neighbours' rows (or the image's reflection); c_next,
-// white and acc cover the H interior rows; detail is (B, H + halo, W)
-// scratch, the detail of the interior and of hw*D rows either side,
-// which the power smooth reads.  p1 and p2 are the plans of the two
-// passes (H + halo and H output rows).
-int whiten_step_halo(const float* carry, float* c_next, float* detail,
-                     float* white, float* acc, int acc_mode,
-                     const float* thr, float fac, int masked, int soft,
-                     const double* taps, int n_taps, long long B,
-                     long long H, long long W, long long D, long long halo,
-                     const wt::StepPlan& p1, const wt::StepPlan& p2,
-                     void* stream) {
-  wt::HaloArgs a = {};
+// ---------------------------------------------------------------------
+// The residue-class stream
+// ---------------------------------------------------------------------
+
+constexpr int kStreamThreads = 512;
+// columns a thread takes at a time: a pair, read as float2 or
+// __nv_bfloat162 where aligned
+#ifdef WT_VARIANT_STREAM_SCALAR
+constexpr int kCols = 1;
+#else
+constexpr int kCols = 2;
+#endif
+constexpr long long kStreamSmemMax = 232448;  // the H100's opt-in
+
+// The stream's plan (ops/hopper_conv.py::StreamStepPlan): seg (0 for
+// whole rows, else the run width, a multiple of 8), chunk (positions of a
+// class a block walks), grid (blocks, each taking items grid-stride),
+// smem (dynamic shared bytes).
+struct StreamPlan {
+  long long seg, chunk, grid, smem;
+};
+
+// C: the carry's type, N: c_next's, S: the white's and acc's.
+template <class C, class N, class S>
+struct StreamArgs {
+  const C* carry;
+  N* c_next;
+  S* white;          // may be null
+  S* acc;            // acc_mode 1 (set) or 2 (+=)
+  const float* thr;  // one per frame, read where masked
+  float fac;
+  int acc_mode, masked, soft;
+  int H, W;          // output rows and columns a frame
+  long long Hs;      // source rows a frame (H, or H + 2*halo)
+  long long off;     // source row of output row 0 (halo, or 0)
+  long long Dr, Dc;  // the rows' and the columns' dilation
+  int halo;          // rows read at an offset, without reflection
+  int mirror;        // a class walks on into its mirror class
+  int seg, win_w, windows;  // win_w: S = min(Dc, seg)
+  int n_cls, runs;
+  long long chunk, n_chunks, items;
+  int pitch_c, pitch_d;                  // ring rows, in elements
+  int off_t1, off_t2, off_det, off_acc;  // shared regions, in bytes
+  int vec_c, vec_a;  // carry / acc 16-byte aligned: cp.async may copy
+  int st_pairs;      // W even, outputs aligned: pairs stored together
+  wt::Taps taps;
+};
+
+inline long long align16(long long n) { return (n + 15) / 16 * 16; }
+
+// Lay out the stream's shared memory for the plan p and check that the
+// kernel runs it on a (B, H, W) stack at the true dilation D (halo > 0:
+// a source of H + 2*halo rows a frame, halo = 2*hw*D): ops/hopper_conv.py
+// ::stream_step_smem and stream_step_plan mirror it.
+template <class C, class N, class S>
+bool stream_layout(StreamArgs<C, N, S>* a, const StreamPlan& p, long long B,
+                   long long H, long long W, long long D, long long halo) {
+  const long long hw = a->taps.hw;
+  if (B < 1 || H < 1 || W < 1 || D < 1 || H >= (1ll << 30) ||
+      W >= (1ll << 30) || halo < 0 || p.seg < 0 ||
+      (p.seg && (p.seg % 8 || p.seg >= W)) || p.chunk < 1 || p.grid < 1)
+    return false;
+  if (halo && (D >= (1ll << 26) || halo != 2 * hw * D ||
+               H + 2 * halo >= (1ll << 30)))
+    return false;
+  const long long Dr = halo ? D : wt::map_step(D, H);
+  const long long Dc = wt::map_step(D, W);
+  // mirror: where Dr divides H, position P + k of class r is row
+  // sym(r + (P + k) Dr) = position P - 1 - k of class Dr - 1 - r, so an
+  // item walks the pair (r, Dr - 1 - r) as one stream of 2P positions
+  const bool mirror = !halo && Dr < H && H % Dr == 0 && Dr % 2 == 0;
+  const long long n_cls = mirror ? Dr / 2 : (Dr < H ? Dr : H);
+  const long long P = mirror ? 2 * (H / Dr) : (H + Dr - 1) / Dr;
+  const long long seg = p.seg, sw = seg ? (Dc < seg ? Dc : seg) : 0;
+  const long long m = seg ? seg : W;
+  const long long span_c = seg ? 4 * hw * sw + m : W;
+  const long long span_d = seg ? 2 * hw * sw + m : W;
+  const long long vc = 16 / static_cast<long long>(sizeof(C));
+  const long long pitch_c = (span_c + vc - 1) / vc * vc;
+  const long long pitch_d = (span_d + 3) / 4 * 4;
+  const long long t1 = align16((2 * hw + 2) * pitch_c * sizeof(C));
+  const long long t2 = t1 + align16(4 * span_c);
+  const long long det = t2 + align16(4 * span_d);
+  const long long acc = det + align16((2 * hw + 1) * pitch_d * 4);
+  const long long need = acc + align16(m * sizeof(S));
+  const long long runs = seg ? (W + seg - 1) / seg : 1;
+  const long long n_chunks = (P + p.chunk - 1) / p.chunk;
+  const long long items = B * runs * n_cls * n_chunks;
+  if (p.chunk > P || need > p.smem || p.smem > kStreamSmemMax ||
+      p.grid > items || p.grid > 0x7fffffffll)
+    return false;
+  a->H = static_cast<int>(H);
+  a->W = static_cast<int>(W);
+  a->Hs = H + 2 * halo;
+  a->off = halo;
+  a->halo = halo > 0;
+  a->mirror = mirror;
+  a->Dr = Dr;
+  a->Dc = Dc;
+  a->seg = static_cast<int>(seg);
+  a->win_w = static_cast<int>(sw);
+  a->windows = seg && sw < Dc;
+  a->n_cls = static_cast<int>(n_cls);
+  a->runs = static_cast<int>(runs);
+  a->chunk = p.chunk;
+  a->n_chunks = n_chunks;
+  a->items = items;
+  a->pitch_c = static_cast<int>(pitch_c);
+  a->pitch_d = static_cast<int>(pitch_d);
+  a->off_t1 = static_cast<int>(t1);
+  a->off_t2 = static_cast<int>(t2);
+  a->off_det = static_cast<int>(det);
+  a->off_acc = static_cast<int>(acc);
+  return true;
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Copy n elements of a row into dst: element v from column col(v) of the
+// row through the symmetric map of an axis of W.  16-byte cp.async where
+// the kV elements from v name kV in-frame columns on a 16-byte boundary
+// (within one window of `win` elements), else loads and stores.
+// `elem0` is the row's element offset from the 16-byte aligned base.
+template <class T, class Col>
+__device__ __forceinline__ void fetch_row(T* dst, const T* row,
+                                          long long elem0, int n, int W,
+                                          int win, bool vec, Col col) {
+  constexpr int kV = 16 / sizeof(T);
+  for (int v = threadIdx.x * kV; v < n; v += kStreamThreads * kV) {
+    const long long c = col(v);
+    if (vec && v + kV <= n && c >= 0 && c + kV <= W &&
+        ((elem0 + c) & (kV - 1)) == 0 && v % win + kV <= win) {
+      wt::cp_async16(dst + v, row + c);
+    } else {
+      for (int e = 0; e < kV && v + e < n; ++e)
+        dst[v + e] = row[wt::sym_index(col(v + e), W)];
+    }
+  }
+}
+
+// Two consecutive elements as float32 (8-byte or 4-byte aligned).
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// Store two consecutive elements (8-byte or 4-byte aligned).
+__device__ __forceinline__ void st2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void st2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// numpy's symmetric map of k on an axis of n: one reflection for k in
+// [-2n, 2n), the periodic map beyond.
+__device__ __forceinline__ int reflect(int k, int n) {
+  if (k < 0) k = -1 - k;
+  if (k >= n) k = 2 * n - 1 - k;
+  return static_cast<unsigned>(k) < static_cast<unsigned>(n) ? k
+                                                             : wt::sym32(k, n);
+}
+
+// The cols fold of a whole row T at column w (dilation Dc), reflecting
+// only near the borders.
+template <int HW>
+__device__ __forceinline__ float fold_whole(const float* T, int w, int W,
+                                            int Dc, const wt::Taps& tp) {
+  const int hw = wt::half_width<HW>(tp);
+  float f = __fmul_rn(T[w], tp.t[0]);
+  if (w >= hw * Dc && w + hw * Dc < W) {
+#pragma unroll
+    for (int j = 1; j <= hw; ++j)
+      f = __fadd_rn(f, __fmul_rn(tp.t[j],
+                                 __fadd_rn(T[w - j * Dc], T[w + j * Dc])));
+  } else {
+#pragma unroll
+    for (int j = 1; j <= hw; ++j)
+      f = __fadd_rn(f, __fmul_rn(tp.t[j],
+                                 __fadd_rn(T[reflect(w - j * Dc, W)],
+                                           T[reflect(w + j * Dc, W)])));
+  }
+  return f;
+}
+
+// The cols fold of a run's buffer T at index v: its taps are v +- jS.
+template <int HW>
+__device__ __forceinline__ float fold_run(const float* T, int v, int S,
+                                          const wt::Taps& tp) {
+  const int hw = wt::half_width<HW>(tp);
+  float f = __fmul_rn(T[v], tp.t[0]);
+#pragma unroll
+  for (int j = 1; j <= hw; ++j)
+    f = __fadd_rn(f, __fmul_rn(tp.t[j], __fadd_rn(T[v - j * S], T[v + j * S])));
+  return f;
+}
+
+template <int HW, bool WHOLE, class C, class N, class S>
+__global__ void __launch_bounds__(kStreamThreads, 1)
+    deep_stream(StreamArgs<C, N, S> a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  C* ring = reinterpret_cast<C*>(smem);
+  float* T1 = reinterpret_cast<float*>(smem + a.off_t1);
+  float* T2 = reinterpret_cast<float*>(smem + a.off_t2);
+  float* det = reinterpret_cast<float*>(smem + a.off_det);
+  S* accb = reinterpret_cast<S*>(smem + a.off_acc);
+  const int hw = wt::half_width<HW>(a.taps);
+  const int NC = 2 * hw + 2, ND = 2 * hw + 1;
+  const int H = a.H, W = a.W, tid = threadIdx.x;
+  const int Sw = WHOLE ? 0 : a.win_w;
+  const int Dc = WHOLE ? static_cast<int>(a.Dc) : 0;
+  const int win = (WHOLE || !a.windows) ? (1 << 30) : Sw;
+  const float t0 = a.taps.t[0];
+  for (long long it = blockIdx.x; it < a.items; it += gridDim.x) {
+    // item = ((frame * runs + run) * n_chunks + chunk) * n_cls + class
+    long long q = it;
+    const int r = static_cast<int>(q % a.n_cls);
+    q /= a.n_cls;
+    const long long k = q % a.n_chunks;
+    q /= a.n_chunks;
+    const int g = static_cast<int>(q % a.runs);
+    const long long b = q / a.runs;
+    // the class's positions, and the output row of position p (the
+    // mirror class's rows from P on)
+    const long long P = a.mirror ? 2 * (H / a.Dr) : (H - r + a.Dr - 1) / a.Dr;
+    auto out_row = [&](long long p) -> long long {
+      const long long v = r + p * a.Dr;
+      return a.mirror ? wt::sym_index(v, H) : v;
+    };
+    const long long p0 = k * a.chunk;
+    if (p0 >= P) continue;  // the whole block
+    const long long p1 = min(p0 + a.chunk, P);
+    const int w0 = WHOLE ? 0 : g * a.seg;
+    const int n_out = WHOLE ? W : min(a.seg, W - w0);
+    const int m = WHOLE ? W : (a.windows ? a.seg : n_out);
+    const int span_c = WHOLE ? W : 4 * hw * Sw + m;
+    const int span_d = WHOLE ? W : 2 * hw * Sw + m;
+    const long long frame_src = b * a.Hs * W, frame_out = b * H * W;
+    const float thr_b = a.masked ? a.thr[b] : 0.0f;
+    const float* thr = a.masked ? &thr_b : nullptr;
+    auto whiten = [&](float c, float lp, float* wc) {
+#ifdef WT_VARIANT_NO_EPILOGUE
+      *wc = c;
+      return __fadd_rn(c, lp);
+#else
+      return wt::whiten_value(c, lp, a.fac, thr, a.soft, wc);
+#endif
+    };
+    // the source row of position p: r + pD through the symmetric map, or
+    // at the halo's offset
+    auto src_row = [&](long long p) -> long long {
+      const long long v = r + p * a.Dr;
+      return a.halo ? a.off + v : wt::sym_index(v, H);
+    };
+    // the frame column of carry-ring index v
+    auto ccol = [&](int v) -> long long {
+      if (WHOLE) return v;
+      if (!a.windows) return static_cast<long long>(w0) - 2ll * hw * Sw + v;
+      const int qv = v / Sw;
+      return w0 + static_cast<long long>(qv - 2 * hw) * a.Dc + (v - qv * Sw);
+    };
+    auto fetch_carry = [&](long long p) {
+      const int slot = static_cast<int>((p - p0 + 2 * hw) % NC);
+      const long long ro = frame_src + src_row(p) * W;
+      fetch_row(ring + slot * a.pitch_c, a.carry + ro, ro, span_c, W, win,
+                a.vec_c, ccol);
+    };
+    const long long n_ticks = p1 - p0 + 2 * hw + 1;
+    for (long long p = p0 - 2 * hw; p <= p0; ++p) fetch_carry(p);
+    cp_commit();
+    for (long long t = 0; t < n_ticks; ++t) {
+      // the chain at position qc, the output one tick behind at qo
+      const long long qc = p0 - hw + t, qo = qc - hw - 1;
+      const bool chain = qc < p1 + hw, out = qo >= p0;
+      cp_wait<0>();
+      __syncthreads();
+      const bool acc_in = out && a.acc_mode == 2;
+      const long long ro = frame_out + out_row(qo) * W + w0;
+      if (acc_in) {
+        fetch_row(accb, a.acc + ro, ro, n_out, n_out, 1 << 30, a.vec_a,
+                  [](int v) { return static_cast<long long>(v); });
+        cp_commit();
+      }
+      const bool more = qc + hw + 1 < p1 + 2 * hw;
+      if (more) {
+        fetch_carry(qc + hw + 1);
+        cp_commit();
+      }
+      // ring slots: carry position p in (p - p0 + 2hw) % NC, detail
+      // position p in (p - p0 + hw) % ND; ti = qc - p0 + hw
+      const int ti = static_cast<int>(t);
+      int so[2 * WT_MAX_HW + 1], dso[2 * WT_MAX_HW + 1];
+#pragma unroll
+      for (int i = 0; i <= 2 * hw; ++i) {
+        so[i] = (ti + i) % NC * a.pitch_c;    // carry qc - hw + i
+        dso[i] = (ti + i) % ND * a.pitch_d;   // detail qo - hw + i
+      }
+      if (chain) {
+        for (int v = tid * kCols; v < span_c; v += kStreamThreads * kCols) {
+          if (kCols == 2 && v + 1 < span_c) {
+            const float2 c = ld2(ring + so[hw] + v);
+            float ox = __fmul_rn(c.x, t0), oy = __fmul_rn(c.y, t0);
+#pragma unroll
+            for (int j = 1; j <= hw; ++j) {
+              const float2 l = ld2(ring + so[hw - j] + v);
+              const float2 rr = ld2(ring + so[hw + j] + v);
+              ox = __fadd_rn(ox, __fmul_rn(a.taps.t[j], __fadd_rn(l.x, rr.x)));
+              oy = __fadd_rn(oy, __fmul_rn(a.taps.t[j], __fadd_rn(l.y, rr.y)));
+            }
+            *reinterpret_cast<float2*>(T1 + v) = make_float2(ox, oy);
+            continue;
+          }
+          for (int e = v; e < min(v + kCols, span_c); ++e) {
+            float o = __fmul_rn(wt::to_f32(ring[so[hw] + e]), t0);
+#pragma unroll
+            for (int j = 1; j <= hw; ++j)
+              o = __fadd_rn(o, __fmul_rn(a.taps.t[j],
+                                         __fadd_rn(wt::to_f32(ring[so[hw - j] + e]),
+                                                   wt::to_f32(ring[so[hw + j] + e]))));
+            T1[e] = o;
+          }
+        }
+      }
+      if (out) {
+        for (int u = tid * kCols; u < span_d; u += kStreamThreads * kCols) {
+          if (kCols == 2 && u + 1 < span_d) {
+            const float2 x = ld2(det + dso[hw] + u);
+            float ox = __fmul_rn(__fmul_rn(x.x, x.x), t0);
+            float oy = __fmul_rn(__fmul_rn(x.y, x.y), t0);
+#pragma unroll
+            for (int j = 1; j <= hw; ++j) {
+              const float2 l = ld2(det + dso[hw - j] + u);
+              const float2 rr = ld2(det + dso[hw + j] + u);
+              ox = __fadd_rn(ox, __fmul_rn(a.taps.t[j],
+                                           __fadd_rn(__fmul_rn(l.x, l.x),
+                                                     __fmul_rn(rr.x, rr.x))));
+              oy = __fadd_rn(oy, __fmul_rn(a.taps.t[j],
+                                           __fadd_rn(__fmul_rn(l.y, l.y),
+                                                     __fmul_rn(rr.y, rr.y))));
+            }
+            *reinterpret_cast<float2*>(T2 + u) = make_float2(ox, oy);
+            continue;
+          }
+          for (int e = u; e < min(u + kCols, span_d); ++e) {
+            const float x = det[dso[hw] + e];
+            float o = __fmul_rn(__fmul_rn(x, x), t0);
+#pragma unroll
+            for (int j = 1; j <= hw; ++j) {
+              const float l = det[dso[hw - j] + e], rr = det[dso[hw + j] + e];
+              o = __fadd_rn(o, __fmul_rn(a.taps.t[j],
+                                         __fadd_rn(__fmul_rn(l, l),
+                                                   __fmul_rn(rr, rr))));
+            }
+            T2[e] = o;
+          }
+        }
+      }
+      if (acc_in) {
+        if (more) cp_wait<1>();
+        else cp_wait<0>();
+      }
+      __syncthreads();
+      // the cols folds: a pair of columns from float2 taps where the
+      // pair's taps are pairs (an even dilation; whole rows: inside the
+      // row), else one column at a time
+      const int step = WHOLE ? Dc : Sw, reach = hw * step;
+      const bool pairs = kCols == 2 && (step & 1) == 0;
+      auto cols2 = [&](const float* T, int c, bool inner) -> float2 {
+        if (inner) {
+          const float2 m0 = *reinterpret_cast<const float2*>(T + c);
+          float fx = __fmul_rn(m0.x, t0), fy = __fmul_rn(m0.y, t0);
+#pragma unroll
+          for (int j = 1; j <= hw; ++j) {
+            const float2 l = *reinterpret_cast<const float2*>(T + c - j * step);
+            const float2 rr = *reinterpret_cast<const float2*>(T + c + j * step);
+            fx = __fadd_rn(fx, __fmul_rn(a.taps.t[j], __fadd_rn(l.x, rr.x)));
+            fy = __fadd_rn(fy, __fmul_rn(a.taps.t[j], __fadd_rn(l.y, rr.y)));
+          }
+          return make_float2(fx, fy);
+        }
+        if (WHOLE)
+          return make_float2(fold_whole<HW>(T, c, W, Dc, a.taps),
+                             fold_whole<HW>(T, c + 1, W, Dc, a.taps));
+        return make_float2(fold_run<HW>(T, c, Sw, a.taps),
+                           fold_run<HW>(T, c + 1, Sw, a.taps));
+      };
+      if (chain) {
+        const int sd = ti % ND * a.pitch_d;
+        const bool own = qc >= p0 && qc < p1;
+        N* nrow = a.c_next + frame_out + out_row(qc) * W + w0;
+        for (int u = tid * kCols; u < span_d; u += kStreamThreads * kCols) {
+          const int uc = WHOLE ? u : u + hw * Sw;
+          const int o = WHOLE ? u : u - hw * Sw;
+          if (pairs && u + 1 < span_d) {
+            const float2 f = cols2(T1, uc, !WHOLE || (uc >= reach &&
+                                                      uc + 1 + reach < W));
+            const float2 c = ld2(ring + so[hw] + uc);
+            // the detail from the unrounded smooth, as the JAX stream
+            // forms it
+            *reinterpret_cast<float2*>(det + sd + u) =
+                make_float2(__fsub_rn(c.x, f.x), __fsub_rn(c.y, f.y));
+            if (own && a.st_pairs && o >= 0 && o + 1 < n_out) {
+              st2(nrow + o, f.x, f.y);
+              continue;
+            }
+            if (own && o >= 0 && o < n_out) nrow[o] = wt::from_f32<N>(f.x);
+            if (own && o + 1 >= 0 && o + 1 < n_out)
+              nrow[o + 1] = wt::from_f32<N>(f.y);
+            continue;
+          }
+          for (int e = 0; e < kCols && u + e < span_d; ++e) {
+            const float f = WHOLE ? fold_whole<HW>(T1, u + e, W, Dc, a.taps)
+                                  : fold_run<HW>(T1, uc + e, Sw, a.taps);
+            det[sd + u + e] = __fsub_rn(wt::to_f32(ring[so[hw] + uc + e]), f);
+            if (own && o + e >= 0 && o + e < n_out)
+              nrow[o + e] = wt::from_f32<N>(f);
+          }
+        }
+      }
+      if (out) {
+        auto epilogue = [&](int o, float c, float lp) {
+          float wc;
+          const float v2 = whiten(c, lp, &wc);
+          if (a.white) a.white[ro + o] = wt::from_f32<S>(v2);
+          if (a.acc_mode == 1) a.acc[ro + o] = wt::from_f32<S>(v2);
+          else if (a.acc_mode == 2)
+            a.acc[ro + o] = wt::add_rounded<S>(accb[o], v2);
+        };
+        for (int o = tid * kCols; o < n_out; o += kStreamThreads * kCols) {
+          const int u = WHOLE ? o : o + hw * Sw;
+          if (pairs && o + 1 < n_out) {
+            const float2 lp = cols2(T2, u, !WHOLE || (u >= reach &&
+                                                      u + 1 + reach < W));
+            const float2 c = ld2(det + dso[hw] + u);
+            if (a.st_pairs) {
+              float wc;
+              const float vx = whiten(c.x, lp.x, &wc);
+              const float vy = whiten(c.y, lp.y, &wc);
+              if (a.white) st2(a.white + ro + o, vx, vy);
+              if (a.acc_mode == 1) st2(a.acc + ro + o, vx, vy);
+              else if (a.acc_mode == 2)
+                st2(a.acc + ro + o,
+                    __fadd_rn(wt::to_f32(accb[o]), wt::round_to<S>(vx)),
+                    __fadd_rn(wt::to_f32(accb[o + 1]), wt::round_to<S>(vy)));
+              continue;
+            }
+            epilogue(o, c.x, lp.x);
+            epilogue(o + 1, c.y, lp.y);
+            continue;
+          }
+          for (int e = 0; e < kCols && o + e < n_out; ++e) {
+            const float lp = WHOLE ? fold_whole<HW>(T2, o + e, W, Dc, a.taps)
+                                   : fold_run<HW>(T2, u + e, Sw, a.taps);
+            epilogue(o + e, det[dso[hw] + u + e], lp);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next item's prologue refills the rings
+  }
+}
+
+template <int HW, bool WHOLE, class C, class N, class S>
+static int launch_stream(const StreamArgs<C, N, S>& a, long long grid,
+                         int bytes, cudaStream_t s) {
+  static std::atomic<int> optin[wt::kMaxDevices];
+  cudaError_t err =
+      wt::smem_optin(deep_stream<HW, WHOLE, C, N, S>, bytes, optin);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  deep_stream<HW, WHOLE, C, N, S>
+      <<<static_cast<unsigned>(grid), kStreamThreads,
+         static_cast<size_t>(bytes), s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// One scale on the stream: carry (B, Hs, W) of C, c_next (B, H, W) of N,
+// white and acc (B, H, W) of S; Hs = H + 2*halo.
+template <class C, class N, class S>
+int whiten_stream(const C* carry, N* c_next, S* white, S* acc, int acc_mode,
+                  const float* thr, float fac, int masked, int soft,
+                  const double* taps, int n_taps, long long B, long long H,
+                  long long W, long long D, long long halo,
+                  const StreamPlan& p, void* stream) {
+  StreamArgs<C, N, S> a = {};
   if (!wt::make_taps(taps, n_taps, &a.taps) || !carry || !c_next ||
-      !detail || (acc_mode != 0 && !acc) || (masked && !thr) || D < 1 ||
-      halo != 2 * a.taps.hw * D || H < 1)
+      acc_mode < 0 || acc_mode > 2 || (acc_mode != 0 && !acc) ||
+      (masked && !thr) || !stream_layout(&a, p, B, H, W, D, halo))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long r = halo / 2, Hd = H + halo, He = H + 2 * halo;
-  if (!wt::step_plan_ok(p1, a.taps.hw, B, Hd, W, D, He) ||
-      !wt::step_plan_ok(p2, a.taps.hw, B, H, W, D, Hd))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // FIRST: detail rows q read carry rows q + r +- jD; c_next is the
-  // interior, detail rows r .. r + H - 1
   a.carry = carry;
   a.c_next = c_next;
-  a.detail = detail;
-  a.H = static_cast<int>(Hd);
-  a.W = static_cast<int>(W);
-  a.Hs = static_cast<int>(He);
-  a.off = static_cast<int>(r);
-  a.next_off = static_cast<int>(r);
-  a.next_H = static_cast<int>(H);
-  int err = wt::run_step_pass<false>(a, p1, B, D, s);
-  if (err) return err;
-  // SECOND: output rows h read detail rows h + r +- jD
-  a.carry = nullptr;
-  a.c_next = nullptr;
-  a.H = static_cast<int>(H);
-  a.Hs = static_cast<int>(Hd);
   a.white = white;
   a.acc = acc;
   a.thr = thr;
@@ -164,7 +652,18 @@ int whiten_step_halo(const float* carry, float* c_next, float* detail,
   a.acc_mode = acc_mode;
   a.masked = masked;
   a.soft = soft;
-  return wt::run_step_pass<true>(a, p2, B, D, s);
+  a.vec_c = aligned16(carry);
+  a.vec_a = acc != nullptr && aligned16(acc);
+  a.st_pairs = W % 2 == 0 && aligned16(c_next) &&
+               (white == nullptr || aligned16(white)) &&
+               (acc == nullptr || aligned16(acc));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int bytes = static_cast<int>(p.smem);
+  return wt::dispatch_hw(a.taps.hw, [&](auto hw) {
+    constexpr int HW = decltype(hw)::value;
+    return p.seg == 0 ? launch_stream<HW, true>(a, p.grid, bytes, s)
+                      : launch_stream<HW, false>(a, p.grid, bytes, s);
+  });
 }
 
 }  // namespace
@@ -195,80 +694,71 @@ int wt_whiten_step_f32(const float* carry, float* c_next, float* detail,
                        long long grid_rows, long long grid_segs,
                        long long frames, long long smem_bytes,
                        int index_bits, void* stream) {
-  return whiten_step<float>(carry, c_next, detail, white, acc, acc_mode, thr,
-                            fac, masked, soft, taps, n_taps, B, H, W, D, seg,
-                            grid_rows, grid_segs, frames, smem_bytes,
-                            index_bits, stream);
+  return whiten_step_f32(carry, c_next, detail, white, acc, acc_mode, thr,
+                         fac, masked, soft, taps, n_taps, B, H, W, D, seg,
+                         grid_rows, grid_segs, frames, smem_bytes,
+                         index_bits, stream);
 }
 
-// The same scale on a bfloat16 carry: c_next, white and acc bfloat16, the
-// detail scratch and the thresholds float32.
+// The same scale on a bfloat16 carry, one launch of the stream: c_next,
+// white and acc bfloat16, the thresholds float32.  The plan is the
+// wrapper's (ops/hopper_conv.py::stream_step_plan): seg, chunk, grid and
+// smem_bytes as StreamPlan above, checked (stream_layout) and launched as
+// given.  Returns as wt_whiten_step_f32.
 int wt_whiten_step_bf16(const __nv_bfloat16* carry, __nv_bfloat16* c_next,
-                        float* detail, __nv_bfloat16* white,
-                        __nv_bfloat16* acc, int acc_mode, const float* thr,
-                        float fac, int masked, int soft, const double* taps,
+                        __nv_bfloat16* white, __nv_bfloat16* acc,
+                        int acc_mode, const float* thr, float fac,
+                        int masked, int soft, const double* taps,
                         int n_taps, long long B, long long H, long long W,
-                        long long D, long long seg, long long grid_rows,
-                        long long grid_segs, long long frames,
-                        long long smem_bytes, int index_bits, void* stream) {
-  return whiten_step<__nv_bfloat16>(
-      carry, c_next, detail, white, acc, acc_mode, thr, fac, masked, soft,
-      taps, n_taps, B, H, W, D, seg, grid_rows, grid_segs, frames,
-      smem_bytes, index_bits, stream);
+                        long long D, long long seg, long long chunk,
+                        long long grid, long long smem_bytes, void* stream) {
+  return whiten_stream(carry, c_next, white, acc, acc_mode, thr, fac, masked,
+                       soft, taps, n_taps, B, H, W, D, 0,
+                       StreamPlan{seg, chunk, grid, smem_bytes}, stream);
 }
 
 // The two halves of the bfloat16 pair (s, s+1) with its middle carry in
 // float32 (the JAX pair's rounding, where kernel E's float32 tori do not
-// fit the shared memory): scale s from a bfloat16 carry, c_next stored in
-// float32; then scale s+1 from that float32 carry, c_next stored in
-// bfloat16.  White and acc are bfloat16 in both.
+// fit): scale s from a bfloat16 carry, c_next stored in float32; then
+// scale s+1 from that float32 carry, c_next stored in bfloat16.  White
+// and acc are bfloat16 in both.  Arguments as wt_whiten_step_bf16.
 int wt_whiten_step_bf16_f32next(
-    const __nv_bfloat16* carry, float* c_next, float* detail,
-    __nv_bfloat16* white, __nv_bfloat16* acc, int acc_mode,
-    const float* thr, float fac, int masked, int soft, const double* taps,
-    int n_taps, long long B, long long H, long long W, long long D,
-    long long seg, long long grid_rows, long long grid_segs,
-    long long frames, long long smem_bytes, int index_bits, void* stream) {
-  return whiten_step<__nv_bfloat16, __nv_bfloat16, float>(
-      carry, c_next, detail, white, acc, acc_mode, thr, fac, masked, soft,
-      taps, n_taps, B, H, W, D, seg, grid_rows, grid_segs, frames,
-      smem_bytes, index_bits, stream);
+    const __nv_bfloat16* carry, float* c_next, __nv_bfloat16* white,
+    __nv_bfloat16* acc, int acc_mode, const float* thr, float fac,
+    int masked, int soft, const double* taps, int n_taps, long long B,
+    long long H, long long W, long long D, long long seg, long long chunk,
+    long long grid, long long smem_bytes, void* stream) {
+  return whiten_stream(carry, c_next, white, acc, acc_mode, thr, fac, masked,
+                       soft, taps, n_taps, B, H, W, D, 0,
+                       StreamPlan{seg, chunk, grid, smem_bytes}, stream);
 }
 
 int wt_whiten_step_bf16_f32carry(
-    const float* carry, __nv_bfloat16* c_next, float* detail,
-    __nv_bfloat16* white, __nv_bfloat16* acc, int acc_mode,
-    const float* thr, float fac, int masked, int soft, const double* taps,
-    int n_taps, long long B, long long H, long long W, long long D,
-    long long seg, long long grid_rows, long long grid_segs,
-    long long frames, long long smem_bytes, int index_bits, void* stream) {
-  return whiten_step<__nv_bfloat16, float, __nv_bfloat16>(
-      carry, c_next, detail, white, acc, acc_mode, thr, fac, masked, soft,
-      taps, n_taps, B, H, W, D, seg, grid_rows, grid_segs, frames,
-      smem_bytes, index_bits, stream);
+    const float* carry, __nv_bfloat16* c_next, __nv_bfloat16* white,
+    __nv_bfloat16* acc, int acc_mode, const float* thr, float fac,
+    int masked, int soft, const double* taps, int n_taps, long long B,
+    long long H, long long W, long long D, long long seg, long long chunk,
+    long long grid, long long smem_bytes, void* stream) {
+  return whiten_stream(carry, c_next, white, acc, acc_mode, thr, fac, masked,
+                       soft, taps, n_taps, B, H, W, D, 0,
+                       StreamPlan{seg, chunk, grid, smem_bytes}, stream);
 }
 
-// One scale in halo mode on a float32 band (whiten_step_halo above):
-// carry (B, H + 2*halo, W), c_next, white and acc (B, H, W), detail
-// (B, H + halo, W) scratch; halo must be 2*hw*D.  The plans of the two
-// passes are the wrapper's (ops/hopper_deep.py::halo_step_plans), each
-// as the arguments of wt_whiten_step_f32, checked and launched as given.
+// One scale in halo mode on a float32 band, one launch of the stream:
+// carry (B, H + 2*halo, W), a band extended by halo = 2*hw*D rows a side
+// (its neighbours' rows or the image's reflection), read without row
+// reflection; c_next, white and acc (B, H, W), the interior rows.  The
+// plan is the wrapper's (stream_step_plan with halo), as above.
 int wt_whiten_step_halo_f32(
-    const float* carry, float* c_next, float* detail, float* white,
-    float* acc, int acc_mode, const float* thr, float fac, int masked,
-    int soft, const double* taps, int n_taps, long long B, long long H,
-    long long W, long long D, long long halo, long long seg1,
-    long long grid_rows1, long long grid_segs1, long long frames1,
-    long long smem1, int index_bits1, long long seg2, long long grid_rows2,
-    long long grid_segs2, long long frames2, long long smem2,
-    int index_bits2, void* stream) {
-  const wt::StepPlan p1 = {seg1, grid_rows1, grid_segs1, frames1, smem1,
-                           index_bits1};
-  const wt::StepPlan p2 = {seg2, grid_rows2, grid_segs2, frames2, smem2,
-                           index_bits2};
-  return whiten_step_halo(carry, c_next, detail, white, acc, acc_mode, thr,
-                          fac, masked, soft, taps, n_taps, B, H, W, D, halo,
-                          p1, p2, stream);
+    const float* carry, float* c_next, float* white, float* acc,
+    int acc_mode, const float* thr, float fac, int masked, int soft,
+    const double* taps, int n_taps, long long B, long long H, long long W,
+    long long D, long long halo, long long seg, long long chunk,
+    long long grid, long long smem_bytes, void* stream) {
+  if (halo < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return whiten_stream(carry, c_next, white, acc, acc_mode, thr, fac, masked,
+                       soft, taps, n_taps, B, H, W, D, halo,
+                       StreamPlan{seg, chunk, grid, smem_bytes}, stream);
 }
 
 }  // extern "C"

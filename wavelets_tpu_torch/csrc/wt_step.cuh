@@ -1,5 +1,5 @@
 // The row-buffer pass of a separable dilated smooth, one launch per
-// pass pair, shared by kernel A's deep form (whiten_step.cu), kernel C
+// pass pair, shared by kernel A's float32 deep step (whiten_step.cu), kernel C
 // (decompose_group.cu), kernel D's deep-plane form (whiten_plane.cu) and
 // kernel G (bilateral_step.cu).  Host-side
 // plan: ops/hopper_conv.py::step_plan.
@@ -50,14 +50,8 @@
 // wt_common.cuh's fold_rows/fold_cols, so c_next and the detail are
 // bitwise equal to the plain PyTorch version on the same card, and the
 // second pass's lp to wt_common.cuh's rows_pass<true> + cols_whiten.
-// With bfloat16 storage (StepArgsT<__nv_bfloat16>) the folds read the
-// carry as float32 and only c_next, the white and acc round, on store.
-//
-// Halo mode (HaloArgs, kernel A's deep step on a pre-extended band): the
-// rows read the source at an offset without reflection, at the true row
-// dilation, and FIRST writes c_next for the interior rows only; a
-// compile-time switch, so the other arguments' instantiations keep their
-// code.
+// Float32 only: kernel A's bfloat16 deep step and its halo mode run
+// whiten_step.cu's residue-class stream, which keeps the detail on chip.
 //
 // Linkage.  The launch helpers are static (internal linkage): each
 // library that includes this header has its own shared-memory opt-in
@@ -75,25 +69,13 @@ constexpr int kStepThreads = 256;
 // frames one launch takes: the grid's z
 constexpr long long kMaxFrames = 65535;
 
-// S is the storage type of the carry, c_next, white and acc (float, or
-// __nv_bfloat16 for kernel A's bfloat16 deep step); the detail plane
-// between the two passes is float32 either way, as the JAX package's deep
-// stream keeps the chain smooth and the detail in float32.  C and N, the
-// carry's and c_next's types, default to S; kernel A's bfloat16 pair of
-// steps with a float32 middle carry sets one of them to float.
-template <class S, class C = S, class N = S>
-struct StepArgsT {
-  using storage = S;
-  using carry_t = C;
-  using next_t = N;
-  // halo mode (HaloArgs): rows read a pre-extended source, no reflection
-  static constexpr bool kHalo = false;
-  const C* carry;   // FIRST: the source
-  N* c_next;        // FIRST
-  float* detail;    // FIRST: written unless null; SECOND: the source
-  S* white;         // SECOND, may be null
-  S* acc;           // SECOND, acc_mode 1 or 2
-  const float* thr; // SECOND, one per frame, read where masked
+struct StepArgs {
+  const float* carry;  // FIRST: the source
+  float* c_next;       // FIRST
+  float* detail;       // FIRST: written unless null; SECOND: the source
+  float* white;        // SECOND, may be null
+  float* acc;          // SECOND, acc_mode 1 or 2
+  const float* thr;    // SECOND, one per frame, read where masked
   float fac;
   int acc_mode, masked, soft;
   int H, W;
@@ -101,7 +83,6 @@ struct StepArgsT {
   int seg;    // 0: whole rows
   Taps taps;
 };
-using StepArgs = StepArgsT<float>;
 
 // Kernel D's deep-plane form: the SECOND pass's arguments and the gamma
 // sum and per-frame factors.
@@ -114,24 +95,11 @@ struct PlaneArgs : StepArgs {
 template <class Args>
 constexpr bool is_plane = std::is_same<Args, PlaneArgs>::value;
 
-// Kernel A's deep step in halo mode (the sharded engine's band tail):
-// the source of a pass has Hs rows, output row h reads source rows
-// h + off + jD with no row reflection (the caller extended the band with
-// its neighbours' rows or the image's reflection), columns reflect as
-// ever.  FIRST writes the detail for all H output rows and c_next only
-// for rows next_off .. next_off + next_H - 1, at row h - next_off of a
-// next_H-row plane.
-struct HaloArgs : StepArgs {
-  static constexpr bool kHalo = true;
-  int Hs, off, next_off, next_H;
-};
-
 template <bool SECOND, bool WHOLE, typename Idx, int HW,
           class Args = StepArgs>
 __global__ void __launch_bounds__(kStepThreads) step_pass(Args a) {
   extern __shared__ __align__(16) float sm[];
   __shared__ Idx roff[2 * WT_MAX_HW + 1];
-  constexpr bool HALO = Args::kHalo;
   const int H = a.H, W = a.W, D = a.D, Dc = a.Dc;
   const int hw = half_width<HW>(a.taps);
   int h = blockIdx.x;
@@ -143,14 +111,8 @@ __global__ void __launch_bounds__(kStepThreads) step_pass(Args a) {
   const int b = blockIdx.z;
   const Idx base = static_cast<Idx>(b) * H * W;
   if (threadIdx.x <= 2 * hw) {
-    if constexpr (HALO) {
-      const int tap_row = h + a.off + (int(threadIdx.x) - hw) * D;
-      roff[threadIdx.x] = static_cast<Idx>(b) * a.Hs * W +
-                          static_cast<Idx>(tap_row) * W;
-    } else {
-      const int tap_row = sym32(h + (int(threadIdx.x) - hw) * D, H);
-      roff[threadIdx.x] = base + static_cast<Idx>(tap_row) * W;
-    }
+    const int tap_row = sym32(h + (int(threadIdx.x) - hw) * D, H);
+    roff[threadIdx.x] = base + static_cast<Idx>(tap_row) * W;
   }
   __syncthreads();
   const int w0 = WHOLE ? 0 : blockIdx.y * a.seg;
@@ -160,12 +122,8 @@ __global__ void __launch_bounds__(kStepThreads) step_pass(Args a) {
   const int span = WHOLE ? W : 2 * hw * S + (windows ? a.seg : n_out);
   float* T = sm;
   float* ctr = sm + span;
-  using Store = typename Args::storage;
-  using Src = std::conditional_t<SECOND, float, typename Args::carry_t>;
-  const Src* src;
-  if constexpr (SECOND) src = a.detail;
-  else src = a.carry;
-  const Src* __restrict__ cen = src + roff[hw];
+  const float* src = SECOND ? a.detail : a.carry;
+  const float* __restrict__ cen = src + roff[hw];
   for (int v = threadIdx.x; v < span; v += kStepThreads) {
     int c = v;
     if (!WHOLE) {
@@ -176,12 +134,12 @@ __global__ void __launch_bounds__(kStepThreads) step_pass(Args a) {
         c = sym32(w0 - hw * S + v, W);
       }
     }
-    const float x0 = to_f32(cen[c]);
+    const float x0 = cen[c];
     float o = __fmul_rn(SECOND ? __fmul_rn(x0, x0) : x0, a.taps.t[0]);
 #pragma unroll
     for (int j = 1; j <= hw; ++j) {
-      float l = to_f32(src[roff[hw - j] + c]);
-      float r = to_f32(src[roff[hw + j] + c]);
+      float l = src[roff[hw - j] + c];
+      float r = src[roff[hw + j] + c];
       if (SECOND) {
         l = __fmul_rn(l, l);
         r = __fmul_rn(r, r);
@@ -208,15 +166,7 @@ __global__ void __launch_bounds__(kStepThreads) step_pass(Args a) {
     const Idx g = row + w;
     if (!SECOND) {
       // the detail from the unrounded smooth, as the JAX stream forms it
-      using Next = typename Args::next_t;
-      if constexpr (HALO) {
-        const int hn = h - a.next_off;
-        if (hn >= 0 && hn < a.next_H)
-          a.c_next[(static_cast<Idx>(b) * a.next_H + hn) * W + w] =
-              from_f32<Next>(f);
-      } else {
-        a.c_next[g] = from_f32<Next>(f);
-      }
+      a.c_next[g] = f;
       if (a.detail) a.detail[g] = __fsub_rn(ctr[o], f);
     } else {
       float wc;
@@ -224,9 +174,9 @@ __global__ void __launch_bounds__(kStepThreads) step_pass(Args a) {
                                     is_plane<Args> ? facb : a.fac,
                                     a.masked ? a.thr + b : nullptr, a.soft,
                                     &wc);
-      if (a.white) a.white[g] = from_f32<Store>(v2);
-      if (a.acc_mode == 1) a.acc[g] = from_f32<Store>(v2);
-      else if (a.acc_mode == 2) a.acc[g] = add_rounded<Store>(a.acc[g], v2);
+      if (a.white) a.white[g] = v2;
+      if (a.acc_mode == 1) a.acc[g] = v2;
+      else if (a.acc_mode == 2) a.acc[g] = __fadd_rn(a.acc[g], v2);
       if constexpr (is_plane<Args>) {
         if (a.gamma_mode == 1) a.gamma[g] = wc;
         else if (a.gamma_mode == 2) a.gamma[g] = __fadd_rn(a.gamma[g], wc);
@@ -246,27 +196,23 @@ struct StepPlan {
 // with taps of half width hw: every row once in residue-class order,
 // every segment, at most kMaxFrames frames a launch, the row buffer and
 // centre row in the shared memory, the taps' reach in 32-bit index math,
-// 32-bit offsets only where they cannot overflow.  Halo mode
-// (src_rows > 0): the rows take the true dilation, and the offsets must
-// also hold a source of src_rows rows a frame.
+// 32-bit offsets only where they cannot overflow.
 inline bool step_plan_ok(const StepPlan& p, int hw, long long B, long long H,
-                         long long W, long long D, long long src_rows = 0) {
+                         long long W, long long D) {
   if (B < 1 || H < 1 || W < 1 || D < 1 || H >= (1ll << 30) ||
-      W >= (1ll << 30) || src_rows >= (1ll << 30) || p.seg < 0 ||
-      (p.seg > 0 && p.seg >= W))
+      W >= (1ll << 30) || p.seg < 0 || (p.seg > 0 && p.seg >= W))
     return false;
-  const long long Dr = src_rows ? D : map_step(D, H), Dc = map_step(D, W);
-  const long long Hi = src_rows > H ? src_rows : H;
+  const long long Dr = map_step(D, H), Dc = map_step(D, W);
   const long long S = p.seg == 0 ? Dc : (Dc < p.seg ? Dc : p.seg);
   const long long need = p.seg == 0 ? 8 * W : 4 * (2 * p.seg + 2ll * hw * S);
   const long long frames = B < kMaxFrames ? B : kMaxFrames;
-  return Hi + hw * Dr < (1ll << 31) && W + p.seg + hw * Dc < (1ll << 31) &&
+  return H + hw * Dr < (1ll << 31) && W + p.seg + hw * Dc < (1ll << 31) &&
          p.grid_rows == (Dr >= H ? H : Dr * ((H + Dr - 1) / Dr)) &&
          p.grid_segs == (p.seg == 0 ? 1 : (W + p.seg - 1) / p.seg) &&
          p.grid_segs <= 65535 && p.frames == frames && p.smem >= need &&
          p.smem <= (1ll << 30) &&
          (p.index_bits == 64 ||
-          (p.index_bits == 32 && frames * Hi * W < (1ll << 31)));
+          (p.index_bits == 32 && frames * H * W < (1ll << 31)));
 }
 
 template <bool SECOND, bool WHOLE, typename Idx, int HW, class Args>
@@ -290,22 +236,16 @@ inline P* shift(P* p, long long n) { return p ? p + n : p; }
 template <bool SECOND, class Args = StepArgs>
 static int run_step_pass(Args a, const StepPlan& p, long long B,
                          long long D, cudaStream_t s) {
-  constexpr bool HALO = Args::kHalo;
-  a.D = static_cast<int>(HALO ? D : map_step(D, a.H));
+  a.D = static_cast<int>(map_step(D, a.H));
   a.Dc = static_cast<int>(map_step(D, a.W));
   a.seg = static_cast<int>(p.seg);
   const long long plane = static_cast<long long>(a.H) * a.W;
-  long long src = plane, next = plane;
-  if constexpr (HALO) {
-    src = static_cast<long long>(a.Hs) * a.W;
-    next = static_cast<long long>(a.next_H) * a.W;
-  }
   for (long long b0 = 0; b0 < B; b0 += p.frames) {
     Args c = a;
     const long long off = b0 * plane;
-    c.carry = a.carry ? a.carry + b0 * src : nullptr;
-    c.c_next = shift(a.c_next, b0 * next);
-    c.detail = shift(a.detail, b0 * (SECOND ? src : plane));
+    c.carry = shift(a.carry, off);
+    c.c_next = shift(a.c_next, off);
+    c.detail = shift(a.detail, off);
     c.white = shift(a.white, off);
     c.acc = shift(a.acc, off);
     c.thr = a.thr ? a.thr + b0 : nullptr;

@@ -25,7 +25,9 @@ kernel ``csrc/whiten_group.cu`` (counter ``whiten_group``) on the
 shared-memory tile that :func:`group_plan` sizes; where no tile fits (a
 rule on the shape, scale offset and taps alone), each scale is one deep
 step of kernel A's deep form, ``csrc/whiten_step.cu`` (counter
-``whiten_step``, two launches sized by :func:`step_plan`).  In bfloat16
+``whiten_step``, two launches sized by :func:`step_plan`; in bfloat16
+and in halo mode one launch of its residue-class stream, sized by
+:func:`stream_step_plan`).  In bfloat16
 the group is the same source's streamed design, sized by
 :func:`stream_plan`: a block walks a band of rows down a strip of
 columns with each scale on rings of rows, so the vertical halo is
@@ -70,9 +72,13 @@ __all__ = ["N_FAST", "fused_group", "fused_group_plain", "group_pieces",
            "GroupPlan", "group_halo", "group_plan", "StreamPlan",
            "stream_plan", "stream_smem", "stream_margins",
            "StepPlan", "step_plan", "step_smem", "map_step", "MAX_FRAMES",
+           "StreamStepPlan", "stream_step_plan", "stream_step_smem",
+           "stream_classes",
            "decompose_buffers", "SMEM_OPTIN", "STEP_STATIC_SMEM"]
 
 KERNEL = "whiten_step"
+#: the launch counter of kernel A's deep step in halo mode
+HALO_KERNEL = "whiten_step_halo"
 GROUP_KERNEL = "whiten_group"
 DECOMPOSE_KERNEL = "decompose_group"
 
@@ -116,6 +122,10 @@ H100_SMS = 132
 #: rows while a row buffer and the centre row fit, else segments of the
 #: first of these widths whose buffer fits
 STEP_SEGS = (4096, 2048, 1024, 512, 256)
+#: the residue-class stream (kernel A's deep step in bfloat16 and in halo
+#: mode): whole rows while its rings fit, else runs of the first of these
+#: widths whose rings fit (multiples of 8, for 16-byte copies)
+STREAM_STEP_SEGS = (4096, 2048, 1024, 512, 256, 128, 64, 32, 16, 8)
 #: frames one launch takes (the grid's z); a larger batch runs as
 #: several launches over consecutive frames
 MAX_FRAMES = 65535
@@ -335,8 +345,7 @@ def step_smem(W: int, D: int, hw: int, seg: int) -> int:
     return 4 * (2 * seg + 2 * hw * min(map_step(D, W), seg))
 
 
-def step_plan(B: int, H: int, W: int, D: int, hw: int,
-              src_rows: int = 0) -> StepPlan:
+def step_plan(B: int, H: int, W: int, D: int, hw: int) -> StepPlan:
     """The row-buffer pass's launch on the card, from the shape, the true
     dilation and the half width of the taps: whole rows where two rows
     fit the shared memory beside the static tap-row table
@@ -344,13 +353,10 @@ def step_plan(B: int, H: int, W: int, D: int, hw: int,
     :data:`STEP_SEGS` whose buffer fits (at any dilation: past the
     segment the buffer holds the tap windows only); raises where the
     taps' reach (:func:`map_step`) passes 32-bit index math, a side
-    reaches 2^30 or a row more than 65535 segments (2^28 columns).
-    ``src_rows`` is halo mode (kernel A's deep step on a pre-extended
-    band): the ``H`` output rows read a source of ``src_rows`` rows a
-    frame at the true dilation, without reflection."""
+    reaches 2^30 or a row more than 65535 segments (2^28 columns)."""
     if not 1 <= D < 2 ** 63:
         raise ValueError(f"step_plan: dilation {D} not in 1..2^62")
-    if max(H, W, src_rows) >= 2 ** 30:
+    if max(H, W) >= 2 ** 30:
         raise ValueError(f"step_plan: a {H}x{W} frame passes 32-bit "
                          "index math (2^30 a side)")
     budget = SMEM_OPTIN - STEP_STATIC_SMEM
@@ -358,10 +364,8 @@ def step_plan(B: int, H: int, W: int, D: int, hw: int,
         seg = 0
     else:
         seg = next(s for s in STEP_SEGS if step_smem(W, D, hw, s) <= budget)
-    Dr = D if src_rows else map_step(D, H)
-    Dc = map_step(D, W)
-    Hi = max(H, src_rows)
-    if max(Hi + hw * Dr, W + seg + hw * Dc) >= 2 ** 31:
+    Dr, Dc = map_step(D, H), map_step(D, W)
+    if max(H + hw * Dr, W + seg + hw * Dc) >= 2 ** 31:
         raise ValueError(f"step_plan: the taps of a {H}x{W} frame at "
                          f"dilation {D} reach past 32-bit index math "
                          "(2^31)")
@@ -372,39 +376,151 @@ def step_plan(B: int, H: int, W: int, D: int, hw: int,
         raise ValueError(f"step_plan: {grid[1]} segments of a {W}-column "
                          "row pass the grid's 65535")
     return StepPlan(seg, step_smem(W, D, hw, seg), grid,
-                    32 if frames * Hi * W < 2 ** 31 else 64)
+                    32 if frames * H * W < 2 ** 31 else 64)
 
 
-#: kernel A's deep-step entries by (carry, c_next) dtype: the float32 and
-#: bfloat16 forms, and the two halves of the bfloat16 pair with a float32
-#: middle carry (hopper_deep.deep_whiten_step2_split)
-_STEP_ENTRIES = {
-    (torch.float32, torch.float32): "wt_whiten_step_f32",
+@dataclass(frozen=True)
+class StreamStepPlan:
+    """The residue-class stream's launch (kernel A's deep step in bfloat16
+    and in halo mode, ``csrc/whiten_step.cu``), passed to its C entries
+    as it stands (they lay out its shared memory, check it and launch
+    it): whole rows (``seg == 0``) or runs of ``seg`` columns, ``chunk``
+    positions of a residue class a work item walks, ``smem_bytes`` per
+    block, ``grid`` blocks, each taking the items (frame, run, chunk,
+    class) grid-stride, so any batch is one launch."""
+    seg: int
+    chunk: int
+    smem_bytes: int
+    grid: int
+
+
+def _a16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def stream_step_smem(W: int, D: int, hw: int, seg: int,
+                     carry_itemsize: int, store_itemsize: int) -> int:
+    """Shared bytes of a stream block, as ``csrc/whiten_step.cu::
+    stream_layout`` lays them out, each region on 16 bytes: the carry's
+    ring of ``2hw+2`` rows in its own type (rows padded to 16 bytes), the
+    chain's rows-fold row and the power smooth's (float32), the detail's
+    ring of ``2hw+1`` float32 rows, and the acc row in the store type.  A
+    row is ``W`` columns, or for a run of ``seg`` columns with ``S =
+    min(Dc, seg)`` its layout: ``4hw·S + seg`` for the carry and the
+    chain (its smooth is needed ``2hw·Dc`` beyond the run), ``2hw·S +
+    seg`` for the detail and the power smooth."""
+    if seg == 0:
+        span_c = span_d = m = W
+    else:
+        S = min(map_step(D, W), seg)
+        span_c, span_d, m = 4 * hw * S + seg, 2 * hw * S + seg, seg
+    vc = 16 // carry_itemsize
+    pitch_c = -(-span_c // vc) * vc
+    pitch_d = -(-span_d // 4) * 4
+    return (_a16((2 * hw + 2) * pitch_c * carry_itemsize) + _a16(4 * span_c)
+            + _a16(4 * span_d) + _a16((2 * hw + 1) * pitch_d * 4)
+            + _a16(m * store_itemsize))
+
+
+def stream_classes(H: int, D: int, halo: bool = False):
+    """The stream's residue classes on ``H`` output rows at the true
+    dilation ``D`` → ``(Dr, n_cls, P, mirror)``: the rows' dilation
+    (``map_step(D, H)``, the true ``D`` in halo mode), the classes a work
+    item takes, their most positions, and whether an item walks a class
+    and its mirror as one stream.  Where ``Dr`` divides ``H`` (and is
+    even, not in halo mode), position ``P + k`` of class ``r`` is row
+    ``sym(r + (P + k)·Dr)``, position ``P − 1 − k`` of class ``Dr − 1 −
+    r``: the pair is one stream of ``2P`` positions, and the reflected
+    warm-up at a class's ends is the mirror's own rows."""
+    Dr = D if halo else map_step(D, H)
+    mirror = not halo and Dr < H and H % Dr == 0 and Dr % 2 == 0
+    if mirror:
+        return Dr, Dr // 2, 2 * (H // Dr), True
+    return Dr, min(Dr, H), -(-H // Dr), False
+
+
+@functools.lru_cache(maxsize=None)
+def stream_step_plan(B: int, H: int, W: int, D: int, hw: int,
+                     carry_itemsize: int = 2, store_itemsize: int = 2,
+                     halo: bool = False) -> StreamStepPlan:
+    """The stream's launch on an H100 from the shape (``H`` output rows;
+    in halo mode a band of ``H`` rows extended by ``2hw·D`` a side), the
+    true dilation, the half width of the taps and the carry's and
+    stores' element sizes.  Whole rows where their rings fit the opt-in
+    shared memory (:func:`stream_step_smem`), else the widest run of
+    :data:`STREAM_STEP_SEGS` columns that fits.  The rows' dilation is
+    ``map_step(D, H)`` (the true ``D`` in halo mode, where nothing
+    reflects): ``min(Dr, H)`` residue classes of up to ``P = ⌈H/Dr⌉``
+    positions, or pairs of mirror classes (:func:`stream_classes`).  The
+    chunk length is the one that takes the fewest ticks
+    on the busiest of :data:`H100_SMS` blocks, one block an SM (a chunk
+    of ``L`` positions takes ``L + 2hw + 1`` ticks: it warms up on the
+    ``2hw`` before it), ties to the longer chunk; the grid is one block an
+    SM, or one an item where there are fewer.  Raises where a side
+    reaches 2^30 or no run fits."""
+    if not 1 <= D < 2 ** 63:
+        raise ValueError(f"stream_step_plan: dilation {D} not in 1..2^62")
+    rows = H + 4 * hw * D if halo else H
+    if max(rows, W) >= 2 ** 30 or min(H, W, B) < 1:
+        raise ValueError(f"stream_step_plan: a {rows}x{W} frame passes "
+                         "32-bit index math (2^30 a side)")
+    seg = 0
+    if stream_step_smem(W, D, hw, 0, carry_itemsize,
+                        store_itemsize) > SMEM_OPTIN:
+        seg = next((s for s in STREAM_STEP_SEGS if s < W and stream_step_smem(
+            W, D, hw, s, carry_itemsize, store_itemsize) <= SMEM_OPTIN), None)
+        if seg is None:
+            raise ValueError(f"stream_step_plan: no run of a {W}-column row "
+                             f"at dilation {D} fits the shared memory")
+    _, n_cls, P, _ = stream_classes(H, D, halo)
+    per = B * (1 if seg == 0 else -(-W // seg)) * n_cls
+    lengths = {P, *(-(-P // n) for n in range(1, 65)),
+               *(1 << k for k in range(31) if 1 << k < P)}
+
+    def cost(L):
+        return -(-(per * -(-P // L)) // H100_SMS) * (L + 2 * hw + 1), -L
+
+    chunk = min(lengths, key=cost)
+    items = per * -(-P // chunk)
+    return StreamStepPlan(seg, chunk, stream_step_smem(
+        W, D, hw, seg, carry_itemsize, store_itemsize),
+        min(items, H100_SMS))
+
+
+#: kernel A's float32 deep step (the row-buffer pass, two launches)
+_STEP_ENTRY = "wt_whiten_step_f32"
+#: its entries on the residue-class stream, by (carry, c_next) dtype: the
+#: bfloat16 form and the two halves of the bfloat16 pair with a float32
+#: middle carry (hopper_deep.deep_whiten_step2_split); halo mode has its
+#: own entry, wt_whiten_step_halo_f32
+_STREAM_ENTRIES = {
     (torch.bfloat16, torch.bfloat16): "wt_whiten_step_bf16",
     (torch.bfloat16, torch.float32): "wt_whiten_step_bf16_f32next",
     (torch.float32, torch.bfloat16): "wt_whiten_step_bf16_f32carry",
 }
-# pointers, acc_mode, thr, fac, masked, soft, taps, n_taps
-_STEP_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p,
-              ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-              ctypes.c_int])
+# acc_mode, thr, fac, masked, soft, taps, n_taps
+_EPILOGUE_ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_float,
+                  ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
 # a plan: seg, grid rows, grid segments, frames, shared bytes; index bits
 _PLAN_ARGS = [ctypes.c_longlong] * 5 + [ctypes.c_int]
 
 
 def _lib():
     lib = _build.load(KERNEL)
-    for entry in _STEP_ENTRIES.values():
+    fn = getattr(lib, _STEP_ENTRY)
+    # carry, c_next, detail, white, acc, the epilogue, B, H, W, D, the plan
+    fn.argtypes = ([ctypes.c_void_p] * 5 + _EPILOGUE_ARGS
+                   + [ctypes.c_longlong] * 4 + _PLAN_ARGS + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    for entry in (*_STREAM_ENTRIES.values(), "wt_whiten_step_halo_f32"):
         fn = getattr(lib, entry)
-        # B, H, W, D, then the plan
-        fn.argtypes = (_STEP_ARGS + [ctypes.c_longlong] * 4 + _PLAN_ARGS
+        # carry, c_next, white, acc, the epilogue, B, H, W, D (and halo),
+        # then seg, chunk, grid, shared bytes
+        n_shape = 5 if entry.endswith("halo_f32") else 4
+        fn.argtypes = ([ctypes.c_void_p] * 4 + _EPILOGUE_ARGS
+                       + [ctypes.c_longlong] * (n_shape + 4)
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    fn = lib.wt_whiten_step_halo_f32
-    # B, H, W, D, halo, then the two passes' plans
-    fn.argtypes = (_STEP_ARGS + [ctypes.c_longlong] * 5 + _PLAN_ARGS * 2
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
     return lib
 
 
@@ -450,33 +566,62 @@ def check_kernel_input(x: torch.Tensor, sf: ScalingFunction,
 
 def launch_whiten_step(carry, c_next, detail, white, acc, acc_mode, thr,
                        fac, masked, soft, sf, scale) -> None:
-    """One scale of kernel A's deep form (two launches) on ``(B, H, W)``
-    CUDA tensors, float32 or (the bfloat16 form) a bfloat16 carry,
-    c_next, white and acc, or one half of the bfloat16 pair with a
-    float32 middle carry (a float32 ``c_next`` or carry beside bfloat16
-    white and acc, :data:`_STEP_ENTRIES`); ``detail`` is float32 scratch
-    that the caller holds by name until the launches are queued, ``thr``
-    float32.  The launch counter, the white's dtype's, is incremented here
-    and nowhere else."""
+    """One scale of kernel A's float32 deep step (two launches of the
+    row-buffer pass) on ``(B, H, W)`` float32 CUDA tensors; ``detail`` is
+    float32 scratch that the caller holds by name until the launches are
+    queued.  The launch counter is incremented here and nowhere else."""
     lib = _lib()
     B, H, W = carry.shape
     plan = step_plan(B, H, W, 1 << scale, sf.half_width)
     taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
-    store = (white if white is not None else acc if acc is not None
-             else c_next).dtype
-    if carry.dtype != store and c_next.dtype != store:
-        raise TypeError("launch_whiten_step: carry, c_next and the stores "
-                        "must share a dtype, bar the pair's float32 "
-                        "middle carry")
-    entry = getattr(lib, _STEP_ENTRIES[(carry.dtype, c_next.dtype)])
-    code = entry(
+    code = getattr(lib, _STEP_ENTRY)(
         _ptr(carry), _ptr(c_next), _ptr(detail), _ptr(white), _ptr(acc),
         int(acc_mode), _ptr(thr), float(fac), int(bool(masked)),
         int(bool(soft)), taps, len(sf.taps), B, H, W, 1 << scale, plan.seg,
         plan.grid[0], plan.grid[1], plan.grid[2], plan.smem_bytes,
         plan.index_bits, _build.stream_ptr(carry.device))
     _build.check(lib, code, "whiten_step")
-    _build.LAUNCHES[_build.counter(KERNEL, store)] += 1
+    _build.LAUNCHES[KERNEL] += 1
+
+
+def launch_whiten_stream(carry, c_next, white, acc, acc_mode, thr, fac,
+                         masked, soft, sf, scale, halo: int = 0) -> None:
+    """One scale of kernel A's deep step on the residue-class stream (one
+    launch, the detail kept on chip): a bfloat16 carry, c_next, white and
+    acc, or one half of the bfloat16 pair with a float32 middle carry (a
+    float32 ``c_next`` or carry beside bfloat16 white and acc,
+    :data:`_STREAM_ENTRIES`); or, ``halo > 0``, a float32 band of ``H +
+    2·halo`` rows whose ``H`` interior rows c_next, white and acc cover.
+    ``thr`` float32.  The launch counter (``whiten_step_bf16``, or
+    :data:`HALO_KERNEL`) is incremented here and nowhere else."""
+    lib = _lib()
+    B, H, W = c_next.shape
+    store = (white if white is not None else acc if acc is not None
+             else c_next).dtype
+    if halo:
+        if not carry.dtype == c_next.dtype == store == torch.float32:
+            raise TypeError("launch_whiten_stream: halo mode is float32")
+        entry, counter, shape = ("wt_whiten_step_halo_f32", HALO_KERNEL,
+                                 (B, H, W, 1 << scale, halo))
+    else:
+        if store != torch.bfloat16 or (carry.dtype, c_next.dtype) not in \
+                _STREAM_ENTRIES:
+            raise TypeError("launch_whiten_stream: bfloat16 stores, and a "
+                            "bfloat16 carry or c_next")
+        entry, counter, shape = (_STREAM_ENTRIES[(carry.dtype, c_next.dtype)],
+                                 _build.counter(KERNEL, store),
+                                 (B, H, W, 1 << scale))
+    plan = stream_step_plan(B, H, W, 1 << scale, sf.half_width,
+                            carry.element_size(),
+                            torch.finfo(store).bits // 8, bool(halo))
+    taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
+    code = getattr(lib, entry)(
+        _ptr(carry), _ptr(c_next), _ptr(white), _ptr(acc), int(acc_mode),
+        _ptr(thr), float(fac), int(bool(masked)), int(bool(soft)), taps,
+        len(sf.taps), *shape, plan.seg, plan.chunk, plan.grid,
+        plan.smem_bytes, _build.stream_ptr(carry.device))
+    _build.check(lib, code, counter)
+    _build.LAUNCHES[counter] += 1
 
 
 def whiten_detail_plain(c: torch.Tensor, fac, thr, sf: ScalingFunction,

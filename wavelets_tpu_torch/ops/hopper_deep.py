@@ -4,21 +4,23 @@ Counterpart of ``wavelets_tpu/ops/pallas_deep.py`` (signatures minus
 ``interpret``):
 
 * :func:`deep_whiten_step` — one scale from the carry, on kernel A's
-  deep form (``csrc/whiten_step.cu``): two launches, each a rows fold
-  into a shared-memory row buffer and a cols fold out of it, the first
-  writing ``c_next`` and the detail, the second the white and ``recon``
-  (launch sizes: :func:`~.hopper_conv.step_plan`).  The shallow scales'
-  group tile (``csrc/whiten_group.cu``) cannot hold a deep scale's halo,
-  as on the TPU.  ``halo=R`` is the JAX kernel's halo mode, which only
-  the sharded engine's band tail runs (``parallel/sharded.py``): the
-  carry is a row band extended by ``R = 2·hw·2^scale`` rows a side, read
-  without row reflection, and the outputs are its interior rows
-  (counter ``whiten_step_halo``, float32 only, as the JAX package's
-  sharded gate sends it).
+  deep form (``csrc/whiten_step.cu``).  Float32: two launches, each a
+  rows fold into a shared-memory row buffer and a cols fold out of it,
+  the first writing ``c_next`` and the detail, the second the white and
+  ``recon`` (launch sizes: :func:`~.hopper_conv.step_plan`).  Bfloat16:
+  one launch of the residue-class stream, the detail kept on chip
+  (:func:`~.hopper_conv.stream_step_plan`).  The shallow scales' group
+  tile (``csrc/whiten_group.cu``) cannot hold a deep scale's halo, as on
+  the TPU.  ``halo=R`` is the JAX kernel's halo mode, which only the
+  sharded engine's band tail runs (``parallel/sharded.py``): the carry
+  is a row band extended by ``R = 2·hw·2^scale`` rows a side, read
+  without row reflection, and the outputs are its interior rows (one
+  launch of the stream, counter ``whiten_step_halo``, float32 only, as
+  the JAX package's sharded gate sends it).
 * :func:`deep_whiten_step2_split` — the bfloat16 pair ``(s, s+1)`` as
-  two launches of kernel A's bfloat16 deep step with the middle carry
-  stored in float32: the JAX pair's rounding where kernel E's float32
-  tori do not fit the shared memory.
+  two launches of the stream with the middle carry stored in float32:
+  the JAX pair's rounding where kernel E's float32 tori do not fit the
+  shared memory.
 * :func:`deep_whiten_step2` — scales ``(s, s+1)`` from the carry in one
   launch of kernel E (``csrc/whiten_pair.cu``), the middle carry kept in
   shared memory, the torus loaded and stored in whole 32-byte sectors by
@@ -71,15 +73,16 @@ from . import _build
 from .conv import bilateral_smooth, low_precision, separable_smooth_axis, widen
 from .filters import ScalingFunction
 from .hopper_bilateral import MAX_HW, bilateral_plan, kernel_weights
-from .hopper_conv import (KERNEL, SMEM_OPTIN, _lib as _lib_step, _ptr,
-                          check_kernel_input, launch_whiten_step, step_plan,
-                          threshold_dtype, whiten_detail_plain,
-                          whiten_power_plain, whiten_scale_plain)
+from .hopper_conv import (HALO_KERNEL, KERNEL, SMEM_OPTIN, _ptr,
+                          check_kernel_input, launch_whiten_step,
+                          launch_whiten_stream, step_plan, threshold_dtype,
+                          whiten_detail_plain, whiten_power_plain,
+                          whiten_scale_plain)
 from .hopper_wow import KERNEL as PLANE_KERNEL
 from .hopper_wow import launch_whiten_plane, launch_whiten_plane_ref
 
 __all__ = ["deep_whiten_step", "deep_whiten_step_plain", "can_deep2",
-           "halo_step_plans", "PairPlan", "pair_plan",
+           "PairPlan", "pair_plan",
            "deep_whiten_step2", "deep_whiten_step2_plain",
            "deep_whiten_step2_split", "deep_whiten_step2_split_plain",
            "deep_whiten_plane", "deep_whiten_plane_plain",
@@ -88,8 +91,6 @@ __all__ = ["deep_whiten_step", "deep_whiten_step_plain", "can_deep2",
            "deep_bilateral_whiten_step_plain",
            "deep_bilateral_whiten_step_ref"]
 
-#: the launch counter of kernel A's deep step in halo mode
-HALO_KERNEL = "whiten_step_halo"
 PAIR_KERNEL = "whiten_pair"
 BILATERAL_KERNEL = "bilateral_step"
 #: the launch counter of kernel G's check-only reference entry
@@ -217,39 +218,6 @@ def deep_whiten_step_plain(carry: torch.Tensor,
                        masked, write_plane, carry.dtype, carry.dtype)
 
 
-def halo_step_plans(B: int, H: int, W: int, scale: int, hw: int):
-    """The plans of kernel A's two passes in halo mode on a band of ``H``
-    interior rows: the first over the ``H + R`` rows whose detail the
-    power smooth reads (source ``H + 2R`` rows), the second over the
-    interior (source the ``H + R`` detail rows), ``R = 2·hw·2^scale``."""
-    D = 1 << scale
-    R = 2 * hw * D
-    return (step_plan(B, H + R, W, D, hw, src_rows=H + 2 * R),
-            step_plan(B, H, W, D, hw, src_rows=H + R))
-
-
-def _launch_step_halo(carry, c_next, detail, white, recon, thr, weight,
-                      masked, soft, sf, scale, halo):
-    lib = _lib_step()
-    B, _, W = carry.shape
-    H = c_next.shape[1]
-    p1, p2 = halo_step_plans(B, H, W, scale, sf.half_width)
-    taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
-
-    def plan_args(p):
-        return (p.seg, p.grid[0], p.grid[1], p.grid[2], p.smem_bytes,
-                p.index_bits)
-
-    code = lib.wt_whiten_step_halo_f32(
-        _ptr(carry), _ptr(c_next), _ptr(detail), _ptr(white), _ptr(recon),
-        0 if recon is None else 2, _ptr(thr), float(weight),
-        int(bool(masked)), int(bool(soft)), taps, len(sf.taps), B, H, W,
-        1 << scale, halo, *plan_args(p1), *plan_args(p2),
-        _build.stream_ptr(carry.device))
-    _build.check(lib, code, "whiten_step_halo")
-    _build.LAUNCHES[HALO_KERNEL] += 1
-
-
 def deep_whiten_step(carry: torch.Tensor, recon: Optional[torch.Tensor],
                      threshold: torch.Tensor, *, sf: ScalingFunction,
                      scale: int, weight: float, soft: bool = True,
@@ -284,10 +252,9 @@ def deep_whiten_step(carry: torch.Tensor, recon: Optional[torch.Tensor],
         H = _halo_rows(carry, halo, sf, scale)
         _check_halo_recon(carry, recon, H, write_plane)
         out_shape = (carry.shape[0], H, carry.shape[2])
-        detail_shape = (carry.shape[0], H + halo, carry.shape[2])
     else:
         _check_args(carry, recon, write_plane)
-        out_shape = detail_shape = carry.shape
+        out_shape = carry.shape
     if recon is not None:
         _check_same_dtype(carry, recon, "deep_whiten_step")
         check_kernel_input(recon, sf, "deep_whiten_step", bf16=True)
@@ -297,16 +264,15 @@ def deep_whiten_step(carry: torch.Tensor, recon: Optional[torch.Tensor],
     white = (torch.empty(out_shape, dtype=carry.dtype, device=carry.device)
              if write_plane else None)
     c_next = torch.empty(out_shape, dtype=carry.dtype, device=carry.device)
-    # float32 scratch, held by name until the launches are queued
-    detail = torch.empty(detail_shape, dtype=torch.float32,
-                         device=carry.device)
-    if halo:
-        _launch_step_halo(carry, c_next, detail, white, recon, thr, weight,
-                          masked, soft, sf, scale, halo)
+    acc_mode = 0 if recon is None else 2
+    if halo or carry.dtype == torch.bfloat16:
+        launch_whiten_stream(carry, c_next, white, recon, acc_mode, thr,
+                             weight, masked, soft, sf, scale, halo)
     else:
-        launch_whiten_step(carry, c_next, detail, white, recon,
-                           0 if recon is None else 2, thr, weight, masked,
-                           soft, sf, scale)
+        # float32 scratch, held by name until the launches are queued
+        detail = torch.empty_like(carry)
+        launch_whiten_step(carry, c_next, detail, white, recon, acc_mode,
+                           thr, weight, masked, soft, sf, scale)
     return white, recon, c_next
 
 
@@ -340,7 +306,7 @@ def deep_whiten_step2_split(carry: torch.Tensor, recon: torch.Tensor,
     false).  The signature and returns of :func:`deep_whiten_step2`, with
     ``recon`` required (the tail always accumulates).  A CPU carry runs
     :func:`deep_whiten_step2_split_plain`; a bfloat16 CUDA carry the two
-    launches (``wt_whiten_step_bf16_f32next``, then
+    launches of the stream (``wt_whiten_step_bf16_f32next``, then
     ``wt_whiten_step_bf16_f32carry``, each counted as ``whiten_step_bf16``);
     any other raises."""
     if not carry.is_cuda:
@@ -358,11 +324,9 @@ def deep_whiten_step2_split(carry: torch.Tensor, recon: torch.Tensor,
     whites = []
     for k, (src, dst) in enumerate(((carry, mid), (mid, c_next))):
         white = torch.empty_like(carry) if write_plane else None
-        detail = torch.empty(carry.shape, dtype=torch.float32,
-                             device=carry.device)
-        launch_whiten_step(src, dst, detail, white, recon, 2,
-                           thr[k].contiguous(), float(weights[k]),
-                           bool(masked[k]), soft, sf, scale + k)
+        launch_whiten_stream(src, dst, white, recon, 2, thr[k].contiguous(),
+                             float(weights[k]), bool(masked[k]), soft, sf,
+                             scale + k)
         whites.append(white)
     return whites[0], whites[1], recon, c_next
 
