@@ -105,8 +105,8 @@ group, g = 3 and 4 at offsets 0-2, the B3spline and the Triangle, at
 4096², the groups of the wide frames 512×4096, 1024×14080 and
 256×25600, ``need_cube`` on
 and off, soft, hard and unmasked; deep step s = 4..9 at 4096², an odd
-shape and a batch) and of kernel E ((7, 8) at 4096², (4, 5) at 512², a
-batch), each bitwise to its bfloat16 plain version, inputs unchanged,
+shape and a batch) and of kernel E's residue-class stream ((7, 8) at
+4096², (4, 5) at 512², a batch, 512×4096), each bitwise to its bfloat16 plain version, inputs unchanged,
 the measured max abs error of the 4096² checks in the ``kernels`` line;
 the paths ``wow_4k_L6_bf16_known_noise`` and ``wow_4k_L10_bf16``, with
 exact bfloat16 launch counts and no float32 kernel, and on the plain
@@ -126,8 +126,8 @@ bands, each extended as the engine extends them (s = 9 at 4096² needs a
 gathered window), s = 3..9, soft, hard and unmasked, every output bitwise
 to its plain version and the bands concatenated bitwise to the
 single-frame deep step; the bfloat16 pair with a float32 middle carry
-(two launches of kernel A's bfloat16 step, where kernel E's tori do not
-fit) bitwise to ``deep_whiten_step2_plain``; and the paths M1-M4 of
+(two launches of kernel A's bfloat16 step, where kernel E's gate
+refuses the shape) bitwise to ``deep_whiten_step2_plain``; and the paths M1-M4 of
 ``wavelets_tpu_torch.parallel`` on a one-rank NCCL group set up in this
 process — M1 ``sharded_wow_1chip_4k_L6_serving`` (stage 1, bitwise to
 ``wow_stack``), M2 ``sharded_wow`` of one 4096² frame, L10, denoise [5, 2],
@@ -852,9 +852,11 @@ def main():
                     for a, r in ((w_k, w_p), (c_k, c_p), (r_k, r_p)):
                         check_lp("whiten_step_bf16", a, r, what, shape)
             check_bitwise(x, x0, f"bf16 step {shape}: input changed")
-        # kernel E at (7, 8) on 4096², (4, 5) on 512², a batch of 3
+        # kernel E at (7, 8) on 4096², (4, 5) on 512², a batch of 3, and
+        # on C1's 512×4096 (the stream takes it; the gate, kernel E's
+        # float32 tori's, leaves it to the split on the route)
         for shape, b, s_ in (((4096, 4096), 1, 7), ((512, 512), 1, 4),
-                             ((512, 512), 3, 4)):
+                             ((512, 512), 3, 4), ((512, 4096), 1, 4)):
             x = bf16_frame(shape, b)
             x0 = x.clone()
             for with_recon in (True, False):
@@ -970,8 +972,9 @@ def main():
             check_bitwise(x, x0, f"split pair {shape}: input changed")
         del x, x0, acc
         print(f"bfloat16 split pair: {n_split} checks bitwise to "
-              "deep_whiten_step2_plain (kernel E's tori do not fit at "
-              "(4, 5) on 512×4096 and (5, 6) on 1024×8192)")
+              "deep_whiten_step2_plain (the route's pair where kernel "
+              "E's gate refuses: (4, 5) on 512×4096, (5, 6) on "
+              "1024×8192)")
 
     # ---- 4. the paths ----------------------------------------------------
     launches = {}
@@ -2402,8 +2405,11 @@ def main():
         p_p = timed(lambda: hopper_deep.deep_whiten_step2_plain(
             xs, rb, thr2, **pkw), torch, n=5)
         b_p = bound_ms(pair_bytes(n, itemsize=2), 2 * n * WHITEN_SCALE_OPS)
+        p_s = timed(lambda: hopper_deep.deep_whiten_step2_split(
+            xs, rb, thr2, **pkw), torch)
         print(f"  bf16 pair (7, 8) 4096²: {p_k:.3f} ms, plain {p_p:.3f} "
-              f"ms, bound {b_p[0]:.3f} ({b_p[1]})")
+              f"ms, bound {b_p[0]:.3f} ({b_p[1]}); the split pair (two "
+              f"launches of kernel A's stream) {p_s:.3f} ms")
         kernels_out.append(dict(
             name="whiten_pair_bf16", route="cuda",
             source="wavelets_tpu_torch/csrc/whiten_pair.cu",

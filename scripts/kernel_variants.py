@@ -40,7 +40,11 @@ are only timed.
   its bits held against the plain version; the deep step s = 4..9 and
   s = 4 without recon (the residue-class stream, one launch a scale; the
   parent's two launches apart with ``--root``), with one column a thread
-  in place of a pair, and with no whitening epilogue; the pair (7, 8);
+  in place of a pair, and with no whitening epilogue; the pair (7, 8) at
+  4096² and (4, 5) on 512², three 512² frames and 512×4096 (the
+  residue-class stream; a parent that refuses a shape says so), with no
+  whitening epilogue, and as the split pair (two launches of the deep
+  step with a float32 middle carry);
 * kernel A's deep step in halo mode (``whiten_step_halo``, float32), one
   scale each of s = 3..9 on M2's band: the 4096² frame extended by
   ``R = 2hw·2^s`` rows a side, as the sharded engine's band tail on one
@@ -67,7 +71,9 @@ are only timed.
   includes the ``recon.add_`` that its caller ran.
 
 Each wall time is the median of 20 runs after 3 warm-ups (CUDA events
-around the wrapper, so the host's launch work is in it); each device
+around the wrapper, so the host's launch work is in it); each queued
+time that of 20 calls launched back to back between two CUDA events,
+per call (the device's time where the host keeps ahead); each device
 time the kernels' own time from ``torch.profiler``, per call over 5
 calls.  The variants run in two rounds, so the spread shows.  The card's
 name and power limit are printed first.
@@ -120,6 +126,11 @@ VARIANTS = {
     "step halo, no whitening epilogue": ("whiten_step_halo",
                                          ("NO_EPILOGUE",), None),
     "pair bf16": ("whiten_pair_bf16", (), None),
+    "pair bf16, no whitening epilogue": ("whiten_pair_bf16",
+                                         ("NO_EPILOGUE",), None),
+    "pair bf16, k = 8 on two 256-thread blocks an SM": (
+        "whiten_pair_bf16", (), "k 8"),
+    "pair bf16 split": ("whiten_pair_bf16", (), "split"),
     "median": ("median_select", (), None),
     "bilateral group": ("bilateral_group", (), None),
     "bilateral group, 2048-column segments": ("bilateral_group", (),
@@ -236,6 +247,13 @@ def main():
     print(f"package: {root / 'wavelets_tpu_torch'}")
     kernels = set(args) or {k for k, _, _ in VARIANTS.values()}
     libs = build_variants(_build, kernels)
+    if "whiten_pair_bf16" in kernels and hasattr(_build, "BUILD_LOG"):
+        # what the compiler made of the bfloat16 pair's stream (B3spline,
+        # pairs of points, the whole column circle)
+        for fn, c in sass_counts(_build, _build._build("whiten_pair"),
+                                 "pair_stream").items():
+            if "ILi2ELi2ELb1EE" in fn:
+                print(f"  SASS {fn}: {dict(c)}")
     if "bilateral_group" in kernels:
         # what the compiler made of the ring kernel (B3spline, 32-bit)
         for fn, c in sass_counts(_build, _build._build("bilateral_group"),
@@ -259,6 +277,14 @@ def main():
             b.record()
             b.synchronize()
             ms.append(a.elapsed_time(b))
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        queued = a.elapsed_time(b) / n
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(5):
@@ -270,7 +296,7 @@ def main():
         parts = {e.key.replace("(anonymous namespace)::", "")
                  .split("(")[0][:24]: e.self_device_time_total / 5e3
                  for e in kern}
-        return float(np.median(ms)), dev_ms, parts
+        return float(np.median(ms)), queued, dev_ms, parts
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -323,6 +349,29 @@ def main():
         with replaced(hopper_conv, "stream_smem", smem):
             return stream_plan.__wrapped__(B, H, W, g, hw, off, itemsize)
 
+    pair_stream_plan = getattr(hopper_deep, "pair_stream_plan", None)
+
+    def pair_group(k):
+        # the bfloat16 pair's stream on groups of k classes, two points a
+        # thread, the whole column circle, the plan's chunk search
+        def plan(B, H, W, D, hw):
+            p = pair_stream_plan(B, H, W, D, hw)
+            classes = max(1, D // 2)
+            kk, M, N = min(k, classes), H // D, W // D
+            if kk < 2 or 2 * N * kk > 2 * 512:
+                return p
+            threads = max(64, -(-2 * N * kk // 2 // 64) * 64)
+            smem = hopper_deep.pair_stream_smem(kk, 2 * N, hw, True)
+            per = B * classes * (classes // kk)
+            chunk, _ = hopper_conv.stream_chunk(2 * M, per, 8 * hw + 2)
+            per_sm = min(hopper_deep.SM_SMEM // (smem + 1024),
+                         512 // threads)
+            items = per * -(-2 * M // chunk)
+            return dataclasses.replace(
+                p, k=kk, run=0, chunk=chunk, threads=threads,
+                smem_bytes=smem, grid=min(items, 132 * per_sm))
+        return plan
+
     bil_plan = hopper_bilateral.bilateral_plan
 
     def seg2048(B, H, W, D, hw):
@@ -368,6 +417,9 @@ def main():
             *a[:6], 4)),
         "cluster 1": (hopper_deep, "pair_plan", lambda *a: dataclasses
                       .replace(pair_plan(*a), cluster=1)),
+        "k 8": (hopper_deep, "pair_stream_plan", pair_group(8)),
+        "split": (hopper_deep, "deep_whiten_step2",
+                  hopper_deep.deep_whiten_step2_split),
     }
 
     x512 = torch.from_numpy(rng.normal(size=(512, 512)).astype(np.float32)
@@ -426,6 +478,14 @@ def main():
             yield "(7, 8)", lambda: hopper_deep.deep_whiten_step2(
                 xh, rh, thr2, sf=B3SPLINE, scale=7, weights=(1.0, 1.0),
                 masked=(True, False))
+            for b, h, w in ((1, 512, 512), (3, 512, 512), (1, 512, 4096)):
+                xs = xh[:, :h * b, :w].reshape(b, h, w).contiguous()
+                rs = torch.zeros_like(xs)
+                ts = thr2.expand(2, b).contiguous()
+                yield f"{b}x{h}x{w} (4, 5)", lambda xs=xs, rs=rs, ts=ts: (
+                    hopper_deep.deep_whiten_step2(
+                        xs, rs, ts, sf=B3SPLINE, scale=4, weights=(1.0, 1.0),
+                        masked=(True, False)))
         elif kernel == "whiten_plane":
             yield "pieces 0-2", lambda: hopper_wow.fused_whiten_pieces(
                 *pieces_args, write_gamma=True)
@@ -480,9 +540,15 @@ def main():
                 if plan is not None:
                     stack.enter_context(replaced(*plans[plan]))
                 for what, fn in runs(kernel):
-                    wall, dev_ms, parts = timed(fn)
+                    try:
+                        wall, queued, dev_ms, parts = timed(fn)
+                    except ValueError as err:  # a shape a parent refuses
+                        print(f"  round {rnd}: {name:32s} {what:14s} "
+                              f"not taken ({err})")
+                        continue
                     print(f"  round {rnd}: {name:32s} {what:14s} "
-                          f"wall {wall:.3f} device {dev_ms:.3f}")
+                          f"wall {wall:.3f} queued {queued:.3f} "
+                          f"device {dev_ms:.3f}")
                     if kernel in PARTS:
                         print("      " + ", ".join(
                             f"{k} {v:.4f}" for k, v in parts.items()))

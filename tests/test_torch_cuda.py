@@ -258,7 +258,13 @@ def test_plan_variants_run_and_keep_the_bits(dev, monkeypatch, variant):
     ("group bf16", dict(smem_bytes=4096)), ("group bf16", dict(grid=(1, 1, 1))),
     ("group bf16", dict(strip_w=12)), ("group bf16", dict(band_h=0)),
     ("group bf16", dict(band_h=200)), ("group bf16", dict(halo=40)),
-    ("group bf16", dict(halo_cols=40))])
+    ("group bf16", dict(halo_cols=40)),
+    # kernel E's stream: a group that is no power of two, shared bytes
+    # below its rings, a chunk of none, a window past the block, a grid
+    # past the items
+    ("pair bf16", dict(k=3)), ("pair bf16", dict(smem_bytes=4096)),
+    ("pair bf16", dict(chunk=0)), ("pair bf16", dict(run=100)),
+    ("pair bf16", dict(grid=10 ** 6)), ("pair bf16", dict(threads=96))])
 def test_a_plan_the_kernel_cannot_run_is_refused(dev, monkeypatch, kernel,
                                                  change):
     # the C entry checks the plan it is given and refuses it before any
@@ -278,6 +284,9 @@ def test_a_plan_the_kernel_cannot_run_is_refused(dev, monkeypatch, kernel,
         "pair": (hopper_deep, "pair_plan", lambda: hopper_deep
                  .deep_whiten_step2(x, None, thr[:2], sf=B3SPLINE, scale=4,
                                     weights=(1.0, 1.0))),
+        "pair bf16": (hopper_deep, "pair_stream_plan", lambda: hopper_deep
+                      .deep_whiten_step2(xh, None, thr[:2], sf=B3SPLINE,
+                                         scale=4, weights=(1.0, 1.0))),
         "select": (hopper_stats, "select_plan",
                    lambda: hopper_stats.median_abs(x)),
         "bilateral": (hopper_bilateral, "bilateral_plan", lambda:
@@ -1281,17 +1290,27 @@ def test_bf16_deep_step_kernel_bitwise(dev, shape, s, mode):
         _bitwise(a, b)
 
 
-@pytest.mark.parametrize("shape,s", [((1, 256, 256), 4), ((2, 64, 96), 3),
-                                     ((1, 512, 512), 4)])
+@pytest.mark.parametrize("shape,s,sf", [
+    ((1, 256, 256), 4, B3SPLINE), ((2, 64, 96), 3, B3SPLINE),
+    ((1, 512, 512), 4, B3SPLINE), ((1, 4096, 4096), 7, B3SPLINE),
+    ((3, 512, 512), 4, B3SPLINE), ((1, 512, 512), 5, TRIANGLE),
+    # C1's frame, which the gate leaves to the split (the kernel takes it);
+    # D = 1 and D = 2; windows of the columns at one point a thread and at
+    # four classes a group
+    ((1, 512, 4096), 4, B3SPLINE), ((2, 12, 20), 0, B3SPLINE),
+    ((1, 16, 24), 1, TRIANGLE), ((1, 6, 600), 0, B3SPLINE),
+    ((1, 48, 4800), 3, B3SPLINE)])
 @pytest.mark.parametrize("masked", [(True, False), (False, False)])
 @pytest.mark.parametrize("with_recon", [False, True])
-def test_bf16_pair_kernel_bitwise(dev, shape, s, masked, with_recon):
+def test_bf16_pair_kernel_bitwise(dev, shape, s, sf, masked, with_recon):
+    # the stream (csrc/whiten_pair.cu, wt_whiten_pair_bf16) bitwise to the
+    # pair's plain version
     rng = np.random.default_rng(s)
     x = _bf16(rng, shape, dev)
     x0 = x.clone()
     recon = _bf16(rng, shape, dev, mean=0.0) if with_recon else None
     thr = torch.full((2, shape[0]), 0.7, device=dev)
-    kw = dict(sf=B3SPLINE, scale=s, weights=(1.5, 0.5), soft=True,
+    kw = dict(sf=sf, scale=s, weights=(1.5, 0.5), soft=True,
               masked=masked)
     r_k = recon.clone() if with_recon else None
     r_p = recon.clone() if with_recon else None
@@ -1304,6 +1323,50 @@ def test_bf16_pair_kernel_bitwise(dev, shape, s, masked, with_recon):
         _bitwise(a, b)
     if with_recon:
         _bitwise(r_k, r_p)
+
+
+def _forced_pair_plan(k, run, chunk, grid, threads=512):
+    """A stand-in for hopper_deep.pair_stream_plan: the given group,
+    window and chunk (cut to what the shape takes), grid (at most the
+    items) and threads, with the shared bytes the layout needs."""
+    def plan(B, H, W, D, hw):
+        classes = max(1, D // 2)
+        M, N = H // D, W // D
+        rows_out, cols_out = (M, N) if D == 1 else (2 * M, 2 * N)
+        kk, rr, ch = min(k, classes), min(run, cols_out), min(chunk, rows_out)
+        window = rr + 10 * hw if rr else 2 * N
+        runs = -(-cols_out // rr) if rr else 1
+        items = B * -(-rows_out // ch) * classes * runs * (classes // kk)
+        return hopper_deep.PairStreamPlan(
+            kk, rr, ch, threads,
+            hopper_deep.pair_stream_smem(kk, window, hw, rr == 0),
+            min(grid, items))
+    return plan
+
+
+@pytest.mark.parametrize("plan", [(2, 0, 5, 3), (8, 0, 1, 1), (1, 5, 3, 7),
+                                  (4, 3, 7, 132), (2, 9, 64, 2),
+                                  (4, 0, 5, 9, 128), (1, 3, 2, 5, 256),
+                                  (8, 0, 16, 100, 256)])
+@pytest.mark.parametrize("sf", [B3SPLINE, TRIANGLE], ids=["b3", "tri"])
+def test_bf16_pair_forced_plans_bitwise(dev, monkeypatch, plan, sf):
+    # the stream launches the plan as given: groups of fewer classes,
+    # chunks across the circle's turn, windows of the columns, a grid
+    # smaller than the items (blocks take items grid-stride) keep the bits
+    rng = np.random.default_rng(len(plan))
+    shape = (2, 64, 96)
+    x = _bf16(rng, shape, dev)
+    recon = _bf16(rng, shape, dev, mean=0.0)
+    thr = torch.tensor([[0.7, 0.0], [0.3, 0.5]], device=dev)
+    kw = dict(sf=sf, scale=3, weights=(1.5, 0.5), masked=(True, True))
+    r_k, r_p = recon.clone(), recon.clone()
+    monkeypatch.setattr(hopper_deep, "pair_stream_plan",
+                        _forced_pair_plan(*plan))
+    out_k = hopper_deep.deep_whiten_step2(x, r_k, thr, **kw)
+    out_p = hopper_deep.deep_whiten_step2_plain(x, r_p, thr, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(out_k, out_p):
+        _bitwise(a, b)
 
 
 @pytest.mark.parametrize("shape,launched", [

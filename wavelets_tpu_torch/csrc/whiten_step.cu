@@ -103,6 +103,7 @@
 // the one launched.
 
 #include "wt_step.cuh"
+#include "wt_stream.cuh"
 
 namespace {
 
@@ -146,7 +147,14 @@ int whiten_step_f32(const float* carry, float* c_next, float* detail,
 // The residue-class stream
 // ---------------------------------------------------------------------
 
-constexpr int kStreamThreads = 512;
+using wt::aligned16;
+using wt::cp_commit;
+using wt::cp_wait;
+using wt::fetch_row;
+using wt::kStreamThreads;
+using wt::ld2;
+using wt::st2;
+
 // columns a thread takes at a time: a pair, read as float2 or
 // __nv_bfloat162 where aligned
 #ifdef WT_VARIANT_STREAM_SCALAR
@@ -256,53 +264,6 @@ bool stream_layout(StreamArgs<C, N, S>* a, const StreamPlan& p, long long B,
   a->off_det = static_cast<int>(det);
   a->off_acc = static_cast<int>(acc);
   return true;
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Copy n elements of a row into dst: element v from column col(v) of the
-// row through the symmetric map of an axis of W.  16-byte cp.async where
-// the kV elements from v name kV in-frame columns on a 16-byte boundary
-// (within one window of `win` elements), else loads and stores.
-// `elem0` is the row's element offset from the 16-byte aligned base.
-template <class T, class Col>
-__device__ __forceinline__ void fetch_row(T* dst, const T* row,
-                                          long long elem0, int n, int W,
-                                          int win, bool vec, Col col) {
-  constexpr int kV = 16 / sizeof(T);
-  for (int v = threadIdx.x * kV; v < n; v += kStreamThreads * kV) {
-    const long long c = col(v);
-    if (vec && v + kV <= n && c >= 0 && c + kV <= W &&
-        ((elem0 + c) & (kV - 1)) == 0 && v % win + kV <= win) {
-      wt::cp_async16(dst + v, row + c);
-    } else {
-      for (int e = 0; e < kV && v + e < n; ++e)
-        dst[v + e] = row[wt::sym_index(col(v + e), W)];
-    }
-  }
-}
-
-// Two consecutive elements as float32 (8-byte or 4-byte aligned).
-__device__ __forceinline__ float2 ld2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-// Store two consecutive elements (8-byte or 4-byte aligned).
-__device__ __forceinline__ void st2(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-__device__ __forceinline__ void st2(__nv_bfloat16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
 // numpy's symmetric map of k on an axis of n: one reflection for k in
@@ -624,10 +585,6 @@ static int launch_stream(const StreamArgs<C, N, S>& a, long long grid,
       <<<static_cast<unsigned>(grid), kStreamThreads,
          static_cast<size_t>(bytes), s>>>(a);
   return static_cast<int>(cudaGetLastError());
-}
-
-inline bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 // One scale on the stream: carry (B, Hs, W) of C, c_next (B, H, W) of N,

@@ -14,8 +14,9 @@ included, and are not H100 tile plans (the kernels' launches are
 ``ops/hopper_*.py``'s).  Where the H100 cannot take a JAX kernel, the
 port keeps its rounding another way:
 
-* a pair whose float32 tori do not fit kernel E's shared memory runs as
-  two bfloat16 deep steps of kernel A with a float32 middle carry
+* a pair that kernel E's gate refuses (``hopper_deep.can_deep2``: its
+  float32 tori would not fit the shared memory) runs as two bfloat16
+  deep steps of kernel A with a float32 middle carry
   (``hopper_deep.deep_whiten_step2_split``);
 * a group whose rings kernel A's streamed bfloat16 group cannot hold
   (``hopper_conv.group_plan(...) is None``: 256×25600 L8's ``(5, 2)``

@@ -237,7 +237,7 @@ def _deep_tail_scales(carry, recon, thr_of, sf, start, n_scales, weights,
     (wavelets_tpu/ops/pallas_deep.py:688-710).  A carry below float32
     pairs where the JAX pair gate does (:func:`_lowp_can_pair`), since
     there the pair and two steps round differently: on kernel E, or
-    where its tori do not fit, on ``deep_whiten_step2_split`` (two steps
+    where its gate refuses, on ``deep_whiten_step2_split`` (two steps
     of kernel A with a float32 middle carry).  ``kernels`` selects the
     wrappers over their plain versions.  ``carry`` and ``recon`` are one
     frame ``(H, W)`` or a stack ``(B, H, W)`` with ``thr_of(s)`` per frame
@@ -279,7 +279,7 @@ def _deep_tail_scales(carry, recon, thr_of, sf, start, n_scales, weights,
                 and (_lowp_can_pair(*carry.shape[-2:], sf, s)
                      if low_precision(carry.dtype) else fits)):
             # below float32 the JAX pair's rounding: kernel E, or where its
-            # float32 tori do not fit, two steps with a float32 middle carry
+            # gate refuses, two steps with a float32 middle carry
             run = (pair if fits or not low_precision(carry.dtype)
                    else split)
             w1, w2, _, carry = run(

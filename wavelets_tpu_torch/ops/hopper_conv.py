@@ -73,7 +73,7 @@ __all__ = ["N_FAST", "fused_group", "fused_group_plain", "group_pieces",
            "stream_plan", "stream_smem", "stream_margins",
            "StepPlan", "step_plan", "step_smem", "map_step", "MAX_FRAMES",
            "StreamStepPlan", "stream_step_plan", "stream_step_smem",
-           "stream_classes",
+           "stream_classes", "stream_chunk", "H100_SMS",
            "decompose_buffers", "SMEM_OPTIN", "STEP_STATIC_SMEM"]
 
 KERNEL = "whiten_step"
@@ -439,6 +439,23 @@ def stream_classes(H: int, D: int, halo: bool = False):
     return Dr, min(Dr, H), -(-H // Dr), False
 
 
+def stream_chunk(P: int, per: int, warm: int) -> Tuple[int, int]:
+    """The chunk length of a residue-class stream (kernel A's deep step,
+    kernel E's bfloat16 pair): ``per`` work items a chunk index, each
+    walking ``L`` of a class's ``P`` positions after ``warm`` warm-up
+    ticks.  Of ``P``, ``P`` cut into 1..64 chunks and the powers of two
+    below ``P``, the length that takes the fewest ticks on the busiest of
+    :data:`H100_SMS` SMs, ties to the longer chunk → ``(L, ticks)``."""
+    lengths = {P, *(-(-P // n) for n in range(1, 65)),
+               *(1 << k for k in range(31) if 1 << k < P)}
+
+    def cost(L):
+        return -(-(per * -(-P // L)) // H100_SMS) * (L + warm), -L
+
+    chunk = min(lengths, key=cost)
+    return chunk, cost(chunk)[0]
+
+
 @functools.lru_cache(maxsize=None)
 def stream_step_plan(B: int, H: int, W: int, D: int, hw: int,
                      carry_itemsize: int = 2, store_itemsize: int = 2,
@@ -474,13 +491,7 @@ def stream_step_plan(B: int, H: int, W: int, D: int, hw: int,
                              f"at dilation {D} fits the shared memory")
     _, n_cls, P, _ = stream_classes(H, D, halo)
     per = B * (1 if seg == 0 else -(-W // seg)) * n_cls
-    lengths = {P, *(-(-P // n) for n in range(1, 65)),
-               *(1 << k for k in range(31) if 1 << k < P)}
-
-    def cost(L):
-        return -(-(per * -(-P // L)) // H100_SMS) * (L + 2 * hw + 1), -L
-
-    chunk = min(lengths, key=cost)
+    chunk, _ = stream_chunk(P, per, 2 * hw + 1)
     items = per * -(-P // chunk)
     return StreamStepPlan(seg, chunk, stream_step_smem(
         W, D, hw, seg, carry_itemsize, store_itemsize),

@@ -19,16 +19,20 @@ Counterpart of ``wavelets_tpu/ops/pallas_deep.py`` (signatures minus
   the JAX package's sharded gate sends it).
 * :func:`deep_whiten_step2_split` — the bfloat16 pair ``(s, s+1)`` as
   two launches of the stream with the middle carry stored in float32:
-  the JAX pair's rounding where kernel E's float32 tori do not fit the
-  shared memory.
+  the JAX pair's rounding where kernel E's gate refuses the shape.
 * :func:`deep_whiten_step2` — scales ``(s, s+1)`` from the carry in one
-  launch of kernel E (``csrc/whiten_pair.cu``), the middle carry kept in
-  shared memory, the torus loaded and stored in whole 32-byte sectors by
-  a cluster of ``min(8, D/2)`` blocks (:func:`pair_plan`).
-  :func:`can_deep2` is kernel E's own gate; where it refuses, the caller
-  takes two :func:`deep_whiten_step` calls, the JAX package's rule when
-  ``can_deep2`` is false (the two are numerically identical,
-  pallas_deep.py:950-952).
+  launch of kernel E (``csrc/whiten_pair.cu``), the middle carry kept on
+  chip.  Float32: the torus, loaded and stored in whole 32-byte sectors
+  by a cluster of ``min(8, D/2)`` blocks (:func:`pair_plan`).  Bfloat16:
+  the residue-class stream, a row class pair's circle walked a tick a
+  row with ``k`` column classes held as their circle
+  (:func:`pair_stream_plan`).  :func:`can_deep2` is kernel E's gate, the
+  float32 tori's, for both forms (the bfloat16 stream takes every shape
+  it admits and more: the route's pairs and launch counts stay); where
+  it refuses, the caller takes two :func:`deep_whiten_step` calls, the
+  JAX package's rule when ``can_deep2`` is false (the two are
+  numerically identical, pallas_deep.py:950-952), or below float32 the
+  split.
 * :func:`deep_whiten_plane` — whiten one materialized deep plane, on
   kernel D's deep-plane form (``csrc/whiten_plane.cu``: one launch of
   the row-buffer pass that kernel A's deep step and kernel G's second
@@ -64,6 +68,7 @@ kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -73,16 +78,17 @@ from . import _build
 from .conv import bilateral_smooth, low_precision, separable_smooth_axis, widen
 from .filters import ScalingFunction
 from .hopper_bilateral import MAX_HW, bilateral_plan, kernel_weights
-from .hopper_conv import (HALO_KERNEL, KERNEL, SMEM_OPTIN, _ptr,
-                          check_kernel_input, launch_whiten_step,
-                          launch_whiten_stream, step_plan, threshold_dtype,
-                          whiten_detail_plain, whiten_power_plain,
-                          whiten_scale_plain)
+from .hopper_conv import (H100_SMS, HALO_KERNEL, KERNEL, MAX_FRAMES,
+                          SMEM_OPTIN, _ptr, check_kernel_input,
+                          launch_whiten_step, launch_whiten_stream, step_plan,
+                          stream_chunk, threshold_dtype, whiten_detail_plain,
+                          whiten_power_plain, whiten_scale_plain)
 from .hopper_wow import KERNEL as PLANE_KERNEL
 from .hopper_wow import launch_whiten_plane, launch_whiten_plane_ref
 
 __all__ = ["deep_whiten_step", "deep_whiten_step_plain", "can_deep2",
-           "PairPlan", "pair_plan",
+           "PairPlan", "pair_plan", "PairStreamPlan", "pair_stream_plan",
+           "pair_stream_smem", "PAIR_STREAM_THREADS",
            "deep_whiten_step2", "deep_whiten_step2_plain",
            "deep_whiten_step2_split", "deep_whiten_step2_split_plain",
            "deep_whiten_plane", "deep_whiten_plane_plain",
@@ -302,9 +308,9 @@ def deep_whiten_step2_split(carry: torch.Tensor, recon: torch.Tensor,
     """The bfloat16 pair ``(scale, scale+1)`` as two launches of kernel A's
     bfloat16 deep step, the middle carry stored in float32: the rounding
     of the JAX pair (whose middle carry never leaves VMEM) where kernel
-    E's float32 tori do not fit the shared memory (:func:`can_deep2`
-    false).  The signature and returns of :func:`deep_whiten_step2`, with
-    ``recon`` required (the tail always accumulates).  A CPU carry runs
+    E's gate refuses the shape (:func:`can_deep2` false).  The signature
+    and returns of :func:`deep_whiten_step2`, with ``recon`` required (the
+    tail always accumulates).  A CPU carry runs
     :func:`deep_whiten_step2_split_plain`; a bfloat16 CUDA carry the two
     launches of the stream (``wt_whiten_step_bf16_f32next``, then
     ``wt_whiten_step_bf16_f32carry``, each counted as ``whiten_step_bf16``);
@@ -337,7 +343,8 @@ def deep_whiten_step2_split(carry: torch.Tensor, recon: torch.Tensor,
 
 @dataclass(frozen=True)
 class PairPlan:
-    """Kernel E's launch, passed to ``csrc/whiten_pair.cu`` as it stands
+    """Kernel E's float32 launch (``wt_whiten_pair_f32``, the torus),
+    passed to ``csrc/whiten_pair.cu`` as it stands
     (the kernel checks it and launches it): one block per (column class,
     row class pair, frame), ``grid``; ``cluster`` adjacent column classes
     per thread-block cluster, which load and store whole sectors
@@ -348,11 +355,11 @@ class PairPlan:
 
 
 def pair_plan(B: int, H: int, W: int, scale: int) -> Optional[PairPlan]:
-    """Kernel E's launch for the pair ``(scale, scale+1)`` from the shape
-    alone, or None where ``D = 2^scale`` does not divide ``H`` and ``W``
-    or the tori do not fit the shared memory.  The cluster is 8 blocks
-    (one 32-byte sector of column classes) and narrows to ``D/2`` below
-    ``D = 16``."""
+    """Kernel E's float32 launch for the pair ``(scale, scale+1)`` (and
+    :func:`can_deep2`'s gate) from the shape alone, or None where ``D =
+    2^scale`` does not divide ``H`` and ``W`` or the tori do not fit the
+    shared memory.  The cluster is 8 blocks (one 32-byte sector of column
+    classes) and narrows to ``D/2`` below ``D = 16``."""
     D = 1 << scale
     if H % D or W % D:
         return None
@@ -367,8 +374,10 @@ def can_deep2(carry: torch.Tensor, sf: ScalingFunction, scale: int) -> bool:
     """Kernel E's gate for the pair ``(scale, scale+1)`` on a ``(B, H, W)``
     carry: ``D = 2^scale`` divides ``H`` and ``W`` (every tap and
     reflection then stays in a pair of residue classes per axis) and the
-    block's four ``2H/D × 2W/D`` float32 buffers fit the shared memory
-    (:func:`pair_plan`).  It depends on the shape only, so the plain
+    float32 torus's four ``2H/D × 2W/D`` buffers fit the shared memory
+    (:func:`pair_plan`).  The same gate for bfloat16, whose stream
+    (:func:`pair_stream_plan`) takes every shape it admits, so the route
+    pairs where it did.  It depends on the shape only, so the plain
     versions dispatch as the kernels do."""
     if not sf.is_symmetric or sf.half_width > 8:
         return False
@@ -376,15 +385,139 @@ def can_deep2(carry: torch.Tensor, sf: ScalingFunction, scale: int) -> bool:
     return pair_plan(B, *carry.shape[-2:], scale) is not None
 
 
+#: kernel E's bfloat16 stream: the threads a block may have, each taking
+#: two adjacent points of a window row (one where a group is one class),
+#: and the threads it keeps on an SM
+PAIR_STREAM_THREADS = (512, 256, 128, 64)
+PAIR_STREAM_SM_THREADS = 512
+#: the least a tick of the stream costs an SM, in points' work: below it
+#: a tick waits on latency, not issue
+PAIR_STREAM_MIN_WORK = 512
+#: an SM's shared memory and what each block reserves of it (H100)
+SM_SMEM, BLOCK_RESERVED = 233472, 1024
+
+
+@dataclass(frozen=True)
+class PairStreamPlan:
+    """Kernel E's bfloat16 launch (``wt_whiten_pair_bf16``), passed to
+    ``csrc/whiten_pair.cu`` as it stands (the kernel lays out its rings,
+    checks the plan against them and launches it): ``k`` adjacent column
+    classes a group, with their mirrors; ``run`` output positions of the
+    column circle a window (0: the whole circle, whose cols folds wrap
+    through margins filled with copies); ``chunk`` output positions of the
+    row circle a work item walks; ``threads`` a block; ``smem_bytes`` per
+    block; ``grid`` blocks, each taking the items (frame, chunk, row pair,
+    run, group) grid-stride."""
+    k: int
+    run: int
+    chunk: int
+    threads: int
+    smem_bytes: int
+    grid: int
+
+
+def pair_stream_smem(k: int, window: int, hw: int, circle: bool) -> int:
+    """Shared bytes of a stream block, as ``csrc/whiten_pair.cu::
+    pair_layout`` lays them out: ``pts = window·k`` points a row; in
+    bfloat16 the carry's ring of ``2hw+2`` rows, two recon rows and the
+    ring of ``white_s`` (``3hw+2`` rows), each row padded to 16 bytes; in
+    float32 the middle carry's ring (``4hw+2`` rows), the squared and the
+    plain detail of scale ``s`` (``2hw+2`` and ``hw+2``) and of ``s+1``
+    (``4hw+2`` and ``2hw+2``); two sets of the four rows-fold buffers,
+    each with ``hw`` (scale ``s``) or ``2hw`` (``s+1``) positions of
+    margin a side on the circle."""
+    pts = window * k
+    ph, pf = -(-pts // 8) * 8, -(-pts // 4) * 4
+    m1, m2 = (hw, 2 * hw) if circle else (0, 0)
+    t1 = -(-(window + 2 * m1) * k // 4) * 4
+    t2 = -(-(window + 2 * m2) * k // 4) * 4
+    rows_h = (2 * hw + 2) + 2 + (3 * hw + 2)
+    rows_f = 2 * (4 * hw + 2) + 2 * (2 * hw + 2) + (hw + 2)
+    return 2 * ph * rows_h + 4 * pf * rows_f + 4 * 2 * (2 * t1 + 2 * t2)
+
+
+@functools.lru_cache(maxsize=None)
+def pair_stream_plan(B: int, H: int, W: int, D: int,
+                     hw: int) -> PairStreamPlan:
+    """Kernel E's bfloat16 launch on an H100 from the shape, the dilation
+    ``D = 2^s`` and the half width of the taps.  A work item walks the
+    circle of a row class pair ``{r, D−1−r}`` (``2M`` positions, ``M =
+    H/D``; for ``D = 1`` the one class, output on its first ``M``) with
+    a group of ``k`` column classes ``{q, D−1−q}`` held as their circle of
+    ``2N`` positions (``N = W/D``), or where that passes the block (two
+    points a thread, one at ``k = 1``, or the shared memory) as windows of
+    ``run`` output positions and ``5hw`` of margin a side.  Of every ``k``
+    (powers of two dividing the ``D/2`` classes) and block of
+    :data:`PAIR_STREAM_THREADS`, with as many blocks an SM as its shared
+    memory and :data:`PAIR_STREAM_SM_THREADS` allow, the one whose chunk
+    (:func:`~.hopper_conv.stream_chunk`, a chunk of ``L`` positions taking
+    ``L + 8hw + 2`` ticks) takes the fewest ticks on the busiest SM, each
+    tick priced by its points (twice where a thread takes one: its ring
+    slots and addresses cost as much as two points'; at least
+    :data:`PAIR_STREAM_MIN_WORK`), ties to groups of 16-byte loads (``k ≥
+    8``), then the larger ``k`` (fewer items, each warming up once), more
+    blocks an SM and the fewer threads.  Raises where ``D`` does not
+    divide ``H`` and ``W``, or a side, the batch or the taps pass what the
+    kernel takes."""
+    if D < 1 or D & (D - 1) or H % D or W % D:
+        raise ValueError(f"pair_stream_plan: D = {D} must be a power of two "
+                         f"dividing {H}x{W}")
+    if not (1 <= B <= MAX_FRAMES and max(H, W) < 2 ** 30 and 1 <= hw <= 8):
+        raise ValueError(f"pair_stream_plan: B = {B}, {H}x{W}, hw = {hw} "
+                         "out of range")
+    M, N = H // D, W // D
+    classes = max(1, D // 2)
+    rows_out = M if D == 1 else 2 * M
+    cols_out = N if D == 1 else 2 * N
+    best = None
+    for threads in PAIR_STREAM_THREADS:
+        k = classes
+        while k >= 1:
+            max_pts = threads * (2 if k >= 2 else 1)
+            window, run = 2 * N, 0
+            if 2 * N * k > max_pts or pair_stream_smem(
+                    k, window, hw, True) > SMEM_OPTIN:
+                window = min(max_pts // k, cols_out + 10 * hw)
+                while window > 10 * hw and pair_stream_smem(
+                        k, window, hw, False) > SMEM_OPTIN:
+                    window -= 1
+                run = window - 10 * hw if window > 10 * hw else -1
+            if run >= 0 and window * k <= max_pts:
+                smem = pair_stream_smem(k, window, hw, run == 0)
+                per_sm = min(SM_SMEM // (smem + BLOCK_RESERVED),
+                             PAIR_STREAM_SM_THREADS // threads)
+                runs = 1 if run == 0 else -(-cols_out // run)
+                per = B * classes * runs * (classes // k)
+                chunk, ticks = stream_chunk(rows_out, per, 8 * hw + 2)
+                work = window * k * (1 if k >= 2 else 2)
+                cost = (ticks * max(work, PAIR_STREAM_MIN_WORK), k < 8, -k,
+                        -per_sm, threads)
+                if best is None or cost < best[0]:
+                    items = per * -(-rows_out // chunk)
+                    best = (cost, PairStreamPlan(
+                        k, run, chunk, threads, smem,
+                        min(items, H100_SMS * per_sm)))
+            k //= 2
+    if best is None:
+        raise ValueError(f"pair_stream_plan: no window of a {H}x{W} frame "
+                         f"at D = {D} fits the shared memory")
+    return best[1]
+
+
 def _lib_pair():
     lib = _build.load(PAIR_KERNEL)
-    for sfx in ("f32", "bf16"):
-        fn = getattr(lib, f"wt_whiten_pair_{sfx}")
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_float] * 2
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int]
-                       + [ctypes.c_longlong] * 6 + [ctypes.c_int,
-                       ctypes.c_longlong, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    fn = lib.wt_whiten_pair_f32
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_float] * 2
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int]
+                   + [ctypes.c_longlong] * 6 + [ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.wt_whiten_pair_bf16
+    # ..., B, H, W, D, then k, run, chunk, threads, grid, shared bytes
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_float] * 2
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int]
+                   + [ctypes.c_longlong] * 10 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
     return lib
 
 
@@ -435,8 +568,9 @@ def deep_whiten_step2(carry: torch.Tensor, recon: Optional[torch.Tensor],
     accumulated in place, ``(recon + white_s) + white_s1``, the order of
     two :func:`deep_whiten_step` calls; the whites are None when
     ``write_plane=False``.  Gate with :func:`can_deep2`.  A CPU carry runs
-    :func:`deep_whiten_step2_plain`; a float32 or bfloat16 CUDA carry
-    runs kernel E in that dtype; any other raises."""
+    :func:`deep_whiten_step2_plain`; a float32 CUDA carry kernel E's torus
+    (raises where :func:`pair_plan` refuses), a bfloat16 one its stream
+    (raises where :func:`pair_stream_plan` does); any other raises."""
     if not carry.is_cuda:
         return deep_whiten_step2_plain(
             carry, recon, thresholds, sf=sf, scale=scale, weights=weights,
@@ -447,22 +581,30 @@ def deep_whiten_step2(carry: torch.Tensor, recon: Optional[torch.Tensor],
         _check_same_dtype(carry, recon, "deep_whiten_step2")
         check_kernel_input(recon, sf, "deep_whiten_step2", bf16=True)
     B, H, W = carry.shape
-    plan = pair_plan(B, H, W, scale)
-    if plan is None:
-        raise ValueError("deep_whiten_step2: kernel E does not take this "
-                         "shape (use can_deep2 before dispatch)")
+    if carry.dtype == torch.bfloat16:
+        p = pair_stream_plan(B, H, W, 1 << scale, sf.half_width)
+    else:
+        p = pair_plan(B, H, W, scale)
+        if p is None:
+            raise ValueError("deep_whiten_step2: kernel E does not take "
+                             "this shape (use can_deep2 before dispatch)")
     c_next = torch.empty_like(carry)
     w1 = torch.empty_like(carry) if write_plane else None
     w2 = torch.empty_like(carry) if write_plane else None
     lib = _lib_pair()
     taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
-    entry = getattr(lib, f"wt_whiten_pair_{_build.dtype_suffix(carry.dtype)}")
-    code = entry(
-        _ptr(carry), _ptr(c_next), _ptr(w1), _ptr(w2), _ptr(recon), _ptr(thr),
-        float(weights[0]), float(weights[1]), int(bool(masked[0])),
-        int(bool(masked[1])), int(bool(soft)), taps, len(sf.taps), B, H, W,
-        1 << scale, plan.grid[0], plan.grid[1], plan.cluster,
-        plan.smem_bytes, _build.stream_ptr(carry.device))
+    args = (_ptr(carry), _ptr(c_next), _ptr(w1), _ptr(w2), _ptr(recon),
+            _ptr(thr), float(weights[0]), float(weights[1]),
+            int(bool(masked[0])), int(bool(masked[1])), int(bool(soft)), taps,
+            len(sf.taps), B, H, W, 1 << scale)
+    if carry.dtype == torch.bfloat16:
+        code = lib.wt_whiten_pair_bf16(
+            *args, p.k, p.run, p.chunk, p.threads, p.grid, p.smem_bytes,
+            _build.stream_ptr(carry.device))
+    else:
+        code = lib.wt_whiten_pair_f32(
+            *args, p.grid[0], p.grid[1], p.cluster, p.smem_bytes,
+            _build.stream_ptr(carry.device))
     _build.check(lib, code, "whiten_pair")
     _build.LAUNCHES[_build.counter(PAIR_KERNEL, carry.dtype)] += 1
     return w1, w2, recon, c_next
