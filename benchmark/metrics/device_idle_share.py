@@ -1,0 +1,9 @@
+"""1 - (union of device activity) / window, over the traced slice, in
+percent."""
+
+
+def read(ctx):
+    t = ctx.trace
+    if t is None or t["window_s"] <= 0 or t["busy_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - t["busy_s"] / t["window_s"])
