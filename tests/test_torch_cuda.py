@@ -16,14 +16,17 @@ scales run through kernel G's earlier five per-pixel launches, the
 check-only ``deep_bilateral_whiten_step_ref`` (``expf`` and ``erff`` on
 both sides)."""
 
+import collections
 import dataclasses
+import json
+import warnings
 
 import numpy as np
 import pytest
 import torch
 
 from tests.torch_parity import assert_close_scaled, to_np
-from wavelets_tpu_torch import wow
+from wavelets_tpu_torch import tracing, wow, wow_stack
 from wavelets_tpu_torch.ops import (_build, hopper_bilateral, hopper_conv,
                                     hopper_deep, hopper_stats, hopper_wow)
 from wavelets_tpu_torch.ops.filters import B3SPLINE, TRIANGLE
@@ -1684,3 +1687,89 @@ def test_stream_entry_refuses_a_wrong_plan(dev, monkeypatch, wrong):
         hopper_deep.deep_whiten_step(x, None, torch.zeros(1, device=dev),
                                      sf=B3SPLINE, scale=3, weight=1.0)
     assert not _build.LAUNCHES
+
+
+# ---- tracing: the sync sites and kernel spans of the benchmark's entries
+
+def _cell_entries(dev):
+    """One call of each benchmark cell's entry at 512²: a frame to
+    ``wow``, a stack of 4 to ``wow_stack`` without planes, a bilateral
+    frame, lazy noise on counts of about 100."""
+    rng = np.random.default_rng(17)
+    x = torch.from_numpy((rng.normal(size=(4, 512, 512)) * 3 + 100)
+                         .astype(np.float32)).to(dev)
+    kw = dict(denoise_coefficients=[5, 2])
+    return {
+        "frame": lambda: wow(x[0], **kw),
+        "stack4": lambda: wow_stack(x, with_coefficients=False, **kw),
+        "bilateral": lambda: wow(x[0], bilateral=1, **kw),
+    }
+
+
+@pytest.mark.parametrize("cell", ["frame", "stack4", "bilateral"])
+def test_sync_sites_match_the_sync_debug_mode(dev, cell):
+    # every place the host waits for the card is a counted sync site: the
+    # count of one warm call equals the synchronising operations that
+    # PyTorch's sync debug mode reports for it
+    run = _cell_entries(dev)[cell]
+    run()
+    torch.cuda.synchronize()
+    tracing.reset()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with tracing.record():
+                run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    # the mode's own notice ("a prototype feature") is no operation
+    said = [f"{w.filename}:{w.lineno}" for w in caught
+            if "called a synchronizing CUDA operation" in str(w.message)]
+    syncs = tracing.totals()["syncs"]
+    tracing.reset()
+    assert sum(syncs.values()) == len(said), (syncs, said)
+
+
+def test_kernel_spans_cover_their_kernels(dev, tmp_path):
+    # each kernel a wrapper launches lies inside the wrapper's span as the
+    # profiler draws it on the card (gpu_user_annotation)
+    from torch.profiler import ProfilerActivity, profile
+
+    runs = _cell_entries(dev)
+    for run in runs.values():
+        run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for run in runs.values():
+            run()
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    host = [e for e in events if e.get("cat") == "user_annotation"
+            and e["name"].startswith("wt.k.")]
+    gpu = [e for e in events if e.get("cat") == "gpu_user_annotation"
+           and e["name"].startswith("wt.k.")]
+    kernels = {e["args"]["correlation"]: e for e in events
+               if e.get("cat") == "kernel"
+               and "correlation" in e.get("args", {})}
+    covered = collections.Counter()
+    for r in events:
+        corr = r.get("args", {}).get("correlation")
+        if r.get("cat") != "cuda_runtime" or corr not in kernels:
+            continue
+        around = [h for h in host if h["tid"] == r["tid"]
+                  and h["ts"] <= r["ts"] <= h["ts"] + h["dur"]]
+        if not around:
+            continue
+        span = max(around, key=lambda h: h["ts"])["name"]
+        k = kernels[corr]
+        assert any(g["name"] == span and g["ts"] <= k["ts"]
+                   and k["ts"] + k["dur"] <= g["ts"] + g["dur"]
+                   for g in gpu), (span, k["name"])
+        covered[span] += 1
+    assert set(covered) == {h["name"] for h in host}, covered

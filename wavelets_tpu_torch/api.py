@@ -24,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import tracing
 from .core.transform import decompose, normalize_bilateral
 from .ops import conv as _conv
 from .ops import stats as _stats
@@ -84,7 +85,8 @@ def _on_device(arr, device=DEFAULT_DEVICE) -> torch.Tensor:
     """A tensor as it is; anything else as a tensor on ``device``."""
     if isinstance(arr, torch.Tensor):
         return arr
-    return torch.as_tensor(np.asarray(arr), device=_target_device(device))
+    return tracing.as_tensor(np.asarray(arr), device=_target_device(device),
+                             site="input")
 
 
 class AbstractScalingFunction:

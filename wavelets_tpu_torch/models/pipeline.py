@@ -7,7 +7,10 @@ asynchronously and dispatched to :func:`~.wow.wow_stack` with
 ``with_coefficients=False``, and only then is the previous batch's
 result fetched and written.  Host IO for batch k+1 so overlaps device
 work for batch k, as the JAX package overlaps them through its
-asynchronous dispatch.
+asynchronous dispatch.  Each batch's stages are spans (``wt.stack.read``,
+``wt.stack.h2d``, ``wt.stack.run``, ``wt.stack.fetch``, in which the
+host waits for the card, and ``wt.stack.write``; ``wavelets_tpu_torch.
+tracing``).
 """
 
 from __future__ import annotations
@@ -18,12 +21,22 @@ from typing import Tuple
 
 import torch
 
+from .. import tracing
 from ..api import DEFAULT_DEVICE, _target_device
 from ..utils.frameio import FrameStack
 
 __all__ = ["process_stack"]
 
 
+def _write(result, out_f, device) -> None:
+    """Fetch a batch's result from the card and write it."""
+    with tracing.span("wt.stack.fetch"), tracing.sync("stack.fetch", device):
+        host = result.cpu()
+    with tracing.span("wt.stack.write"):
+        host.numpy().tofile(out_f)
+
+
+@tracing.entry("wt.process_stack")
 def process_stack(
     input_path: str,
     output_path: str,
@@ -99,15 +112,18 @@ def process_stack(
         for k, b0 in enumerate(range(0, n_frames, batch)):
             idx = list(range(b0, min(b0 + batch, n_frames)))
             buf = host[k % 2][:len(idx)]
-            fs.read_batch(idx, out=buf.numpy())
-            dev = buf.to(device, non_blocking=True)
-            recon = run_batch(dev)
+            with tracing.span("wt.stack.read"):
+                fs.read_batch(idx, out=buf.numpy())
+            with tracing.span("wt.stack.h2d"):
+                dev = buf.to(device, non_blocking=True)
+            with tracing.span("wt.stack.run"):
+                recon = run_batch(dev)
             if pending is not None and writer:
-                pending.cpu().numpy().tofile(out_f)
+                _write(pending, out_f, device)
             pending = recon
             if progress:
                 print(f"dispatched frames {idx[0]}..{idx[-1]}", flush=True)
         if pending is not None and writer:
-            pending.cpu().numpy().tofile(out_f)
+            _write(pending, out_f, device)
     dt = time.perf_counter() - t0
     return n_frames, dt, n_frames / dt

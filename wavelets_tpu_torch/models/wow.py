@@ -62,6 +62,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..api import (DEFAULT_DEVICE, B3spline, Coefficients, _as_tensor,
                    _spec_of)
 from ..core.transform import (assemble_pieces, decompose_pieces,
@@ -202,7 +203,8 @@ def _frame_noise(noise, batched, like):
     """Noise as a float32 tensor on ``like``'s device: ``(B,)`` for a
     stack (a scalar broadcast to every frame, wavelets_tpu/models/
     wow.py:1260-1265), 0-d for one frame."""
-    noise = torch.as_tensor(noise, dtype=torch.float32, device=like.device)
+    noise = tracing.as_tensor(noise, dtype=torch.float32, device=like.device,
+                              site="noise")
     if batched:
         noise = noise.reshape(-1).expand(like.shape[-3]).contiguous()
     return noise
@@ -250,55 +252,58 @@ def _deep_tail_scales(carry, recon, thr_of, sf, start, n_scales, weights,
              else hopper_deep.deep_whiten_step2_split_plain)
     bil_step = (hopper_deep.deep_bilateral_whiten_step if kernels
                 else hopper_deep.deep_bilateral_whiten_step_plain)
-    batched = carry.ndim == 3
-    rows = []
-    carry, acc = ((carry, recon) if batched else (carry[None], recon[None]))
+    with tracing.span("wt.deep_tail"):
+        batched = carry.ndim == 3
+        rows = []
+        carry, acc = ((carry, recon) if batched
+                      else (carry[None], recon[None]))
 
-    def row(white):
-        return white if batched else white[0]
+        def row(white):
+            return white if batched else white[0]
 
-    def masked(k):
-        return denoise_coefficients[k] != 0
+        def masked(k):
+            return denoise_coefficients[k] != 0
 
-    s = start
-    while s < n_scales:
-        if bilateral is not None:
-            white, carry = bil_step(
-                carry, thr_of(s).reshape(-1), sf=sf, scale=s,
-                var_factor=float(bilateral[s]) ** 2, weight=weights[s],
-                soft=soft_threshold, masked=masked(s),
-                bilateral_scaling=bilateral_scaling, recon=acc,
+        s = start
+        while s < n_scales:
+            if bilateral is not None:
+                white, carry = bil_step(
+                    carry, thr_of(s).reshape(-1), sf=sf, scale=s,
+                    var_factor=float(bilateral[s]) ** 2, weight=weights[s],
+                    soft=soft_threshold, masked=masked(s),
+                    bilateral_scaling=bilateral_scaling, recon=acc,
+                    write_plane=write_planes)
+                if write_planes:
+                    rows.append(row(white))
+                s += 1
+                continue
+            fits = hopper_deep.can_deep2(carry, sf, s)
+            if (s + 1 < n_scales
+                    and (carry.shape[-2] >> s) <= PAIR_MAX_CLASS_ROWS
+                    and (_lowp_can_pair(*carry.shape[-2:], sf, s)
+                         if low_precision(carry.dtype) else fits)):
+                # below float32 the JAX pair's rounding: kernel E, or where
+                # its gate refuses, two steps with a float32 middle carry
+                run = (pair if fits or not low_precision(carry.dtype)
+                       else split)
+                w1, w2, _, carry = run(
+                    carry, acc, torch.stack([thr_of(s), thr_of(s + 1)])
+                    .reshape(2, -1), sf=sf, scale=s,
+                    weights=(weights[s], weights[s + 1]),
+                    soft=soft_threshold, masked=(masked(s), masked(s + 1)),
+                    write_plane=write_planes)
+                if write_planes:
+                    rows.extend([row(w1), row(w2)])
+                s += 2
+                continue
+            white, _, carry = step(
+                carry, acc, thr_of(s).reshape(-1), sf=sf, scale=s,
+                weight=weights[s], soft=soft_threshold, masked=masked(s),
                 write_plane=write_planes)
             if write_planes:
                 rows.append(row(white))
             s += 1
-            continue
-        fits = hopper_deep.can_deep2(carry, sf, s)
-        if (s + 1 < n_scales
-                and (carry.shape[-2] >> s) <= PAIR_MAX_CLASS_ROWS
-                and (_lowp_can_pair(*carry.shape[-2:], sf, s)
-                     if low_precision(carry.dtype) else fits)):
-            # below float32 the JAX pair's rounding: kernel E, or where its
-            # gate refuses, two steps with a float32 middle carry
-            run = (pair if fits or not low_precision(carry.dtype)
-                   else split)
-            w1, w2, _, carry = run(
-                carry, acc, torch.stack([thr_of(s), thr_of(s + 1)])
-                .reshape(2, -1), sf=sf, scale=s,
-                weights=(weights[s], weights[s + 1]), soft=soft_threshold,
-                masked=(masked(s), masked(s + 1)), write_plane=write_planes)
-            if write_planes:
-                rows.extend([row(w1), row(w2)])
-            s += 2
-            continue
-        white, _, carry = step(
-            carry, acc, thr_of(s).reshape(-1), sf=sf, scale=s,
-            weight=weights[s], soft=soft_threshold, masked=masked(s),
-            write_plane=write_planes)
-        if write_planes:
-            rows.append(row(white))
-        s += 1
-    return rows, row(carry)
+        return rows, row(carry)
 
 
 def _pop_std(x: torch.Tensor) -> torch.Tensor:
@@ -362,9 +367,10 @@ def _wow_body_merged(data, noise, has_noise, sf, n_scales, weights,
     if not has_noise and any(
         d != 0 for d in denoise_coefficients[:n_scales]
     ):
-        w0 = data - smooth(data, sf, scale=0, axes=(-2, -1))
-        noise = (mad_noise_frames if batched else mad_noise)(
-            w0, float(sigma_e[0]), fuse=kernels)
+        with tracing.span("wt.noise"):
+            w0 = data - smooth(data, sf, scale=0, axes=(-2, -1))
+            noise = (mad_noise_frames if batched else mad_noise)(
+                w0, float(sigma_e[0]), fuse=kernels)
     if batched:
         noise = _frame_noise(noise, True, data)
     elif lowp:
@@ -399,10 +405,12 @@ def _wow_body_merged(data, noise, has_noise, sf, n_scales, weights,
             denoise_coefficients, soft_threshold, kernels, need_planes)
         out_rows.extend(deep_rows)
 
-    _, lp = _residual_std(carry, batched)
-    c = carry * torch.div(torch.tensor(weights[n_scales], dtype=lp.dtype), lp)
-    out_rows.append(c)
-    return (c if recon is None else recon + c), out_rows
+    with tracing.span("wt.residual"):
+        _, lp = _residual_std(carry, batched)
+        c = carry * torch.div(torch.tensor(weights[n_scales], dtype=lp.dtype),
+                              lp)
+        out_rows.append(c)
+        return (c if recon is None else recon + c), out_rows
 
 
 def _wow_body_fused(pieces, layout, tail, noise, has_noise, sf, n_scales,
@@ -445,8 +453,9 @@ def _wow_body_fused(pieces, layout, tail, noise, has_noise, sf, n_scales,
     if not has_noise and any(
         d != 0 for d in denoise_coefficients[:n_scales]
     ):
-        noise = (mad_noise_frames if batched else mad_noise)(
-            plane(0), float(sigma_e[0]))
+        with tracing.span("wt.noise"):
+            noise = (mad_noise_frames if batched else mad_noise)(
+                plane(0), float(sigma_e[0]))
     noise = _frame_noise(noise, batched, plane(0))
     thr_of = _threshold_fn(noise, sigma_e, denoise_coefficients)
 
@@ -465,8 +474,9 @@ def _wow_body_fused(pieces, layout, tail, noise, has_noise, sf, n_scales,
     n_fast = min(n_scales, N_FAST, tail_start)
     outs = hopper_wow.fused_whiten_pieces(
         pieces if batched else tuple(p[:, None] for p in pieces),
-        torch.stack([torch.as_tensor(factor(s), dtype=torch.float32,
-                                     device=noise.device)
+        torch.stack([tracing.as_tensor(factor(s), dtype=torch.float32,
+                                       device=noise.device,
+                                       site="fused.factors")
                      for s in range(n_fast)]),
         torch.stack([thr_of(s) for s in range(n_fast)]), sf, n_fast,
         tuple(layout[:n_fast]), soft=soft_threshold,
@@ -507,12 +517,14 @@ def _wow_body_fused(pieces, layout, tail, noise, has_noise, sf, n_scales,
             keep(s, row)
     else:
         residual = plane(n_scales)
-    std, lp = _residual_std(residual, batched)
-    # the residual's power norm is the unclamped std (watroo/utils.py:182)
-    pn = std if preserve_variance else torch.ones((), dtype=std.dtype)
-    c = residual * (weights[n_scales] * pn / lp)
-    keep(n_scales, c)
-    recon = recon + c
+    with tracing.span("wt.residual"):
+        std, lp = _residual_std(residual, batched)
+        # the residual's power norm is the unclamped std
+        # (watroo/utils.py:182)
+        pn = std if preserve_variance else torch.ones((), dtype=std.dtype)
+        c = residual * (weights[n_scales] * pn / lp)
+        keep(n_scales, c)
+        recon = recon + c
     if gamma_scaled is not None:
         recon = _gamma_blend(recon, gamma_scaled + residual, gamma,
                              gamma_min, gamma_max, h, batched)
@@ -572,8 +584,9 @@ def _wow_body(planes, noise, has_noise, sf, n_scales, weights, whitening,
     if not has_noise and any(
         d != 0 for d in denoise_coefficients[:n_scales]
     ):
-        noise = _div_scalars(rops.median_abs(planes[0]), MAD_TO_SIGMA,
-                             float(sigma_e[0]))
+        with tracing.span("wt.noise"):
+            noise = _div_scalars(rops.median_abs(planes[0]), MAD_TO_SIGMA,
+                                 float(sigma_e[0]))
     one = torch.ones((), dtype=planes.dtype)
     gamma_scaled = torch.zeros_like(planes[0]) if h > 0 else None
     out_planes = []
@@ -689,43 +702,51 @@ def wow_core(
         merged = standard and (mode == "frame" or (
             mode == "stack" and not need_planes and not lazy))
     if mode == "stack" and not (merged if lowp else fast):
-        return _stack_frames(data, noise, need_planes, dict(
-            sf=sf, n_scales=n_scales, weights=weights, whitening=whitening,
-            denoise_coefficients=denoise_coefficients, **bil,
-            soft_threshold=soft_threshold,
-            preserve_variance=preserve_variance, gamma=gamma,
-            gamma_min=gamma_min, gamma_max=gamma_max, h=h,
-            has_noise=has_noise, fuse=fuse and not lowp))
+        with tracing.span("wt.body.frames"):
+            return _stack_frames(data, noise, need_planes, dict(
+                sf=sf, n_scales=n_scales, weights=weights,
+                whitening=whitening,
+                denoise_coefficients=denoise_coefficients, **bil,
+                soft_threshold=soft_threshold,
+                preserve_variance=preserve_variance, gamma=gamma,
+                gamma_min=gamma_min, gamma_max=gamma_max, h=h,
+                has_noise=has_noise, fuse=fuse and not lowp))
     sp_axes = None if mode == "volume" else (-2, -1)
     if merged:
-        recon, rows = _wow_body_merged(
-            data, noise, has_noise, sf, n_scales, weights,
-            denoise_coefficients, soft_threshold, kernels or lowp,
-            need_planes=need_planes)
-        if mode == "stack":
-            out = torch.stack(rows, dim=1) if need_planes else None
-        else:
-            out = rows if planes_layout == "rows" else stack_planes(rows)
+        with tracing.span("wt.body.merged"):
+            recon, rows = _wow_body_merged(
+                data, noise, has_noise, sf, n_scales, weights,
+                denoise_coefficients, soft_threshold, kernels or lowp,
+                need_planes=need_planes)
+            if mode == "stack":
+                out = torch.stack(rows, dim=1) if need_planes else None
+            else:
+                out = rows if planes_layout == "rows" else stack_planes(rows)
     elif fast and mode != "volume":
         # preserve_variance and the gamma blend need every plane: no tail
         defer = h == 0 and not preserve_variance
-        out = decompose_pieces(data, n_scales, sf, axes=sp_axes,
-                               defer_tail=defer, **bil)
-        pieces, layout, tail = out if defer else (*out, None)
-        recon, out = _wow_body_fused(
-            pieces, layout, tail, noise, has_noise, sf, n_scales, weights,
-            denoise_coefficients, soft_threshold, **bil,
-            preserve_variance=preserve_variance, h=h, gamma=gamma,
-            gamma_min=gamma_min, gamma_max=gamma_max,
-            need_planes=need_planes, planes_layout=planes_layout)
+        with tracing.span("wt.body.fused"):
+            with tracing.span("wt.decompose"):
+                out = decompose_pieces(data, n_scales, sf, axes=sp_axes,
+                                       defer_tail=defer, **bil)
+            pieces, layout, tail = out if defer else (*out, None)
+            recon, out = _wow_body_fused(
+                pieces, layout, tail, noise, has_noise, sf, n_scales,
+                weights, denoise_coefficients, soft_threshold, **bil,
+                preserve_variance=preserve_variance, h=h, gamma=gamma,
+                gamma_min=gamma_min, gamma_max=gamma_max,
+                need_planes=need_planes, planes_layout=planes_layout)
     else:
-        pieces, layout = decompose_pieces(data, n_scales, sf, axes=sp_axes,
-                                          fuse=kernels, **bil)
-        recon, out = _wow_body(
-            assemble_pieces(pieces, layout), noise, has_noise, sf, n_scales,
-            weights, whitening, denoise_coefficients, soft_threshold,
-            preserve_variance, gamma, gamma_min, gamma_max, h, fuse=kernels,
-            planes_layout=planes_layout, bilateral=bilateral is not None)
+        with tracing.span("wt.body.plain"):
+            with tracing.span("wt.decompose"):
+                pieces, layout = decompose_pieces(
+                    data, n_scales, sf, axes=sp_axes, fuse=kernels, **bil)
+            recon, out = _wow_body(
+                assemble_pieces(pieces, layout), noise, has_noise, sf,
+                n_scales, weights, whitening, denoise_coefficients,
+                soft_threshold, preserve_variance, gamma, gamma_min,
+                gamma_max, h, fuse=kernels, planes_layout=planes_layout,
+                bilateral=bilateral is not None)
     if not need_planes:
         return recon, None
     return recon, (tuple(out) if planes_layout == "rows"
@@ -769,21 +790,26 @@ def _wow_from_planes_core(planes, noise, *, sf, n_scales, weights, whitening,
         else:
             pieces = (planes,)
             layout = tuple((0, s) for s in range(n_scales + 1))
-        return _wow_body_fused(
-            pieces, layout, None, noise, has_noise, sf, n_scales, weights,
-            denoise_coefficients, soft_threshold,
-            bilateral=(1.0,) * (n_scales + 1) if bilateral else None,
-            preserve_variance=preserve_variance, h=h, gamma=gamma,
-            gamma_min=gamma_min, gamma_max=gamma_max, planes_layout="rows")
-    cube = stack_planes(list(planes)) if rows is not None else planes
-    return _wow_body(
-        cube, noise, has_noise, sf, n_scales, weights, whitening,
-        denoise_coefficients, soft_threshold, preserve_variance, gamma,
-        gamma_min, gamma_max, h, fuse=fuse and first.dtype == torch.float32,
-        planes_layout="rows" if rows is not None else "cube",
-        bilateral=bilateral)
+        with tracing.span("wt.body.fused"):
+            return _wow_body_fused(
+                pieces, layout, None, noise, has_noise, sf, n_scales,
+                weights, denoise_coefficients, soft_threshold,
+                bilateral=(1.0,) * (n_scales + 1) if bilateral else None,
+                preserve_variance=preserve_variance, h=h, gamma=gamma,
+                gamma_min=gamma_min, gamma_max=gamma_max,
+                planes_layout="rows")
+    with tracing.span("wt.body.plain"):
+        cube = stack_planes(list(planes)) if rows is not None else planes
+        return _wow_body(
+            cube, noise, has_noise, sf, n_scales, weights, whitening,
+            denoise_coefficients, soft_threshold, preserve_variance, gamma,
+            gamma_min, gamma_max, h,
+            fuse=fuse and first.dtype == torch.float32,
+            planes_layout="rows" if rows is not None else "cube",
+            bilateral=bilateral)
 
 
+@tracing.entry("wt.wow")
 def wow(data,
         scaling_function=B3spline,
         n_scales=None,
@@ -857,8 +883,8 @@ def wow(data,
         # the cube the rows form exists to avoid
         planes = data._rows if data._rows is not None else data.data
         given = noise if has_noise else data.noise
-        noise_arr = (torch.as_tensor(given, dtype=first.dtype,
-                                     device=first.device)
+        noise_arr = (tracing.as_tensor(given, dtype=first.dtype,
+                                       device=first.device, site="noise")
                      if given is not None
                      else torch.zeros((), dtype=first.dtype,
                                       device=first.device))
@@ -871,7 +897,8 @@ def wow(data,
         coeffs.noise = data.noise
         return recon, coeffs
 
-    noise_arr = (torch.as_tensor(noise, dtype=data.dtype, device=data.device)
+    noise_arr = (tracing.as_tensor(noise, dtype=data.dtype, device=data.device,
+                                   site="noise")
                  if has_noise
                  else torch.zeros((), dtype=data.dtype, device=data.device))
     recon, out_planes = wow_core(
@@ -901,6 +928,7 @@ def _stack_core(data, noise_arr, with_coefficients, statics, fuse=True):
                     need_planes=with_coefficients, **statics)
 
 
+@tracing.entry("wt.wow_stack")
 def wow_stack(data, noise=None, with_coefficients=True, fuse=True,
               device=DEFAULT_DEVICE, **kwargs):
     """Per-frame WOW over a frame stack ``(B, H, W)``, the batched
@@ -952,8 +980,9 @@ def wow_stack(data, noise=None, with_coefficients=True, fuse=True,
         raise TypeError(f"unexpected arguments: {sorted(kwargs)}")
     B = data.shape[0]
     if has_noise:
-        noise_arr = torch.as_tensor(noise, dtype=data.dtype,
-                                    device=data.device).reshape(-1)
+        noise_arr = tracing.as_tensor(noise, dtype=data.dtype,
+                                      device=data.device,
+                                      site="noise").reshape(-1)
         noise_arr = noise_arr.expand(B).contiguous()
     else:
         noise_arr = torch.zeros((B,), dtype=data.dtype, device=data.device)

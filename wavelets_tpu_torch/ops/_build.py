@@ -12,17 +12,15 @@ Pointers and the stream are passed as ``ctypes.c_void_p`` taken from
 
 Nothing here runs at import time: the CPU tests import every module.
 
-The launch counters also live here: ``LAUNCHES[name]`` is incremented
-by a kernel's wrapper each time it launches the kernel, and
-``PLAIN_CALLS[name]`` each time the kernel's plain PyTorch version runs.
-A kernel's bfloat16 form counts under its own name, the kernel's with
-``_bf16`` (:func:`counter`).  A caller clears both to see which path a
-run took.
+The launch counters ``LAUNCHES`` and ``PLAIN_CALLS``, ``reset_counters``
+and ``counter`` live in ``wavelets_tpu_torch/tracing.py``, with the
+spans; they are exported here under the same names.  A kernel's first
+:func:`load` in a process is the span ``wt.build.<name>``, and each
+``nvcc`` run is counted while spans are armed.
 """
 
 from __future__ import annotations
 
-import collections
 import concurrent.futures
 import ctypes
 import functools
@@ -36,6 +34,9 @@ from typing import Dict, Tuple
 
 import torch
 
+from .. import tracing
+from ..tracing import LAUNCHES, PLAIN_CALLS, counter, reset_counters
+
 __all__ = ["LAUNCHES", "PLAIN_CALLS", "reset_counters", "dtype_suffix",
            "counter", "load",
            "build_all", "check", "stream_ptr", "CSRC_DIR", "BUILD_DIR"]
@@ -46,29 +47,14 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES: collections.Counter = collections.Counter()
-PLAIN_CALLS: collections.Counter = collections.Counter()
-
 #: seconds and compiler output of each build made by this process
 BUILD_LOG: Dict[str, Tuple[float, str]] = {}
-
-
-def reset_counters() -> None:
-    LAUNCHES.clear()
-    PLAIN_CALLS.clear()
 
 
 def dtype_suffix(dtype) -> str:
     """The suffix of a kernel's entry for tensors of ``dtype``: ``bf16``
     (its bfloat16 form) for bfloat16, else ``f32``."""
     return "bf16" if dtype == torch.bfloat16 else "f32"
-
-
-def counter(name: str, dtype) -> str:
-    """The counter of kernel ``name`` on tensors of ``dtype``: its own
-    for float32, ``name`` and the entry's suffix for another form."""
-    sfx = dtype_suffix(dtype)
-    return name if sfx == "f32" else f"{name}_{sfx}"
 
 
 def _nvcc() -> str:
@@ -106,13 +92,15 @@ def _build(name: str) -> Path:
                            f"(exit {proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)
     BUILD_LOG[name] = (time.perf_counter() - t0, proc.stderr)
+    tracing.built(name)
     return out
 
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built if needed."""
-    lib = ctypes.CDLL(str(_build(name)))
+    with tracing.span("wt.build." + name):
+        lib = ctypes.CDLL(str(_build(name)))
     lib.wt_error_string.argtypes = [ctypes.c_int]
     lib.wt_error_string.restype = ctypes.c_char_p
     return lib

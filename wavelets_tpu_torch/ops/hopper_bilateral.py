@@ -32,6 +32,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from .. import tracing
 from . import _build
 from .conv import bilateral_smooth
 from .filters import ScalingFunction
@@ -172,17 +173,17 @@ def fused_bilateral_group_plain(x: torch.Tensor, level: int,
                                 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_bilateral_group` (any dtype
     or device)."""
-    _build.PLAIN_CALLS[KERNEL] += 1
-    _check_group(level, variances)
-    rows, cur = [], x
-    for k in range(level):
-        c_next = bilateral_smooth(cur, sf, offset + k, float(variances[k]),
-                                  bilateral_scaling, axes=(-2, -1),
-                                  boundary="symmetric")
-        rows.append(cur - c_next)
-        cur = c_next
-    rows.append(cur)
-    return stack_planes(rows)
+    with tracing.plain(KERNEL, offset):
+        _check_group(level, variances)
+        rows, cur = [], x
+        for k in range(level):
+            c_next = bilateral_smooth(cur, sf, offset + k, float(variances[k]),
+                                      bilateral_scaling, axes=(-2, -1),
+                                      boundary="symmetric")
+            rows.append(cur - c_next)
+            cur = c_next
+        rows.append(cur)
+        return stack_planes(rows)
 
 
 def fused_bilateral_group(x: torch.Tensor, level: int, sf: ScalingFunction,
@@ -222,19 +223,20 @@ def fused_bilateral_group(x: torch.Tensor, level: int, sf: ScalingFunction,
     def per_scale(field):
         return (ctypes.c_longlong * level)(*[field(p) for p in plans])
 
-    # scratch held by name until the launch is queued: a tensor made
-    # inline for _ptr() is freed at once and its block handed to the next
-    spare = torch.empty_like(x)
-    lib = _lib()
-    code = lib.wt_bilateral_group_f32(
-        _ptr(x), _ptr(out), _ptr(spare), int(level), int(offset), sig2, scl,
-        taps, len(sf.taps), kernel_weights(sf), B, H, W,
-        per_scale(lambda p: p.rows), per_scale(lambda p: p.seg),
-        per_scale(lambda p: p.grid[0]), per_scale(lambda p: p.grid[1]),
-        per_scale(lambda p: p.smem_bytes), plans[0].index_bits,
-        _build.stream_ptr(x.device))
-    _build.check(lib, code, "bilateral_group")
-    _build.LAUNCHES[KERNEL] += 1
+    with tracing.launch(KERNEL, offset):
+        # scratch held by name until the launch is queued: a tensor made
+        # inline for _ptr() is freed at once and its block handed to the
+        # next
+        spare = torch.empty_like(x)
+        lib = _lib()
+        code = lib.wt_bilateral_group_f32(
+            _ptr(x), _ptr(out), _ptr(spare), int(level), int(offset), sig2,
+            scl, taps, len(sf.taps), kernel_weights(sf), B, H, W,
+            per_scale(lambda p: p.rows), per_scale(lambda p: p.seg),
+            per_scale(lambda p: p.grid[0]), per_scale(lambda p: p.grid[1]),
+            per_scale(lambda p: p.smem_bytes), plans[0].index_bits,
+            _build.stream_ptr(x.device))
+        _build.check(lib, code, "bilateral_group")
     return out
 
 

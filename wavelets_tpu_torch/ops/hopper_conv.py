@@ -59,6 +59,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from .. import tracing
 from . import _build
 from .conv import low_precision, separable_smooth_axis, smooth, widen
 from .filters import ScalingFunction
@@ -581,18 +582,18 @@ def launch_whiten_step(carry, c_next, detail, white, acc, acc_mode, thr,
     row-buffer pass) on ``(B, H, W)`` float32 CUDA tensors; ``detail`` is
     float32 scratch that the caller holds by name until the launches are
     queued.  The launch counter is incremented here and nowhere else."""
-    lib = _lib()
-    B, H, W = carry.shape
-    plan = step_plan(B, H, W, 1 << scale, sf.half_width)
-    taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
-    code = getattr(lib, _STEP_ENTRY)(
-        _ptr(carry), _ptr(c_next), _ptr(detail), _ptr(white), _ptr(acc),
-        int(acc_mode), _ptr(thr), float(fac), int(bool(masked)),
-        int(bool(soft)), taps, len(sf.taps), B, H, W, 1 << scale, plan.seg,
-        plan.grid[0], plan.grid[1], plan.grid[2], plan.smem_bytes,
-        plan.index_bits, _build.stream_ptr(carry.device))
-    _build.check(lib, code, "whiten_step")
-    _build.LAUNCHES[KERNEL] += 1
+    with tracing.launch(KERNEL, scale):
+        lib = _lib()
+        B, H, W = carry.shape
+        plan = step_plan(B, H, W, 1 << scale, sf.half_width)
+        taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
+        code = getattr(lib, _STEP_ENTRY)(
+            _ptr(carry), _ptr(c_next), _ptr(detail), _ptr(white), _ptr(acc),
+            int(acc_mode), _ptr(thr), float(fac), int(bool(masked)),
+            int(bool(soft)), taps, len(sf.taps), B, H, W, 1 << scale,
+            plan.seg, plan.grid[0], plan.grid[1], plan.grid[2],
+            plan.smem_bytes, plan.index_bits, _build.stream_ptr(carry.device))
+        _build.check(lib, code, "whiten_step")
 
 
 def launch_whiten_stream(carry, c_next, white, acc, acc_mode, thr, fac,
@@ -625,14 +626,14 @@ def launch_whiten_stream(carry, c_next, white, acc, acc_mode, thr, fac,
     plan = stream_step_plan(B, H, W, 1 << scale, sf.half_width,
                             carry.element_size(),
                             torch.finfo(store).bits // 8, bool(halo))
-    taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
-    code = getattr(lib, entry)(
-        _ptr(carry), _ptr(c_next), _ptr(white), _ptr(acc), int(acc_mode),
-        _ptr(thr), float(fac), int(bool(masked)), int(bool(soft)), taps,
-        len(sf.taps), *shape, plan.seg, plan.chunk, plan.grid,
-        plan.smem_bytes, _build.stream_ptr(carry.device))
-    _build.check(lib, code, counter)
-    _build.LAUNCHES[counter] += 1
+    with tracing.launch(counter, scale):
+        taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
+        code = getattr(lib, entry)(
+            _ptr(carry), _ptr(c_next), _ptr(white), _ptr(acc), int(acc_mode),
+            _ptr(thr), float(fac), int(bool(masked)), int(bool(soft)), taps,
+            len(sf.taps), *shape, plan.seg, plan.chunk, plan.grid,
+            plan.smem_bytes, _build.stream_ptr(carry.device))
+        _build.check(lib, code, counter)
 
 
 def whiten_detail_plain(c: torch.Tensor, fac, thr, sf: ScalingFunction,
@@ -691,8 +692,8 @@ def _group_args(x, factors, thresholds, g, masked):
     if len(factors) != g or len(masked) != g:
         raise ValueError("factors and masked need one entry per scale")
     # thresholds stay float32 below float32, as the JAX kernels take them
-    thr = torch.as_tensor(thresholds, dtype=threshold_dtype(x.dtype),
-                          device=x.device)
+    thr = tracing.as_tensor(thresholds, dtype=threshold_dtype(x.dtype),
+                            device=x.device, site="group.thresholds")
     thr = thr.reshape(g, -1).expand(g, B)
     return batched, xb, factors, masked, thr
 
@@ -724,28 +725,28 @@ def fused_wow_group_plain(x: torch.Tensor, factors: Sequence[float],
     power smooth round to the input dtype; the mask and the whitening
     run in float32, the whites round on store, acc sums in float32 and
     rounds once.  At float32 and above every rounding is a no-op."""
-    _build.PLAIN_CALLS[_build.counter(GROUP_KERNEL, x.dtype)] += 1
-    batched, xb, factors, masked, thr = _group_args(
-        x, factors, thresholds, g, masked)
-    rows, acc, cur = [], None, xb
-    for k in range(g):
-        s = offset + k
-        c_next = _pass(_pass(cur, sf, s, -2), sf, s, -1)
-        detail = cur - c_next
-        power = _pass(_pass(detail * detail, sf, s, -2), sf, s, -1)
-        white, _ = whiten_power_plain(
-            widen(detail), widen(power), factors[k], thr[k][:, None, None],
-            soft, masked[k])
-        acc = white if acc is None else acc + white
-        if need_cube:
-            rows.append(white.to(xb.dtype))
-        cur = c_next
-    # its own tensor, as the kernel's acc is, also where g = 1
-    rows.append(cur)
-    acc = acc.to(xb.dtype, copy=g == 1)
-    if not batched:
-        return tuple(r[0] for r in rows), acc[0]
-    return tuple(rows), acc
+    with tracing.plain(tracing.counter(GROUP_KERNEL, x.dtype), offset):
+        batched, xb, factors, masked, thr = _group_args(
+            x, factors, thresholds, g, masked)
+        rows, acc, cur = [], None, xb
+        for k in range(g):
+            s = offset + k
+            c_next = _pass(_pass(cur, sf, s, -2), sf, s, -1)
+            detail = cur - c_next
+            power = _pass(_pass(detail * detail, sf, s, -2), sf, s, -1)
+            white, _ = whiten_power_plain(
+                widen(detail), widen(power), factors[k],
+                thr[k][:, None, None], soft, masked[k])
+            acc = white if acc is None else acc + white
+            if need_cube:
+                rows.append(white.to(xb.dtype))
+            cur = c_next
+        # its own tensor, as the kernel's acc is, also where g = 1
+        rows.append(cur)
+        acc = acc.to(xb.dtype, copy=g == 1)
+        if not batched:
+            return tuple(r[0] for r in rows), acc[0]
+        return tuple(rows), acc
 
 
 def fused_wow_group(x: torch.Tensor, factors: Sequence[float], thresholds,
@@ -803,30 +804,34 @@ def fused_wow_group(x: torch.Tensor, factors: Sequence[float], thresholds,
                                      soft, masked, need_cube)
     else:
         check_kernel_input(x, sf, "fused_wow_group", bf16=True)
-        thr = thr.contiguous()
-        acc = torch.empty_like(xb)
-        cur = torch.empty_like(xb)
-        rows = [torch.empty_like(xb) for _ in range(g)] if need_cube else []
-        lib = _lib_group()
-        taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
-        if isinstance(plan, StreamPlan):
-            entry = (lib.wt_whiten_group_bf16 if x.dtype == torch.bfloat16
-                     else lib.wt_whiten_group_stream_f32)
-            shape = (plan.strip_w, plan.band_h)
-        else:
-            if x.dtype != torch.float32:
-                raise TypeError("fused_wow_group: the tile takes float32")
-            entry, shape = lib.wt_whiten_group_f32, (plan.tile_h,)
-        code = entry(
-            _ptr(xb), (ctypes.c_void_p * g)(*[r.data_ptr() for r in rows])
-            if need_cube else None, _ptr(cur), _ptr(acc), _ptr(thr),
-            (ctypes.c_float * g)(*factors),
-            (ctypes.c_int * g)(*[int(m) for m in masked]), int(bool(soft)),
-            g, offset, taps, len(sf.taps), B, H, W, *shape, plan.halo,
-            plan.halo_cols, plan.grid[0], plan.grid[1], plan.smem_bytes,
-            _build.stream_ptr(x.device))
-        _build.check(lib, code, "whiten_group")
-        _build.LAUNCHES[_build.counter(GROUP_KERNEL, x.dtype)] += 1
+        with tracing.launch(tracing.counter(GROUP_KERNEL, x.dtype), offset):
+            thr = thr.contiguous()
+            acc = torch.empty_like(xb)
+            cur = torch.empty_like(xb)
+            rows = ([torch.empty_like(xb) for _ in range(g)] if need_cube
+                    else [])
+            lib = _lib_group()
+            taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
+            if isinstance(plan, StreamPlan):
+                entry = (lib.wt_whiten_group_bf16
+                         if x.dtype == torch.bfloat16
+                         else lib.wt_whiten_group_stream_f32)
+                shape = (plan.strip_w, plan.band_h)
+            else:
+                if x.dtype != torch.float32:
+                    raise TypeError("fused_wow_group: the tile takes "
+                                    "float32")
+                entry, shape = lib.wt_whiten_group_f32, (plan.tile_h,)
+            code = entry(
+                _ptr(xb),
+                (ctypes.c_void_p * g)(*[r.data_ptr() for r in rows])
+                if need_cube else None, _ptr(cur), _ptr(acc), _ptr(thr),
+                (ctypes.c_float * g)(*factors),
+                (ctypes.c_int * g)(*[int(m) for m in masked]),
+                int(bool(soft)), g, offset, taps, len(sf.taps), B, H, W,
+                *shape, plan.halo, plan.halo_cols, plan.grid[0],
+                plan.grid[1], plan.smem_bytes, _build.stream_ptr(x.device))
+            _build.check(lib, code, "whiten_group")
     rows.append(cur)
     if not batched:
         return tuple(r[0] for r in rows), acc[0]
@@ -880,16 +885,16 @@ def fused_group_plain(x: torch.Tensor, level: int, sf: ScalingFunction,
                       smooth_only: bool = False) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_group` (any dtype or
     device)."""
-    _build.PLAIN_CALLS[DECOMPOSE_KERNEL] += 1
-    _group_rows(level, smooth_only)
-    rows, cur = [], x
-    for k in range(level):
-        c_next = smooth(cur, sf, scale=offset + k, axes=(-2, -1))
-        if not smooth_only:
-            rows.append(cur - c_next)
-        cur = c_next
-    rows.append(cur)
-    return stack_planes(rows)
+    with tracing.plain(DECOMPOSE_KERNEL, offset):
+        _group_rows(level, smooth_only)
+        rows, cur = [], x
+        for k in range(level):
+            c_next = smooth(cur, sf, scale=offset + k, axes=(-2, -1))
+            if not smooth_only:
+                rows.append(cur - c_next)
+            cur = c_next
+        rows.append(cur)
+        return stack_planes(rows)
 
 
 def fused_group(x: torch.Tensor, level: int, sf: ScalingFunction,
@@ -929,16 +934,16 @@ def fused_group(x: torch.Tensor, level: int, sf: ScalingFunction,
     def per_scale(field):
         return (ctypes.c_longlong * level)(*[field(p) for p in plans])
 
-    lib = _lib_decompose()
-    taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
-    code = lib.wt_decompose_group_f32(
-        ptrs(0), ptrs(1), ptrs(2), int(level), int(offset), taps,
-        len(sf.taps), B, H, W, per_scale(lambda p: p.seg),
-        per_scale(lambda p: p.grid[0]), per_scale(lambda p: p.grid[1]),
-        plans[0].grid[2], per_scale(lambda p: p.smem_bytes),
-        plans[0].index_bits, _build.stream_ptr(x.device))
-    _build.check(lib, code, "decompose_group")
-    _build.LAUNCHES[DECOMPOSE_KERNEL] += 1
+    with tracing.launch(DECOMPOSE_KERNEL, offset):
+        lib = _lib_decompose()
+        taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
+        code = lib.wt_decompose_group_f32(
+            ptrs(0), ptrs(1), ptrs(2), int(level), int(offset), taps,
+            len(sf.taps), B, H, W, per_scale(lambda p: p.seg),
+            per_scale(lambda p: p.grid[0]), per_scale(lambda p: p.grid[1]),
+            plans[0].grid[2], per_scale(lambda p: p.smem_bytes),
+            plans[0].index_bits, _build.stream_ptr(x.device))
+        _build.check(lib, code, "decompose_group")
     return out
 
 

@@ -74,6 +74,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import tracing
 from . import _build
 from .conv import bilateral_smooth, low_precision, separable_smooth_axis, widen
 from .filters import ScalingFunction
@@ -188,19 +189,20 @@ def _step_plain(carry, recon, threshold, sf, scale, weight, soft, masked,
     """Plain kernel A deep step: the folds in float32 from the carry (any
     dtype), the white and ``recon`` stored as ``store``, ``c_next`` as
     ``nxt``, counted under the store's counter."""
-    _build.PLAIN_CALLS[_build.counter(KERNEL, store)] += 1
-    _check_args(carry, recon, write_plane)
-    thr = torch.as_tensor(threshold, dtype=threshold_dtype(store),
-                          device=carry.device).reshape(-1)
-    thr = thr.expand(carry.shape[0])[:, None, None]
-    # below float32 in float32 from the carry, rounded on store, as the
-    # JAX package's low-precision stream does
-    white, c_next = whiten_scale_plain(widen(carry), thr, weight, sf, scale,
-                                       soft, masked)
-    white, c_next = white.to(store), c_next.to(nxt)
-    if recon is not None:
-        recon.add_(white)
-    return (white if write_plane else None), recon, c_next
+    with tracing.plain(tracing.counter(KERNEL, store), scale):
+        _check_args(carry, recon, write_plane)
+        thr = tracing.as_tensor(threshold, dtype=threshold_dtype(store),
+                                device=carry.device,
+                                site="step.threshold").reshape(-1)
+        thr = thr.expand(carry.shape[0])[:, None, None]
+        # below float32 in float32 from the carry, rounded on store, as the
+        # JAX package's low-precision stream does
+        white, c_next = whiten_scale_plain(widen(carry), thr, weight, sf,
+                                           scale, soft, masked)
+        white, c_next = white.to(store), c_next.to(nxt)
+        if recon is not None:
+            recon.add_(white)
+        return (white if write_plane else None), recon, c_next
 
 
 def deep_whiten_step_plain(carry: torch.Tensor,
@@ -214,12 +216,13 @@ def deep_whiten_step_plain(carry: torch.Tensor,
     float32 and float64); like the kernel it adds into ``recon`` in
     place."""
     if halo:
-        _build.PLAIN_CALLS[HALO_KERNEL] += 1
-        thr = torch.as_tensor(threshold, dtype=carry.dtype,
-                              device=carry.device).reshape(-1)
-        return _step_halo_plain(
-            carry, recon, thr.expand(carry.shape[0])[:, None, None], sf,
-            scale, weight, soft, masked, write_plane, halo)
+        with tracing.plain(HALO_KERNEL, scale):
+            thr = tracing.as_tensor(threshold, dtype=carry.dtype,
+                                    device=carry.device,
+                                    site="step.threshold").reshape(-1)
+            return _step_halo_plain(
+                carry, recon, thr.expand(carry.shape[0])[:, None, None], sf,
+                scale, weight, soft, masked, write_plane, halo)
     return _step_plain(carry, recon, threshold, sf, scale, weight, soft,
                        masked, write_plane, carry.dtype, carry.dtype)
 
@@ -264,8 +267,9 @@ def deep_whiten_step(carry: torch.Tensor, recon: Optional[torch.Tensor],
     if recon is not None:
         _check_same_dtype(carry, recon, "deep_whiten_step")
         check_kernel_input(recon, sf, "deep_whiten_step", bf16=True)
-    thr = torch.as_tensor(threshold, dtype=torch.float32,
-                          device=carry.device).reshape(-1)
+    thr = tracing.as_tensor(threshold, dtype=torch.float32,
+                            device=carry.device,
+                            site="step.threshold").reshape(-1)
     thr = thr.expand(carry.shape[0]).contiguous()
     white = (torch.empty(out_shape, dtype=carry.dtype, device=carry.device)
              if write_plane else None)
@@ -526,8 +530,9 @@ def _pair_args(carry, recon, thresholds, weights, masked, write_plane):
     if len(weights) != 2 or len(masked) != 2:
         raise ValueError("deep_whiten_step2 takes two weights and two "
                          "masked flags")
-    thr = torch.as_tensor(thresholds, dtype=threshold_dtype(carry.dtype),
-                          device=carry.device).reshape(2, -1)
+    thr = tracing.as_tensor(thresholds, dtype=threshold_dtype(carry.dtype),
+                            device=carry.device,
+                            site="pair.thresholds").reshape(2, -1)
     return thr.expand(2, carry.shape[0]).contiguous()
 
 
@@ -542,19 +547,20 @@ def deep_whiten_step2_plain(carry: torch.Tensor,
     place, scale ``s`` first.  Below float32 both steps run in float32
     from the carry, so the middle carry never rounds, and the whites and
     ``c_next2`` round on store (the JAX pair's bfloat16 form)."""
-    _build.PLAIN_CALLS[_build.counter(PAIR_KERNEL, carry.dtype)] += 1
-    thr = _pair_args(carry, recon, thresholds, weights, masked, write_plane)
-    dt = carry.dtype
-    whites, cur = [], widen(carry)
-    for k in range(2):
-        white, cur = whiten_scale_plain(
-            cur, thr[k][:, None, None], float(weights[k]), sf, scale + k,
-            soft, bool(masked[k]))
-        white = white.to(dt)
-        if recon is not None:
-            recon.add_(white)
-        whites.append(white if write_plane else None)
-    return whites[0], whites[1], recon, cur.to(dt)
+    with tracing.plain(tracing.counter(PAIR_KERNEL, carry.dtype), scale):
+        thr = _pair_args(carry, recon, thresholds, weights, masked,
+                         write_plane)
+        dt = carry.dtype
+        whites, cur = [], widen(carry)
+        for k in range(2):
+            white, cur = whiten_scale_plain(
+                cur, thr[k][:, None, None], float(weights[k]), sf, scale + k,
+                soft, bool(masked[k]))
+            white = white.to(dt)
+            if recon is not None:
+                recon.add_(white)
+            whites.append(white if write_plane else None)
+        return whites[0], whites[1], recon, cur.to(dt)
 
 
 def deep_whiten_step2(carry: torch.Tensor, recon: Optional[torch.Tensor],
@@ -591,22 +597,22 @@ def deep_whiten_step2(carry: torch.Tensor, recon: Optional[torch.Tensor],
     c_next = torch.empty_like(carry)
     w1 = torch.empty_like(carry) if write_plane else None
     w2 = torch.empty_like(carry) if write_plane else None
-    lib = _lib_pair()
-    taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
-    args = (_ptr(carry), _ptr(c_next), _ptr(w1), _ptr(w2), _ptr(recon),
-            _ptr(thr), float(weights[0]), float(weights[1]),
-            int(bool(masked[0])), int(bool(masked[1])), int(bool(soft)), taps,
-            len(sf.taps), B, H, W, 1 << scale)
-    if carry.dtype == torch.bfloat16:
-        code = lib.wt_whiten_pair_bf16(
-            *args, p.k, p.run, p.chunk, p.threads, p.grid, p.smem_bytes,
-            _build.stream_ptr(carry.device))
-    else:
-        code = lib.wt_whiten_pair_f32(
-            *args, p.grid[0], p.grid[1], p.cluster, p.smem_bytes,
-            _build.stream_ptr(carry.device))
-    _build.check(lib, code, "whiten_pair")
-    _build.LAUNCHES[_build.counter(PAIR_KERNEL, carry.dtype)] += 1
+    with tracing.launch(tracing.counter(PAIR_KERNEL, carry.dtype), scale):
+        lib = _lib_pair()
+        taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
+        args = (_ptr(carry), _ptr(c_next), _ptr(w1), _ptr(w2), _ptr(recon),
+                _ptr(thr), float(weights[0]), float(weights[1]),
+                int(bool(masked[0])), int(bool(masked[1])), int(bool(soft)),
+                taps, len(sf.taps), B, H, W, 1 << scale)
+        if carry.dtype == torch.bfloat16:
+            code = lib.wt_whiten_pair_bf16(
+                *args, p.k, p.run, p.chunk, p.threads, p.grid, p.smem_bytes,
+                _build.stream_ptr(carry.device))
+        else:
+            code = lib.wt_whiten_pair_f32(
+                *args, p.grid[0], p.grid[1], p.cluster, p.smem_bytes,
+                _build.stream_ptr(carry.device))
+        _build.check(lib, code, "whiten_pair")
     return w1, w2, recon, c_next
 
 
@@ -621,10 +627,11 @@ def _plane_args(plane, threshold, weight, gamma, recon, write_plane):
         raise ValueError("deep_whiten_plane: gamma must match the plane")
     _check_args(plane, recon, write_plane, "deep_whiten_plane")
     B = plane.shape[0]
-    fac = torch.as_tensor(weight, dtype=plane.dtype,
-                          device=plane.device).reshape(-1).expand(B)
-    thr = torch.as_tensor(threshold, dtype=plane.dtype,
-                          device=plane.device).reshape(-1).expand(B)
+    fac = tracing.as_tensor(weight, dtype=plane.dtype, device=plane.device,
+                            site="plane.weight").reshape(-1).expand(B)
+    thr = tracing.as_tensor(threshold, dtype=plane.dtype,
+                            device=plane.device,
+                            site="plane.threshold").reshape(-1).expand(B)
     return fac.contiguous(), thr.contiguous()
 
 
@@ -637,17 +644,17 @@ def deep_whiten_plane_plain(plane: torch.Tensor, threshold, *,
     """Plain PyTorch version of :func:`deep_whiten_plane` (any dtype or
     device); like the kernel it adds into ``gamma`` and ``recon`` in
     place."""
-    _build.PLAIN_CALLS[PLANE_KERNEL] += 1
-    fac, thr = _plane_args(plane, threshold, weight, gamma, recon,
-                           write_plane)
-    white, wc = whiten_detail_plain(plane, fac[:, None, None],
-                                    thr[:, None, None], sf, scale, soft,
-                                    masked)
-    if gamma is not None:
-        gamma.add_(wc)
-    if recon is not None:
-        recon.add_(white)
-    return white if write_plane else None
+    with tracing.plain(PLANE_KERNEL, scale):
+        fac, thr = _plane_args(plane, threshold, weight, gamma, recon,
+                               write_plane)
+        white, wc = whiten_detail_plain(plane, fac[:, None, None],
+                                        thr[:, None, None], sf, scale, soft,
+                                        masked)
+        if gamma is not None:
+            gamma.add_(wc)
+        if recon is not None:
+            recon.add_(white)
+        return white if write_plane else None
 
 
 def _plane_kernel_args(plane, threshold, weight, sf, gamma, recon,
@@ -756,8 +763,9 @@ def _lib_bilateral():
 
 def _bilateral_args(carry, threshold, recon, write_plane):
     _check_args(carry, recon, write_plane, "deep_bilateral_whiten_step")
-    thr = torch.as_tensor(threshold, dtype=carry.dtype,
-                          device=carry.device).reshape(-1)
+    thr = tracing.as_tensor(threshold, dtype=carry.dtype,
+                            device=carry.device,
+                            site="bilateral.threshold").reshape(-1)
     return thr.expand(carry.shape[0])
 
 
@@ -785,17 +793,17 @@ def deep_bilateral_whiten_step_plain(
     dtype or device): the JAX package's XLA deferred-tail step
     (``_smooth_step``, the difference, the power smooth and the
     whitening); like the kernel it adds into ``recon`` in place."""
-    _build.PLAIN_CALLS[BILATERAL_KERNEL] += 1
-    thr = _bilateral_args(carry, threshold, recon, write_plane)
-    c_next = bilateral_smooth(carry, sf, scale, float(var_factor),
-                              bilateral_scaling, axes=(-2, -1),
-                              boundary="symmetric")
-    white, _ = whiten_detail_plain(carry - c_next, float(weight),
-                                   thr[:, None, None], sf, scale, soft,
-                                   masked)
-    if recon is not None:
-        recon.add_(white)
-    return (white if write_plane else None), c_next
+    with tracing.plain(BILATERAL_KERNEL, scale):
+        thr = _bilateral_args(carry, threshold, recon, write_plane)
+        c_next = bilateral_smooth(carry, sf, scale, float(var_factor),
+                                  bilateral_scaling, axes=(-2, -1),
+                                  boundary="symmetric")
+        white, _ = whiten_detail_plain(carry - c_next, float(weight),
+                                       thr[:, None, None], sf, scale, soft,
+                                       masked)
+        if recon is not None:
+            recon.add_(white)
+        return (white if write_plane else None), c_next
 
 
 def deep_bilateral_whiten_step(
@@ -830,22 +838,22 @@ def deep_bilateral_whiten_step(
     ring = bilateral_plan(step.grid[2], H, W, D, hw)
     c_next = torch.empty_like(carry)
     white = torch.empty_like(carry) if write_plane else None
-    # scratch held by name until the launches are queued (see
-    # hopper_bilateral.fused_bilateral_group)
-    detail = torch.empty_like(carry)
-    lib = _lib_bilateral()
-    taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
-    code = lib.wt_bilateral_step_f32(
-        _ptr(carry), _ptr(c_next), _ptr(detail), _ptr(white), _ptr(recon),
-        0 if recon is None else 2, _ptr(thr), float(weight),
-        int(bool(masked)), int(bool(soft)), float(var_factor),
-        float(scale + 1) if bilateral_scaling else 1.0, taps, len(sf.taps),
-        kernel_weights(sf), B, H, W, D, ring.rows, ring.seg, ring.grid[0],
-        ring.grid[1], ring.smem_bytes, step.seg, step.grid[0], step.grid[1],
-        step.smem_bytes, step.grid[2], step.index_bits,
-        _build.stream_ptr(carry.device))
-    _build.check(lib, code, "bilateral_step")
-    _build.LAUNCHES[BILATERAL_KERNEL] += 1
+    with tracing.launch(BILATERAL_KERNEL, scale):
+        # scratch held by name until the launches are queued (see
+        # hopper_bilateral.fused_bilateral_group)
+        detail = torch.empty_like(carry)
+        lib = _lib_bilateral()
+        taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
+        code = lib.wt_bilateral_step_f32(
+            _ptr(carry), _ptr(c_next), _ptr(detail), _ptr(white), _ptr(recon),
+            0 if recon is None else 2, _ptr(thr), float(weight),
+            int(bool(masked)), int(bool(soft)), float(var_factor),
+            float(scale + 1) if bilateral_scaling else 1.0, taps, len(sf.taps),
+            kernel_weights(sf), B, H, W, D, ring.rows, ring.seg,
+            ring.grid[0], ring.grid[1], ring.smem_bytes, step.seg,
+            step.grid[0], step.grid[1], step.smem_bytes, step.grid[2],
+            step.index_bits, _build.stream_ptr(carry.device))
+        _build.check(lib, code, "bilateral_step")
     return white, c_next
 
 
@@ -869,18 +877,18 @@ def deep_bilateral_whiten_step_ref(
     B, H, W = carry.shape
     c_next = torch.empty_like(carry)
     white = torch.empty_like(carry) if write_plane else None
-    # scratch held by name until the launches are queued
-    detail, tm, tq = torch.empty((3, B, H, W), dtype=carry.dtype,
-                                 device=carry.device)
-    lib = _lib_bilateral()
-    taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
-    code = lib.wt_bilateral_step_ref_f32(
-        _ptr(carry), _ptr(c_next), _ptr(detail), _ptr(tm), _ptr(tq),
-        _ptr(white), _ptr(recon), 0 if recon is None else 2, _ptr(thr),
-        float(weight), int(bool(masked)), int(bool(soft)), float(var_factor),
-        float(scale + 1) if bilateral_scaling else 1.0, taps, len(sf.taps),
-        kernel_weights(sf), B, H, W, 1 << scale,
-        _build.stream_ptr(carry.device))
-    _build.check(lib, code, "bilateral_step_ref")
-    _build.LAUNCHES[BILATERAL_REF] += 1
+    with tracing.launch(BILATERAL_REF, scale):
+        # scratch held by name until the launches are queued
+        detail, tm, tq = torch.empty((3, B, H, W), dtype=carry.dtype,
+                                     device=carry.device)
+        lib = _lib_bilateral()
+        taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
+        code = lib.wt_bilateral_step_ref_f32(
+            _ptr(carry), _ptr(c_next), _ptr(detail), _ptr(tm), _ptr(tq),
+            _ptr(white), _ptr(recon), 0 if recon is None else 2, _ptr(thr),
+            float(weight), int(bool(masked)), int(bool(soft)),
+            float(var_factor), float(scale + 1) if bilateral_scaling else 1.0,
+            taps, len(sf.taps), kernel_weights(sf), B, H, W, 1 << scale,
+            _build.stream_ptr(carry.device))
+        _build.check(lib, code, "bilateral_step_ref")
     return white, c_next

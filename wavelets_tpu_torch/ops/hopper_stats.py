@@ -18,6 +18,7 @@ from typing import Callable, Sequence
 
 import torch
 
+from .. import tracing
 from . import _build
 
 __all__ = ["median_bits2", "median_bits2_plain", "median_abs", "middle_ranks",
@@ -102,10 +103,10 @@ def _check_ks(n: int, ks: Sequence[int]):
 def median_bits2_plain(bits: torch.Tensor, ks: Sequence[int]) -> torch.Tensor:
     """Plain PyTorch version of :func:`median_bits2`: a sort of the
     sign-masked patterns."""
-    _build.PLAIN_CALLS[KERNEL] += 1
-    flat = bits.reshape(-1) & _ABS
-    k_lo, k_hi = _check_ks(flat.numel(), ks)
-    return torch.sort(flat).values[[k_lo, k_hi]]
+    with tracing.plain(KERNEL):
+        flat = bits.reshape(-1) & _ABS
+        k_lo, k_hi = _check_ks(flat.numel(), ks)
+        return torch.sort(flat).values[[k_lo, k_hi]]
 
 
 def median_bits2(bits: torch.Tensor, ks: Sequence[int]) -> torch.Tensor:
@@ -133,18 +134,18 @@ def median_bits2(bits: torch.Tensor, ks: Sequence[int]) -> torch.Tensor:
     plan = select_plan(n, _n_sms(bits.device.index
                                  if bits.device.index is not None
                                  else torch.cuda.current_device()))
-    lib = _lib()
-    # scratch held by name until the launches are queued
-    scratch = torch.empty(-(-plan.scratch_bytes // 8), dtype=torch.int64,
-                          device=bits.device)
-    out = torch.empty(2, dtype=torch.int32, device=bits.device)
-    code = lib.wt_median_select(
-        ctypes.c_void_p(bits.data_ptr()), n, k_lo, k_hi,
-        ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(scratch.data_ptr()),
-        plan.scratch_bytes, plan.blocks, plan.cap,
-        _build.stream_ptr(bits.device))
-    _build.check(lib, code, "median_select")
-    _build.LAUNCHES[KERNEL] += 1
+    with tracing.launch(KERNEL):
+        lib = _lib()
+        # scratch held by name until the launches are queued
+        scratch = torch.empty(-(-plan.scratch_bytes // 8), dtype=torch.int64,
+                              device=bits.device)
+        out = torch.empty(2, dtype=torch.int32, device=bits.device)
+        code = lib.wt_median_select(
+            ctypes.c_void_p(bits.data_ptr()), n, k_lo, k_hi,
+            ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(scratch.data_ptr()), plan.scratch_bytes,
+            plan.blocks, plan.cap, _build.stream_ptr(bits.device))
+        _build.check(lib, code, "median_select")
     return out
 
 

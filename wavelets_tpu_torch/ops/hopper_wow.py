@@ -37,6 +37,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from .. import tracing
 from . import _build
 from .filters import ScalingFunction
 from .hopper_conv import (MAX_FRAMES, STEP_SEGS, N_FAST, StepPlan, _ptr,
@@ -48,6 +49,8 @@ __all__ = ["fused_whiten_pieces", "fused_whiten_pieces_plain",
            "launch_whiten_plane", "launch_whiten_plane_ref"]
 
 KERNEL = "whiten_plane"
+#: the span of kernel D's pieces form, which counts under :data:`KERNEL`
+PIECES = "whiten_pieces"
 #: the launch counter of kernel D's check-only reference entry
 REF = "whiten_plane_ref"
 #: the pieces kernel's static shared bytes (its tap-row table, 3 × 17
@@ -136,18 +139,18 @@ def launch_whiten_plane(plane, white, recon, recon_mode, gamma, gamma_mode,
     ``fac`` and ``thr`` (or None: no mask) are ``(B,)`` float32 device
     tensors, ``recon_mode``/``gamma_mode`` 0 none, 1 set, 2 +=.  The
     launch counter is incremented here and nowhere else."""
-    lib = _lib()
-    B, H, W = plane.shape
-    plan = step_plan(B, H, W, 1 << scale, sf.half_width)
-    taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
-    code = lib.wt_whiten_plane_f32(
-        _ptr(plane), _ptr(white), _ptr(recon), int(recon_mode), _ptr(gamma),
-        int(gamma_mode), _ptr(fac), _ptr(thr), int(bool(soft)), taps,
-        len(sf.taps), B, H, W, 1 << scale, plan.seg, plan.grid[0],
-        plan.grid[1], plan.grid[2], plan.smem_bytes, plan.index_bits,
-        _build.stream_ptr(plane.device))
-    _build.check(lib, code, "whiten_plane")
-    _build.LAUNCHES[KERNEL] += 1
+    with tracing.launch(KERNEL, scale):
+        lib = _lib()
+        B, H, W = plane.shape
+        plan = step_plan(B, H, W, 1 << scale, sf.half_width)
+        taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
+        code = lib.wt_whiten_plane_f32(
+            _ptr(plane), _ptr(white), _ptr(recon), int(recon_mode),
+            _ptr(gamma), int(gamma_mode), _ptr(fac), _ptr(thr),
+            int(bool(soft)), taps, len(sf.taps), B, H, W, 1 << scale,
+            plan.seg, plan.grid[0], plan.grid[1], plan.grid[2],
+            plan.smem_bytes, plan.index_bits, _build.stream_ptr(plane.device))
+        _build.check(lib, code, "whiten_plane")
 
 
 def launch_whiten_plane_ref(plane, white, recon, recon_mode, gamma,
@@ -155,24 +158,25 @@ def launch_whiten_plane_ref(plane, white, recon, recon_mode, gamma,
     """Check-only: :func:`launch_whiten_plane` through the first-port
     design, two per-pixel launches through a scratch plane
     (``wt_whiten_plane_ref_f32``).  Counted under :data:`REF`."""
-    lib = _lib()
-    B, H, W = plane.shape
-    taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
-    # scratch held by name until the launches are queued
-    tmp = torch.empty_like(plane)
-    code = lib.wt_whiten_plane_ref_f32(
-        _ptr(plane), _ptr(tmp), _ptr(white), _ptr(recon), int(recon_mode),
-        _ptr(gamma), int(gamma_mode), _ptr(fac), _ptr(thr), int(bool(soft)),
-        taps, len(sf.taps), B, H, W, 1 << scale,
-        _build.stream_ptr(plane.device))
-    _build.check(lib, code, "whiten_plane_ref")
-    _build.LAUNCHES[REF] += 1
+    with tracing.launch(REF, scale):
+        lib = _lib()
+        B, H, W = plane.shape
+        taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
+        # scratch held by name until the launches are queued
+        tmp = torch.empty_like(plane)
+        code = lib.wt_whiten_plane_ref_f32(
+            _ptr(plane), _ptr(tmp), _ptr(white), _ptr(recon),
+            int(recon_mode), _ptr(gamma), int(gamma_mode), _ptr(fac),
+            _ptr(thr), int(bool(soft)), taps, len(sf.taps), B, H, W,
+            1 << scale, _build.stream_ptr(plane.device))
+        _build.check(lib, code, "whiten_plane_ref")
 
 
 def _table(values, n: int, B: int, like: torch.Tensor) -> torch.Tensor:
     """``(n,)`` or ``(n, B)`` → a contiguous ``(n, B)`` table of
     ``like``'s dtype on its device."""
-    t = torch.as_tensor(values, dtype=like.dtype, device=like.device)
+    t = tracing.as_tensor(values, dtype=like.dtype, device=like.device,
+                          site="pieces.table")
     return t.reshape(n, -1).expand(n, B).contiguous()
 
 
@@ -226,25 +230,26 @@ def fused_whiten_pieces_plain(
 ):
     """Plain PyTorch version of :func:`fused_whiten_pieces` (any dtype or
     device)."""
-    _build.PLAIN_CALLS[KERNEL] += 1
-    rows = _check_args(pieces, n_fast, layout, batch_major, out_rows_total,
-                       out)
-    _, B, H, W = pieces[0].shape
-    fac = _table(factors, n_fast, B, pieces[0])
-    thr = _table(thresholds, n_fast, B, pieces[0])
-    planes = _planes_out(n_fast, B, H, W, pieces[0], write_planes, rows, out)
-    recon, gamma = None, None
-    for s in range(n_fast):
-        k, r = layout[s]
-        white, wc = whiten_detail_plain(
-            pieces[k][r], fac[s][:, None, None], thr[s][:, None, None], sf, s,
-            soft)
-        # the kernel's order: set at the first scale, add the later ones
-        recon = white.clone() if recon is None else recon + white
-        if write_gamma:
-            gamma = wc.clone() if gamma is None else gamma + wc
-        if write_planes:
-            _white_of(planes, s, rows).copy_(white)
+    with tracing.plain(KERNEL, label=PIECES):
+        rows = _check_args(pieces, n_fast, layout, batch_major,
+                           out_rows_total, out)
+        _, B, H, W = pieces[0].shape
+        fac = _table(factors, n_fast, B, pieces[0])
+        thr = _table(thresholds, n_fast, B, pieces[0])
+        planes = _planes_out(n_fast, B, H, W, pieces[0], write_planes, rows,
+                             out)
+        recon, gamma = None, None
+        for s in range(n_fast):
+            k, r = layout[s]
+            white, wc = whiten_detail_plain(
+                pieces[k][r], fac[s][:, None, None], thr[s][:, None, None],
+                sf, s, soft)
+            # the kernel's order: set at the first scale, add the later ones
+            recon = white.clone() if recon is None else recon + white
+            if write_gamma:
+                gamma = wc.clone() if gamma is None else gamma + wc
+            if write_planes:
+                _white_of(planes, s, rows).copy_(white)
     if write_gamma:
         return planes, recon, gamma
     return planes, recon
@@ -308,19 +313,20 @@ def fused_whiten_pieces(
         "fused_whiten_pieces")
     _, B, H, W = pieces[0].shape
     plan = pieces_plan(B, H, W, n_fast, sf.half_width, max(rows, 1))
-    lib = _lib()
-    ptrs = ctypes.c_void_p * n_fast
-    taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
-    code = lib.wt_whiten_pieces_f32(
-        ptrs(*(_ptr(p) for p in src)),
-        ptrs(*(_ptr(_white_of(planes, s, rows)) for s in range(n_fast)))
-        if write_planes else None,
-        _ptr(recon), _ptr(gamma), _ptr(fac), _ptr(thr), int(bool(soft)),
-        n_fast, taps, len(sf.taps), B, H, W, max(rows, 1) * H * W, plan.seg,
-        plan.grid[0], plan.grid[1], plan.grid[2], plan.smem_bytes,
-        plan.index_bits, _build.stream_ptr(pieces[0].device))
-    _build.check(lib, code, "whiten_pieces")
-    _build.LAUNCHES[KERNEL] += 1
+    with tracing.launch(KERNEL, label=PIECES):
+        lib = _lib()
+        ptrs = ctypes.c_void_p * n_fast
+        taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
+        code = lib.wt_whiten_pieces_f32(
+            ptrs(*(_ptr(p) for p in src)),
+            ptrs(*(_ptr(_white_of(planes, s, rows)) for s in range(n_fast)))
+            if write_planes else None,
+            _ptr(recon), _ptr(gamma), _ptr(fac), _ptr(thr), int(bool(soft)),
+            n_fast, taps, len(sf.taps), B, H, W, max(rows, 1) * H * W,
+            plan.seg, plan.grid[0], plan.grid[1], plan.grid[2],
+            plan.smem_bytes, plan.index_bits,
+            _build.stream_ptr(pieces[0].device))
+        _build.check(lib, code, "whiten_pieces")
     if write_gamma:
         return planes, recon, gamma
     return planes, recon

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from . import hopper_stats
 from .conv import weak_scalar
 from .layout import stack_planes
@@ -104,7 +105,8 @@ def significance(w: torch.Tensor, sigma: float, noise, sigma_e_scale: float,
              * weak_scalar(sigma_e_scale, noise.dtype))
     else:
         t = sigma * noise * sigma_e_scale
-    t = torch.as_tensor(t, dtype=w.dtype, device=w.device)
+    t = tracing.as_tensor(t, dtype=w.dtype, device=w.device,
+                          site="significance.threshold")
     safe_t = torch.where(t == 0, torch.ones_like(t), t)
     if soft_threshold:
         mask = significance_soft(w, safe_t)

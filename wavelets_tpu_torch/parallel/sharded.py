@@ -45,6 +45,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from .. import tracing
 from ..core.transform import normalize_bilateral
 from ..models.wow import _stack_core, _wow_body, normalize_wow_params
 from ..ops.conv import _noncenter_offsets, atrous_conv_nd, boundary_index
@@ -445,6 +446,7 @@ def _tiled_wow_local(x, noise_v, *, groups, covered, sf, n_scales, weights,
     return recon, stack_planes(out_rows)
 
 
+@tracing.entry("wt.sharded_wow")
 def sharded_wow(data, mesh: DeviceMesh, *, sf: ScalingFunction = None,
                 n_scales: Optional[int] = None, weights=(),
                 whitening: bool = True, denoise_coefficients=(), noise=None,
