@@ -168,6 +168,15 @@ def require(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
+def device_kernel(event):
+    """A profiler event that ran on the card (a kernel, copy or memset),
+    not a wrapper's ``wt.`` span, which the profiler draws there too as a
+    ``gpu_user_annotation``."""
+    from torch.autograd import DeviceType
+    return (event.device_type == DeviceType.CUDA
+            and not event.key.startswith("wt."))
+
+
 def max_err(got, ref):
     return float((got.double() - ref.double()).abs().max())
 
@@ -1036,18 +1045,19 @@ def main():
     x4k = frame((4096, 4096))
     paths = {}
 
-    # the main path: kernel A's group takes scales 0-2, its deep step the
-    # single deeper scales, kernel E the pair where H >> s <= 32
+    # the main path: kernel C's one scale and kernel B the lazy noise,
+    # kernel A's group takes scales 0-2, its deep step the single deeper
+    # scales, kernel E the pair where H >> s <= 32
     configs = {
         "4096² L10 (auto), denoise [5, 2], lazy noise":
             (x4k, dict(denoise_coefficients=[5, 2]), 10,
-             {"whiten_group": 1, "whiten_step": 5, "whiten_pair": 1,
-              "median_select": 1}),
+             {"decompose_group": 1, "whiten_group": 1, "whiten_step": 5,
+              "whiten_pair": 1, "median_select": 1}),
         "512² L6, denoise [5, 2], lazy noise":
             (frame((512, 512)), dict(n_scales=6,
                                      denoise_coefficients=[5, 2]), 6,
-             {"whiten_group": 1, "whiten_step": 1, "whiten_pair": 1,
-              "median_select": 1}),
+             {"decompose_group": 1, "whiten_group": 1, "whiten_step": 1,
+              "whiten_pair": 1, "median_select": 1}),
     }
     main_launches = {}
     with Phase("main path"):
@@ -1457,8 +1467,8 @@ def main():
                                     need_planes=False)[0]
 
         r_m, _ = drive(what + ": merged forced", s2_merged,
-                       {"whiten_group": 1, "whiten_step": 3,
-                        "median_select": 4})
+                       {"decompose_group": 1, "whiten_group": 1,
+                        "whiten_step": 3, "median_select": 4})
         r_d = wt.wow_stack(stack4, with_coefficients=False, **l6)[0]
         torch.cuda.synchronize()
         e = check_white(r_d, r_m, what)
@@ -2067,7 +2077,6 @@ def main():
                   f"{med[side][2]:.3f} ms, bound {med[side][3]:.4f} ms")
         med_k, med_p, med_l, _ = med[4096]
         # the device kernels of one call: the plan's launches, at most 4
-        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         bits = frame((4096, 4096)).reshape(-1).view(torch.int32)
         ks = hopper_stats.middle_ranks(bits.numel())
@@ -2078,7 +2087,7 @@ def main():
             hopper_stats.median_bits2(bits, ks)
             torch.cuda.synchronize()
         b_per_call = sum(e.count for e in prof.key_averages()
-                         if e.device_type == DeviceType.CUDA)
+                         if device_kernel(e))
         require(1 <= b_per_call <= 4,
                 f"kernel B: {b_per_call} device kernels in one call")
         print(f"  kernel B: {b_per_call} device kernels in one call")
@@ -2427,7 +2436,6 @@ def main():
 
     # ---- 6. where the time goes ----------------------------------------
     with Phase("profile"):
-        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
         routes = {what: wt_run for what, (wt_run, _) in paths.items()}
@@ -2441,8 +2449,7 @@ def main():
                 for _ in range(5):
                     run()
                 torch.cuda.synchronize()
-            kern = [e for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA]
+            kern = [e for e in prof.key_averages() if device_kernel(e)]
             busy = sum(e.self_device_time_total for e in kern) / 5e3
             wall = e2e[what][0]
             top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]

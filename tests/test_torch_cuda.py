@@ -342,11 +342,13 @@ def test_wow_kernel_path_vs_plain(dev):
     torch.cuda.synchronize()
     launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
     r_p, c_p = wow(x, n_scales=6, denoise_coefficients=[5, 2], fuse=False)
-    # kernel A's group for scales 0-2, its deep step for 5, kernel E for
-    # the pair (3, 4): 256 >> 3 = 32 rows per residue class
+    # kernels C (one scale) and B for the lazy noise, kernel A's group for
+    # scales 0-2, its deep step for 5, kernel E for the pair (3, 4):
+    # 256 >> 3 = 32 rows per residue class
     assert len(c_k) == 7
-    assert launches == {"whiten_group": 1, "whiten_step": 1,
-                        "whiten_pair": 1, "median_select": 1}
+    assert launches == {"decompose_group": 1, "whiten_group": 1,
+                        "whiten_step": 1, "whiten_pair": 1,
+                        "median_select": 1}
     assert plain == {}
     assert r_k.device.type == "cuda" and bool(torch.isfinite(r_k).all())
     scale = float(r_p.abs().max())
@@ -366,12 +368,78 @@ def test_wow_pair_route_on_the_card(dev, shape, launched):
     _build.reset_counters()
     r_k, c_k = wow(x, n_scales=6, denoise_coefficients=[5, 2])
     torch.cuda.synchronize()
-    assert dict(_build.LAUNCHES) == {**launched, "median_select": 1}
+    # the lazy noise: kernel C's one scale, then kernel B
+    assert dict(_build.LAUNCHES) == {**launched, "decompose_group": 1,
+                                     "median_select": 1}
     r_p, c_p = wow(x, n_scales=6, denoise_coefficients=[5, 2], fuse=False)
     scale = float(r_p.abs().max())
     assert_close_scaled(r_k, r_p, 5e-6)
     for k in range(len(c_p)):
         assert_close_scaled(c_k[k], c_p[k], 5e-6, scale)
+
+
+@pytest.mark.parametrize("side", [512, 4096])
+def test_lazy_noise_on_kernel_c_is_bitwise_the_plain_w0(dev, side):
+    # a lazy frame's w0 is the detail row of one kernel C launch, bit for
+    # bit x − smooth(x, 0): its recon and planes are those of a call given
+    # the plain w0's MAD noise as known noise, and it waits for the card
+    # nowhere
+    from wavelets_tpu_torch.models.wow import normalize_wow_params, wow_core
+    from wavelets_tpu_torch.ops.conv import smooth
+    from wavelets_tpu_torch.ops.stats import mad_noise
+    x = torch.from_numpy((np.random.default_rng(side).normal(
+        size=(side, side)) * 3 + 100).astype(np.float32)).to(dev)
+    w0 = x - smooth(x, B3SPLINE, scale=0, axes=(-2, -1))
+    assert torch.equal(hopper_conv.fused_group(x, 1, B3SPLINE)[0], w0)
+    noise = mad_noise(w0, float(B3SPLINE.sigma_e(2, False)[0]))
+    kw = dict(denoise_coefficients=[5, 2])
+    wow(x, **kw)
+    torch.cuda.synchronize()
+    _build.reset_counters()
+    tracing.reset()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with tracing.record():
+                r_l, c_l = wow(x, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    said = [f"{w.filename}:{w.lineno}" for w in caught
+            if "called a synchronizing CUDA operation" in str(w.message)]
+    syncs = tracing.totals()["syncs"]
+    tracing.reset()
+    assert not syncs and not said, (syncs, said)
+    assert _build.LAUNCHES["decompose_group"] == 1
+    assert _build.LAUNCHES["median_select"] == 1 and not _build.PLAIN_CALLS
+    n, w, d, _ = normalize_wow_params(B3SPLINE, None, [], [5, 2], None, 0,
+                                      2, side)
+    r_k, p_k = wow_core(
+        x, noise, sf=B3SPLINE, n_scales=n, weights=w, whitening=True,
+        denoise_coefficients=d, bilateral=None, bilateral_scaling=False,
+        soft_threshold=True, preserve_variance=False, gamma=3.2,
+        gamma_min=None, gamma_max=None, h=0.0, has_noise=True,
+        planes_layout="rows")
+    assert torch.equal(r_l, r_k)
+    assert len(c_l) == len(p_k) == n + 1
+    for k in range(n + 1):
+        assert torch.equal(c_l[k], p_k[k]), k
+
+
+@pytest.mark.parametrize("dtype,fuse", [(torch.float32, False),
+                                        (torch.bfloat16, True),
+                                        (torch.float16, True)])
+def test_lazy_frame_on_a_plain_route_launches_nothing(dev, dtype, fuse):
+    # fuse=False and the bfloat16 and float16 plain routes keep the plain
+    # smooth for the lazy noise's w0
+    x = torch.from_numpy((np.random.default_rng(4).normal(size=(256, 256))
+                          * 3 + 10).astype(np.float32)).to(dev).to(dtype)
+    _build.reset_counters()
+    r, _ = wow(x, denoise_coefficients=[5, 2], fuse=fuse)
+    torch.cuda.synchronize()
+    assert not _build.LAUNCHES
+    assert r.dtype == dtype and bool(torch.isfinite(r).all())
 
 
 @pytest.mark.parametrize("path", ["atrous", "denoise", "wow-h", "wow-pv",

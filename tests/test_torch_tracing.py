@@ -35,7 +35,8 @@ CASES = {
 TREES = {
     "frame": ("wt.wow", None, [
         ("wt.body.merged", None, [
-            ("wt.noise", None, [("wt.k.median_select", None, [])]),
+            ("wt.noise", None, [("wt.k.decompose_group", 0, []),
+                                ("wt.k.median_select", None, [])]),
             ("wt.k.whiten_group", 0, []),
             ("wt.deep_tail", None, [("wt.k.whiten_step", 3, [])]),
             ("wt.residual", None, [])])]),
@@ -95,7 +96,7 @@ def test_disarmed_sites_touch_neither_profiler_nor_recorder(clean,
     assert not _build.LAUNCHES
     assert _build.PLAIN_CALLS == {
         "median_select": 4, "whiten_group": 1, "whiten_step": 2,
-        "decompose_group": 1, "whiten_plane": 2, "bilateral_group": 1,
+        "decompose_group": 2, "whiten_plane": 2, "bilateral_group": 1,
         "bilateral_step": 1}
 
 

@@ -25,7 +25,9 @@ from wavelets_tpu.ops.filters import TRIANGLE as JTRI
 from wavelets_tpu_torch.core.transform import (
     decompose_pieces as tdecompose_pieces)
 from wavelets_tpu_torch.ops import _build
+from wavelets_tpu_torch.ops.conv import smooth
 from wavelets_tpu_torch.ops.filters import B3SPLINE, TRIANGLE
+from wavelets_tpu_torch.ops.stats import mad_noise
 
 twow = importlib.import_module("wavelets_tpu_torch.models.wow")
 
@@ -94,12 +96,13 @@ def test_wow_fuse_false_is_the_same_on_cpu(frames):
     r2, c2 = T.wow(x, denoise_coefficients=[5, 2], fuse=False)
     assert torch.equal(r1, r2)
     assert all(torch.equal(c1[k], c2[k]) for k in range(len(c1)))
-    # CPU tensors take the plain versions: one group (scales 0-2), one
-    # pair for scales 3 and 4 (200 >> 3 = 25 rows per residue class, and
-    # 8 divides 200 and 328), one median; nothing launches
+    # CPU tensors take the plain versions: the lazy noise's one-scale
+    # decompose group and its median, one group (scales 0-2), one pair for
+    # scales 3 and 4 (200 >> 3 = 25 rows per residue class, and 8 divides
+    # 200 and 328); nothing launches
     assert len(c1) - 1 == twow.N_FAST + 2
-    assert counts == {"whiten_group": 1, "whiten_pair": 1,
-                      "median_select": 1}
+    assert counts == {"decompose_group": 1, "whiten_group": 1,
+                      "whiten_pair": 1, "median_select": 1}
     assert sum(_build.LAUNCHES.values()) == 0
 
 
@@ -203,10 +206,37 @@ def test_main_path_takes_the_pair(shape, pairs, steps):
     _build.reset_counters()
     rt, ct = T.wow(x, n_scales=6, denoise_coefficients=[5, 2], device="cpu")
     assert _build.PLAIN_CALLS == {
-        "whiten_group": 1, "whiten_step": steps, "median_select": 1,
-        **({"whiten_pair": pairs} if pairs else {})}
+        "decompose_group": 1, "whiten_group": 1, "whiten_step": steps,
+        "median_select": 1, **({"whiten_pair": pairs} if pairs else {})}
     rj, cj = J.wow(x, n_scales=6, denoise_coefficients=[5, 2])
     _assert_wow_close(rt, ct, rj, cj, np.float32)
+
+
+@pytest.mark.parametrize("shape", [(37, 70), (64, 64), (200, 328)])
+def test_lazy_noise_is_bitwise_the_plain_w0(shape):
+    # the lazy noise's w0 is kernel C's one-scale detail (its plain version
+    # on the CPU): recon and planes bit for bit those of a call given the
+    # MAD noise of the plain w0 = x − smooth(x, 0) as known noise
+    x = torch.from_numpy((np.random.default_rng(8).normal(size=shape) * 3
+                          + 10).astype(np.float32))
+    w0 = x - smooth(x, B3SPLINE, scale=0, axes=(-2, -1))
+    noise = mad_noise(w0, float(B3SPLINE.sigma_e(2, False)[0]))
+    assert noise.ndim == 0
+    _build.reset_counters()
+    r_l, c_l = T.wow(x, denoise_coefficients=[5, 2], device="cpu")
+    assert _build.PLAIN_CALLS["decompose_group"] == 1
+    n, w, d, _ = twow.normalize_wow_params(B3SPLINE, None, [], [5, 2], None,
+                                           0, 2, min(shape))
+    r_k, p_k = twow.wow_core(
+        x, noise, sf=B3SPLINE, n_scales=n, weights=w, whitening=True,
+        denoise_coefficients=d, bilateral=None, bilateral_scaling=False,
+        soft_threshold=True, preserve_variance=False, gamma=3.2,
+        gamma_min=None, gamma_max=None, h=0.0, has_noise=True,
+        planes_layout="rows")
+    assert torch.equal(r_l, r_k)
+    assert len(c_l) == len(p_k) == n + 1
+    for k in range(n + 1):
+        assert torch.equal(c_l[k], p_k[k]), k
 
 
 def test_fused_body_with_deferred_tail_is_the_merged_body(frames):

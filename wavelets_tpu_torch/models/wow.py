@@ -8,7 +8,8 @@ statistics), with three bodies:
 * ``_wow_body_merged`` — standard WOW (whitening, ``h == 0``, no
   ``preserve_variance``), the main path: lazy MAD noise from ``w0 = data
   − smooth(data, 0)`` when some scale is denoised and no noise is given
-  (kernel B on the card); the scales ``[0, N_FAST)`` in one
+  (on the card the detail row of one kernel C launch at scale 0, and
+  kernel B's median); the scales ``[0, N_FAST)`` in one
   ``fused_wow_group`` call (kernel A), the deeper ones from the carry by
   ``_deep_tail_scales``: a pair ``deep_whiten_step2`` (kernel E) where
   ``H >> s ≤ 32`` and kernel E's gate admits it, else one
@@ -368,9 +369,15 @@ def _wow_body_merged(data, noise, has_noise, sf, n_scales, weights,
         d != 0 for d in denoise_coefficients[:n_scales]
     ):
         with tracing.span("wt.noise"):
-            w0 = data - smooth(data, sf, scale=0, axes=(-2, -1))
+            # on the kernels' route the finest detail is one launch of
+            # kernel C (its carry row is dropped), bitwise the plain form
+            w0 = (hopper_conv.fused_group(data, 1, sf)[0] if kernels
+                  else data - smooth(data, sf, scale=0, axes=(-2, -1)))
             noise = (mad_noise_frames if batched else mad_noise)(
                 w0, float(sigma_e[0]), fuse=kernels)
+            # C's two planes, or the plain plane, are not held through
+            # the scales: the group allocates its own
+            del w0
     if batched:
         noise = _frame_noise(noise, True, data)
     elif lowp:
