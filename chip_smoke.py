@@ -838,17 +838,20 @@ def main():
             check_bitwise(x, x0, f"bf16 group {shape}: input changed")
             del x, x0
         # A's deep step, s = 4..9 at 4096², an odd shape, a batch of 3
+        # (the bfloat16 route's step: a float32 carry and recon, the white
+        # stored in bfloat16)
         for shape, b, scales in (((4096, 4096), 1, range(4, 10)),
                                  ((257, 513), 1, (4, 6)),
                                  ((512, 512), 3, (4, 5))):
-            x = bf16_frame(shape, b)
+            x = bf16_frame(shape, b).float()
             x0 = x.clone()
-            recon = bf16_frame(shape, b, mean=0.0)
+            recon = bf16_frame(shape, b, mean=0.0).float()
             thr = torch.full((b,), 0.9, device=dev)
             for s_ in scales:
                 for mode in ("soft", "hard", "unmasked"):
                     kw = dict(sf=B3SPLINE, scale=s_, weight=1.5,
-                              soft=mode == "soft", masked=mode != "unmasked")
+                              soft=mode == "soft", masked=mode != "unmasked",
+                              white_dtype=torch.bfloat16)
                     r_k, r_p = recon.clone(), recon.clone()
                     w_k, _, c_k = counted(
                         "whiten_step_bf16",
@@ -866,14 +869,16 @@ def main():
         # float32 tori's, leaves it to the split on the route)
         for shape, b, s_ in (((4096, 4096), 1, 7), ((512, 512), 1, 4),
                              ((512, 512), 3, 4), ((512, 4096), 1, 4)):
-            x = bf16_frame(shape, b)
+            x = bf16_frame(shape, b).float()
             x0 = x.clone()
             for with_recon in (True, False):
-                recon = bf16_frame(shape, b, mean=0.0) if with_recon else None
+                recon = (bf16_frame(shape, b, mean=0.0).float() if with_recon
+                         else None)
                 r_k = recon.clone() if with_recon else None
                 r_p = recon.clone() if with_recon else None
                 kw = dict(sf=B3SPLINE, scale=s_, weights=(1.5, 0.5),
-                          soft=True, masked=(True, False))
+                          soft=True, masked=(True, False),
+                          white_dtype=torch.bfloat16)
                 thr2 = torch.full((2, b), 0.9, device=dev)
                 out_k = counted("whiten_pair_bf16",
                                 lambda: hopper_deep.deep_whiten_step2(
@@ -888,7 +893,8 @@ def main():
             check_bitwise(x, x0, f"bf16 pair {shape}: input changed")
         del x, x0, recon
         print(f"bfloat16 kernels: {n_lp} checks, every output bitwise to "
-              "the bfloat16 plain version, inputs unchanged; measured max "
+              "the plain version (float32 inside, the whites rounded), "
+              "inputs unchanged; measured max "
               f"abs err at 4096² {err_lp}")
 
     # ---- 3i. kernel A's deep step in halo mode: bitwise -----------------
@@ -953,22 +959,30 @@ def main():
               "plain version, the bands concatenated bitwise to the "
               "single-frame step (s = 3..9, 4096² b=3 and 257×513)")
 
-    # ---- 3j. the bfloat16 pair with a float32 middle carry (C1) ---------
+    # ---- 3j. the bfloat16 pair as two steps (C1) -------------------------
+    def bf16_two_steps(x, acc, thr2, *, sf, scale, weights, masked, **kw):
+        w1, _, mid = hopper_deep.deep_whiten_step(
+            x, acc, thr2[0], sf=sf, scale=scale, weight=weights[0],
+            masked=masked[0], **kw)
+        w2, _, c = hopper_deep.deep_whiten_step(
+            mid, acc, thr2[1], sf=sf, scale=scale + 1, weight=weights[1],
+            masked=masked[1], **kw)
+        return w1, w2, acc, c
+
     with Phase("bfloat16 split pair checks"):
         n_split = 0
         for shape, b, s_ in (((512, 4096), 1, 4), ((1024, 8192), 1, 5),
                              ((512, 4096), 3, 4), ((4096, 4096), 1, 7)):
-            x = bf16_frame(shape, b, mean=0.0)
-            acc = bf16_frame(shape, b, mean=0.0)
+            x = bf16_frame(shape, b, mean=0.0).float()
+            acc = bf16_frame(shape, b, mean=0.0).float()
             x0 = x.clone()
             for masked in ((True, False), (False, True)):
                 kw = dict(sf=B3SPLINE, scale=s_, weights=(1.25, 0.75),
-                          masked=masked)
+                          masked=masked, white_dtype=torch.bfloat16)
                 thr2 = torch.full((2, b), 0.9, device=dev)
                 a_k, a_p = acc.clone(), acc.clone()
                 n0 = _build.LAUNCHES["whiten_step_bf16"]
-                out_k = hopper_deep.deep_whiten_step2_split(x, a_k, thr2,
-                                                            **kw)
+                out_k = bf16_two_steps(x, a_k, thr2, **kw)
                 out_p = hopper_deep.deep_whiten_step2_plain(x, a_p, thr2,
                                                             **kw)
                 torch.cuda.synchronize()
@@ -2330,7 +2344,8 @@ def main():
             library="none: PyTorch has no bilateral filter"))
         del xf, xg, rg
 
-    # the bfloat16 forms of kernels A and E (2-byte bounds)
+    # the bfloat16 forms of kernels A and E (bounds from their arguments:
+    # the frame and whites 2 bytes, the carries and recon 4)
     with Phase("timings: bfloat16 kernels"):
         n = 4096 * 4096
         xb = bf16_frame((4096, 4096))
@@ -2375,13 +2390,15 @@ def main():
             timed="one bfloat16 group, scales 0-3 at 4096², need_cube on",
             library="none: PyTorch has no numpy-symmetric pad or dilated "
                     "smooth in one call"))
-        xs = xb[None]
+        # the route's steps and pair: float32 carries and recon,
+        # bfloat16 whites
+        xs = xb[None].float()
         rb = torch.zeros_like(xs)
         thr1 = torch.tensor([1.0], device=dev)
         s_k, s_p, per = 0.0, 0.0, {}
         for s_ in range(4, 10):
             kw = dict(sf=B3SPLINE, scale=s_, weight=1.0, soft=True,
-                      masked=s_ < 6)
+                      masked=s_ < 6, white_dtype=torch.bfloat16)
             per[s_] = timed(lambda: hopper_deep.deep_whiten_step(
                 xs, rb, thr1, **kw), torch)
             s_k += per[s_]
@@ -2408,14 +2425,13 @@ def main():
                     "smooth in one call"))
         thr2 = torch.tensor([[1.0], [0.0]], device=dev)
         pkw = dict(sf=B3SPLINE, scale=7, weights=(1.0, 1.0), soft=True,
-                   masked=(True, False))
+                   masked=(True, False), white_dtype=torch.bfloat16)
         p_k = timed(lambda: hopper_deep.deep_whiten_step2(xs, rb, thr2,
                                                           **pkw), torch)
         p_p = timed(lambda: hopper_deep.deep_whiten_step2_plain(
             xs, rb, thr2, **pkw), torch, n=5)
         b_p = bound_ms(pair_bytes(n, itemsize=2), 2 * n * WHITEN_SCALE_OPS)
-        p_s = timed(lambda: hopper_deep.deep_whiten_step2_split(
-            xs, rb, thr2, **pkw), torch)
+        p_s = timed(lambda: bf16_two_steps(xs, rb, thr2, **pkw), torch)
         print(f"  bf16 pair (7, 8) 4096²: {p_k:.3f} ms, plain {p_p:.3f} "
               f"ms, bound {b_p[0]:.3f} ({b_p[1]}); the split pair (two "
               f"launches of kernel A's stream) {p_s:.3f} ms")

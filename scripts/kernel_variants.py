@@ -33,10 +33,9 @@ are only timed.
   path's);
 * the bfloat16 forms (``whiten_group_bf16``, ``whiten_step_bf16``,
   ``whiten_pair_bf16``): the group g = 4 (scales 0-3) at 4096² as
-  planned (the streamed group: 128-column strips, 512-row bands), with
-  strips of 96 and 64 columns (bands filling one wave), rings of float32
-  holding the bfloat16 values (``stream_plan``'s search over their
-  layout: 64-column strips, 109 KB), no whitening epilogue,
+  planned (the streamed group, float32 inside: 64-column strips,
+  1024-row bands), with strips of 96 and 64 columns (bands filling one
+  wave), no whitening epilogue,
   its bits held against the plain version; the deep step s = 4..9 and
   s = 4 without recon (the residue-class stream, one launch a scale; the
   parent's two launches apart with ``--root``), with one column a thread
@@ -113,8 +112,6 @@ VARIANTS = {
     "group bf16": ("whiten_group_bf16", (), None),
     "group bf16, 96-column strips": ("whiten_group_bf16", (), "strip 96"),
     "group bf16, 64-column strips": ("whiten_group_bf16", (), "strip 64"),
-    "group bf16, float32 rings": ("whiten_group_bf16", ("F32_RINGS",),
-                                  "f32 rings"),
     "group bf16, no whitening epilogue": ("whiten_group_bf16",
                                           ("NO_EPILOGUE",), None),
     "step bf16": ("whiten_step_bf16", (), None),
@@ -332,24 +329,17 @@ def main():
                 smem_bytes=smem)
         return plan
 
-    def f32_rings(B, H, W, g, hw, off, itemsize=2):
-        # stream_plan's search over the layout of -DWT_VARIANT_F32_RINGS:
-        # the float32 layout with the input's ring in bfloat16
-        smem4 = hopper_conv.stream_smem
-
-        def input_ring(ws, size):
-            hd, _, ecar = hopper_conv.stream_margins(g, hw, off)
-            rc = -(-ecar[0] // (16 // size)) * (16 // size)
-            n = (2 * hd[0] + 2 * hopper_conv.STREAM_ROWS) * (ws + 2 * rc)
-            return -(-n * size // 16) * 16
-
-        def smem(ws, *a):
-            return smem4(ws, g, hw, off, 4) - input_ring(ws, 4) + input_ring(
-                ws, 2)
-        with replaced(hopper_conv, "stream_smem", smem):
-            return stream_plan.__wrapped__(B, H, W, g, hw, off, itemsize)
-
     pair_stream_plan = getattr(hopper_deep, "pair_stream_plan", None)
+    deep_step = hopper_deep.deep_whiten_step
+
+    def two_steps(carry, recon, thr, *, sf, scale, weights, masked,
+                  **kw):
+        # the pair as two steps of kernel A, the middle carry float32
+        w1, _, mid = deep_step(carry, recon, thr[0], sf=sf, scale=scale,
+                               weight=weights[0], masked=masked[0], **kw)
+        w2, _, c = deep_step(mid, recon, thr[1], sf=sf, scale=scale + 1,
+                             weight=weights[1], masked=masked[1], **kw)
+        return w1, w2, recon, c
 
     def pair_group(k):
         # the bfloat16 pair's stream on groups of k classes, two points a
@@ -412,14 +402,12 @@ def main():
         "tile 64": (hopper_conv, "group_plan", tile(64)),
         "strip 96": (hopper_conv, "group_plan", strip(96)),
         "strip 64": (hopper_conv, "group_plan", strip(64)),
-        "f32 rings": (hopper_conv, "group_plan", f32_rings),
         "streamed": (hopper_conv, "group_plan", lambda *a: stream_plan(
             *a[:6], 4)),
         "cluster 1": (hopper_deep, "pair_plan", lambda *a: dataclasses
                       .replace(pair_plan(*a), cluster=1)),
         "k 8": (hopper_deep, "pair_stream_plan", pair_group(8)),
-        "split": (hopper_deep, "deep_whiten_step2",
-                  hopper_deep.deep_whiten_step2_split),
+        "split": (hopper_deep, "deep_whiten_step2", two_steps),
     }
 
     x512 = torch.from_numpy(rng.normal(size=(512, 512)).astype(np.float32)
@@ -449,6 +437,10 @@ def main():
         return recon.add_(hopper_deep.deep_whiten_plane(x, thr3d[1], **kw))
 
     xh = x.to(torch.bfloat16)
+    # the bfloat16 route's steps and pair: float32 carries and recon
+    # (the frame's values), bfloat16 whites
+    xf = xh.float()
+    bf = dict(white_dtype=torch.bfloat16)
     thr4 = torch.tensor([1.0, 1.0, 1.0, 0.0], device=dev)
 
     def runs(kernel):
@@ -457,12 +449,12 @@ def main():
                 xh[0], [1.0] * 4, thr4, 4, B3SPLINE,
                 masked=(True, True, True, False))
         elif kernel == "whiten_step_bf16":
-            rh = torch.zeros_like(xh)
+            rh = torch.zeros_like(xf)
             for s in range(4, 10):
                 yield f"s={s}", lambda s=s: hopper_deep.deep_whiten_step(
-                    xh, rh, zero1, sf=B3SPLINE, scale=s, weight=1.0)
+                    xf, rh, zero1, sf=B3SPLINE, scale=s, weight=1.0, **bf)
             yield "s=4, no recon", lambda: hopper_deep.deep_whiten_step(
-                xh, None, zero1, sf=B3SPLINE, scale=4, weight=1.0)
+                xf, None, zero1, sf=B3SPLINE, scale=4, weight=1.0, **bf)
         elif kernel == "whiten_step_halo":
             from wavelets_tpu_torch.ops.conv import boundary_index
             for s in range(3, 10):
@@ -474,18 +466,18 @@ def main():
                         ext, recon, zero1, sf=B3SPLINE, scale=s, weight=1.0,
                         halo=R))
         elif kernel == "whiten_pair_bf16":
-            rh = torch.zeros_like(xh)
+            rh = torch.zeros_like(xf)
             yield "(7, 8)", lambda: hopper_deep.deep_whiten_step2(
-                xh, rh, thr2, sf=B3SPLINE, scale=7, weights=(1.0, 1.0),
-                masked=(True, False))
+                xf, rh, thr2, sf=B3SPLINE, scale=7, weights=(1.0, 1.0),
+                masked=(True, False), **bf)
             for b, h, w in ((1, 512, 512), (3, 512, 512), (1, 512, 4096)):
-                xs = xh[:, :h * b, :w].reshape(b, h, w).contiguous()
+                xs = xf[:, :h * b, :w].reshape(b, h, w).contiguous()
                 rs = torch.zeros_like(xs)
                 ts = thr2.expand(2, b).contiguous()
                 yield f"{b}x{h}x{w} (4, 5)", lambda xs=xs, rs=rs, ts=ts: (
                     hopper_deep.deep_whiten_step2(
                         xs, rs, ts, sf=B3SPLINE, scale=4, weights=(1.0, 1.0),
-                        masked=(True, False)))
+                        masked=(True, False), **bf))
         elif kernel == "whiten_plane":
             yield "pieces 0-2", lambda: hopper_wow.fused_whiten_pieces(
                 *pieces_args, write_gamma=True)

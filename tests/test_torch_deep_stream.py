@@ -1,16 +1,17 @@
 """Kernel A's deep step on the residue-class stream (``csrc/
-whiten_step.cu``: the bfloat16 step, the two halves of the bfloat16 pair
-with a float32 middle carry, and halo mode), on the CPU.
+whiten_step.cu``: the bfloat16 route's step, a float32 carry to a
+bfloat16 white, and halo mode), on the CPU.
 
 * The stream's algorithm replayed in PyTorch, one float32 operation at a
   time as the kernel rounds: work items (frame, run of columns, chunk,
-  residue class), the carry's ring of ``2hw+2`` rows in its own type and
-  the detail's ring of ``2hw+1`` float32 rows addressed by slot as the
+  residue class), the carry's ring of ``2hw+2`` float32 rows and the
+  detail's ring of ``2hw+1`` float32 rows addressed by slot as the
   kernel addresses them, the warm-up of a chunk, positions outside the
   class read through the symmetric map, halo offsets, and runs of columns
   laid out as contiguous margins or tap windows.  Bitwise to
-  ``deep_whiten_step_plain`` and ``deep_whiten_step2_split_plain`` in
-  bfloat16, and to the halo plain version in float32 (``torch.erf`` and
+  ``deep_whiten_step_plain`` with bfloat16 whites, to two such steps as
+  ``deep_whiten_step2_plain`` (the pair where kernel E's gate refuses),
+  and to the halo plain version in float32 (``torch.erf`` and
   ``torch.sqrt`` on both sides here; the kernel is held bitwise to the
   same plain versions on the card, tests/test_torch_cuda.py).
 * ``hopper_conv.stream_step_plan`` against a mirror of the C entry's
@@ -41,7 +42,7 @@ def _a16(n):
     return -(-n // 16) * 16
 
 
-def _layout(p, hw, B, H, W, D, halo, ci, si):
+def _layout(p, hw, B, H, W, D, halo):
     """csrc/whiten_step.cu::stream_layout: the layout of the plan ``p``,
     or None where the C entry refuses it."""
     if not (B >= 1 and H >= 1 and W >= 1 and D >= 1 and H < 2 ** 30
@@ -60,11 +61,10 @@ def _layout(p, hw, B, H, W, D, halo, ci, si):
     m = p.seg or W
     span_c = 4 * hw * S + m if p.seg else W
     span_d = 2 * hw * S + m if p.seg else W
-    vc = 16 // ci
-    pitch_c, pitch_d = -(-span_c // vc) * vc, -(-span_d // 4) * 4
-    need = (_a16((2 * hw + 2) * pitch_c * ci) + _a16(4 * span_c)
+    pitch_c, pitch_d = -(-span_c // 4) * 4, -(-span_d // 4) * 4
+    need = (_a16((2 * hw + 2) * pitch_c * 4) + _a16(4 * span_c)
             + _a16(4 * span_d) + _a16((2 * hw + 1) * pitch_d * 4)
-            + _a16(m * si))
+            + _a16(m * 4))
     runs = -(-W // p.seg) if p.seg else 1
     items = B * runs * n_cls * -(-P // p.chunk)
     if (p.chunk > P or need > p.smem_bytes or p.smem_bytes > SMEM_MAX
@@ -75,22 +75,22 @@ def _layout(p, hw, B, H, W, D, halo, ci, si):
 
 
 def _replay(carry, recon, thr, taps, scale, plan, fac, masked, soft,
-            next_dtype, halo=0):
-    """The stream kernel on ``carry`` (B, H + 2·halo, W), item by item and
-    tick by tick, in the kernel's order and rounding → (white, recon',
-    c_next); ``recon`` is updated in place as the kernel's acc."""
+            white_dtype, halo=0):
+    """The stream kernel on the float32 ``carry`` (B, H + 2·halo, W), item
+    by item and tick by tick, in the kernel's order and rounding →
+    (white, recon', c_next); ``recon`` (float32) is updated in place as
+    the kernel's acc, by the unrounded white."""
     B, Hs, W = carry.shape
     H = Hs - 2 * halo
     hw = (len(taps) - 1) // 2
     t = [torch.tensor(v, dtype=torch.float32) for v in taps[hw:]]
     D = 1 << scale
-    st = recon.dtype
-    lay = _layout(plan, hw, B, H, W, D, halo, carry.element_size(),
-                  recon.element_size())
+    st = white_dtype
+    lay = _layout(plan, hw, B, H, W, D, halo)
     assert lay is not None
     Dr, Dc, S, seg = lay["Dr"], lay["Dc"], lay["S"], plan.seg
     NC, ND = 2 * hw + 2, 2 * hw + 1
-    c_next = torch.full((B, H, W), float("nan"), dtype=next_dtype)
+    c_next = torch.full((B, H, W), float("nan"), dtype=torch.float32)
     white = torch.full((B, H, W), float("nan"), dtype=st)
     n_chunks = -(-lay["P"] // plan.chunk)
     for item in range(lay["items"]):
@@ -163,8 +163,7 @@ def _replay(carry, recon, thr, taps, scale, plan, fac, masked, soft,
                 if p0 <= qc < p1:
                     o = u if seg == 0 else u - hw * S
                     keep = (o >= 0) & (o < n_out)
-                    c_next[b, out_row(qc), w0 + o[keep]] = \
-                        f[keep].to(next_dtype)
+                    c_next[b, out_row(qc), w0 + o[keep]] = f[keep]
             if out:
                 o = np.arange(n_out)
                 u = o if seg == 0 else o + hw * S
@@ -182,12 +181,11 @@ def _replay(carry, recon, thr, taps, scale, plan, fac, masked, soft,
                 row = out_row(qo)
                 white[b, row, w0:w0 + n_out] = v2.to(st)
                 recon[b, row, w0:w0 + n_out] = (
-                    recon[b, row, w0:w0 + n_out].float()
-                    + v2.to(st).float()).to(st)
+                    recon[b, row, w0:w0 + n_out] + v2)
     return white, recon, c_next
 
 
-def _plan(B, H, W, D, hw, seg, chunk, grid, ci, si, halo=False):
+def _plan(B, H, W, D, hw, seg, chunk, grid, halo=False):
     """A plan of the given run width, chunk and grid, as the stream
     takes one (the chunk at most a class's positions, the grid at most
     the items), with the shared bytes its layout needs."""
@@ -197,7 +195,7 @@ def _plan(B, H, W, D, hw, seg, chunk, grid, ci, si, halo=False):
     runs = -(-W // seg) if seg else 1
     items = B * runs * n_cls * -(-P // chunk)
     return hopper_conv.StreamStepPlan(
-        seg, chunk, hopper_conv.stream_step_smem(W, D, hw, seg, ci, si),
+        seg, chunk, hopper_conv.stream_step_smem(W, D, hw, seg),
         min(grid, items))
 
 
@@ -218,39 +216,41 @@ REPLAY_CASES = [
 @pytest.mark.parametrize("shape,scale,spec", REPLAY_CASES)
 @pytest.mark.parametrize("sf", ["b3", "tri"])
 def test_stream_algorithm_replayed_bf16(shape, scale, spec, sf):
-    # the bfloat16 step and the split pair's halves (bf16 → float32
-    # c_next, then float32 → bfloat16): bitwise to the plain versions
+    # the bfloat16 route's step (a float32 carry, a bfloat16 white) and
+    # two of them as the pair where kernel E's gate refuses: bitwise to
+    # the plain versions
     tsf = SFS[sf]
     rng = np.random.default_rng(scale + len(sf))
     B, H, W = shape
     x = torch.from_numpy((rng.normal(size=shape) * 3 + 10).astype(
-        np.float32)).to(torch.bfloat16)
+        np.float32)).to(torch.bfloat16).float()
     recon = torch.from_numpy(rng.normal(size=shape).astype(
-        np.float32)).to(torch.bfloat16)
+        np.float32)).to(torch.bfloat16).float()
     thr = torch.tensor([0.9, 0.0, 0.5][:B])
     hw = tsf.half_width
+    bf = torch.bfloat16
 
-    def plan(s, ci):
+    def plan(s):
         if spec is None:
-            return hopper_conv.stream_step_plan(B, H, W, 1 << s, hw, ci, 2)
-        return _plan(B, H, W, 1 << s, hw, *spec, ci, 2)
+            return hopper_conv.stream_step_plan(B, H, W, 1 << s, hw)
+        return _plan(B, H, W, 1 << s, hw, *spec)
 
     want = hopper_deep.deep_whiten_step_plain(
-        x, recon.clone(), thr, sf=tsf, scale=scale, weight=1.5, masked=True)
-    got = _replay(x, recon.clone(), thr, tsf.taps, scale, plan(scale, 2), 1.5,
-                  True, True, torch.bfloat16)
+        x, recon.clone(), thr, sf=tsf, scale=scale, weight=1.5, masked=True,
+        white_dtype=bf)
+    got = _replay(x, recon.clone(), thr, tsf.taps, scale, plan(scale), 1.5,
+                  True, True, bf)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     thr2 = torch.stack([thr, thr.flip(0)])
-    w1, w2, r_p, c_p = hopper_deep.deep_whiten_step2_split_plain(
+    w1, w2, r_p, c_p = hopper_deep.deep_whiten_step2_plain(
         x, recon.clone(), thr2, sf=tsf, scale=scale, weights=(1.25, 0.75),
-        masked=(True, False))
+        masked=(True, False), white_dtype=bf)
     acc = recon.clone()
-    v1, _, mid = _replay(x, acc, thr2[0], tsf.taps, scale, plan(scale, 2),
-                         1.25, True, True, torch.float32)
+    v1, _, mid = _replay(x, acc, thr2[0], tsf.taps, scale, plan(scale),
+                         1.25, True, True, bf)
     v2, _, c_k = _replay(mid, acc, thr2[1], tsf.taps, scale + 1,
-                         plan(scale + 1, 4), 0.75, False, True,
-                         torch.bfloat16)
+                         plan(scale + 1), 0.75, False, True, bf)
     for a, b in ((v1, w1), (v2, w2), (acc, r_p), (c_k, c_p)):
         assert torch.equal(a, b)
 
@@ -274,8 +274,8 @@ def test_stream_algorithm_replayed_halo(shape, scale, spec, sf):
     recon = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
     thr = torch.tensor([0.3, 0.0, 0.7][:B])
     hw, D = tsf.half_width, 1 << scale
-    plan = (hopper_conv.stream_step_plan(B, H, W, D, hw, 4, 4, True)
-            if spec is None else _plan(B, H, W, D, hw, *spec, 4, 4, True))
+    plan = (hopper_conv.stream_step_plan(B, H, W, D, hw, True)
+            if spec is None else _plan(B, H, W, D, hw, *spec, True))
     _build.reset_counters()
     want = hopper_deep.deep_whiten_step_plain(
         ext, recon.clone(), thr, sf=tsf, scale=scale, weight=1.5,
@@ -291,39 +291,31 @@ def test_stream_algorithm_replayed_halo(shape, scale, spec, sf):
 # The stream's plan, as the C entry checks it
 # ---------------------------------------------------------------------
 
-FORMS = {"bf16": (2, 2), "f32next": (2, 2), "f32carry": (4, 2),
-         "halo": (4, 4)}
-
-
 @pytest.mark.parametrize("shape", COVER_SHAPES,
                          ids=["x".join(map(str, s)) for s in COVER_SHAPES])
 @pytest.mark.parametrize("scale", [0, 3, 9, 12, 20, 40, 61])
 def test_stream_plan_takes_what_the_two_launch_entries_took(shape, scale):
     # every shape, batch (past 65535 frames: one launch) and scale the
-    # row-buffer pass took, half widths 1-8, each form's element sizes
+    # row-buffer pass took, half widths 1-8
     B, H, W = shape
     D = 1 << scale
     for hw in (1, 2, 8):
         hopper_conv.step_plan(B, H, W, D, hw)  # the old entries took it
-        for ci, si in {(2, 2), (4, 2)}:
-            p = hopper_conv.stream_step_plan(B, H, W, D, hw, ci, si)
-            assert _layout(p, hw, B, H, W, D, 0, ci, si) is not None
-            assert p.grid <= hopper_conv.H100_SMS
+        p = hopper_conv.stream_step_plan(B, H, W, D, hw)
+        assert _layout(p, hw, B, H, W, D, 0) is not None
+        assert p.grid <= hopper_conv.H100_SMS
 
 
 @pytest.mark.parametrize("shape", GEOMETRY)
 def test_stream_plan_takes_the_bf16_geometry(shape):
     # the bfloat16 route's frames (deep steps from scale 3 up): whole rows
-    # to 5534 columns in bfloat16 (4304 with a float32 carry), runs beyond
+    # to 4148 columns (float32 rings), runs beyond
     H, W = shape
     for s in range(3, 13):
-        for name, (ci, si) in FORMS.items():
-            if name == "halo":
-                continue
-            p = hopper_conv.stream_step_plan(1, H, W, 1 << s, 2, ci, si)
-            assert _layout(p, 2, 1, H, W, 1 << s, 0, ci, si) is not None
-            assert (p.seg == 0) == (hopper_conv.stream_step_smem(
-                W, 1 << s, 2, 0, ci, si) <= SMEM_MAX)
+        p = hopper_conv.stream_step_plan(1, H, W, 1 << s, 2)
+        assert _layout(p, 2, 1, H, W, 1 << s, 0) is not None
+        assert (p.seg == 0) == (hopper_conv.stream_step_smem(
+            W, 1 << s, 2, 0) <= SMEM_MAX)
 
 
 @pytest.mark.parametrize("H,W", [(4096, 4096), (1024, 4096), (8, 64),
@@ -333,11 +325,11 @@ def test_stream_plan_takes_m2_bands(H, W):
     # rows a side, float32, whole rows at 4096 columns (224 KB)
     for s in range(0, 10):
         R = 4 << s
-        p = hopper_conv.stream_step_plan(1, H, W, 1 << s, 2, 4, 4, True)
-        assert _layout(p, 2, 1, H, W, 1 << s, R, 4, 4) is not None
+        p = hopper_conv.stream_step_plan(1, H, W, 1 << s, 2, True)
+        assert _layout(p, 2, 1, H, W, 1 << s, R) is not None
         if W == 4096:
             assert p.seg == 0 and p.smem_bytes == 229376
-    m2 = [hopper_conv.stream_step_plan(1, 4096, 4096, 1 << s, 2, 4, 4, True)
+    m2 = [hopper_conv.stream_step_plan(1, 4096, 4096, 1 << s, 2, True)
           for s in range(3, 10)]
     assert [p.chunk for p in m2] == [32, 32, 32, 32, 32, 16, 8]
     assert not any(hopper_conv.stream_classes(4096, 1 << s, True)[3]
@@ -346,11 +338,12 @@ def test_stream_plan_takes_m2_bands(H, W):
 
 def test_stream_plan_at_4096():
     # the bf16 cells' steps: s = 4 walks 8 mirror pairs of 512 positions
-    # in chunks of 32, 128 blocks; s = 9 256 pairs of 16 positions, 132
-    # blocks grid-stride (without pairs: 512 classes of 8, warm-up 1.5x)
+    # in chunks of 32, 128 blocks, whole float32 rows (224 KiB); s = 9
+    # 256 pairs of 16 positions, 132 blocks grid-stride (without pairs:
+    # 512 classes of 8, warm-up 1.5x)
     p4 = hopper_conv.stream_step_plan(1, 4096, 4096, 16, 2)
     p9 = hopper_conv.stream_step_plan(1, 4096, 4096, 512, 2)
-    assert (p4.seg, p4.chunk, p4.grid, p4.smem_bytes) == (0, 32, 128, 172032)
+    assert (p4.seg, p4.chunk, p4.grid, p4.smem_bytes) == (0, 32, 128, 229376)
     assert (p9.seg, p9.chunk, p9.grid) == (0, 16, 132)
     assert hopper_conv.stream_classes(4096, 512) == (512, 256, 16, True)
     assert hopper_conv.stream_classes(4000, 512) == (512, 512, 8, False)
@@ -360,8 +353,8 @@ def test_stream_plan_at_4096():
                                    "halo", "over"])
 def test_stream_check_refuses_a_wrong_plan(wrong):
     B, H, W, D, hw = 2, 64, 96, 8, 2
-    p = hopper_conv.stream_step_plan(B, H, W, D, hw, 2, 2)
-    assert _layout(p, hw, B, H, W, D, 0, 2, 2) is not None
+    p = hopper_conv.stream_step_plan(B, H, W, D, hw)
+    assert _layout(p, hw, B, H, W, D, 0) is not None
     bad = {"smem": dict(smem_bytes=p.smem_bytes - 16),
            "seg8": dict(seg=12), "seg_w": dict(seg=96),
            "chunk": dict(chunk=H + 1), "grid": dict(grid=10 ** 6),
@@ -369,11 +362,11 @@ def test_stream_check_refuses_a_wrong_plan(wrong):
     import dataclasses
     q = dataclasses.replace(p, **bad)
     halo = 2 * hw * D + 1 if wrong == "halo" else 0
-    assert _layout(q, hw, B, H, W, D, halo, 2, 2) is None
+    assert _layout(q, hw, B, H, W, D, halo) is None
 
 
 def test_stream_plan_raises_where_nothing_fits():
     with pytest.raises(ValueError, match="2\\^30"):
         hopper_conv.stream_step_plan(1, 2 ** 30, 8, 1, 2)
     with pytest.raises(ValueError, match="2\\^30"):
-        hopper_conv.stream_step_plan(1, 2 ** 29, 8, 2 ** 27, 2, 4, 4, True)
+        hopper_conv.stream_step_plan(1, 2 ** 29, 8, 2 ** 27, 2, True)

@@ -1,18 +1,19 @@
-"""Kernel E's bfloat16 pair on the residue-class stream (``csrc/
-whiten_pair.cu``, ``wt_whiten_pair_bf16``), on the CPU.
+"""Kernel E's pair of the bfloat16 route on the residue-class stream
+(``csrc/whiten_pair.cu``, ``wt_whiten_pair_bf16``: a float32 carry and
+recon, bfloat16 whites), on the CPU.
 
 * The stream's algorithm replayed in PyTorch, one float32 operation at a
   time as the kernel rounds: work items (frame, chunk of the row circle,
   row class pair, column window, group of ``k`` column classes), the
-  carry's ring of ``2hw+2`` bfloat16 rows fetched in memory order (the
-  mirror half's classes reversed) two ticks ahead, the middle carry's and
-  the details' float32 rings and ``white_s``'s bfloat16 ring addressed by
-  slot as the kernel addresses them, the rows-fold buffers with the
-  circle's margins filled by copies (or a window's margins computed), the
-  warm-up of a chunk around the circle, and the recon row a tick ahead.
-  Every ring starts as NaN and the rows-fold buffers are NaN again every
-  tick, so a slot or index read before it is written reaches an output.
-  Bitwise to ``deep_whiten_step2_plain`` in bfloat16 (``torch.erf`` and
+  carry's ring of ``2hw+2`` float32 rows fetched in memory order (the
+  mirror half's classes reversed) two ticks ahead, the middle carry's,
+  the details' and ``white_s``'s float32 rings addressed by slot as the
+  kernel addresses them, the rows-fold buffers with the circle's margins
+  filled by copies (or a window's margins computed), the warm-up of a
+  chunk around the circle, and the recon row a tick ahead.  Every ring
+  starts as NaN and the rows-fold buffers are NaN again every tick, so a
+  slot or index read before it is written reaches an output.  Bitwise to
+  ``deep_whiten_step2_plain`` with bfloat16 whites (``torch.erf`` and
   ``torch.sqrt`` on both sides here; the kernel is held bitwise to the
   same plain version on the card, tests/test_torch_cuda.py).
 * ``hopper_deep.pair_stream_plan`` against a mirror of the C entry's
@@ -59,12 +60,12 @@ def _layout(p, hw, B, H, W, D):
             or run > cols_out:
         return None
     m1, m2 = (0, 0) if run else (hw, 2 * hw)
-    ph, pf = -(-pts // 8) * 8, -(-pts // 4) * 4
+    pf = -(-pts // 4) * 4
     t1 = -(-(window + 2 * m1) * k // 4) * 4
     t2 = -(-(window + 2 * m2) * k // 4) * 4
-    need = (2 * ph * ((2 * hw + 2) + 2 + (3 * hw + 2))
-            + 4 * pf * ((4 * hw + 2) + (2 * hw + 2) + (hw + 2) + (4 * hw + 2)
-                        + (2 * hw + 2)) + 4 * 2 * (2 * t1 + 2 * t2))
+    need = (4 * pf * ((2 * hw + 2) + 2 + (3 * hw + 2) + (4 * hw + 2)
+                      + (2 * hw + 2) + (hw + 2) + (4 * hw + 2)
+                      + (2 * hw + 2)) + 4 * 2 * (2 * t1 + 2 * t2))
     runs = -(-cols_out // run) if run else 1
     chunks = -(-rows_out // chunk)
     items = B * chunks * classes * runs * (classes // k)
@@ -79,10 +80,10 @@ def _layout(p, hw, B, H, W, D):
 
 def _replay(carry, recon, thr, sf, scale, plan, weights, masked, soft,
             write_plane=True):
-    """The stream kernel on a bfloat16 ``carry`` (B, H, W), item by item
+    """The stream kernel on a float32 ``carry`` (B, H, W), item by item
     and tick by tick, in the kernel's order and rounding → (white_s,
-    white_s+1, recon', c_next2); ``recon`` (or None) is updated in place
-    as the kernel's."""
+    white_s+1 in bfloat16, recon', c_next2 in float32); ``recon`` (float32
+    or None) is updated in place as the kernel's."""
     B, H, W = carry.shape
     taps = sf.taps
     hw = (len(taps) - 1) // 2
@@ -96,7 +97,7 @@ def _replay(carry, recon, thr, sf, scale, plan, weights, masked, soft,
     NC, N1, NQ1, ND1 = 2 * hw + 2, 4 * hw + 2, 2 * hw + 2, hw + 2
     NQ2, ND2, NW = 4 * hw + 2, 2 * hw + 2, 3 * hw + 2
     bf, nan = torch.bfloat16, float("nan")
-    c_next = torch.full((B, H, W), nan, dtype=bf)
+    c_next = torch.full((B, H, W), nan)
     whites = [torch.full((B, H, W), nan, dtype=bf) if write_plane else None
               for _ in range(2)]
     f = torch.arange(pts)
@@ -168,7 +169,7 @@ def _replay(carry, recon, thr, sf, scale, plan, weights, masked, soft,
 
         def rows(n, dtype=torch.float32):
             return torch.full((n, pts), nan, dtype=dtype)
-        ring, rst, w1r = rows(NC, bf), rows(2, bf), rows(NW, bf)
+        ring, rst, w1r = rows(NC), rows(2), rows(NW)
         c1r, q1r, d1r, q2r, d2r = rows(N1), rows(NQ1), rows(ND1), rows(NQ2), \
             rows(ND2)
 
@@ -218,12 +219,12 @@ def _replay(carry, recon, thr, sf, scale, plan, weights, masked, soft,
                 q2r[t % NQ2][r2] = (d * d)[r2]
                 d2r[t % ND2][r2] = d[r2]
                 if p0 <= q2 < p1:
-                    c_next[b, row_of(q2), col[own]] = c[own].to(bf)
+                    c_next[b, row_of(q2), col[own]] = c[own]
             if aw1:
                 w = whiten(d1r[(t + 1) % ND1], fold_buf(T2, x1, k), 0, b)
                 if write_plane:
                     whites[0][b, row_of(o1), col[own]] = w[own].to(bf)
-                w1r[t % NW][ro] = w[ro].to(bf)
+                w1r[t % NW][ro] = w[ro]
             if aw2:
                 w = whiten(d2r[(t + 1) % ND2],
                            fold_buf(T2b, x2, 2 * k), 1, b)
@@ -231,10 +232,10 @@ def _replay(carry, recon, thr, sf, scale, plan, weights, masked, soft,
                 if write_plane:
                     whites[1][b, row, col[own]] = w[own].to(bf)
                 if recon is not None:
-                    rc = rst[t & 1][ri].float()
-                    w1 = w1r[(t + 1) % NW].float()
-                    out = (rc + w1).to(bf).float() + w.to(bf).float()
-                    recon[b, row, col[own]] = out[own].to(bf)
+                    rc = rst[t & 1][ri]
+                    w1 = w1r[(t + 1) % NW]
+                    out = (rc + w1) + w
+                    recon[b, row, col[own]] = out[own]
     return whites[0], whites[1], recon, c_next
 
 
@@ -289,14 +290,15 @@ def test_pair_stream_algorithm_replayed_bf16(shape, scale, spec, sf, masked,
     B, H, W = shape
     D, hw = 1 << scale, tsf.half_width
     x = torch.from_numpy((rng.normal(size=shape) * 3 + 10).astype(
-        np.float32)).to(torch.bfloat16)
+        np.float32)).to(torch.bfloat16).float()
     recon = torch.from_numpy(rng.normal(size=shape).astype(
-        np.float32)).to(torch.bfloat16)
+        np.float32)).to(torch.bfloat16).float()
     plan = (hopper_deep.pair_stream_plan(B, H, W, D, hw) if spec is None
             else _forced(B, H, W, D, hw, *spec))
     # a zero threshold (no mask) in a frame
     thr = torch.tensor([[0.9, 0.0, 0.5][:B], [0.3, 0.6, 0.0][:B]])
-    kw = dict(sf=tsf, scale=scale, weights=(1.25, 0.75), masked=masked)
+    kw = dict(sf=tsf, scale=scale, weights=(1.25, 0.75), masked=masked,
+              white_dtype=torch.bfloat16)
     r_p = recon.clone() if with_recon else None
     r_k = recon.clone() if with_recon else None
     want = hopper_deep.deep_whiten_step2_plain(x, r_p, thr, **kw)
@@ -312,11 +314,12 @@ def test_pair_stream_replayed_serving_without_planes():
     # write_plane=False: only c_next2 and recon
     rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.normal(size=(1, 128, 128)).astype(
-        np.float32)).to(torch.bfloat16)
+        np.float32)).to(torch.bfloat16).float()
     recon = torch.zeros_like(x)
     thr = torch.tensor([[0.4], [0.0]])
     plan = hopper_deep.pair_stream_plan(1, 128, 128, 16, 2)
-    kw = dict(sf=B3SPLINE, scale=4, weights=(1.0, 2.0), masked=(True, True))
+    kw = dict(sf=B3SPLINE, scale=4, weights=(1.0, 2.0), masked=(True, True),
+              white_dtype=torch.bfloat16)
     r_p = recon.clone()
     want = hopper_deep.deep_whiten_step2_plain(x, r_p, thr, write_plane=False,
                                                **kw)
@@ -388,13 +391,14 @@ def test_pair_stream_plan_takes_the_bf16_route(shape, sf):
 
 
 def test_pair_stream_plan_at_the_cells():
-    # 4096² (7, 8): 16 classes a group (whole 32-byte sectors), the whole
-    # circle of 64 rows an item, 256 items on one 512-thread block an SM
-    # (211 KB, two points a thread); 512² (4, 5): the 8 classes, chunks of
-    # 4 of the 64 rows, 128 items; three frames: chunks of 13
+    # 4096² (7, 8): 8 classes a group (whole 32-byte sectors of float32),
+    # the whole circle of 64 rows an item, 512 items on one 256-thread
+    # block an SM (122 KiB of float32 rings, two points a thread); 512²
+    # (4, 5): the 8 classes, chunks of 4 of the 64 rows, 128 items; three
+    # frames: chunks of 13
     p = hopper_deep.pair_stream_plan(1, 4096, 4096, 128, 2)
     assert (p.k, p.run, p.chunk, p.threads, p.grid, p.smem_bytes) == (
-        16, 0, 64, 512, 132, 216064)
+        8, 0, 64, 256, 132, 124416)
     p = hopper_deep.pair_stream_plan(1, 512, 512, 16, 2)
     assert (p.k, p.run, p.chunk, p.threads, p.grid) == (8, 0, 4, 256, 128)
     p = hopper_deep.pair_stream_plan(3, 512, 512, 16, 2)

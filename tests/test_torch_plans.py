@@ -288,7 +288,8 @@ def test_group_tile_algorithm_replayed(shape, offset, sf):
 
 def _replay_stream(x, plan, g, taps, offset, facs, thrs, masked, soft):
     """whiten_group.cu's streamed group on a (B, H, W) bfloat16 stack,
-    in float32 torch with the kernel's rounding points.  Per block (a
+    in float32 torch as the kernel computes it (float32 inside: only the
+    whites round, on store; carry and acc float32).  Per block (a
     strip of columns, a band of rows, a frame) the input rows of virtual
     row ``a0 + q`` (``a0``: the band's first row less the halo) enter the
     input's ring through the symmetric map, 8 a step.  Per step and
@@ -300,10 +301,6 @@ def _replay_stream(x, plan, g, taps, offset, facs, thrs, masked, soft):
     sits in slot ``q mod rows`` of a ring; rings start as NaN, so a value
     read before it was written, or after it was overwritten, shows."""
     bf = torch.bfloat16
-
-    def rnd(a):
-        return a.to(bf).float()
-
     B, H, W = x.shape
     hw = (len(taps) - 1) // 2
     t = torch.tensor(taps[hw:], dtype=torch.float32)
@@ -332,7 +329,7 @@ def _replay_stream(x, plan, g, taps, offset, facs, thrs, masked, soft):
         for j in range(1, hw + 1):
             out = out + t[j] * (ring[(q - j * d) % n][:, cols]
                                 + ring[(q + j * d) % n][:, cols])
-        return rnd(out)
+        return out
 
     def hfold(a, d, lo, hi):
         # columns lo..hi-1 of rows a (origin rc), dilation d
@@ -340,7 +337,7 @@ def _replay_stream(x, plan, g, taps, offset, facs, thrs, masked, soft):
         for j in range(1, hw + 1):
             out = out + t[j] * (a[:, rc + lo - j * d:rc + hi - j * d]
                                 + a[:, rc + lo + j * d:rc + hi + j * d])
-        return rnd(out)
+        return out
 
     def put(dst, gh, h0, h1, w0, vals):
         for i in np.nonzero((gh >= h0) & (gh < h1))[0]:
@@ -377,11 +374,11 @@ def _replay_stream(x, plan, g, taps, offset, facs, thrs, masked, soft):
                         c = hfold(tmp, d, -ec[k], ws + ec[k])
                         cr[k + 1][u % rows_c[k + 1],
                                   rc - ec[k]:rc + ws + ec[k]] = c
-                        e = rnd(cr[k][u % rows_c[k]][
+                        e = (cr[k][u % rows_c[k]][
                             :, rc - eq[k]:rc + ws + eq[k]]
                             - c[:, ec[k] - eq[k]:ec[k] + ws + eq[k]])
                         qr[k][u % rows_q[k], rc - eq[k]:rc + ws + eq[k]] = (
-                            rnd(e * e))
+                            e * e)
                         if k == g - 1:
                             put(carry[b], a0 + u, h0, h1, w0,
                                 c[:, ec[k]:ec[k] + ws])
@@ -390,8 +387,8 @@ def _replay_stream(x, plan, g, taps, offset, facs, thrs, masked, soft):
                         tmp[:, rc - eq[k]:rc + ws + eq[k]] = vfold(
                             qr[k], p, d, -eq[k], ws + eq[k])
                         lp = hfold(tmp, d, 0, ws)
-                        e = rnd(cr[k][p % rows_c[k]][:, rc:rc + ws]
-                                - cr[k + 1][p % rows_c[k + 1]][:, rc:rc + ws])
+                        e = (cr[k][p % rows_c[k]][:, rc:rc + ws]
+                             - cr[k + 1][p % rows_c[k + 1]][:, rc:rc + ws])
                         lp = torch.sqrt(torch.where(lp <= 0, 1e-15, lp))
                         if masked[k] and thrs[k] != 0:
                             thr = torch.tensor(thrs[k], dtype=torch.float32)
@@ -405,7 +402,7 @@ def _replay_stream(x, plan, g, taps, offset, facs, thrs, masked, soft):
                         ar[p % rows_a] = v
                         if k == g - 1:
                             put(acc[b], a0 + p, h0, h1, w0, v)
-    return ([w.to(bf) for w in whites] + [carry.to(bf)]), acc.to(bf)
+    return ([w.to(bf) for w in whites] + [carry]), acc
 
 
 @pytest.mark.parametrize("shape,g,offset,sf,band", [

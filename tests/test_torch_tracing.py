@@ -217,9 +217,11 @@ def test_sync_sites_count_on_a_device_the_host_waits_on(clean, monkeypatch,
     tracing.reset()
     with tracing.record():
         CASES["frame"]()
+        # a known scalar noise is a fill on the card, not a copy
+        wow(_frame(), noise=1.0, **KW)
     assert tracing.totals()["syncs"] == {}
     with tracing.record():
-        wow(_frame(), noise=1.0, **KW)
+        wow(_frame(), noise=np.asarray(1.0), **KW)
         CASES["stack"]()
         CASES["bilateral"]()
         t = torch.zeros(3)

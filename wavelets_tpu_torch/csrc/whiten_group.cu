@@ -49,35 +49,32 @@
 // tile fits 227 KB (the B3spline from offset 2 at g = 3) the plan says so
 // and the wrapper runs the scales as deep steps (whiten_step.cu).
 //
-// The streamed group (wt_whiten_group_bf16; its float32 instantiation
-// wt_whiten_group_stream_f32 is timed and checked beside the tile, no
-// path calls it).  The bfloat16 route takes the JAX plan's g = 4 at
-// offset 0 (halo 46).  On a tile that cost 44.5 folds an output pixel,
-// most of them the halo recomputed every 64 rows, of which 16 are the
-// function's, and the power smooth's row taps were squared and rounded
-// again per tap: 1.71-1.72 ms of device time at 4096^2 against a 0.070
-// ms bound by bytes.  Here a block of 8 warps owns a strip of Ws output
-// columns and a band of Hb rows of one frame (the plan's, stream_plan:
-// 128 x 512 at 4096^2, 256 blocks of 104 KB, two an SM) and walks down
-// the band 8 rows a step, one a warp:
+// The streamed group (wt_whiten_group_bf16 and, for the later groups of a
+// frame the JAX plan cuts into several, wt_whiten_group_bf16_f32in; its
+// float32 instantiation wt_whiten_group_stream_f32 is timed and checked
+// beside the tile, no path calls it).  The bfloat16 route takes the JAX
+// plan's g = 4 at offset 0 (halo 46).  On a tile that cost 44.5 folds an
+// output pixel, most of them the halo recomputed every 64 rows, of which
+// 16 are the function's: 1.71-1.72 ms of device time at 4096^2 against a
+// 0.070 ms bound by bytes.  Here a block of 8 warps owns a strip of Ws
+// output columns and a band of Hb rows of one frame (the plan's,
+// stream_plan) and walks down the band 8 rows a step, one a warp:
 //   * rings of rows in shared memory: the input's, 2hd_0 + 16 rows of
-//     the strip and its 48-column margins (a step's rows read while the
-//     next step's arrive by 16-byte cp.async); per scale k, c_next
-//     (carry_(k+1)) and the detail's square sq_k, 2hd + 8 rows each, on
-//     the margins the later scales still need; the float32 sum of the
-//     whites, R - 2hd_0 + 8 rows;
+//     the strip and its margins in the input's type (a step's rows read
+//     while the next step's arrive by 16-byte cp.async); per scale k,
+//     c_next (carry_(k+1)) and the detail's square sq_k, 2hd + 8 float32
+//     rows each, on the margins the later scales still need; the float32
+//     sum of the whites, R - 2hd_0 + 8 rows;
 //   * a step of scale k: the chain's rows fold of carry_k into the
-//     warp's scratch row, its cols fold -> c_next, the detail and its
-//     square (rounded once, where the JAX kernel stores it) -> sq_k; a
-//     block barrier; the rows fold of sq_k, its cols fold, the whitening
-//     of the detail of that row (carry_k - c_next, both still in their
-//     rings), the white to device memory, acc += white.  So the vertical
-//     halo is computed once a band, not once a tile: 25.0 folds an output
-//     pixel at 4096^2 against 44.5 (the strip's margins cost 1.7x on the
-//     chain smooth);
-//   * each lane folds two neighbouring columns from 4-byte bfloat16
-//     pairs, unpacked in two instructions (at d = 1 from a window of
-//     ceil(hw/2)*2 + 1 pairs), every lane the same rounds (a pair past
+//     warp's scratch row, its cols fold -> c_next, the detail's square ->
+//     sq_k; a block barrier; the rows fold of sq_k, its cols fold, the
+//     whitening of the detail of that row (carry_k - c_next, both still
+//     in their rings), the white to device memory, acc += white.  So the
+//     vertical halo is computed once a band, not once a tile: 25.0 folds
+//     an output pixel at 4096^2 against 44.5 (the strip's margins cost
+//     1.7x on the chain smooth);
+//   * each lane folds two neighbouring columns (at d = 1 from a window
+//     of ceil(hw/2)*2 + 1 pairs), every lane the same rounds (a pair past
 //     the row's end folds the last pair again and is not stored), so
 //     only the stores branch.
 // Virtual rows and columns go through the symmetric map once, at the
@@ -90,31 +87,32 @@
 // SM) slower than one, and a two-phase schedule (every scale's chain,
 // one barrier, every power smooth) slower than g + 1 barriers a step.
 // Measured on an H100 80GB HBM3 at 700 W (scripts/kernel_variants.py,
-// device time at 4096^2, g = 4): 1.30-1.33 ms against the tile's 1.71,
-// 0.93 without the whitening epilogue, 1.59 on 96-column strips,
-// 1.69-1.73 on 64, 1.71-1.74 with float32 rings (twice the bytes, one
-// block an SM); the float32 instantiation at g = 3 0.763 ms against the
-// tile's 0.764-0.765.
+// device time at 4096^2, g = 4), in the JAX package's bfloat16 rounding
+// (bfloat16 rings, this kernel's earlier form): 1.30-1.33 ms against the
+// tile's 1.71, 0.93 without the whitening epilogue, 1.59 on 96-column
+// strips, 1.69-1.73 on 64, 1.71-1.74 with float32 rings (twice the
+// bytes, one block an SM), which the float32 inside now takes; the
+// float32 instantiation at g = 3 0.763 ms against the tile's 0.764-0.765.
 //
 // Rounding.  Every fold is x*t_0 + sum_j t_j*(l + r) with __fmul_rn /
 // __fadd_rn in the JAX order, as wt_common.cuh's folds, so c_next is
 // bitwise equal to the plain version; in float32 the whites and acc
-// differ from it only through erff.  In bfloat16 the values round where
-// the JAX kernel stores into a scratch of the input dtype
-// (pallas_conv.py:137, :300-376): each separable pass of the chain
-// smooth, carry - c_next, its square, and both passes of the power
-// smooth; the mask, lp, the white and acc stay float32 in registers (acc
-// in its float32 ring), the white and acc round on store: bitwise the
-// plain version.
+// differ from it only through erff.  The streamed group is float32
+// inside: it reads a bfloat16 frame, and only the whites round, on their
+// store; the carry and acc leave in float32.  This departs from the JAX
+// package's bfloat16 group, which rounds each separable pass, the detail,
+// its square and the power smooth to bfloat16 (pallas_conv.py:137,
+// :300-376): on frames of hundreds of counts that rounding cancels most
+// digits of the fine details and missed a float32 WOW of the same frame
+// by up to 0.25 (rel. L2) in a plane (PERF.md, section 6).
 //
 // Launch.  Tile height, strip width, band height, halo, grid and
 // shared-memory bytes are the wrapper's plans (group_plan, stream_plan),
 // passed in and checked here, so the plans the CPU tests hold are the
 // ones launched.  Variant builds (wt_tile.cuh): NO_EPILOGUE (the power
 // smooth stored unwhitened, both designs), ONE_FOLD (the tile: one fold
-// a lane at a time), F32_RINGS (the stream's rings and rows as float32
-// holding the bfloat16-rounded values: no conversion per tap, twice the
-// bytes); tile heights, strip widths and band heights are plan variants.
+// a lane at a time); tile heights, strip widths and band heights are
+// plan variants.
 
 #include "wt_common.cuh"
 #include "wt_tile.cuh"
@@ -421,12 +419,13 @@ struct StreamRing {
   int margin;  // columns left of the strip's column 0
 };
 
-template <class S>
+// X: the input's type; Wt: the whites'.  The carry and acc are float32.
+template <class X, class Wt>
 struct StreamArgs {
-  const S* x;
-  S* white[WT_MAX_G];
-  S* carry;
-  S* acc;
+  const X* x;
+  Wt* white[WT_MAX_G];
+  float* carry;
+  float* acc;
   const float* thr;  // (g, B)
   float fac[WT_MAX_G];
   int masked[WT_MAX_G];
@@ -441,17 +440,17 @@ struct StreamArgs {
 
 // What a scale reads by a run-time index lives in shared memory (a
 // kernel argument indexed at run time would be copied to local memory).
-template <class S>
+template <class Wt>
 struct StreamTable {
   StreamRing ring[kRings];
   int head[2][kRings];  // by step parity
-  S* white[WT_MAX_G];
+  Wt* white[WT_MAX_G];
   float fac[WT_MAX_G];
   int masked[WT_MAX_G], ec[WT_MAX_G], ecar[WT_MAX_G], eq[WT_MAX_G];
 };
 
 // Two neighbouring columns as float2 (a 4-byte bfloat16 pair, an 8-byte
-// float pair; the column even), and back, rounded to S.
+// float pair; the column even), and back (a bfloat16 pair rounded).
 __device__ __forceinline__ float2 ld2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
@@ -469,15 +468,6 @@ __device__ __forceinline__ void st2(float* p, float2 v) {
 }
 __device__ __forceinline__ void st2(__nv_bfloat16* p, float2 v) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v.x, v.y);
-}
-template <class S>
-__device__ __forceinline__ float2 round2(float2 v) {
-  if (std::is_same<S, float>::value) return v;
-  // one rounding of the pair, then unpacked
-  const __nv_bfloat162 h = __floats2bfloat162_rn(v.x, v.y);
-  unsigned u;
-  memcpy(&u, &h, sizeof(u));
-  return unpack2(u);
 }
 
 // The fold of the columns j, j + 1 across the rows rows[0 .. 2hw] (the
@@ -552,14 +542,6 @@ __device__ __forceinline__ void warp_pairs(int lo, int hi, int lane, F f,
   }
 }
 
-// A fold as a ring or row of Rg stores it: rounded to S on the way (a
-// bfloat16 pair's store rounds it; a float ring of bfloat16 values rounds
-// first).
-template <class S, class Rg>
-__device__ __forceinline__ float2 to_ring(float2 v) {
-  return std::is_same<S, Rg>::value ? v : round2<S>(v);
-}
-
 // Column 0 of the slot of row ref + o in a ring whose reference row sits
 // in slot `head` (|o| < rows).
 template <class T>
@@ -588,21 +570,21 @@ __device__ __forceinline__ void store_pair(S* row, int gw, int W, bool pairs,
 // rows fold of carry_k around row u + r, u = the reference row of the
 // rings that scale k writes (the rows of carry_k that scale k - 1 wrote
 // this step, less hd), into the row's scratch row, its cols fold ->
-// c_next (carry_(k+1)'s ring), the detail and its square (sq_k's ring),
-// each rounded to S.  After a block barrier, its power smooth: the rows
-// fold of sq_k around row u - hd + r into the scratch row, its cols
-// fold, the whitening of that row's detail (carry_k and carry_(k+1),
-// still in their rings), the white (and at the last scale the acc and
-// the group's carry) to device memory, acc += white in the float32 acc
-// ring.  Tc: the type of carry_k's ring (S for the input, Rg after).
+// c_next (carry_(k+1)'s ring), the detail's square (sq_k's ring).  After
+// a block barrier, its power smooth: the rows fold of sq_k around row
+// u - hd + r into the scratch row, its cols fold, the whitening of that
+// row's detail (carry_k and carry_(k+1), still in their rings), the white
+// (and at the last scale the acc and the group's carry) to device memory,
+// acc += white in the acc ring.  Everything is float32 but the input's
+// ring (Tc = X at scale 0, float after) and the white's store (Wt).
 struct StreamStep {
   int k, d, hd, hd0, lag;  // lag: S_k = hd_0 + .. + hd_(k-1)
   int step_row;            // the virtual row of the input's step
 };
 
-template <class S, int HW>
-__device__ __forceinline__ StreamStep stream_step(const StreamArgs<S>& a,
-                                                  int k, int step_row) {
+template <int HW, class A>
+__device__ __forceinline__ StreamStep stream_step(const A& a, int k,
+                                                  int step_row) {
   StreamStep st;
   const int hw = wt::half_width<HW>(a.taps);
   st.k = k;
@@ -615,14 +597,14 @@ __device__ __forceinline__ StreamStep stream_step(const StreamArgs<S>& a,
 }
 
 struct ChainOut {
-  float2 c, sq;  // c_next and the detail's square, rounded to S
+  float2 c, sq;  // c_next and the detail's square
 };
 
-template <class S, class Rg, int HW, class Tc>
+template <class X, class Wt, int HW, class Tc>
 __device__ __forceinline__ void stream_chain(
-    const StreamArgs<S>& a, StreamTable<S>* tab, unsigned char* smem,
-    const int* head, Rg* tmp, const StreamStep& st, int h0, int h1, int w0,
-    size_t plane, int row, int lane) {
+    const StreamArgs<X, Wt>& a, StreamTable<Wt>* tab, unsigned char* smem,
+    const int* head, float* tmp, const StreamStep& st, int h0, int h1,
+    int w0, size_t plane, int row, int lane) {
   const Taps& tp = a.taps;
   const int hw = wt::half_width<HW>(tp);
   const int k = st.k, d = st.d, hd = st.hd, Ws = a.Ws, W = a.W;
@@ -639,35 +621,35 @@ __device__ __forceinline__ void stream_chain(
     warp_pairs(
         -ecar, Ws + ecar, lane,
         [&](int j) { return vfold2<HW>(rows, j, tp); },
-        [&](int j, float2 o) { st2(tmp + j, to_ring<S, Rg>(o)); });
+        [&](int j, float2 o) { st2(tmp + j, o); });
   }
   __syncwarp();
   const Tc* cr = ring_at<const Tc>(smem, rc, hc, -hd + row);
-  Rg* cn = ring_at<Rg>(smem, rn, hn, row);
-  Rg* sq = ring_at<Rg>(smem, rq, hq, row);
+  float* cn = ring_at<float>(smem, rn, hn, row);
+  float* sq = ring_at<float>(smem, rq, hq, row);
   warp_pairs(
       -ec, Ws + ec, lane,
       [&](int j) {
         ChainOut o;
-        o.c = round2<S>(hfold2<HW>(tmp, j, d, tp));
+        o.c = hfold2<HW>(tmp, j, d, tp);
         const float2 x = ld2(cr + j);
-        const float2 e = round2<S>(
-            make_float2(__fsub_rn(x.x, o.c.x), __fsub_rn(x.y, o.c.y)));
+        const float2 e =
+            make_float2(__fsub_rn(x.x, o.c.x), __fsub_rn(x.y, o.c.y));
         o.sq = make_float2(__fmul_rn(e.x, e.x), __fmul_rn(e.y, e.y));
         return o;
       },
       [&](int j, const ChainOut& o) {
         st2(cn + j, o.c);
-        if (j >= -eq && j < Ws + eq) st2(sq + j, to_ring<S, Rg>(o.sq));
+        if (j >= -eq && j < Ws + eq) st2(sq + j, o.sq);
       });
   __syncwarp();
 }
 
-template <class S, class Rg, int HW, class Tc>
+template <class X, class Wt, int HW, class Tc>
 __device__ __forceinline__ void stream_power(
-    const StreamArgs<S>& a, StreamTable<S>* tab, unsigned char* smem,
-    const int* head, Rg* tmp, const StreamStep& st, int h0, int h1, int w0,
-    size_t plane, int row, int lane) {
+    const StreamArgs<X, Wt>& a, StreamTable<Wt>* tab, unsigned char* smem,
+    const int* head, float* tmp, const StreamStep& st, int h0, int h1,
+    int w0, size_t plane, int row, int lane) {
   const Taps& tp = a.taps;
   const int hw = wt::half_width<HW>(tp);
   const int k = st.k, d = st.d, hd = st.hd, Ws = a.Ws, W = a.W;
@@ -678,27 +660,27 @@ __device__ __forceinline__ void stream_power(
             ha = head[kAcc];
   constexpr int NT = HW > 0 ? 2 * HW + 1 : 2 * WT_MAX_HW + 1;
   {
-    const Rg* rows[NT];
+    const float* rows[NT];
 #pragma unroll
     for (int t = 0; t <= 2 * hw; ++t)
-      rows[t] = ring_at<const Rg>(smem, rq, hq, -hd + row + (t - hw) * d);
+      rows[t] = ring_at<const float>(smem, rq, hq, -hd + row + (t - hw) * d);
     warp_pairs(
         -eq, Ws + eq, lane,
         [&](int j) { return vfold2<HW>(rows, j, tp); },
-        [&](int j, float2 o) { st2(tmp + j, to_ring<S, Rg>(o)); });
+        [&](int j, float2 o) { st2(tmp + j, o); });
   }
   __syncwarp();
   const Tc* cr = ring_at<const Tc>(smem, rc, hc, -2 * hd + row);
-  const Rg* cn = ring_at<const Rg>(smem, rn, hn, -hd + row);
+  const float* cn = ring_at<const float>(smem, rn, hn, -hd + row);
   float* ac = ring_at<float>(smem, ra, ha,
                              row - (st.lag + 2 * hd - 2 * st.hd0));
   const int gh = st.step_row - st.lag - 2 * hd + row;
   const bool in = gh >= h0 && gh < h1, pairs = W % 2 == 0;
   const size_t at = plane + static_cast<size_t>(gh) * W + w0;
-  S* white = in && tab->white[k] ? tab->white[k] + at : nullptr;
+  Wt* white = in && tab->white[k] ? tab->white[k] + at : nullptr;
   // at the last scale the acc and the group's carry, c_next of this row
-  S* acc = in && k == a.g - 1 ? a.acc + at : nullptr;
-  S* carry = acc ? a.carry + at : nullptr;
+  float* acc = in && k == a.g - 1 ? a.acc + at : nullptr;
+  float* carry = acc ? a.carry + at : nullptr;
   // the threshold read once a row (a local: whiten_value reads *thr)
   const float t_k = tab->masked[k] ? a.thr[k * a.B + blockIdx.z] : 0.0f;
   const float* thr = tab->masked[k] ? &t_k : nullptr;
@@ -706,10 +688,10 @@ __device__ __forceinline__ void stream_power(
   warp_pairs(
       0, Ws, lane,
       [&](int j) {
-        const float2 lp = round2<S>(hfold2<HW>(tmp, j, d, tp));
+        const float2 lp = hfold2<HW>(tmp, j, d, tp);
         const float2 x = ld2(cr + j), c = ld2(cn + j);
-        const float2 e = round2<S>(
-            make_float2(__fsub_rn(x.x, c.x), __fsub_rn(x.y, c.y)));
+        const float2 e =
+            make_float2(__fsub_rn(x.x, c.x), __fsub_rn(x.y, c.y));
         float wc;
 #ifdef WT_VARIANT_NO_EPILOGUE
         (void)thr;
@@ -737,14 +719,14 @@ __device__ __forceinline__ void stream_power(
   __syncwarp();
 }
 
-// S: the storage type of the input, whites, carry and acc; Rg: the
-// type of the rings of the later carries, the squared details and the
-// warps' rows (S, or float in variant F32_RINGS).
-template <class S, class Rg, int HW>
+// X: the input's type (its ring's); Wt: the whites'.  The rings of the
+// later carries, the squared details, the acc and the warps' rows are
+// float32.
+template <class X, class Wt, int HW>
 __global__ void __launch_bounds__(kSThreads, 2)
-    whiten_stream(StreamArgs<S> a) {
+    whiten_stream(StreamArgs<X, Wt> a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  auto* tab = reinterpret_cast<StreamTable<S>*>(smem);
+  auto* tab = reinterpret_cast<StreamTable<Wt>*>(smem);
   const int tid = threadIdx.x, row = tid >> 5, lane = tid & 31;
 #pragma unroll
   for (int i = 0; i < kRings; ++i)
@@ -769,18 +751,18 @@ __global__ void __launch_bounds__(kSThreads, 2)
   const int a0 = h0 - R;
   const int steps = (h1 - h0 + 2 * R + kRS - 1) / kRS;
   const size_t plane = static_cast<size_t>(b) * H * W;
-  const S* src = a.x + plane;
+  const X* src = a.x + plane;
   const StreamRing in = a.ring[0];
-  Rg* tmp = reinterpret_cast<Rg*>(smem + a.tmp_off) + row * a.tmp_pitch +
-            a.ecar[0];
+  float* tmp = reinterpret_cast<float*>(smem + a.tmp_off) +
+               row * a.tmp_pitch + a.ecar[0];
 
   // the input rows of step t: virtual rows through the symmetric map,
   // one a row, 16-byte copies where a chunk lies inside the frame
   auto fetch = [&](int t) {
-    constexpr int kV = 16 / sizeof(S);
+    constexpr int kV = 16 / sizeof(X);
     const int q = t * kRS + row;
-    S* dst = reinterpret_cast<S*>(smem + in.off) + (q % in.rows) * in.pitch;
-    const S* row = src + static_cast<size_t>(wt::sym32(a0 + q, H)) * W;
+    X* dst = reinterpret_cast<X*>(smem + in.off) + (q % in.rows) * in.pitch;
+    const X* row = src + static_cast<size_t>(wt::sym32(a0 + q, H)) * W;
     const int c0 = w0 - a.Rc;
     for (int c = lane * kV; c < in.pitch; c += 32 * kV) {
       if (a.vec && c0 + c >= 0 && c0 + c + kV <= W) {
@@ -804,31 +786,31 @@ __global__ void __launch_bounds__(kSThreads, 2)
     // the next step's rows arrive while this step computes
     if (t + 1 < steps) fetch(t + 1);
     for (int k = 0; k < g; ++k) {
-      const StreamStep st = stream_step<S, HW>(a, k, a0 + t * kRS);
-      if (std::is_same<S, Rg>::value || k > 0) {
-        stream_chain<S, Rg, HW, Rg>(a, tab, smem, head, tmp, st, h0, h1, w0,
-                                    plane, row, lane);
+      const StreamStep st = stream_step<HW>(a, k, a0 + t * kRS);
+      if (std::is_same<X, float>::value || k > 0) {
+        stream_chain<X, Wt, HW, float>(a, tab, smem, head, tmp, st, h0, h1,
+                                       w0, plane, row, lane);
         __syncthreads();
-        stream_power<S, Rg, HW, Rg>(a, tab, smem, head, tmp, st, h0, h1, w0,
-                                    plane, row, lane);
+        stream_power<X, Wt, HW, float>(a, tab, smem, head, tmp, st, h0, h1,
+                                       w0, plane, row, lane);
       } else {
-        stream_chain<S, Rg, HW, S>(a, tab, smem, head, tmp, st, h0, h1, w0,
+        stream_chain<X, Wt, HW, X>(a, tab, smem, head, tmp, st, h0, h1, w0,
                                    plane, row, lane);
         __syncthreads();
-        stream_power<S, Rg, HW, S>(a, tab, smem, head, tmp, st, h0, h1, w0,
+        stream_power<X, Wt, HW, X>(a, tab, smem, head, tmp, st, h0, h1, w0,
                                    plane, row, lane);
       }
     }
   }
 }
 
-template <class S, class Rg, int HW>
-int launch_stream(const StreamArgs<S>& a, dim3 grid, int bytes,
+template <class X, class Wt, int HW>
+int launch_stream(const StreamArgs<X, Wt>& a, dim3 grid, int bytes,
                   cudaStream_t s) {
   static std::atomic<int> optin[wt::kMaxDevices];
-  cudaError_t err = wt::smem_optin(whiten_stream<S, Rg, HW>, bytes, optin);
+  cudaError_t err = wt::smem_optin(whiten_stream<X, Wt, HW>, bytes, optin);
   if (err != cudaSuccess) return static_cast<int>(err);
-  whiten_stream<S, Rg, HW>
+  whiten_stream<X, Wt, HW>
       <<<grid, kSThreads, static_cast<size_t>(bytes), s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -838,10 +820,11 @@ inline int even(int n) { return n + (n & 1); }
 
 // The rings of a strip of Ws columns for g scales from offset: their
 // rows, margins and byte offsets into a, and the shared bytes they take
-// (the table, the rings, the warps' rows).  ops/hopper_conv.py::
-// stream_smem is the same arithmetic.
-template <class S, class Rg>
-long long stream_layout(StreamArgs<S>* a, int g, int hw, int offset, int Ws) {
+// (the table, the input's ring in X, the float32 rings, the warps'
+// float32 rows).  ops/hopper_conv.py::stream_smem is the same arithmetic.
+template <class X, class Wt>
+long long stream_layout(StreamArgs<X, Wt>* a, int g, int hw, int offset,
+                        int Ws) {
   int hd[WT_MAX_G];
   for (int k = 0; k < g; ++k) hd[k] = hw << (offset + k);
   int ecar_next = 0;
@@ -851,7 +834,7 @@ long long stream_layout(StreamArgs<S>* a, int g, int hw, int offset, int Ws) {
     a->eq[k] = even(hd[k]);
     ecar_next = a->ecar[k];
   }
-  constexpr int kV = 16 / sizeof(S);
+  constexpr int kV = 16 / sizeof(X);
   const int Rc = (a->ecar[0] + kV - 1) / kV * kV;
   const int R = group_halo(hw, offset, g);
   long long off = kTableBytes;
@@ -864,19 +847,19 @@ long long stream_layout(StreamArgs<S>* a, int g, int hw, int offset, int Ws) {
     off += align16(static_cast<long long>(rows) * pitch * elem);
   };
   for (int i = 0; i < kRings; ++i) a->ring[i] = StreamRing{0, 0, 0, 0};
-  place(&a->ring[0], 2 * hd[0] + 2 * kRS, Rc, Ws + 2 * Rc, sizeof(S));
+  place(&a->ring[0], 2 * hd[0] + 2 * kRS, Rc, Ws + 2 * Rc, sizeof(X));
   for (int k = 1; k < g; ++k)
     place(&a->ring[k], 2 * hd[k] + kRS, a->ec[k - 1], Ws + 2 * a->ec[k - 1],
-          sizeof(Rg));
+          sizeof(float));
   place(&a->ring[g], hd[g - 1] + kRS, a->ec[g - 1], Ws + 2 * a->ec[g - 1],
-        sizeof(Rg));
+        sizeof(float));
   for (int k = 0; k < g; ++k)
     place(&a->ring[kSq + k], 2 * hd[k] + kRS, a->eq[k], Ws + 2 * a->eq[k],
-          sizeof(Rg));
+          sizeof(float));
   place(&a->ring[kAcc], R - 2 * hd[0] + kRS, 0, Ws, sizeof(float));
   a->tmp_off = static_cast<int>(off);
   a->tmp_pitch = Ws + 2 * a->ecar[0];
-  off += align16(static_cast<long long>(kRS) * a->tmp_pitch * sizeof(Rg));
+  off += align16(static_cast<long long>(kRS) * a->tmp_pitch * sizeof(float));
   // each ring's reference row at step 0, relative to the input's first
   // virtual row: the input's ring holds the step's rows, 8 t on; scale k
   // writes c_next rows u_k = 8 t - S_(k+1), S_k = hd_0 (2^k - 1), into
@@ -897,18 +880,19 @@ long long stream_layout(StreamArgs<S>* a, int g, int hw, int offset, int Ws) {
   return off;
 }
 
-// Scales offset .. offset+g-1 of a contiguous (B, H, W) stack of S on the
-// streamed plan.
-template <class S, class Rg>
-int whiten_stream_entry(const S* x, S* const* whites, S* carry, S* acc,
+// Scales offset .. offset+g-1 of a contiguous (B, H, W) stack of X on the
+// streamed plan, the whites stored as Wt, carry and acc float32.
+template <class X, class Wt>
+int whiten_stream_entry(const X* x, Wt* const* whites, float* carry,
+                        float* acc,
                         const float* thr, const float* fac, const int* masked,
                         int soft, int g, int offset, const double* taps,
                         int n_taps, long long B, long long H, long long W,
                         int strip_w, int band_h, int halo, int halo_cols,
                         long long grid_x, long long grid_y,
                         long long smem_bytes, void* stream) {
-  static_assert(sizeof(StreamTable<S>) <= kTableBytes, "table");
-  StreamArgs<S> a;
+  static_assert(sizeof(StreamTable<Wt>) <= kTableBytes, "table");
+  StreamArgs<X, Wt> a;
   if (!wt::make_taps(taps, n_taps, &a.taps) || !x || !carry || !acc ||
       !fac || !masked || g < 1 || g > WT_MAX_G || offset < 0 ||
       offset + g > 20 || B < 1 || B > 65535 || H < 1 || W < 1 ||
@@ -920,7 +904,7 @@ int whiten_stream_entry(const S* x, S* const* whites, S* carry, S* acc,
   // rounded up to 16-byte copies, strips and bands covering the frame
   // once, the rings within the shared bytes given
   const long long need =
-      stream_layout<S, Rg>(&a, g, a.taps.hw, static_cast<int>(offset),
+      stream_layout<X, Wt>(&a, g, a.taps.hw, static_cast<int>(offset),
                            strip_w);
   if (halo != a.R || halo_cols != a.Rc ||
       grid_x != (W + strip_w - 1) / strip_w ||
@@ -947,7 +931,7 @@ int whiten_stream_entry(const S* x, S* const* whites, S* carry, S* acc,
   a.W = static_cast<int>(W);
   a.Ws = strip_w;
   a.Hb = band_h;
-  a.vec = W % (16 / sizeof(S)) == 0 &&
+  a.vec = W % (16 / sizeof(X)) == 0 &&
           reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const dim3 grid(static_cast<unsigned>(grid_x),
                   static_cast<unsigned>(grid_y), static_cast<unsigned>(B));
@@ -955,7 +939,7 @@ int whiten_stream_entry(const S* x, S* const* whites, S* carry, S* acc,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return wt::dispatch_hw(a.taps.hw, [&](auto hw) {
     constexpr int HW = decltype(hw)::value;
-    return launch_stream<S, Rg, HW>(a, grid, bytes, s);
+    return launch_stream<X, Wt, HW>(a, grid, bytes, s);
   });
 }
 
@@ -990,29 +974,42 @@ int wt_whiten_group_f32(const float* x, float* const* whites, float* carry,
                                    smem_bytes, stream);
 }
 
-#ifdef WT_VARIANT_F32_RINGS
-using BfRing = float;
-#else
-using BfRing = __nv_bfloat16;
-#endif
-
-// The same group on a bfloat16 stack, streamed: the whites, carry and
-// acc bfloat16, thresholds and factors float32.  The launch is the
-// wrapper's plan (ops/hopper_conv.py::stream_plan): strip_w output
-// columns (a multiple of 8) and band_h output rows a block, halo (the
-// group's reach) and halo_cols (the input ring's column margin),
-// grid_x x grid_y blocks, smem_bytes of shared memory; checked against
-// the rings the kernel lays out and launched as given.
+// The same group, streamed, on a bfloat16 stack: every fold, the detail,
+// its square, the power smooth, the mask and the white in float32, the
+// whites stored in bfloat16, the carry and acc in float32 (the bfloat16
+// route: float32 inside, bfloat16 at the boundary), thresholds and
+// factors float32.  The launch is the wrapper's plan (ops/hopper_conv.py::
+// stream_plan): strip_w output columns (a multiple of 8) and band_h output
+// rows a block, halo (the group's reach) and halo_cols (the input ring's
+// column margin), grid_x x grid_y blocks, smem_bytes of shared memory;
+// checked against the rings the kernel lays out and launched as given.
 int wt_whiten_group_bf16(const __nv_bfloat16* x, __nv_bfloat16* const* whites,
-                         __nv_bfloat16* carry, __nv_bfloat16* acc,
-                         const float* thr, const float* fac,
-                         const int* masked, int soft, int g, int offset,
-                         const double* taps, int n_taps, long long B,
-                         long long H, long long W, int strip_w, int band_h,
-                         int halo, int halo_cols, long long grid_x,
-                         long long grid_y, long long smem_bytes,
-                         void* stream) {
-  return whiten_stream_entry<__nv_bfloat16, BfRing>(
+                         float* carry, float* acc, const float* thr,
+                         const float* fac, const int* masked, int soft,
+                         int g, int offset, const double* taps, int n_taps,
+                         long long B, long long H, long long W, int strip_w,
+                         int band_h, int halo, int halo_cols,
+                         long long grid_x, long long grid_y,
+                         long long smem_bytes, void* stream) {
+  return whiten_stream_entry<__nv_bfloat16, __nv_bfloat16>(
+      x, whites, carry, acc, thr, fac, masked, soft, g, offset, taps, n_taps,
+      B, H, W, strip_w, band_h, halo, halo_cols, grid_x, grid_y, smem_bytes,
+      stream);
+}
+
+// The bfloat16 route's later groups (a frame the JAX plan cuts into
+// several groups): the same from a float32 carry, with the arguments of
+// wt_whiten_group_bf16.
+int wt_whiten_group_bf16_f32in(const float* x, __nv_bfloat16* const* whites,
+                               float* carry, float* acc, const float* thr,
+                               const float* fac, const int* masked, int soft,
+                               int g, int offset, const double* taps,
+                               int n_taps, long long B, long long H,
+                               long long W, int strip_w, int band_h,
+                               int halo, int halo_cols, long long grid_x,
+                               long long grid_y, long long smem_bytes,
+                               void* stream) {
+  return whiten_stream_entry<float, __nv_bfloat16>(
       x, whites, carry, acc, thr, fac, masked, soft, g, offset, taps, n_taps,
       B, H, W, strip_w, band_h, halo, halo_cols, grid_x, grid_y, smem_bytes,
       stream);

@@ -57,14 +57,15 @@
 // and store phases alone), NO_MEMORY (the compute passes alone); the
 // variant without a cluster is a plan of cluster 1.
 //
-// Bfloat16 (wt_whiten_pair_bf16, the bfloat16 merged route's pair): the
-// residue-class stream.  What bounds it on the H100: the function moves
-// 12 bytes a pixel (read carry and recon, write c_next2, two whites and
-// recon: 0.060 ms at 4096^2), so what is left is instruction issue: eight
-// folds a pixel, the details' squares, two whitening epilogues (IEEE
-// square root and division, with erff and a second division where
-// masked), the recon's two roundings, and the ring and address
-// arithmetic around them.  The torus above, run on bfloat16 (this
+// The bfloat16 route's pair (wt_whiten_pair_bf16): the residue-class
+// stream, from a float32 carry and recon to a float32 c_next2 and recon
+// and bfloat16 whites.  What bounds it on the H100: the function moves 20
+// bytes a pixel (read carry and recon, write c_next2 and recon in
+// float32, two whites in bfloat16: 0.100 ms at 4096^2), so what is left
+// is instruction issue: eight folds a pixel, the details' squares, two
+// whitening epilogues (IEEE square root and division, with erff and a
+// second division where masked), and the ring and address arithmetic
+// around them.  The torus above, run on bfloat16 (this
 // kernel's earlier form), took 0.622 ms of device time at (7, 8) on
 // 4096^2 (H100 80GB HBM3, 700 W, scripts/kernel_variants.py): its load
 // and store phases alone 0.381 (the cluster's lanes read half of each
@@ -78,14 +79,14 @@
 //     circle of 2M positions (or a chunk of them: the plan weighs the
 //     warm-up against filling 132 SMs), and a group of k adjacent column
 //     classes q0 .. q0+k-1 with their mirrors, held as their circle of 2N
-//     positions of k points, two adjacent points a thread (k = 16 at
-//     (7, 8) on 4096^2: 1024 points, 512 threads, one block an SM); blocks
-//     take items grid-stride;
-//   - each tick one carry row of the group enters a ring of 2hw+2 rows by
-//     16-byte cp.async, two ticks ahead: a position's k classes are k
-//     contiguous elements of the image row (whole 32-byte sectors at
-//     k = 16), the mirror half's in reverse class order, which the first
-//     rows fold undoes as it writes its buffer in circle order;
+//     positions of k points, two adjacent points a thread (k = 8 at
+//     (7, 8) on 4096^2: 512 points, 256 threads, one block of 122 KiB an
+//     SM); blocks take items grid-stride;
+//   - each tick one carry row of the group enters a ring of 2hw+2 float32
+//     rows by 16-byte cp.async, two ticks ahead: a position's k classes
+//     are k contiguous elements of the image row (whole 32-byte sectors
+//     at k = 8), the mirror half's in reverse class order, which the
+//     first rows fold undoes as it writes its buffer in circle order;
 //   - a tick runs four rows folds (the chain of s at position q1; the
 //     chain of s+1 at q2 = q1-2hw-1 on the middle carry's ring, step 2;
 //     the power smooths at o1 = q1-hw-1 and o2 = q1-4hw-2 on the squared
@@ -103,15 +104,17 @@
 //     the folds overlap; the warm-up and tail ticks run only the stages
 //     that are on.  Ring slots advance a tick at a time (no remainder),
 //     and pairs load and store as one 8-byte shared access;
-//   - white_s waits for white_s+1 of its row in a ring of 3hw+2 bfloat16
+//   - white_s waits for white_s+1 of its row in a ring of 3hw+2 float32
 //     rows; the recon row arrives by cp.async a tick ahead and is written
 //     once;
 //   - where the circle passes the block (2N*k above two points a thread,
 //     or the shared memory), the columns run as windows of `run` output
 //     positions with 5hw positions of margin a side, each stage computed
 //     on the part of the window that the next one reads.
-// Measured at (7, 8) on 4096^2 (scripts/kernel_variants.py, H100 80GB
-// HBM3, 700 W, device ms): 0.399 (k = 16), 0.409-0.410 on two 256-thread
+// Measured at (7, 8) on 4096^2 in the JAX package's bfloat16 rounding
+// (bfloat16 carry, recon and white_s rings, this kernel's earlier form;
+// scripts/kernel_variants.py, H100 80GB HBM3, 700 W, device ms): 0.399
+// (k = 16), 0.409-0.410 on two 256-thread
 // blocks an SM (k = 8), against 0.433 for the split pair (two launches of
 // whiten_step.cu's stream) in the same call; without the whitening
 // epilogues 0.320-0.322.  Tried and dropped: four points a thread (float4
@@ -126,14 +129,12 @@
 // order (x*t_0, then t_j*(l + r) for j = 1..hw) and the left and right
 // taps are added as (l + r), which commutes, so the mirrored circles give
 // the same bits as the symmetric index map: every output is bitwise equal
-// to the plain version on the same card (float32: two plain steps;
-// bfloat16: the carry read as float32, the middle carry and the details
-// float32, c_next2 and the whites rounded on store, recon += white_s then
-// += white_s+1, each white rounded to bfloat16 first, the sum in float32,
-// one rounding, as the JAX package's deferred tail adds the two planes,
-// models/wow.py:240-268).  The epilogue uses IEEE sqrt and division;
-// erff may differ from torch.erf in the last place, which the bfloat16
-// rounding hides or bounds.
+// to the plain version on the same card (two plain float32 steps; in the
+// bfloat16 route the whites rounded on store, recon += white_s then +=
+// white_s+1 unrounded, in float32).  The bfloat16 route departs on
+// purpose from the JAX package's bfloat16 pair, which rounds c_next2 and
+// the recon to bfloat16 (PERF.md, section 6).  The epilogue uses IEEE
+// sqrt and division; erff may differ from torch.erf in the last place.
 
 #include <cooperative_groups.h>
 
@@ -376,11 +377,11 @@ using wt::kStreamThreads;
 
 // The stream's arguments and the layout its plan implies (pair_layout).
 struct PairStream {
-  const bf16* carry;
-  bf16* c_next2;
+  const float* carry;
+  float* c_next2;
   bf16* white1;  // may be null
   bf16* white2;  // may be null
-  bf16* recon;   // may be null
+  float* recon;  // may be null
   const float* thr;  // (2, B)
   float fac1, fac2;
   int masked1, masked2, soft;
@@ -398,7 +399,7 @@ struct PairStream {
   int threads;         // a block's (a point or a pair each)
   int chunk, chunks;
   long long items;
-  int ph, pf;          // row pitches in bfloat16 / float elements
+  int pf;              // row pitch in floats
   int o_rec, o_w1, o_c1, o_q1, o_d1, o_q2, o_d2, o_t;  // bytes
   int t1, t2;          // a rows-fold buffer of scale s / s+1, floats
   int vec_c, vec_r;    // carry / recon 16-byte aligned
@@ -408,12 +409,12 @@ struct PairStream {
 // Lay out the stream's shared memory for the plan (k, run, chunk,
 // threads, grid, smem) and check that the kernel runs it on a (B, H, W)
 // stack at the dilation D: ops/hopper_deep.py::pair_stream_smem and pair_stream_plan
-// mirror it.  Regions, in order (each a multiple of 16 bytes): the carry's
-// ring (2hw+2 rows), two recon rows, white_s's ring (3hw+2), in bfloat16
-// with rows of ph elements; the middle carry's ring (4hw+2), the squared
-// and the plain detail of s (2hw+2, hw+2) and of s+1 (4hw+2, 2hw+2), in
-// float32 with rows of pf; two sets of the rows-fold buffers T1, T2 (t1
-// floats) and T1b, T2b (t2).
+// mirror it.  Regions, in order (each a multiple of 16 bytes), float32
+// with rows of pf elements: the carry's ring (2hw+2 rows), two recon
+// rows, white_s's ring (3hw+2), the middle carry's ring (4hw+2), the
+// squared and the plain detail of s (2hw+2, hw+2) and of s+1 (4hw+2,
+// 2hw+2); two sets of the rows-fold buffers T1, T2 (t1 floats) and T1b,
+// T2b (t2).
 bool pair_layout(PairStream* a, long long B, long long H, long long W,
                  long long D, long long k, long long run, long long chunk,
                  long long threads, long long grid, long long smem) {
@@ -433,14 +434,14 @@ bool pair_layout(PairStream* a, long long B, long long H, long long W,
   const long long max_pts = (k >= 2 ? 2 : 1) * threads;
   if (pts > max_pts || chunk > rows_out || run > cols_out) return false;
   const long long m1 = run ? 0 : hw, m2 = run ? 0 : 2 * hw;
-  const long long ph = (pts + 7) / 8 * 8, pf = (pts + 3) / 4 * 4;
+  const long long pf = (pts + 3) / 4 * 4;
   const long long t1 = ((window + 2 * m1) * k + 3) / 4 * 4;
   const long long t2 = ((window + 2 * m2) * k + 3) / 4 * 4;
-  long long o = (2 * hw + 2) * ph * 2;
+  long long o = (2 * hw + 2) * pf * 4;
   a->o_rec = static_cast<int>(o);
-  o += 2 * ph * 2;
+  o += 2 * pf * 4;
   a->o_w1 = static_cast<int>(o);
-  o += (3 * hw + 2) * ph * 2;
+  o += (3 * hw + 2) * pf * 4;
   a->o_c1 = static_cast<int>(o);
   o += (4 * hw + 2) * pf * 4;
   a->o_q1 = static_cast<int>(o);
@@ -483,7 +484,6 @@ bool pair_layout(PairStream* a, long long B, long long H, long long W,
   a->chunk = static_cast<int>(chunk);
   a->chunks = static_cast<int>(chunks);
   a->items = items;
-  a->ph = static_cast<int>(ph);
   a->pf = static_cast<int>(pf);
   a->t1 = static_cast<int>(t1);
   a->t2 = static_cast<int>(t2);
@@ -561,7 +561,8 @@ __device__ __forceinline__ void st(bf16* base, int i, const Vf<NP>& v) {
   }
 }
 
-// Store to device memory rounded to bfloat16: v.x[j] at row[i + j].
+// Store to device memory (rounded to bfloat16 in a bfloat16 row): v.x[j]
+// at row[i + j], i even for a pair.
 template <int NP>
 __device__ __forceinline__ void stg(bf16* row, long long i, const Vf<NP>& v) {
   if constexpr (NP == 2)
@@ -569,6 +570,14 @@ __device__ __forceinline__ void stg(bf16* row, long long i, const Vf<NP>& v) {
         __floats2bfloat162_rn(v.x[0], v.x[1]);
   else
     row[i] = wt::from_f32<bf16>(v.x[0]);
+}
+template <int NP>
+__device__ __forceinline__ void stg(float* row, long long i,
+                                    const Vf<NP>& v) {
+  if constexpr (NP == 2)
+    reinterpret_cast<float2*>(row)[i >> 1] = make_float2(v.x[0], v.x[1]);
+  else
+    row[i] = v.x[0];
 }
 
 // v in reverse order where rev (the mirror half's memory order)
@@ -645,9 +654,9 @@ template <int HW, int NP, bool CIRCLE>
 __global__ void __launch_bounds__(kStreamThreads, 1)
     pair_stream(PairStream a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ring = reinterpret_cast<bf16*>(smem);
-  bf16* rst = reinterpret_cast<bf16*>(smem + a.o_rec);
-  bf16* w1r = reinterpret_cast<bf16*>(smem + a.o_w1);
+  float* ring = reinterpret_cast<float*>(smem);
+  float* rst = reinterpret_cast<float*>(smem + a.o_rec);
+  float* w1r = reinterpret_cast<float*>(smem + a.o_w1);
   float* c1r = reinterpret_cast<float*>(smem + a.o_c1);
   float* q1r = reinterpret_cast<float*>(smem + a.o_q1);
   float* d1r = reinterpret_cast<float*>(smem + a.o_d1);
@@ -662,7 +671,7 @@ __global__ void __launch_bounds__(kStreamThreads, 1)
   const int NC = 2 * hw + 2, N1 = 4 * hw + 2, NQ1 = 2 * hw + 2;
   const int ND1 = hw + 2, NQ2 = 4 * hw + 2, ND2 = 2 * hw + 2;
   const int NW = 3 * hw + 2;
-  const int k = a.k, ph = a.ph, pf = a.pf, Vw = a.window;
+  const int k = a.k, pf = a.pf, Vw = a.window;
   const int M = a.M, N = a.N, Lr = 2 * M, Lc = 2 * N;
   const long long W = a.W, D = a.D;
   // this thread's points: window row index f (and f + 1), window
@@ -728,10 +737,10 @@ __global__ void __launch_bounds__(kStreamThreads, 1)
                      (CIRCLE || lam - a.lead < min(a.run, a.cols_out - v0));
     const float* thr1 = a.masked1 ? a.thr + b : nullptr;
     const float* thr2 = a.masked2 ? a.thr + a.B + b : nullptr;
-    bf16* const frame_c = a.c_next2 + b * a.H * W;
+    float* const frame_c = a.c_next2 + b * a.H * W;
     bf16* const frame_w1 = a.white1 ? a.white1 + b * a.H * W : nullptr;
     bf16* const frame_w2 = a.white2 ? a.white2 + b * a.H * W : nullptr;
-    bf16* const frame_r = a.recon ? a.recon + b * a.H * W : nullptr;
+    float* const frame_r = a.recon ? a.recon + b * a.H * W : nullptr;
     const long long frame = b * a.H * W;
     // the image row of row-circle position u
     auto row_at = [&](int u) -> long long {
@@ -747,23 +756,25 @@ __global__ void __launch_bounds__(kStreamThreads, 1)
       return w < N ? static_cast<long long>(w) * D + q0 + i
                    : (2ll * N - 1 - w) * D + (D - q0 - k) + i;
     };
-    // the column of the thread's first copy, once an item
-    const int v_own = static_cast<int>(threadIdx.x) * 8;
+    // the column of the thread's first copy (4 floats), once an item
+    const int v_own = static_cast<int>(threadIdx.x) * 4;
     const long long c_own = v_own < a.pts ? colf(v_own) : 0;
-    auto fetch = [&](bf16* dst, const bf16* src, int u, bool vec) {
+    auto fetch = [&](float* dst, const float* src, int u, bool vec) {
       const long long off = frame + row_at(u) * W;
       wt::fetch_row(dst, src + off, off, a.pts, static_cast<int>(W), k, vec,
                     [&](int v) { return v == v_own ? c_own : colf(v); });
     };
-    // store v (circle order) into a row at the thread's points' columns
-    auto store = [&](bf16* row, const Vf<NP>& v) {
+    // store v (circle order) into a row at the thread's points' columns:
+    // a bfloat16 row (the whites) rounds, a float32 row keeps v
+    auto store = [&](auto* row, const Vf<NP>& v) {
+      using T = std::remove_pointer_t<decltype(row)>;
       if (NP > 1 && a.st_vec) {
         stg<NP>(row, cb, ordered<NP>(v, rev));
         return;
       }
 #pragma unroll
       for (int i = 0; i < NP; ++i)
-        row[rev ? col - i : col + i] = wt::from_f32<bf16>(v.x[i]);
+        row[rev ? col - i : col + i] = wt::from_f32<T>(v.x[i]);
     };
 
     // tick t: the chain of s at q1 = p0 - 4hw + t, the chain of s+1 at
@@ -773,7 +784,7 @@ __global__ void __launch_bounds__(kStreamThreads, 1)
     // carry fetched (q1 + hw + 2), u_q2, u_o1, u_o2
     const int T = (p1 - p0) + 8 * hw + 2;
     for (int i = 0; i < NC; ++i)
-      fetch(ring + i * ph, a.carry, circ(p0 - 5 * hw + i, Lr), a.vec_c);
+      fetch(ring + i * pf, a.carry, circ(p0 - 5 * hw + i, Lr), a.vec_c);
     wt::cp_commit();
     wt::cp_wait<0>();
     __syncthreads();
@@ -801,7 +812,7 @@ __global__ void __launch_bounds__(kStreamThreads, 1)
       Vf<NP> v1 = {}, v2 = {}, v3 = {}, v4 = {};
       if (a1)
         v1 = fold_ring<HW, NP>(
-            [&](int s) { return ld<NP>(ring, s * ph + rb); }, sC, 1, NC,
+            [&](int s) { return ld<NP>(ring, s * pf + rb); }, sC, 1, NC,
             tp);
       if (a2)
         v2 = fold_ring<HW, NP>(
@@ -823,10 +834,10 @@ __global__ void __launch_bounds__(kStreamThreads, 1)
       __syncthreads();
       // two ticks ahead the carry of q1 + hw + 2, into the slot q1 - hw
       // left; a tick ahead the recon row of o2 + 1
-      if (t + 2 < T - 2) fetch(ring + sC * ph, a.carry, u_f, a.vec_c);
+      if (t + 2 < T - 2) fetch(ring + sC * pf, a.carry, u_f, a.vec_c);
       const int u_r = adv(u_o2, Lr);
       if (frame_r && t + 1 >= 8 * hw + 2 && t + 1 < T)
-        fetch(rst + ((t + 1) & 1) * ph, a.recon, u_r, a.vec_r);
+        fetch(rst + ((t + 1) & 1) * pf, a.recon, u_r, a.vec_r);
       wt::cp_commit();
       // the cols folds and the loads of their tails, then the stores
       int sx = sC + hw;
@@ -837,7 +848,7 @@ __global__ void __launch_bounds__(kStreamThreads, 1)
       Vf<NP> lp2 = {}, dd2 = {}, w1h = {}, rc = {};
       if (a1) {
         c = fold_buf<HW, NP>(T1, x1, k, tp);
-        x = ordered<NP>(ld<NP>(ring, sx * ph + rb), rev);
+        x = ordered<NP>(ld<NP>(ring, sx * pf + rb), rev);
       }
       if (a2) {
         c2v = fold_buf<HW, NP>(T1b, x2, 2 * k, tp);
@@ -850,8 +861,8 @@ __global__ void __launch_bounds__(kStreamThreads, 1)
       if (aw2) {
         lp2 = fold_buf<HW, NP>(T2b, x2, 2 * k, tp);
         dd2 = ld<NP>(d2r, adv(sd2, ND2) * pf + fs);
-        w1h = ld<NP>(w1r, adv(sw, NW) * ph + fs);
-        rc = ordered<NP>(ld<NP>(rst, (t & 1) * ph + rb), rev);
+        w1h = ld<NP>(w1r, adv(sw, NW) * pf + fs);
+        rc = ordered<NP>(ld<NP>(rst, (t & 1) * pf + rb), rev);
       }
       Vf<NP> d1, q1v, d2, q2v, w1, w2, out;
 #pragma unroll
@@ -863,11 +874,8 @@ __global__ void __launch_bounds__(kStreamThreads, 1)
         if (aw1) w1.x[i] = whiten(dd1.x[i], lp1.x[i], a.fac1, thr1, a.soft);
         if (aw2) {
           w2.x[i] = whiten(dd2.x[i], lp2.x[i], a.fac2, thr2, a.soft);
-          // recon += white_s (held rounded), then += white_s+1 rounded;
-          // the store rounds the sum
-          out.x[i] = __fadd_rn(wt::round_to<bf16>(__fadd_rn(rc.x[i],
-                                                            w1h.x[i])),
-                               wt::round_to<bf16>(w2.x[i]));
+          // recon += white_s, then += white_s+1, in float32
+          out.x[i] = __fadd_rn(__fadd_rn(rc.x[i], w1h.x[i]), w2.x[i]);
         }
       }
       if (a1 && r1) {
@@ -883,7 +891,7 @@ __global__ void __launch_bounds__(kStreamThreads, 1)
       }
       if (aw1 && ro) {
         if (own && frame_w1) store(frame_w1 + row_at(u_o1) * W, w1);
-        st<NP>(w1r, sw * ph + f, w1);
+        st<NP>(w1r, sw * pf + f, w1);
       }
       if (aw2 && own) {
         const long long ro2 = row_at(u_o2) * W;
@@ -928,6 +936,10 @@ static int launch_pair_stream(const PairStream& a, long long grid, int bytes,
 
 bool aligned4(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 3) == 0;
+}
+
+bool aligned8(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 7) == 0;
 }
 
 }  // namespace
@@ -1014,17 +1026,17 @@ int wt_whiten_pair_f32(const float* carry, float* c_next2, float* white1,
   });
 }
 
-// The same pair on a bfloat16 carry, one launch of the stream: c_next2,
-// the whites and recon bfloat16 (recon += white_s, then += white_s+1,
-// each white rounded to bfloat16, the sum in float32, one rounding), the
-// middle carry, the details and the thresholds float32.  The launch is
+// The same pair in the bfloat16 route, one launch of the stream: a
+// float32 carry, c_next2 and recon (recon += white_s, then += white_s+1,
+// unrounded), the whites stored in bfloat16, the middle carry, the
+// details and the thresholds float32.  The launch is
 // the wrapper's plan (ops/hopper_deep.py::pair_stream_plan): k column
 // classes a group, run output positions a column window (0: the whole
 // circle), chunk positions of the row circle an item, threads a block
 // (128, 256 or 512), grid blocks, smem_bytes of shared memory; it is checked (pair_layout) and launched
 // as given.  Returns as wt_whiten_pair_f32.
-int wt_whiten_pair_bf16(const bf16* carry, bf16* c_next2, bf16* white1,
-                        bf16* white2, bf16* recon, const float* thr,
+int wt_whiten_pair_bf16(const float* carry, float* c_next2, bf16* white1,
+                        bf16* white2, float* recon, const float* thr,
                         float fac1, float fac2, int masked1, int masked2,
                         int soft, const double* taps, int n_taps, long long B,
                         long long H, long long W, long long D, long long k,
@@ -1049,8 +1061,8 @@ int wt_whiten_pair_bf16(const bf16* carry, bf16* c_next2, bf16* white1,
   a.soft = soft;
   a.vec_c = wt::aligned16(carry);
   a.vec_r = recon != nullptr && wt::aligned16(recon);
-  a.st_vec = aligned4(c_next2) && (!white1 || aligned4(white1)) &&
-             (!white2 || aligned4(white2)) && (!recon || aligned4(recon));
+  a.st_vec = aligned8(c_next2) && (!white1 || aligned4(white1)) &&
+             (!white2 || aligned4(white2)) && (!recon || aligned8(recon));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bytes = static_cast<int>(smem_bytes);
   return wt::dispatch_hw(a.taps.hw, [&](auto hw) {

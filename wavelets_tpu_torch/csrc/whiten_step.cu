@@ -3,7 +3,7 @@
 // ctypes (wavelets_tpu_torch/ops/_build.py); wrappers and host-side plans
 // in ops/hopper_conv.py (launch_whiten_step and step_plan for float32,
 // launch_whiten_stream and stream_step_plan for the rest), called by
-// ops/hopper_deep.py::deep_whiten_step and deep_whiten_step2_split.
+// ops/hopper_deep.py::deep_whiten_step.
 //
 // Replaces wavelets_tpu/ops/pallas_deep.py::deep_whiten_step (:514), one
 // deep scale per launch, and its residue-class stream _make_stream_kernel
@@ -27,13 +27,14 @@
 // (scripts/kernel_variants.py), flat in the dilation.
 //
 // The residue-class stream (deep_stream below; wt_whiten_step_bf16, the
-// halves of the bfloat16 pair wt_whiten_step_bf16_f32next/_f32carry, and
-// the halo mode wt_whiten_step_halo_f32), one launch a scale.  What bounds
-// it on the H100: the function moves 10 bytes a pixel in bfloat16 (read
-// carry and acc, write c_next, white and acc: 0.050 ms at 4096^2), so the
-// two-launch pass's float32 detail plane (8 bytes a pixel more, and in
-// halo mode H + R rows each way) and its five reads of every tap row a
-// pass were most of its traffic; what is left is instruction issue: four
+// bfloat16 route's step, and the halo mode wt_whiten_step_halo_f32), one
+// launch a scale, from a float32 carry.  What bounds it on the H100: the
+// function moves 18 bytes a pixel in the bfloat16 route (read carry and
+// acc, write c_next and acc in float32, the white in bfloat16: 0.090 ms
+// at 4096^2), so the two-launch pass's float32 detail plane (8 bytes a
+// pixel more, and in halo mode H + R rows each way) and its five reads of
+// every tap row a pass were most of its traffic; what is left is
+// instruction issue: four
 // folds a pixel and the epilogue's IEEE square root and division (with
 // erff and a second division where masked).  The design keeps every
 // intermediate on chip and folds each value once:
@@ -42,12 +43,11 @@
 //     columns (whole rows where they fit), and walks down the positions
 //     one tick at a time; blocks take such items grid-stride, so any
 //     batch is one launch;
-//   - each tick one carry row enters a ring of 2hw+2 rows in the carry's
-//     own type (16-byte cp.async a tick ahead where the chunk lies inside
-//     the frame on a 16-byte boundary), the chain's rows fold runs over
-//     the class's 2hw+1 ring rows into a row buffer, and its cols fold
-//     gives c_next (rounded to N on store) and the float32 detail, which
-//     goes into a ring of 2hw+1 rows;
+//   - each tick one carry row enters a ring of 2hw+2 float32 rows
+//     (16-byte cp.async a tick ahead where the chunk lies inside the
+//     frame on a 16-byte boundary), the chain's rows fold runs over the
+//     class's 2hw+1 ring rows into a row buffer, and its cols fold gives
+//     c_next and the detail, which goes into a ring of 2hw+1 rows;
 //   - one tick behind, the power smooth's rows fold squares the detail
 //     ring's rows into a second buffer, and its cols fold, the epilogue
 //     and the acc row (fetched by cp.async in the same tick) give white
@@ -57,8 +57,8 @@
 //     work item walks a class and its mirror class D - 1 - r as one
 //     stream of 2P positions (position P + k of class r is the mirror's
 //     position P - 1 - k), so a class's reflected ends are rows it owns;
-//   - a thread takes a pair of columns at a time, read as float2 or
-//     __nv_bfloat162 and stored in pairs where aligned.
+//   - a thread takes a pair of columns at a time, read as float2 and
+//     stored in pairs where aligned.
 // Borders: a position outside [0, P) reads row sym(r + pD) directly.
 // The folds are symmetric, so the smooth and the detail there equal those
 // of the reflected row bit for bit (the JAX stream's identity,
@@ -77,19 +77,24 @@
 //
 // Rounding (both designs).  The folds round step by step in the JAX
 // package's order, as wt_common.cuh's fold_rows/fold_cols: x*t_0, then
-// t_j*(l + r) added for j = 1..hw.  The carry is read as float32, the
-// detail (from the unrounded smooth) stays float32, and c_next, the white
-// and acc round to their types on store (acc += white: the white rounded
-// first, the sum in float32, one rounding, as the JAX package's XLA add
-// of two planes).  So every output is bitwise equal to the plain PyTorch
-// version on the same card.  The epilogue uses IEEE sqrt and division;
-// erff may differ from torch.erf in the last place, which the bfloat16
-// rounding on store hides or bounds well inside 5e-6*max in float32.
+// t_j*(l + r) added for j = 1..hw.  Everything is float32 (carry, detail,
+// c_next, acc += white); in the bfloat16 route only the white rounds, on
+// its store, and acc adds the unrounded white.  This departs from the JAX
+// package's bfloat16 stream, which stores c_next and acc in bfloat16: on
+// frames of hundreds of counts a bfloat16 carry's spacing (2 at 300)
+// swamps the details it feeds, and the route missed a float32 WOW of the
+// same frame by up to 0.25 (rel. L2) in a plane; a carry rounded once,
+// after scale 3, still left 0.063 in plane 4 (PERF.md §6).  So every
+// output is bitwise equal to the plain PyTorch version on the same card
+// (the float32 step on the carry, the white rounded on store).  The
+// epilogue uses IEEE sqrt and division; erff may differ from torch.erf in
+// the last place, bounded well inside 5e-6*max in float32.
 //
 // Measured (scripts/kernel_variants.py, NVIDIA H100 80GB HBM3, 700 W,
-// device ms a scale at 4096^2, PERF.md): bfloat16 0.186-0.240 against
-// the two launches' 0.219-0.245 on the same card, halo mode on a
-// 4096-row band 0.186-0.280 against 0.246-0.313.  The stream moves a
+// device ms a scale at 4096^2, PERF.md): the JAX-rounding bfloat16 form
+// (bfloat16 carry, 10 bytes a pixel) 0.186-0.240 against the two
+// launches' 0.219-0.245 on the same card, halo mode on a 4096-row band
+// 0.186-0.280 against 0.246-0.313.  The stream moves a
 // third of the bytes but stays bound by issue and latency: without the
 // whitening epilogue it takes 0.17-0.22, with one column a thread instead
 // of a pair 0.27-0.32; 1024 threads gained 2%, the acc row read into
@@ -155,8 +160,7 @@ using wt::kStreamThreads;
 using wt::ld2;
 using wt::st2;
 
-// columns a thread takes at a time: a pair, read as float2 or
-// __nv_bfloat162 where aligned
+// columns a thread takes at a time: a pair, read as float2 where aligned
 #ifdef WT_VARIANT_STREAM_SCALAR
 constexpr int kCols = 1;
 #else
@@ -172,13 +176,13 @@ struct StreamPlan {
   long long seg, chunk, grid, smem;
 };
 
-// C: the carry's type, N: c_next's, S: the white's and acc's.
-template <class C, class N, class S>
+// S: the white's type; the carry, c_next and acc are float32.
+template <class S>
 struct StreamArgs {
-  const C* carry;
-  N* c_next;
+  const float* carry;
+  float* c_next;
   S* white;          // may be null
-  S* acc;            // acc_mode 1 (set) or 2 (+=)
+  float* acc;        // acc_mode 1 (set) or 2 (+=)
   const float* thr;  // one per frame, read where masked
   float fac;
   int acc_mode, masked, soft;
@@ -204,8 +208,8 @@ inline long long align16(long long n) { return (n + 15) / 16 * 16; }
 // kernel runs it on a (B, H, W) stack at the true dilation D (halo > 0:
 // a source of H + 2*halo rows a frame, halo = 2*hw*D): ops/hopper_conv.py
 // ::stream_step_smem and stream_step_plan mirror it.
-template <class C, class N, class S>
-bool stream_layout(StreamArgs<C, N, S>* a, const StreamPlan& p, long long B,
+template <class S>
+bool stream_layout(StreamArgs<S>* a, const StreamPlan& p, long long B,
                    long long H, long long W, long long D, long long halo) {
   const long long hw = a->taps.hw;
   if (B < 1 || H < 1 || W < 1 || D < 1 || H >= (1ll << 30) ||
@@ -227,14 +231,13 @@ bool stream_layout(StreamArgs<C, N, S>* a, const StreamPlan& p, long long B,
   const long long m = seg ? seg : W;
   const long long span_c = seg ? 4 * hw * sw + m : W;
   const long long span_d = seg ? 2 * hw * sw + m : W;
-  const long long vc = 16 / static_cast<long long>(sizeof(C));
-  const long long pitch_c = (span_c + vc - 1) / vc * vc;
+  const long long pitch_c = (span_c + 3) / 4 * 4;
   const long long pitch_d = (span_d + 3) / 4 * 4;
-  const long long t1 = align16((2 * hw + 2) * pitch_c * sizeof(C));
+  const long long t1 = align16((2 * hw + 2) * pitch_c * 4);
   const long long t2 = t1 + align16(4 * span_c);
   const long long det = t2 + align16(4 * span_d);
   const long long acc = det + align16((2 * hw + 1) * pitch_d * 4);
-  const long long need = acc + align16(m * sizeof(S));
+  const long long need = acc + align16(m * 4);
   const long long runs = seg ? (W + seg - 1) / seg : 1;
   const long long n_chunks = (P + p.chunk - 1) / p.chunk;
   const long long items = B * runs * n_cls * n_chunks;
@@ -309,15 +312,15 @@ __device__ __forceinline__ float fold_run(const float* T, int v, int S,
   return f;
 }
 
-template <int HW, bool WHOLE, class C, class N, class S>
+template <int HW, bool WHOLE, class S>
 __global__ void __launch_bounds__(kStreamThreads, 1)
-    deep_stream(StreamArgs<C, N, S> a) {
+    deep_stream(StreamArgs<S> a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  C* ring = reinterpret_cast<C*>(smem);
+  float* ring = reinterpret_cast<float*>(smem);
   float* T1 = reinterpret_cast<float*>(smem + a.off_t1);
   float* T2 = reinterpret_cast<float*>(smem + a.off_t2);
   float* det = reinterpret_cast<float*>(smem + a.off_det);
-  S* accb = reinterpret_cast<S*>(smem + a.off_acc);
+  float* accb = reinterpret_cast<float*>(smem + a.off_acc);
   const int hw = wt::half_width<HW>(a.taps);
   const int NC = 2 * hw + 2, ND = 2 * hw + 1;
   const int H = a.H, W = a.W, tid = threadIdx.x;
@@ -425,12 +428,12 @@ __global__ void __launch_bounds__(kStreamThreads, 1)
             continue;
           }
           for (int e = v; e < min(v + kCols, span_c); ++e) {
-            float o = __fmul_rn(wt::to_f32(ring[so[hw] + e]), t0);
+            float o = __fmul_rn(ring[so[hw] + e], t0);
 #pragma unroll
             for (int j = 1; j <= hw; ++j)
               o = __fadd_rn(o, __fmul_rn(a.taps.t[j],
-                                         __fadd_rn(wt::to_f32(ring[so[hw - j] + e]),
-                                                   wt::to_f32(ring[so[hw + j] + e]))));
+                                         __fadd_rn(ring[so[hw - j] + e],
+                                                   ring[so[hw + j] + e])));
             T1[e] = o;
           }
         }
@@ -501,7 +504,7 @@ __global__ void __launch_bounds__(kStreamThreads, 1)
       if (chain) {
         const int sd = ti % ND * a.pitch_d;
         const bool own = qc >= p0 && qc < p1;
-        N* nrow = a.c_next + frame_out + out_row(qc) * W + w0;
+        float* nrow = a.c_next + frame_out + out_row(qc) * W + w0;
         for (int u = tid * kCols; u < span_d; u += kStreamThreads * kCols) {
           const int uc = WHOLE ? u : u + hw * Sw;
           const int o = WHOLE ? u : u - hw * Sw;
@@ -517,17 +520,15 @@ __global__ void __launch_bounds__(kStreamThreads, 1)
               st2(nrow + o, f.x, f.y);
               continue;
             }
-            if (own && o >= 0 && o < n_out) nrow[o] = wt::from_f32<N>(f.x);
-            if (own && o + 1 >= 0 && o + 1 < n_out)
-              nrow[o + 1] = wt::from_f32<N>(f.y);
+            if (own && o >= 0 && o < n_out) nrow[o] = f.x;
+            if (own && o + 1 >= 0 && o + 1 < n_out) nrow[o + 1] = f.y;
             continue;
           }
           for (int e = 0; e < kCols && u + e < span_d; ++e) {
             const float f = WHOLE ? fold_whole<HW>(T1, u + e, W, Dc, a.taps)
                                   : fold_run<HW>(T1, uc + e, Sw, a.taps);
-            det[sd + u + e] = __fsub_rn(wt::to_f32(ring[so[hw] + uc + e]), f);
-            if (own && o + e >= 0 && o + e < n_out)
-              nrow[o + e] = wt::from_f32<N>(f);
+            det[sd + u + e] = __fsub_rn(ring[so[hw] + uc + e], f);
+            if (own && o + e >= 0 && o + e < n_out) nrow[o + e] = f;
           }
         }
       }
@@ -536,9 +537,8 @@ __global__ void __launch_bounds__(kStreamThreads, 1)
           float wc;
           const float v2 = whiten(c, lp, &wc);
           if (a.white) a.white[ro + o] = wt::from_f32<S>(v2);
-          if (a.acc_mode == 1) a.acc[ro + o] = wt::from_f32<S>(v2);
-          else if (a.acc_mode == 2)
-            a.acc[ro + o] = wt::add_rounded<S>(accb[o], v2);
+          if (a.acc_mode == 1) a.acc[ro + o] = v2;
+          else if (a.acc_mode == 2) a.acc[ro + o] = __fadd_rn(accb[o], v2);
         };
         for (int o = tid * kCols; o < n_out; o += kStreamThreads * kCols) {
           const int u = WHOLE ? o : o + hw * Sw;
@@ -553,9 +553,8 @@ __global__ void __launch_bounds__(kStreamThreads, 1)
               if (a.white) st2(a.white + ro + o, vx, vy);
               if (a.acc_mode == 1) st2(a.acc + ro + o, vx, vy);
               else if (a.acc_mode == 2)
-                st2(a.acc + ro + o,
-                    __fadd_rn(wt::to_f32(accb[o]), wt::round_to<S>(vx)),
-                    __fadd_rn(wt::to_f32(accb[o + 1]), wt::round_to<S>(vy)));
+                st2(a.acc + ro + o, __fadd_rn(accb[o], vx),
+                    __fadd_rn(accb[o + 1], vy));
               continue;
             }
             epilogue(o, c.x, lp.x);
@@ -574,28 +573,28 @@ __global__ void __launch_bounds__(kStreamThreads, 1)
   }
 }
 
-template <int HW, bool WHOLE, class C, class N, class S>
-static int launch_stream(const StreamArgs<C, N, S>& a, long long grid,
-                         int bytes, cudaStream_t s) {
+template <int HW, bool WHOLE, class S>
+static int launch_stream(const StreamArgs<S>& a, long long grid, int bytes,
+                         cudaStream_t s) {
   static std::atomic<int> optin[wt::kMaxDevices];
-  cudaError_t err =
-      wt::smem_optin(deep_stream<HW, WHOLE, C, N, S>, bytes, optin);
+  cudaError_t err = wt::smem_optin(deep_stream<HW, WHOLE, S>, bytes, optin);
   if (err != cudaSuccess) return static_cast<int>(err);
-  deep_stream<HW, WHOLE, C, N, S>
+  deep_stream<HW, WHOLE, S>
       <<<static_cast<unsigned>(grid), kStreamThreads,
          static_cast<size_t>(bytes), s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// One scale on the stream: carry (B, Hs, W) of C, c_next (B, H, W) of N,
-// white and acc (B, H, W) of S; Hs = H + 2*halo.
-template <class C, class N, class S>
-int whiten_stream(const C* carry, N* c_next, S* white, S* acc, int acc_mode,
-                  const float* thr, float fac, int masked, int soft,
+// One scale on the stream: carry (B, Hs, W), c_next and acc (B, H, W) of
+// float32, white (B, H, W) of S; Hs = H + 2*halo.
+template <class S>
+int whiten_stream(const float* carry, float* c_next, S* white, float* acc,
+                  int acc_mode, const float* thr, float fac, int masked,
+                  int soft,
                   const double* taps, int n_taps, long long B, long long H,
                   long long W, long long D, long long halo,
                   const StreamPlan& p, void* stream) {
-  StreamArgs<C, N, S> a = {};
+  StreamArgs<S> a = {};
   if (!wt::make_taps(taps, n_taps, &a.taps) || !carry || !c_next ||
       acc_mode < 0 || acc_mode > 2 || (acc_mode != 0 && !acc) ||
       (masked && !thr) || !stream_layout(&a, p, B, H, W, D, halo))
@@ -657,45 +656,19 @@ int wt_whiten_step_f32(const float* carry, float* c_next, float* detail,
                          index_bits, stream);
 }
 
-// The same scale on a bfloat16 carry, one launch of the stream: c_next,
-// white and acc bfloat16, the thresholds float32.  The plan is the
-// wrapper's (ops/hopper_conv.py::stream_step_plan): seg, chunk, grid and
-// smem_bytes as StreamPlan above, checked (stream_layout) and launched as
-// given.  Returns as wt_whiten_step_f32.
-int wt_whiten_step_bf16(const __nv_bfloat16* carry, __nv_bfloat16* c_next,
-                        __nv_bfloat16* white, __nv_bfloat16* acc,
-                        int acc_mode, const float* thr, float fac,
-                        int masked, int soft, const double* taps,
-                        int n_taps, long long B, long long H, long long W,
-                        long long D, long long seg, long long chunk,
-                        long long grid, long long smem_bytes, void* stream) {
-  return whiten_stream(carry, c_next, white, acc, acc_mode, thr, fac, masked,
-                       soft, taps, n_taps, B, H, W, D, 0,
-                       StreamPlan{seg, chunk, grid, smem_bytes}, stream);
-}
-
-// The two halves of the bfloat16 pair (s, s+1) with its middle carry in
-// float32 (the JAX pair's rounding, where kernel E's float32 tori do not
-// fit): scale s from a bfloat16 carry, c_next stored in float32; then
-// scale s+1 from that float32 carry, c_next stored in bfloat16.  White
-// and acc are bfloat16 in both.  Arguments as wt_whiten_step_bf16.
-int wt_whiten_step_bf16_f32next(
-    const __nv_bfloat16* carry, float* c_next, __nv_bfloat16* white,
-    __nv_bfloat16* acc, int acc_mode, const float* thr, float fac,
-    int masked, int soft, const double* taps, int n_taps, long long B,
-    long long H, long long W, long long D, long long seg, long long chunk,
-    long long grid, long long smem_bytes, void* stream) {
-  return whiten_stream(carry, c_next, white, acc, acc_mode, thr, fac, masked,
-                       soft, taps, n_taps, B, H, W, D, 0,
-                       StreamPlan{seg, chunk, grid, smem_bytes}, stream);
-}
-
-int wt_whiten_step_bf16_f32carry(
-    const float* carry, __nv_bfloat16* c_next, __nv_bfloat16* white,
-    __nv_bfloat16* acc, int acc_mode, const float* thr, float fac,
-    int masked, int soft, const double* taps, int n_taps, long long B,
-    long long H, long long W, long long D, long long seg, long long chunk,
-    long long grid, long long smem_bytes, void* stream) {
+// The same scale on the stream from a float32 carry, the white stored in
+// bfloat16 (the bfloat16 route's deep step): c_next and acc float32, the
+// thresholds float32, nothing rounded but the white on its store.  The
+// plan is the wrapper's (ops/hopper_conv.py::stream_step_plan): seg,
+// chunk, grid and smem_bytes as StreamPlan above, checked (stream_layout)
+// and launched as given.  Returns as wt_whiten_step_f32.
+int wt_whiten_step_bf16(const float* carry, float* c_next,
+                        __nv_bfloat16* white, float* acc, int acc_mode,
+                        const float* thr, float fac, int masked, int soft,
+                        const double* taps, int n_taps, long long B,
+                        long long H, long long W, long long D, long long seg,
+                        long long chunk, long long grid, long long smem_bytes,
+                        void* stream) {
   return whiten_stream(carry, c_next, white, acc, acc_mode, thr, fac, masked,
                        soft, taps, n_taps, B, H, W, D, 0,
                        StreamPlan{seg, chunk, grid, smem_bytes}, stream);

@@ -32,12 +32,12 @@ inline bool make_taps(const double* taps, int n_taps, Taps* out) {
   return true;
 }
 
-// Storage types.  The kernels of the bfloat16 WOW path (whiten_group.cu,
-// whiten_step.cu, whiten_pair.cu) are templates on the type their planes
-// are stored in, float or __nv_bfloat16: every fold runs in float32, and
-// a value is rounded (round to nearest even, as torch rounds) only where
-// it is stored as S.  For S = float both are the identity, so the float32
-// instantiations keep their bits.
+// Storage types.  The kernels of the bfloat16 WOW route (whiten_group.cu,
+// whiten_step.cu, whiten_pair.cu) are templates on the type their input
+// or whites are stored in, float or __nv_bfloat16: every fold runs in
+// float32, and a value is rounded (round to nearest even, as torch
+// rounds) only where it is stored as S.  For S = float both are the
+// identity, so the float32 instantiations keep their bits.
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -58,14 +58,6 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 template <class S>
 __device__ __forceinline__ float round_to(float x) {
   return to_f32(from_f32<S>(x));
-}
-
-// acc + v as the JAX package adds a plane into the reconstruction in S:
-// v rounded to S first, the sum in float32, one rounding (an XLA add of
-// two S arrays).  For S = float, __fadd_rn(acc, v).
-template <class S>
-__device__ __forceinline__ S add_rounded(S acc, float v) {
-  return from_f32<S>(__fadd_rn(to_f32(acc), round_to<S>(v)));
 }
 
 __device__ __forceinline__ long long sym_index(long long k, long long n) {

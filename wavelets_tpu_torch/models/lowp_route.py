@@ -1,27 +1,26 @@
 """The bfloat16 merged route's geometry: which scales each kernel takes.
 
 In float32 the kernels are bitwise to the plain chain, so the port
-chose its own group and deep steps.  In bfloat16 the group rounds after
-every pass, the deep stream only on store and the pair not at its
-middle carry, so the scales each route takes decide the bits.  These
-are the JAX package's plan (``_deep_start``, ``_can_merge_whiten``,
+chose its own group and deep steps.  The bfloat16 route is float32
+inside (its whites, residual plane and recon round once, on store), so
+its bits no longer depend on which kernel takes a scale; it keeps the
+JAX package's geometry all the same, so its launches are the JAX
+plan's.  These are the JAX package's plan (``_deep_start``, ``_can_merge_whiten``,
 ``plan_wow_prefix``, ``can_deep``, ``can_deep2``, ``_stream_rows``,
 ``_stream2_rows``; wavelets_tpu/models/wow.py:501-560,
 ops/pallas_conv.py:380-540 and :774-821, ops/pallas_deep.py:98-129,
 :296-310 and :675-710) copied as **shape predicates**: they define the
 reference's rounding route on a TPU, VMEM budgets and cost model
 included, and are not H100 tile plans (the kernels' launches are
-``ops/hopper_*.py``'s).  Where the H100 cannot take a JAX kernel, the
-port keeps its rounding another way:
+``ops/hopper_*.py``'s).  Where the H100 cannot take a JAX kernel:
 
 * a pair that kernel E's gate refuses (``hopper_deep.can_deep2``: its
-  float32 tori would not fit the shared memory) runs as two bfloat16
-  deep steps of kernel A with a float32 middle carry
-  (``hopper_deep.deep_whiten_step2_split``);
+  float32 tori would not fit the shared memory) runs as two deep steps
+  of kernel A, the middle carry float32 as in the pair;
 * a group whose rings kernel A's streamed bfloat16 group cannot hold
   (``hopper_conv.group_plan(...) is None``: 256×25600 L8's ``(5, 2)``
-  and ``(7, 1)``) runs the plain group body on the card
-  (``hopper_conv.fused_wow_group``), as float64 runs plain.
+  and ``(7, 1)``) runs one bfloat16 deep step of kernel A a scale
+  (``hopper_conv.fused_wow_group``), bitwise the group.
 """
 
 from __future__ import annotations

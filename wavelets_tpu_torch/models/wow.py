@@ -41,7 +41,7 @@ float64 tensor runs the plain versions, as the JAX package sends float64
 to XLA.  The bilateral σ_e table is read wherever the transform is
 bilateral; the power smooth stays plain either way (watroo/utils.py:194).
 
-bfloat16 and float16 follow the JAX package's low-precision rule
+bfloat16 and float16 follow the JAX package's low-precision dispatch
 (wavelets_tpu/models/wow.py:921-941): a bfloat16 frame, or a bfloat16
 ``(B, H, W)`` stack in serving mode, with ``fuse``, standard WOW and
 known noise takes ``_wow_body_merged`` on the bfloat16 forms of kernels
@@ -49,7 +49,15 @@ A and E, with the JAX plan's geometry (:func:`_lowp_merges`); every other
 bfloat16 case and every float16 case runs the plain bodies in the input
 dtype on the input's device, as the JAX package sends them to XLA.
 :func:`wow_stack` never merges below float32 (the JAX ``_stack_core``
-merges float32 only): its frames run the plain bodies one by one.
+merges float32 only): its frames run the plain bodies one by one.  The
+merged route departs on purpose from the JAX package's bfloat16
+arithmetic: it is bfloat16 at the boundary and float32 inside (the
+frame read in bfloat16, every pass, carry and the recon's sum in
+float32, the whites, the residual plane and the recon rounded once, on
+store), each output within bfloat16 rounding of a float32 WOW of the
+same frame.  The JAX rule, which rounds every pass and the carry to
+bfloat16, missed that by up to 0.25 (rel. L2) in a plane on 4096²
+frames of hundreds of counts (PERF.md, section 6).
 
 Paper: Auchère et al. 2023, A&A 670, A66 (reference README.md:111).
 """
@@ -57,6 +65,7 @@ Paper: Auchère et al. 2023, A&A 670, A66 (reference README.md:111).
 from __future__ import annotations
 
 import copy
+import numbers
 import warnings
 from typing import Optional, Tuple
 
@@ -227,7 +236,7 @@ def _threshold_fn(noise, sigma_e, denoise_coefficients):
 def _deep_tail_scales(carry, recon, thr_of, sf, start, n_scales, weights,
                       denoise_coefficients, soft_threshold, kernels,
                       write_planes=True, bilateral=None,
-                      bilateral_scaling=False):
+                      bilateral_scaling=False, white_dtype=None):
     """Whiten scales ``start .. n_scales−1`` from the smooth ``carry``
     (one frame), adding into ``recon`` in place.  A bilateral chain takes
     one ``deep_bilateral_whiten_step`` (kernel G) per scale: the pair and
@@ -237,22 +246,23 @@ def _deep_tail_scales(carry, recon, thr_of, sf, start, n_scales, weights,
     s ≤ 32`` and kernel E's gate admits the shape; elsewhere, and where
     the gate refuses, each scale is one ``deep_whiten_step`` (kernel A),
     the JAX package's rule when ``can_deep2`` is false
-    (wavelets_tpu/ops/pallas_deep.py:688-710).  A carry below float32
-    pairs where the JAX pair gate does (:func:`_lowp_can_pair`), since
-    there the pair and two steps round differently: on kernel E, or
-    where its gate refuses, on ``deep_whiten_step2_split`` (two steps
-    of kernel A with a float32 middle carry).  ``kernels`` selects the
-    wrappers over their plain versions.  ``carry`` and ``recon`` are one
-    frame ``(H, W)`` or a stack ``(B, H, W)`` with ``thr_of(s)`` per frame
-    ``(B,)``.  Returns ``(rows, residual)``."""
+    (wavelets_tpu/ops/pallas_deep.py:688-710).  The bfloat16 route
+    (``white_dtype`` bfloat16: a float32 carry and recon, bfloat16
+    whites) pairs where the JAX pair gate does (:func:`_lowp_can_pair`):
+    on kernel E, or where its gate refuses, two steps of kernel A (the
+    middle carry float32 either way, so the geometry keeps the JAX plan's
+    launches).  ``kernels`` selects the wrappers over their plain
+    versions.  ``carry`` and ``recon`` are one frame ``(H, W)`` or a
+    stack ``(B, H, W)`` with ``thr_of(s)`` per frame ``(B,)``.  Returns
+    ``(rows, residual)``."""
     step = (hopper_deep.deep_whiten_step if kernels
             else hopper_deep.deep_whiten_step_plain)
     pair = (hopper_deep.deep_whiten_step2 if kernels
             else hopper_deep.deep_whiten_step2_plain)
-    split = (hopper_deep.deep_whiten_step2_split if kernels
-             else hopper_deep.deep_whiten_step2_split_plain)
     bil_step = (hopper_deep.deep_bilateral_whiten_step if kernels
                 else hopper_deep.deep_bilateral_whiten_step_plain)
+    lowp = low_precision(carry.dtype if white_dtype is None
+                         else white_dtype)
     with tracing.span("wt.deep_tail"):
         batched = carry.ndim == 3
         rows = []
@@ -264,6 +274,15 @@ def _deep_tail_scales(carry, recon, thr_of, sf, start, n_scales, weights,
 
         def masked(k):
             return denoise_coefficients[k] != 0
+
+        def one(s):
+            nonlocal carry
+            white, _, carry = step(
+                carry, acc, thr_of(s).reshape(-1), sf=sf, scale=s,
+                weight=weights[s], soft=soft_threshold, masked=masked(s),
+                write_plane=write_planes, white_dtype=white_dtype)
+            if write_planes:
+                rows.append(row(white))
 
         s = start
         while s < n_scales:
@@ -282,27 +301,24 @@ def _deep_tail_scales(carry, recon, thr_of, sf, start, n_scales, weights,
             if (s + 1 < n_scales
                     and (carry.shape[-2] >> s) <= PAIR_MAX_CLASS_ROWS
                     and (_lowp_can_pair(*carry.shape[-2:], sf, s)
-                         if low_precision(carry.dtype) else fits)):
-                # below float32 the JAX pair's rounding: kernel E, or where
-                # its gate refuses, two steps with a float32 middle carry
-                run = (pair if fits or not low_precision(carry.dtype)
-                       else split)
-                w1, w2, _, carry = run(
-                    carry, acc, torch.stack([thr_of(s), thr_of(s + 1)])
-                    .reshape(2, -1), sf=sf, scale=s,
-                    weights=(weights[s], weights[s + 1]),
-                    soft=soft_threshold, masked=(masked(s), masked(s + 1)),
-                    write_plane=write_planes)
-                if write_planes:
-                    rows.extend([row(w1), row(w2)])
+                         if lowp else fits)):
+                if fits:
+                    w1, w2, _, carry = pair(
+                        carry, acc, torch.stack([thr_of(s), thr_of(s + 1)])
+                        .reshape(2, -1), sf=sf, scale=s,
+                        weights=(weights[s], weights[s + 1]),
+                        soft=soft_threshold,
+                        masked=(masked(s), masked(s + 1)),
+                        write_plane=write_planes, white_dtype=white_dtype)
+                    if write_planes:
+                        rows.extend([row(w1), row(w2)])
+                else:
+                    # the JAX plan's pair where kernel E's tori do not fit
+                    one(s)
+                    one(s + 1)
                 s += 2
                 continue
-            white, _, carry = step(
-                carry, acc, thr_of(s).reshape(-1), sf=sf, scale=s,
-                weight=weights[s], soft=soft_threshold, masked=masked(s),
-                write_plane=write_planes)
-            if write_planes:
-                rows.append(row(white))
+            one(s)
             s += 1
         return rows, row(carry)
 
@@ -355,15 +371,18 @@ def _wow_body_merged(data, noise, has_noise, sf, n_scales, weights,
     versions.
 
     A bfloat16 ``data`` (known noise only, :func:`_lowp_merges`) takes the
-    JAX plan's geometry: one group of the scales below
-    :func:`_lowp_deep_start` (0-3 for the B3spline), then the deep steps
-    and pairs of ``_deep_tail_scales``; thresholds stay float32, and the
-    recon takes each deep white a plane at a time in bfloat16, as the
-    JAX package's deferred tail adds them (wow.py:240-268)."""
+    JAX plan's geometry: the groups of the scales below
+    :func:`_lowp_deep_start` (one, 0-3, for the B3spline on 4096²), then
+    the deep steps and pairs of ``_deep_tail_scales``.  It is float32
+    inside: the first group reads the bfloat16 frame, every carry, the
+    thresholds and the recon's sum are float32, and the whites, the
+    residual plane and the recon are rounded to bfloat16 once, on
+    store."""
     group = (hopper_conv.fused_wow_group if kernels
              else hopper_conv.fused_wow_group_plain)
     batched = data.ndim == 3
     lowp = low_precision(data.dtype)
+    store = data.dtype
     sigma_e = sf.sigma_e(2, False)
     if not has_noise and any(
         d != 0 for d in denoise_coefficients[:n_scales]
@@ -385,8 +404,7 @@ def _wow_body_merged(data, noise, has_noise, sf, n_scales, weights,
     thr_of = _threshold_fn(noise, sigma_e, denoise_coefficients)
 
     if lowp:
-        # the JAX plan's groups below its deep start: where the recon
-        # rounds (a group sums its whites in float32 and rounds once)
+        # the JAX plan's groups below its deep start
         n_fast = min(n_scales, _lowp_deep_start(*data.shape[-2:], sf))
         groups = lowp_route.lowp_groups(*data.shape[-2:], n_fast,
                                         sf.half_width)[0]
@@ -401,7 +419,7 @@ def _wow_body_merged(data, noise, has_noise, sf, n_scales, weights,
             offset=off, soft=soft_threshold,
             masked=tuple(denoise_coefficients[off + k] != 0
                          for k in range(g)),
-            need_cube=need_planes)
+            need_cube=need_planes, white_dtype=store)
         out_rows.extend(rows[:-1])
         carry = rows[-1]
         recon = acc if recon is None else recon + acc
@@ -409,15 +427,19 @@ def _wow_body_merged(data, noise, has_noise, sf, n_scales, weights,
         # recon accumulates in place inside the deep steps
         deep_rows, carry = _deep_tail_scales(
             carry, recon, thr_of, sf, n_fast, n_scales, weights,
-            denoise_coefficients, soft_threshold, kernels, need_planes)
+            denoise_coefficients, soft_threshold, kernels, need_planes,
+            white_dtype=store)
         out_rows.extend(deep_rows)
 
     with tracing.span("wt.residual"):
         _, lp = _residual_std(carry, batched)
         c = carry * torch.div(torch.tensor(weights[n_scales], dtype=lp.dtype),
                               lp)
-        out_rows.append(c)
-        return (c if recon is None else recon + c), out_rows
+        recon = c if recon is None else recon + c
+        # bfloat16 at the boundary: the residual plane and the float32
+        # recon rounded once
+        out_rows.append(c.to(store))
+        return recon.to(store), out_rows
 
 
 def _wow_body_fused(pieces, layout, tail, noise, has_noise, sf, n_scales,
@@ -749,7 +771,9 @@ def wow_core(
                 pieces, layout = decompose_pieces(
                     data, n_scales, sf, axes=sp_axes, fuse=kernels, **bil)
             recon, out = _wow_body(
-                assemble_pieces(pieces, layout), noise, has_noise, sf,
+                assemble_pieces(pieces, layout),
+                # the plain bodies run in the frame's dtype (JAX's XLA rule)
+                noise.to(data.dtype) if lowp else noise, has_noise, sf,
                 n_scales, weights, whitening, denoise_coefficients,
                 soft_threshold, preserve_variance, gamma, gamma_min,
                 gamma_max, h, fuse=kernels, planes_layout=planes_layout,
@@ -904,10 +928,7 @@ def wow(data,
         coeffs.noise = data.noise
         return recon, coeffs
 
-    noise_arr = (tracing.as_tensor(noise, dtype=data.dtype, device=data.device,
-                                   site="noise")
-                 if has_noise
-                 else torch.zeros((), dtype=data.dtype, device=data.device))
+    noise_arr = _noise_arg(noise, data)
     recon, out_planes = wow_core(
         data, noise_arr,
         bilateral=sigma_bilateral,
@@ -917,6 +938,23 @@ def wow(data,
     coeffs = Coefficients(out_planes, scaling_function(n_dims), bilateral)
     coeffs.noise = noise
     return recon, coeffs
+
+
+def _noise_arg(noise, data):
+    """``wow``'s noise as the 0-d tensor ``wow_core`` takes, on the
+    frame's device: float64 for a float64 frame, else float32 (the
+    thresholds' dtype; the plain bodies below float32 round it to the
+    frame's dtype).  A known scalar is a fill kernel with the value as its
+    argument, not a copy from host memory, so the call does not wait for
+    the card; an array noise keeps its counted copy (``wt.sync.noise``).
+    No noise is a zero."""
+    dtype = torch.float64 if data.dtype == torch.float64 else torch.float32
+    if noise is None:
+        return torch.zeros((), dtype=dtype, device=data.device)
+    if isinstance(noise, numbers.Real):
+        return torch.full((), float(noise), dtype=dtype, device=data.device)
+    return tracing.as_tensor(noise, dtype=dtype, device=data.device,
+                             site="noise")
 
 
 def _stack_core(data, noise_arr, with_coefficients, statics, fuse=True):

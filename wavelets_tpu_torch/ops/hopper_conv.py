@@ -38,14 +38,18 @@ kernel cannot take raises.  The same holds for kernel C.
 
 Kernel A has a bfloat16 form of both its entries (``wt_whiten_group_bf16``,
 the streamed group, and ``wt_whiten_step_bf16``, counters
-``whiten_group_bf16`` and
-``whiten_step_bf16``), the JAX package's bfloat16 instantiations of
-``_fused_wow_group`` and ``deep_whiten_step``: every fold in float32,
-the values rounded to bfloat16 where the JAX kernels store them (the
-group: after each separable pass, the detail, its square and the whites,
-carry and acc; the deep step: only c_next, the white and the recon add),
-thresholds and factors float32.  The plain versions take the same
-rounding points for any dtype below float32 (:func:`low_precision`).
+``whiten_group_bf16`` and ``whiten_step_bf16``): bfloat16 at the
+boundary, float32 inside.  The group reads a bfloat16 frame (or, for a
+later group of the route, a float32 carry), computes every pass, the
+detail, its square, the power smooth, the mask and the white in
+float32, and stores the whites in bfloat16, the carry and acc in
+float32; the deep step reads and writes float32 carries and acc and
+stores its white in bfloat16.  Thresholds and factors are float32.  The
+plain versions are the float32 plain versions on the widened input, the
+whites rounded on store.  This departs on purpose from the JAX package's
+bfloat16 kernels, which round every pass and the carry to bfloat16: on
+frames of hundreds of counts that rounding missed a float32 WOW of the
+same frame by up to 0.25 (rel. L2) in a plane (PERF.md, section 6).
 Kernel C has no bfloat16 form: the JAX package sends a bfloat16
 decomposition to XLA (pallas_conv.py:517-519).
 """
@@ -81,6 +85,9 @@ KERNEL = "whiten_step"
 #: the launch counter of kernel A's deep step in halo mode
 HALO_KERNEL = "whiten_step_halo"
 GROUP_KERNEL = "whiten_group"
+#: the bfloat16 route's later groups (a float32 carry in, bfloat16 whites
+#: out): an entry of their own, so a counter of their own
+GROUP_F32IN_KERNEL = "whiten_group_f32in"
 DECOMPOSE_KERNEL = "decompose_group"
 
 #: scales per group: the decompose groups (kernel C), the merged WOW
@@ -233,23 +240,24 @@ def stream_smem(strip_w: int, g: int, hw: int, offset: int,
     stream_layout`` lays them out, each region on 16 bytes: the block's
     table (:data:`STREAM_TABLE_BYTES`); the input's ring of ``2hd_0 +
     2·8`` rows (one step read, the next arriving) of the strip and
-    ``halo_cols`` a side; per scale the ring of its c_next, ``2hd_(k+1) +
-    8`` rows (the last one ``hd + 8``) and that of its squared detail,
-    ``2hd_k + 8`` rows; the float32 sums of the whites, ``R − 2hd_0 + 8``
-    rows of the strip; a row a warp."""
+    ``halo_cols`` a side, of ``itemsize``-byte elements (the input's);
+    in float32, per scale the ring of its c_next, ``2hd_(k+1) + 8`` rows
+    (the last one ``hd + 8``) and that of its squared detail, ``2hd_k +
+    8`` rows, the sums of the whites, ``R − 2hd_0 + 8`` rows of the
+    strip, and a row a warp."""
     rs = STREAM_ROWS
     hd, ec, ecar = stream_margins(g, hw, offset)
     vec = 16 // itemsize
     rc = -(-ecar[0] // vec) * vec
     halo = group_halo(hw, offset, g)
     regions = [(2 * hd[0] + 2 * rs) * (strip_w + 2 * rc) * itemsize]
-    regions += [(2 * hd[k] + rs) * (strip_w + 2 * ec[k - 1]) * itemsize
+    regions += [(2 * hd[k] + rs) * (strip_w + 2 * ec[k - 1]) * 4
                 for k in range(1, g)]
-    regions.append((hd[g - 1] + rs) * (strip_w + 2 * ec[g - 1]) * itemsize)
-    regions += [(2 * hd[k] + rs) * (strip_w + 2 * _even(hd[k])) * itemsize
+    regions.append((hd[g - 1] + rs) * (strip_w + 2 * ec[g - 1]) * 4)
+    regions += [(2 * hd[k] + rs) * (strip_w + 2 * _even(hd[k])) * 4
                 for k in range(g)]
     regions.append((halo - 2 * hd[0] + rs) * strip_w * 4)
-    regions.append(rs * (strip_w + 2 * ecar[0]) * itemsize)
+    regions.append(rs * (strip_w + 2 * ecar[0]) * 4)
     return STREAM_TABLE_BYTES + sum(-(-n // 16) * 16 for n in regions)
 
 
@@ -275,11 +283,10 @@ def stream_plan(B: int, H: int, W: int, g: int, hw: int, offset: int,
     busiest SM, counting two blocks an SM where two fit
     (:data:`SMEM_TWO_PER_SM`), each step priced by its column-pair
     passes; ties go to the taller band, then the wider strip.  At 4096²,
-    g = 4 (the bfloat16 route's group): 128 columns by 512 rows, 256
-    blocks of 104 KB, two an SM; narrower strips ran slower on an H100
-    (``scripts/kernel_variants.py``: their margins' folds grow faster
-    than the blocks help).  None where no strip fits (a dilation whose
-    rings pass 227 KB: 256×25600 L8's ``(5, 2)`` and ``(7, 1)``)."""
+    g = 4 (the bfloat16 route's group, float32 rings): 64 columns by
+    1024 rows, 256 blocks of 107 KiB, two an SM.  None where no strip
+    fits (a dilation whose rings pass 227 KB: 256×25600 L8's ``(5, 2)``
+    and ``(7, 1)``)."""
     if g < 1:
         raise ValueError("a group needs at least one scale")
     if g > 8 or offset + g > 20 or (hw << (offset + g - 1)) > 1 << 20:
@@ -399,28 +406,26 @@ def _a16(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def stream_step_smem(W: int, D: int, hw: int, seg: int,
-                     carry_itemsize: int, store_itemsize: int) -> int:
+def stream_step_smem(W: int, D: int, hw: int, seg: int) -> int:
     """Shared bytes of a stream block, as ``csrc/whiten_step.cu::
-    stream_layout`` lays them out, each region on 16 bytes: the carry's
-    ring of ``2hw+2`` rows in its own type (rows padded to 16 bytes), the
-    chain's rows-fold row and the power smooth's (float32), the detail's
-    ring of ``2hw+1`` float32 rows, and the acc row in the store type.  A
-    row is ``W`` columns, or for a run of ``seg`` columns with ``S =
-    min(Dc, seg)`` its layout: ``4hw·S + seg`` for the carry and the
-    chain (its smooth is needed ``2hw·Dc`` beyond the run), ``2hw·S +
-    seg`` for the detail and the power smooth."""
+    stream_layout`` lays them out, each region on 16 bytes, all float32:
+    the carry's ring of ``2hw+2`` rows (rows padded to 16 bytes), the
+    chain's rows-fold row and the power smooth's, the detail's ring of
+    ``2hw+1`` rows, and the acc row.  A row is ``W`` columns, or for a
+    run of ``seg`` columns with ``S = min(Dc, seg)`` its layout: ``4hw·S
+    + seg`` for the carry and the chain (its smooth is needed ``2hw·Dc``
+    beyond the run), ``2hw·S + seg`` for the detail and the power
+    smooth."""
     if seg == 0:
         span_c = span_d = m = W
     else:
         S = min(map_step(D, W), seg)
         span_c, span_d, m = 4 * hw * S + seg, 2 * hw * S + seg, seg
-    vc = 16 // carry_itemsize
-    pitch_c = -(-span_c // vc) * vc
+    pitch_c = -(-span_c // 4) * 4
     pitch_d = -(-span_d // 4) * 4
-    return (_a16((2 * hw + 2) * pitch_c * carry_itemsize) + _a16(4 * span_c)
+    return (_a16((2 * hw + 2) * pitch_c * 4) + _a16(4 * span_c)
             + _a16(4 * span_d) + _a16((2 * hw + 1) * pitch_d * 4)
-            + _a16(m * store_itemsize))
+            + _a16(m * 4))
 
 
 def stream_classes(H: int, D: int, halo: bool = False):
@@ -459,12 +464,11 @@ def stream_chunk(P: int, per: int, warm: int) -> Tuple[int, int]:
 
 @functools.lru_cache(maxsize=None)
 def stream_step_plan(B: int, H: int, W: int, D: int, hw: int,
-                     carry_itemsize: int = 2, store_itemsize: int = 2,
                      halo: bool = False) -> StreamStepPlan:
     """The stream's launch on an H100 from the shape (``H`` output rows;
     in halo mode a band of ``H`` rows extended by ``2hw·D`` a side), the
-    true dilation, the half width of the taps and the carry's and
-    stores' element sizes.  Whole rows where their rings fit the opt-in
+    true dilation and the half width of the taps.  Whole rows where their
+    rings fit the opt-in
     shared memory (:func:`stream_step_smem`), else the widest run of
     :data:`STREAM_STEP_SEGS` columns that fits.  The rows' dilation is
     ``map_step(D, H)`` (the true ``D`` in halo mode, where nothing
@@ -483,10 +487,9 @@ def stream_step_plan(B: int, H: int, W: int, D: int, hw: int,
         raise ValueError(f"stream_step_plan: a {rows}x{W} frame passes "
                          "32-bit index math (2^30 a side)")
     seg = 0
-    if stream_step_smem(W, D, hw, 0, carry_itemsize,
-                        store_itemsize) > SMEM_OPTIN:
-        seg = next((s for s in STREAM_STEP_SEGS if s < W and stream_step_smem(
-            W, D, hw, s, carry_itemsize, store_itemsize) <= SMEM_OPTIN), None)
+    if stream_step_smem(W, D, hw, 0) > SMEM_OPTIN:
+        seg = next((s for s in STREAM_STEP_SEGS if s < W and
+                    stream_step_smem(W, D, hw, s) <= SMEM_OPTIN), None)
         if seg is None:
             raise ValueError(f"stream_step_plan: no run of a {W}-column row "
                              f"at dilation {D} fits the shared memory")
@@ -494,22 +497,16 @@ def stream_step_plan(B: int, H: int, W: int, D: int, hw: int,
     per = B * (1 if seg == 0 else -(-W // seg)) * n_cls
     chunk, _ = stream_chunk(P, per, 2 * hw + 1)
     items = per * -(-P // chunk)
-    return StreamStepPlan(seg, chunk, stream_step_smem(
-        W, D, hw, seg, carry_itemsize, store_itemsize),
-        min(items, H100_SMS))
+    return StreamStepPlan(seg, chunk, stream_step_smem(W, D, hw, seg),
+                          min(items, H100_SMS))
 
 
 #: kernel A's float32 deep step (the row-buffer pass, two launches)
 _STEP_ENTRY = "wt_whiten_step_f32"
-#: its entries on the residue-class stream, by (carry, c_next) dtype: the
-#: bfloat16 form and the two halves of the bfloat16 pair with a float32
-#: middle carry (hopper_deep.deep_whiten_step2_split); halo mode has its
-#: own entry, wt_whiten_step_halo_f32
-_STREAM_ENTRIES = {
-    (torch.bfloat16, torch.bfloat16): "wt_whiten_step_bf16",
-    (torch.bfloat16, torch.float32): "wt_whiten_step_bf16_f32next",
-    (torch.float32, torch.bfloat16): "wt_whiten_step_bf16_f32carry",
-}
+#: its entries on the residue-class stream: the bfloat16 route's (a
+#: float32 carry, the white stored in bfloat16) and halo mode's
+_STREAM_ENTRY = "wt_whiten_step_bf16"
+_HALO_ENTRY = "wt_whiten_step_halo_f32"
 # acc_mode, thr, fac, masked, soft, taps, n_taps
 _EPILOGUE_ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_float,
                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
@@ -524,11 +521,11 @@ def _lib():
     fn.argtypes = ([ctypes.c_void_p] * 5 + _EPILOGUE_ARGS
                    + [ctypes.c_longlong] * 4 + _PLAN_ARGS + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    for entry in (*_STREAM_ENTRIES.values(), "wt_whiten_step_halo_f32"):
+    for entry in (_STREAM_ENTRY, _HALO_ENTRY):
         fn = getattr(lib, entry)
         # carry, c_next, white, acc, the epilogue, B, H, W, D (and halo),
         # then seg, chunk, grid, shared bytes
-        n_shape = 5 if entry.endswith("halo_f32") else 4
+        n_shape = 5 if entry == _HALO_ENTRY else 4
         fn.argtypes = ([ctypes.c_void_p] * 4 + _EPILOGUE_ARGS
                        + [ctypes.c_longlong] * (n_shape + 4)
                        + [ctypes.c_void_p])
@@ -536,12 +533,14 @@ def _lib():
     return lib
 
 
-#: the group's entries: the float32 tile, the streamed group in bfloat16
-#: and its float32 instantiation (no path's: a streamed plan of float32,
-#: as scripts/kernel_variants.py and the GPU tests pass one), and the
-#: number of plan integers after the shape (tile_h or strip_w and
-#: band_h, then halo and halo_cols)
+#: the group's entries: the float32 tile, the streamed group of the
+#: bfloat16 route (from a bfloat16 frame, or from a float32 carry for a
+#: later group) and its float32 instantiation (no path's: a streamed plan
+#: of float32, as scripts/kernel_variants.py and the GPU tests pass one),
+#: and the number of plan integers after the shape (tile_h or strip_w
+#: and band_h, then halo and halo_cols)
 _GROUP_ENTRIES = {"wt_whiten_group_f32": 3, "wt_whiten_group_bf16": 4,
+                  "wt_whiten_group_bf16_f32in": 4,
                   "wt_whiten_group_stream_f32": 4}
 
 
@@ -599,33 +598,28 @@ def launch_whiten_step(carry, c_next, detail, white, acc, acc_mode, thr,
 def launch_whiten_stream(carry, c_next, white, acc, acc_mode, thr, fac,
                          masked, soft, sf, scale, halo: int = 0) -> None:
     """One scale of kernel A's deep step on the residue-class stream (one
-    launch, the detail kept on chip): a bfloat16 carry, c_next, white and
-    acc, or one half of the bfloat16 pair with a float32 middle carry (a
-    float32 ``c_next`` or carry beside bfloat16 white and acc,
-    :data:`_STREAM_ENTRIES`); or, ``halo > 0``, a float32 band of ``H +
-    2·halo`` rows whose ``H`` interior rows c_next, white and acc cover.
+    launch, the detail kept on chip) from a float32 carry to a float32
+    c_next and acc: the bfloat16 route's step, the white (when written)
+    stored in bfloat16; or, ``halo > 0``, a float32 band of ``H + 2·halo``
+    rows whose ``H`` interior rows c_next, a float32 white and acc cover.
     ``thr`` float32.  The launch counter (``whiten_step_bf16``, or
     :data:`HALO_KERNEL`) is incremented here and nowhere else."""
     lib = _lib()
     B, H, W = c_next.shape
-    store = (white if white is not None else acc if acc is not None
-             else c_next).dtype
+    white_dtype = torch.float32 if halo else torch.bfloat16
+    if (carry.dtype != torch.float32 or c_next.dtype != torch.float32
+            or (acc is not None and acc.dtype != torch.float32)
+            or (white is not None and white.dtype != white_dtype)):
+        raise TypeError("launch_whiten_stream: float32 carry, c_next and "
+                        f"acc, a {white_dtype} white")
     if halo:
-        if not carry.dtype == c_next.dtype == store == torch.float32:
-            raise TypeError("launch_whiten_stream: halo mode is float32")
-        entry, counter, shape = ("wt_whiten_step_halo_f32", HALO_KERNEL,
+        entry, counter, shape = (_HALO_ENTRY, HALO_KERNEL,
                                  (B, H, W, 1 << scale, halo))
     else:
-        if store != torch.bfloat16 or (carry.dtype, c_next.dtype) not in \
-                _STREAM_ENTRIES:
-            raise TypeError("launch_whiten_stream: bfloat16 stores, and a "
-                            "bfloat16 carry or c_next")
-        entry, counter, shape = (_STREAM_ENTRIES[(carry.dtype, c_next.dtype)],
-                                 _build.counter(KERNEL, store),
+        entry, counter, shape = (_STREAM_ENTRY,
+                                 _build.counter(KERNEL, white_dtype),
                                  (B, H, W, 1 << scale))
-    plan = stream_step_plan(B, H, W, 1 << scale, sf.half_width,
-                            carry.element_size(),
-                            torch.finfo(store).bits // 8, bool(halo))
+    plan = stream_step_plan(B, H, W, 1 << scale, sf.half_width, bool(halo))
     with tracing.launch(counter, scale):
         taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
         code = getattr(lib, entry)(
@@ -704,46 +698,59 @@ def threshold_dtype(dtype):
     return torch.float32 if low_precision(dtype) else dtype
 
 
-def _pass(x: torch.Tensor, sf: ScalingFunction, scale: int,
-          axis: int) -> torch.Tensor:
-    """One separable pass, in float32 below float32 and rounded back to
-    ``x``'s dtype: a pass of the JAX group kernel into its scratch of the
-    input dtype (pallas_conv.py:_conv_pass_ref)."""
-    return separable_smooth_axis(widen(x), sf.taps, scale, axis,
-                                 "symmetric").to(x.dtype)
+def _white_dtype(x: torch.Tensor, white_dtype):
+    """The dtype a group's whites are stored in: ``white_dtype``, by
+    default the input's."""
+    return x.dtype if white_dtype is None else white_dtype
+
+
+def _group_counter(x: torch.Tensor, store) -> str:
+    """A group's launch counter: ``whiten_group`` in float32,
+    ``whiten_group_bf16`` from a bfloat16 frame, and
+    ``whiten_group_f32in_bf16`` from a float32 carry to bfloat16 whites
+    (the bfloat16 route's later groups)."""
+    f32in = low_precision(store) and not low_precision(x.dtype)
+    return tracing.counter(GROUP_F32IN_KERNEL if f32in else GROUP_KERNEL,
+                           store)
 
 
 def fused_wow_group_plain(x: torch.Tensor, factors: Sequence[float],
                           thresholds, g: int, sf: ScalingFunction,
                           offset: int = 0, soft: bool = True,
                           masked: Tuple[bool, ...] = (),
-                          need_cube: bool = True):
+                          need_cube: bool = True, white_dtype=None):
     """Plain PyTorch version of :func:`fused_wow_group` (any dtype or
-    device).  Below float32 it keeps the rounding points of the JAX
-    group kernel in that dtype (pallas_conv.py:137, :300-376): each pass
-    of the chain smooth, the detail, its square and each pass of the
-    power smooth round to the input dtype; the mask and the whitening
-    run in float32, the whites round on store, acc sums in float32 and
-    rounds once.  At float32 and above every rounding is a no-op."""
-    with tracing.plain(tracing.counter(GROUP_KERNEL, x.dtype), offset):
+    device).  Below float32 it is the float32 version on the widened
+    input (:func:`~.conv.widen`): every pass, the detail, its square, the
+    power smooth, the mask and the whitening in float32, the whites
+    rounded to ``white_dtype`` on store, the carry and acc left in
+    float32.  At float32 and above the whites keep the input's dtype
+    unless ``white_dtype`` says otherwise."""
+    store = _white_dtype(x, white_dtype)
+    with tracing.plain(_group_counter(x, store), offset):
         batched, xb, factors, masked, thr = _group_args(
-            x, factors, thresholds, g, masked)
+            widen(x), factors, thresholds, g, masked)
         rows, acc, cur = [], None, xb
         for k in range(g):
             s = offset + k
-            c_next = _pass(_pass(cur, sf, s, -2), sf, s, -1)
+            c_next = separable_smooth_axis(
+                separable_smooth_axis(cur, sf.taps, s, -2, "symmetric"),
+                sf.taps, s, -1, "symmetric")
             detail = cur - c_next
-            power = _pass(_pass(detail * detail, sf, s, -2), sf, s, -1)
-            white, _ = whiten_power_plain(
-                widen(detail), widen(power), factors[k],
-                thr[k][:, None, None], soft, masked[k])
+            power = separable_smooth_axis(
+                separable_smooth_axis(detail * detail, sf.taps, s, -2,
+                                      "symmetric"),
+                sf.taps, s, -1, "symmetric")
+            white, _ = whiten_power_plain(detail, power, factors[k],
+                                          thr[k][:, None, None], soft,
+                                          masked[k])
             acc = white if acc is None else acc + white
             if need_cube:
-                rows.append(white.to(xb.dtype))
+                rows.append(white.to(store))
             cur = c_next
-        # its own tensor, as the kernel's acc is, also where g = 1
         rows.append(cur)
-        acc = acc.to(xb.dtype, copy=g == 1)
+        # its own tensor, as the kernel's acc is, also where g = 1
+        acc = acc.clone() if g == 1 else acc
         if not batched:
             return tuple(r[0] for r in rows), acc[0]
         return tuple(rows), acc
@@ -752,7 +759,7 @@ def fused_wow_group_plain(x: torch.Tensor, factors: Sequence[float],
 def fused_wow_group(x: torch.Tensor, factors: Sequence[float], thresholds,
                     g: int, sf: ScalingFunction, offset: int = 0,
                     soft: bool = True, masked: Tuple[bool, ...] = (),
-                    need_cube: bool = True):
+                    need_cube: bool = True, white_dtype=None):
     """Fused decompose+whiten of ``g`` scales at dilation base
     ``2^offset``: returns ``(rows, acc)`` where ``rows`` holds the ``g``
     whitened detail planes then the carry (the carry alone when
@@ -761,61 +768,73 @@ def fused_wow_group(x: torch.Tensor, factors: Sequence[float], thresholds,
     ``x`` is ``(H, W)`` or a frame stack ``(B, H, W)``; ``factors`` are
     ``g`` host floats (the per-scale weights); ``thresholds`` is a tensor
     of shape ``(g,)`` or ``(g, B)`` on ``x``'s device, used for the scales
-    with ``masked[k]``.
+    with ``masked[k]``.  The whites are stored in ``white_dtype``, by
+    default ``x``'s; the carry and acc in float32 for a bfloat16 ``x``
+    (the bfloat16 route: float32 inside), else in ``x``'s dtype.
 
     Route, by :func:`group_plan` (shape, ``g``, taps, ``offset`` and
     element size only): where a plan fits, one launch of
     ``csrc/whiten_group.cu`` on a CUDA ``x`` (the float32 tile, or the
-    streamed group for a bfloat16 ``x``; :func:`fused_wow_group_plain`
-    on a CPU ``x``); where no float32 tile fits (the B3spline from
-    offset 2 at g = 3), one :func:`~.hopper_deep.deep_whiten_step` per
-    scale (kernel A's deep form on a CUDA ``x``, its plain version on a
-    CPU ``x``), bitwise the group in float32.  A bfloat16 group whose
-    rings pass the shared memory (:func:`stream_plan` None: the JAX
-    plan's deep groups ``(5, 2)`` and ``(7, 1)`` of 256×25600) runs
-    :func:`fused_wow_group_plain` on any device, the JAX group's
-    rounding.  A CUDA ``x`` the kernels cannot take (float16, float64)
-    raises."""
+    streamed group where the whites are bfloat16: from a bfloat16 frame,
+    or a float32 carry with ``white_dtype`` bfloat16, a later group of the
+    bfloat16 route; :func:`fused_wow_group_plain` on a CPU ``x``); where
+    no plan fits (a float32 tile: the B3spline from offset 2 at g = 3; a
+    streamed group whose rings pass the shared memory: the JAX plan's
+    bfloat16 groups ``(5, 2)`` and ``(7, 1)`` of 256×25600), one
+    :func:`~.hopper_deep.deep_whiten_step` per scale on the widened input
+    (kernel A's deep form on a CUDA ``x``, its plain version on a CPU
+    ``x``), bitwise the group: the route is float32 inside, so its whites
+    round only on store wherever they are made.  A CUDA ``x`` the kernels
+    cannot take (float16, float64) raises."""
     from .hopper_deep import deep_whiten_step
+    store = _white_dtype(x, white_dtype)
+    lowp = low_precision(store)
     batched, xb, factors, masked, thr = _group_args(
         x, factors, thresholds, g, masked)
     B, H, W = xb.shape
-    plan = group_plan(B, H, W, g, sf.half_width, offset, x.element_size())
-    if plan is None and low_precision(x.dtype):
-        # a documented dispatch rule, as float64 runs plain: below float32
-        # the deep steps would round elsewhere than the JAX group (after
-        # every pass), so a group no plan holds runs the plain group body
-        return fused_wow_group_plain(x, factors, thresholds, g, sf, offset,
-                                     soft, masked, need_cube)
+    # a float32 carry with bfloat16 whites takes the streamed group too
+    plan = (stream_plan(B, H, W, g, sf.half_width, offset, 4)
+            if lowp and not low_precision(x.dtype)
+            else group_plan(B, H, W, g, sf.half_width, offset,
+                            x.element_size()))
     if plan is None:
-        rows, acc, cur = [], None, xb
+        rows, acc, cur = [], None, widen(xb)
+        if lowp:
+            # the whites round on store, so acc sums them unrounded from
+            # zero in float32
+            acc = torch.zeros(cur.shape, dtype=cur.dtype, device=x.device)
         for k in range(g):
             white, acc, cur = deep_whiten_step(
                 cur, acc, thr[k], sf=sf, scale=offset + k,
                 weight=factors[k], soft=soft, masked=masked[k],
-                write_plane=need_cube or k == 0)
-            if k == 0:
+                write_plane=need_cube or acc is None, white_dtype=store)
+            if acc is None:
                 # acc starts as scale 0's white, in a tensor of its own
                 acc = white.clone() if need_cube else white
             if need_cube:
                 rows.append(white)
     elif not x.is_cuda:
         return fused_wow_group_plain(x, factors, thresholds, g, sf, offset,
-                                     soft, masked, need_cube)
+                                     soft, masked, need_cube, store)
     else:
         check_kernel_input(x, sf, "fused_wow_group", bf16=True)
-        with tracing.launch(tracing.counter(GROUP_KERNEL, x.dtype), offset):
+        if lowp and store != torch.bfloat16:
+            raise TypeError("fused_wow_group: the streamed group stores "
+                            f"bfloat16 whites, not {store}")
+        with tracing.launch(_group_counter(x, store), offset):
             thr = thr.contiguous()
-            acc = torch.empty_like(xb)
-            cur = torch.empty_like(xb)
-            rows = ([torch.empty_like(xb) for _ in range(g)] if need_cube
-                    else [])
+            wide = xb.dtype if not lowp else torch.float32
+            acc = torch.empty(xb.shape, dtype=wide, device=x.device)
+            cur = torch.empty(xb.shape, dtype=wide, device=x.device)
+            rows = ([torch.empty(xb.shape, dtype=store, device=x.device)
+                     for _ in range(g)] if need_cube else [])
             lib = _lib_group()
             taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
             if isinstance(plan, StreamPlan):
-                entry = (lib.wt_whiten_group_bf16
+                entry = (lib.wt_whiten_group_stream_f32 if not lowp
+                         else lib.wt_whiten_group_bf16
                          if x.dtype == torch.bfloat16
-                         else lib.wt_whiten_group_stream_f32)
+                         else lib.wt_whiten_group_bf16_f32in)
                 shape = (plan.strip_w, plan.band_h)
             else:
                 if x.dtype != torch.float32:

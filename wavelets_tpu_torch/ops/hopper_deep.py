@@ -7,8 +7,9 @@ Counterpart of ``wavelets_tpu/ops/pallas_deep.py`` (signatures minus
   deep form (``csrc/whiten_step.cu``).  Float32: two launches, each a
   rows fold into a shared-memory row buffer and a cols fold out of it,
   the first writing ``c_next`` and the detail, the second the white and
-  ``recon`` (launch sizes: :func:`~.hopper_conv.step_plan`).  Bfloat16:
-  one launch of the residue-class stream, the detail kept on chip
+  ``recon`` (launch sizes: :func:`~.hopper_conv.step_plan`).  The
+  bfloat16 route (a float32 carry, ``white_dtype`` bfloat16): one launch
+  of the residue-class stream, the detail kept on chip
   (:func:`~.hopper_conv.stream_step_plan`).  The shallow scales' group
   tile (``csrc/whiten_group.cu``) cannot hold a deep scale's halo, as on
   the TPU.  ``halo=R`` is the JAX kernel's halo mode, which only the
@@ -17,22 +18,19 @@ Counterpart of ``wavelets_tpu/ops/pallas_deep.py`` (signatures minus
   without row reflection, and the outputs are its interior rows (one
   launch of the stream, counter ``whiten_step_halo``, float32 only, as
   the JAX package's sharded gate sends it).
-* :func:`deep_whiten_step2_split` — the bfloat16 pair ``(s, s+1)`` as
-  two launches of the stream with the middle carry stored in float32:
-  the JAX pair's rounding where kernel E's gate refuses the shape.
 * :func:`deep_whiten_step2` — scales ``(s, s+1)`` from the carry in one
   launch of kernel E (``csrc/whiten_pair.cu``), the middle carry kept on
   chip.  Float32: the torus, loaded and stored in whole 32-byte sectors
-  by a cluster of ``min(8, D/2)`` blocks (:func:`pair_plan`).  Bfloat16:
-  the residue-class stream, a row class pair's circle walked a tick a
-  row with ``k`` column classes held as their circle
-  (:func:`pair_stream_plan`).  :func:`can_deep2` is kernel E's gate, the
-  float32 tori's, for both forms (the bfloat16 stream takes every shape
-  it admits and more: the route's pairs and launch counts stay); where
-  it refuses, the caller takes two :func:`deep_whiten_step` calls, the
-  JAX package's rule when ``can_deep2`` is false (the two are
-  numerically identical, pallas_deep.py:950-952), or below float32 the
-  split.
+  by a cluster of ``min(8, D/2)`` blocks (:func:`pair_plan`).  The
+  bfloat16 route (``white_dtype`` bfloat16): the residue-class stream, a
+  row class pair's circle walked a tick a row with ``k`` column classes
+  held as their circle (:func:`pair_stream_plan`).  :func:`can_deep2` is
+  kernel E's gate, the float32 tori's, for both forms (the stream takes
+  every shape it admits and more: the route's pairs and launch counts
+  stay); where it refuses, the caller takes two :func:`deep_whiten_step`
+  calls, the JAX package's rule when ``can_deep2`` is false (the two are
+  numerically identical, pallas_deep.py:950-952), the bfloat16 route
+  too (its middle carry is float32 either way).
 * :func:`deep_whiten_plane` — whiten one materialized deep plane, on
   kernel D's deep-plane form (``csrc/whiten_plane.cu``: one launch of
   the row-buffer pass that kernel A's deep step and kernel G's second
@@ -52,14 +50,17 @@ Counterpart of ``wavelets_tpu/ops/pallas_deep.py`` (signatures minus
   earlier five per-pixel launches, an independent reference on the card
   for kernels F and G that no path calls.
 
-Kernel A's deep step and kernel E have bfloat16 forms (counters
-``whiten_step_bf16``, ``whiten_pair_bf16``), the JAX package's bfloat16
-stream (pallas_deep.py:329-340, :914-920): the carry read as float32,
-every fold, the detail and the pair's middle carry in float32, and
-``c_next``, the whites and the recon add rounded to bfloat16 on store;
-thresholds float32.  Their plain versions do the same for any dtype
-below float32.  Kernels D and G have none: the JAX package runs them in
-float32 only.
+Kernel A's deep step and kernel E have the bfloat16 route's forms
+(counters ``whiten_step_bf16``, ``whiten_pair_bf16``): float32 inside,
+bfloat16 at the boundary.  They read a float32 carry and recon, compute
+every fold, the detail and the pair's middle carry in float32, write
+``c_next`` and the recon in float32 (recon += the unrounded white) and
+round only the whites, on store; thresholds float32.  Their plain
+versions are the float32 plain versions on the widened carry, the whites
+rounded to ``white_dtype`` on store.  This departs on purpose from the
+JAX package's bfloat16 stream (pallas_deep.py:329-340, :914-920), which
+rounds ``c_next`` and the recon to bfloat16 (PERF.md, section 6).
+Kernels D and G have none: the JAX package runs them in float32 only.
 
 A CPU tensor runs each kernel's plain version; a CUDA tensor runs the
 kernel or raises.
@@ -91,7 +92,6 @@ __all__ = ["deep_whiten_step", "deep_whiten_step_plain", "can_deep2",
            "PairPlan", "pair_plan", "PairStreamPlan", "pair_stream_plan",
            "pair_stream_smem", "PAIR_STREAM_THREADS",
            "deep_whiten_step2", "deep_whiten_step2_plain",
-           "deep_whiten_step2_split", "deep_whiten_step2_split_plain",
            "deep_whiten_plane", "deep_whiten_plane_plain",
            "deep_whiten_plane_ref",
            "can_deep_bilateral", "deep_bilateral_whiten_step",
@@ -185,24 +185,22 @@ def _step_halo_plain(carry, recon, thr, sf, scale, weight, soft, masked,
 
 
 def _step_plain(carry, recon, threshold, sf, scale, weight, soft, masked,
-                write_plane, store, nxt):
-    """Plain kernel A deep step: the folds in float32 from the carry (any
-    dtype), the white and ``recon`` stored as ``store``, ``c_next`` as
-    ``nxt``, counted under the store's counter."""
+                write_plane, store):
+    """Plain kernel A deep step: the float32 step on the widened carry
+    (any dtype), ``recon`` += the unrounded white, the white stored as
+    ``store``, ``c_next`` left in the widened dtype, counted under the
+    store's counter."""
     with tracing.plain(tracing.counter(KERNEL, store), scale):
         _check_args(carry, recon, write_plane)
         thr = tracing.as_tensor(threshold, dtype=threshold_dtype(store),
                                 device=carry.device,
                                 site="step.threshold").reshape(-1)
         thr = thr.expand(carry.shape[0])[:, None, None]
-        # below float32 in float32 from the carry, rounded on store, as the
-        # JAX package's low-precision stream does
         white, c_next = whiten_scale_plain(widen(carry), thr, weight, sf,
                                            scale, soft, masked)
-        white, c_next = white.to(store), c_next.to(nxt)
         if recon is not None:
             recon.add_(white)
-        return (white if write_plane else None), recon, c_next
+        return (white.to(store) if write_plane else None), recon, c_next
 
 
 def deep_whiten_step_plain(carry: torch.Tensor,
@@ -210,11 +208,11 @@ def deep_whiten_step_plain(carry: torch.Tensor,
                            threshold: torch.Tensor, *, sf: ScalingFunction,
                            scale: int, weight: float, soft: bool = True,
                            masked: bool = False, write_plane: bool = True,
-                           halo: int = 0):
+                           halo: int = 0, white_dtype=None):
     """Plain PyTorch version of :func:`deep_whiten_step` (any dtype or
-    device; below float32 the bfloat16 form's rounding; halo mode in
-    float32 and float64); like the kernel it adds into ``recon`` in
-    place."""
+    device: the float32 step on a carry below float32, the white stored
+    in ``white_dtype``, by default the carry's; halo mode in float32 and
+    float64); like the kernel it adds into ``recon`` in place."""
     if halo:
         with tracing.plain(HALO_KERNEL, scale):
             thr = tracing.as_tensor(threshold, dtype=carry.dtype,
@@ -224,14 +222,15 @@ def deep_whiten_step_plain(carry: torch.Tensor,
                 carry, recon, thr.expand(carry.shape[0])[:, None, None], sf,
                 scale, weight, soft, masked, write_plane, halo)
     return _step_plain(carry, recon, threshold, sf, scale, weight, soft,
-                       masked, write_plane, carry.dtype, carry.dtype)
+                       masked, write_plane,
+                       carry.dtype if white_dtype is None else white_dtype)
 
 
 def deep_whiten_step(carry: torch.Tensor, recon: Optional[torch.Tensor],
                      threshold: torch.Tensor, *, sf: ScalingFunction,
                      scale: int, weight: float, soft: bool = True,
                      masked: bool = False, write_plane: bool = True,
-                     halo: int = 0):
+                     halo: int = 0, white_dtype=None):
     """One WOW scale at dilation ``2^scale``: returns ``(white, recon',
     c_next)`` where ``c_next`` is the next scale's carry.
 
@@ -240,9 +239,13 @@ def deep_whiten_step(carry: torch.Tensor, recon: Optional[torch.Tensor],
     ``masked``).  ``recon`` (or None) is accumulated **in place**,
     ``recon' = recon += white``, which saves the separate read of
     ``white`` an out-of-place sum would cost; ``white`` is None when
-    ``write_plane=False`` (then ``recon`` is required).  A CPU carry runs
-    :func:`deep_whiten_step_plain`; a float32 or bfloat16 CUDA carry
-    runs kernel A's deep form in that dtype; any other raises.
+    ``write_plane=False`` (then ``recon`` is required).  ``white_dtype``
+    (by default the carry's) is the white's dtype: bfloat16 from a
+    float32 carry and recon is the bfloat16 route's step, whose
+    ``c_next`` and recon stay float32.  A CPU carry runs
+    :func:`deep_whiten_step_plain`; a float32 CUDA carry runs kernel A's
+    deep form (two launches of the row-buffer pass, or for bfloat16
+    whites one launch of the stream); any other raises.
 
     ``halo > 0`` is halo mode (the sharded engine's band tail): ``carry``
     is ``(B, H + 2·halo, W)``, a band extended by its neighbours' rows or
@@ -255,8 +258,14 @@ def deep_whiten_step(carry: torch.Tensor, recon: Optional[torch.Tensor],
     if not carry.is_cuda:
         return deep_whiten_step_plain(
             carry, recon, threshold, sf=sf, scale=scale, weight=weight,
-            soft=soft, masked=masked, write_plane=write_plane, halo=halo)
-    check_kernel_input(carry, sf, "deep_whiten_step", bf16=not halo)
+            soft=soft, masked=masked, write_plane=write_plane, halo=halo,
+            white_dtype=white_dtype)
+    check_kernel_input(carry, sf, "deep_whiten_step")
+    store = carry.dtype if white_dtype is None else white_dtype
+    if store not in (torch.float32, torch.bfloat16) or (
+            halo and store != torch.float32):
+        raise TypeError(f"deep_whiten_step: no kernel stores {store} whites"
+                        f"{' in halo mode' if halo else ''}")
     if halo:
         H = _halo_rows(carry, halo, sf, scale)
         _check_halo_recon(carry, recon, H, write_plane)
@@ -266,16 +275,16 @@ def deep_whiten_step(carry: torch.Tensor, recon: Optional[torch.Tensor],
         out_shape = carry.shape
     if recon is not None:
         _check_same_dtype(carry, recon, "deep_whiten_step")
-        check_kernel_input(recon, sf, "deep_whiten_step", bf16=True)
+        check_kernel_input(recon, sf, "deep_whiten_step")
     thr = tracing.as_tensor(threshold, dtype=torch.float32,
                             device=carry.device,
                             site="step.threshold").reshape(-1)
     thr = thr.expand(carry.shape[0]).contiguous()
-    white = (torch.empty(out_shape, dtype=carry.dtype, device=carry.device)
+    white = (torch.empty(out_shape, dtype=store, device=carry.device)
              if write_plane else None)
     c_next = torch.empty(out_shape, dtype=carry.dtype, device=carry.device)
     acc_mode = 0 if recon is None else 2
-    if halo or carry.dtype == torch.bfloat16:
+    if halo or store == torch.bfloat16:
         launch_whiten_stream(carry, c_next, white, recon, acc_mode, thr,
                              weight, masked, soft, sf, scale, halo)
     else:
@@ -284,61 +293,6 @@ def deep_whiten_step(carry: torch.Tensor, recon: Optional[torch.Tensor],
         launch_whiten_step(carry, c_next, detail, white, recon, acc_mode,
                            thr, weight, masked, soft, sf, scale)
     return white, recon, c_next
-
-
-def deep_whiten_step2_split_plain(carry: torch.Tensor,
-                                  recon: torch.Tensor, thresholds, *,
-                                  sf: ScalingFunction, scale: int, weights,
-                                  soft: bool = True, masked=(False, False),
-                                  write_plane: bool = True):
-    """Plain PyTorch version of :func:`deep_whiten_step2_split`: two plain
-    steps, the middle carry kept in float32 (bitwise
-    :func:`deep_whiten_step2_plain`), counted as two plain calls of the
-    bfloat16 step."""
-    thr = _pair_args(carry, recon, thresholds, weights, masked, write_plane)
-    w1, _, mid = _step_plain(carry, recon, thr[0], sf, scale,
-                             float(weights[0]), soft, bool(masked[0]),
-                             write_plane, carry.dtype, torch.float32)
-    w2, _, c_next = _step_plain(mid, recon, thr[1], sf, scale + 1,
-                                float(weights[1]), soft, bool(masked[1]),
-                                write_plane, carry.dtype, carry.dtype)
-    return w1, w2, recon, c_next
-
-
-def deep_whiten_step2_split(carry: torch.Tensor, recon: torch.Tensor,
-                            thresholds, *, sf: ScalingFunction, scale: int,
-                            weights, soft: bool = True,
-                            masked=(False, False), write_plane: bool = True):
-    """The bfloat16 pair ``(scale, scale+1)`` as two launches of kernel A's
-    bfloat16 deep step, the middle carry stored in float32: the rounding
-    of the JAX pair (whose middle carry never leaves VMEM) where kernel
-    E's gate refuses the shape (:func:`can_deep2` false).  The signature
-    and returns of :func:`deep_whiten_step2`, with ``recon`` required (the
-    tail always accumulates).  A CPU carry runs
-    :func:`deep_whiten_step2_split_plain`; a bfloat16 CUDA carry the two
-    launches of the stream (``wt_whiten_step_bf16_f32next``, then
-    ``wt_whiten_step_bf16_f32carry``, each counted as ``whiten_step_bf16``);
-    any other raises."""
-    if not carry.is_cuda:
-        return deep_whiten_step2_split_plain(
-            carry, recon, thresholds, sf=sf, scale=scale, weights=weights,
-            soft=soft, masked=masked, write_plane=write_plane)
-    if carry.dtype != torch.bfloat16 or recon is None:
-        raise TypeError("deep_whiten_step2_split: a bfloat16 carry and "
-                        "recon (the float32-carry pair is bfloat16's)")
-    check_kernel_input(carry, sf, "deep_whiten_step2_split", bf16=True)
-    check_kernel_input(recon, sf, "deep_whiten_step2_split", bf16=True)
-    thr = _pair_args(carry, recon, thresholds, weights, masked, write_plane)
-    mid = torch.empty(carry.shape, dtype=torch.float32, device=carry.device)
-    c_next = torch.empty_like(carry)
-    whites = []
-    for k, (src, dst) in enumerate(((carry, mid), (mid, c_next))):
-        white = torch.empty_like(carry) if write_plane else None
-        launch_whiten_stream(src, dst, white, recon, 2, thr[k].contiguous(),
-                             float(weights[k]), bool(masked[k]), soft, sf,
-                             scale + k)
-        whites.append(white)
-    return whites[0], whites[1], recon, c_next
 
 
 # ---------------------------------------------------------------------
@@ -422,22 +376,21 @@ class PairStreamPlan:
 
 def pair_stream_smem(k: int, window: int, hw: int, circle: bool) -> int:
     """Shared bytes of a stream block, as ``csrc/whiten_pair.cu::
-    pair_layout`` lays them out: ``pts = window·k`` points a row; in
-    bfloat16 the carry's ring of ``2hw+2`` rows, two recon rows and the
-    ring of ``white_s`` (``3hw+2`` rows), each row padded to 16 bytes; in
-    float32 the middle carry's ring (``4hw+2`` rows), the squared and the
-    plain detail of scale ``s`` (``2hw+2`` and ``hw+2``) and of ``s+1``
+    pair_layout`` lays them out, all float32, each row of ``pts =
+    window·k`` points padded to 16 bytes: the carry's ring of ``2hw+2``
+    rows, two recon rows, the ring of ``white_s`` (``3hw+2`` rows), the
+    middle carry's ring (``4hw+2`` rows), the squared and the plain
+    detail of scale ``s`` (``2hw+2`` and ``hw+2``) and of ``s+1``
     (``4hw+2`` and ``2hw+2``); two sets of the four rows-fold buffers,
     each with ``hw`` (scale ``s``) or ``2hw`` (``s+1``) positions of
     margin a side on the circle."""
-    pts = window * k
-    ph, pf = -(-pts // 8) * 8, -(-pts // 4) * 4
+    pf = -(-(window * k) // 4) * 4
     m1, m2 = (hw, 2 * hw) if circle else (0, 0)
     t1 = -(-(window + 2 * m1) * k // 4) * 4
     t2 = -(-(window + 2 * m2) * k // 4) * 4
-    rows_h = (2 * hw + 2) + 2 + (3 * hw + 2)
-    rows_f = 2 * (4 * hw + 2) + 2 * (2 * hw + 2) + (hw + 2)
-    return 2 * ph * rows_h + 4 * pf * rows_f + 4 * 2 * (2 * t1 + 2 * t2)
+    rows = ((2 * hw + 2) + 2 + (3 * hw + 2) + 2 * (4 * hw + 2)
+            + 2 * (2 * hw + 2) + (hw + 2))
+    return 4 * pf * rows + 4 * 2 * (2 * t1 + 2 * t2)
 
 
 @functools.lru_cache(maxsize=None)
@@ -517,7 +470,8 @@ def _lib_pair():
                    ctypes.c_longlong, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     fn = lib.wt_whiten_pair_bf16
-    # ..., B, H, W, D, then k, run, chunk, threads, grid, shared bytes
+    # a float32 carry, c_next and recon, bfloat16 whites, ..., B, H, W,
+    # D, then k, run, chunk, threads, grid, shared bytes
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_float] * 2
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p, ctypes.c_int]
                    + [ctypes.c_longlong] * 10 + [ctypes.c_void_p])
@@ -541,53 +495,62 @@ def deep_whiten_step2_plain(carry: torch.Tensor,
                             thresholds: torch.Tensor, *,
                             sf: ScalingFunction, scale: int, weights,
                             soft: bool = True, masked=(False, False),
-                            write_plane: bool = True):
+                            write_plane: bool = True, white_dtype=None):
     """Plain PyTorch version of :func:`deep_whiten_step2` (any dtype or
-    device): two plain steps; like the kernel it adds into ``recon`` in
-    place, scale ``s`` first.  Below float32 both steps run in float32
-    from the carry, so the middle carry never rounds, and the whites and
-    ``c_next2`` round on store (the JAX pair's bfloat16 form)."""
-    with tracing.plain(tracing.counter(PAIR_KERNEL, carry.dtype), scale):
+    device): two plain float32 steps on the widened carry; like the
+    kernel it adds the unrounded whites into ``recon`` in place, scale
+    ``s`` first, and stores the whites in ``white_dtype`` (by default the
+    carry's), ``c_next2`` in the widened dtype."""
+    store = carry.dtype if white_dtype is None else white_dtype
+    with tracing.plain(tracing.counter(PAIR_KERNEL, store), scale):
         thr = _pair_args(carry, recon, thresholds, weights, masked,
                          write_plane)
-        dt = carry.dtype
         whites, cur = [], widen(carry)
         for k in range(2):
             white, cur = whiten_scale_plain(
                 cur, thr[k][:, None, None], float(weights[k]), sf, scale + k,
                 soft, bool(masked[k]))
-            white = white.to(dt)
             if recon is not None:
                 recon.add_(white)
-            whites.append(white if write_plane else None)
-        return whites[0], whites[1], recon, cur.to(dt)
+            whites.append(white.to(store) if write_plane else None)
+        return whites[0], whites[1], recon, cur
 
 
 def deep_whiten_step2(carry: torch.Tensor, recon: Optional[torch.Tensor],
                       thresholds: torch.Tensor, *, sf: ScalingFunction,
                       scale: int, weights, soft: bool = True,
-                      masked=(False, False), write_plane: bool = True):
+                      masked=(False, False), write_plane: bool = True,
+                      white_dtype=None):
     """Two consecutive deep WOW scales ``(scale, scale+1)`` in one pass:
     returns ``(white_s, white_s1, recon', c_next2)``.  ``thresholds``:
     ``(2, B)`` (or ``(2,)``) per-scale, per-frame thresholds on the
     carry's device; ``weights``/``masked``: pairs.  ``recon`` (or None) is
     accumulated in place, ``(recon + white_s) + white_s1``, the order of
     two :func:`deep_whiten_step` calls; the whites are None when
-    ``write_plane=False``.  Gate with :func:`can_deep2`.  A CPU carry runs
+    ``write_plane=False``.  ``white_dtype`` (by default the carry's) is
+    the whites' dtype: bfloat16 from a float32 carry and recon is the
+    bfloat16 route's pair, whose ``c_next2`` and recon stay float32.
+    Gate with :func:`can_deep2`.  A CPU carry runs
     :func:`deep_whiten_step2_plain`; a float32 CUDA carry kernel E's torus
-    (raises where :func:`pair_plan` refuses), a bfloat16 one its stream
-    (raises where :func:`pair_stream_plan` does); any other raises."""
+    (raises where :func:`pair_plan` refuses), or for bfloat16 whites its
+    stream (raises where :func:`pair_stream_plan` does); any other
+    raises."""
     if not carry.is_cuda:
         return deep_whiten_step2_plain(
             carry, recon, thresholds, sf=sf, scale=scale, weights=weights,
-            soft=soft, masked=masked, write_plane=write_plane)
-    check_kernel_input(carry, sf, "deep_whiten_step2", bf16=True)
+            soft=soft, masked=masked, write_plane=write_plane,
+            white_dtype=white_dtype)
+    check_kernel_input(carry, sf, "deep_whiten_step2")
+    store = carry.dtype if white_dtype is None else white_dtype
+    if store not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"deep_whiten_step2: no kernel stores {store} "
+                        "whites")
     thr = _pair_args(carry, recon, thresholds, weights, masked, write_plane)
     if recon is not None:
         _check_same_dtype(carry, recon, "deep_whiten_step2")
-        check_kernel_input(recon, sf, "deep_whiten_step2", bf16=True)
+        check_kernel_input(recon, sf, "deep_whiten_step2")
     B, H, W = carry.shape
-    if carry.dtype == torch.bfloat16:
+    if store == torch.bfloat16:
         p = pair_stream_plan(B, H, W, 1 << scale, sf.half_width)
     else:
         p = pair_plan(B, H, W, scale)
@@ -595,16 +558,16 @@ def deep_whiten_step2(carry: torch.Tensor, recon: Optional[torch.Tensor],
             raise ValueError("deep_whiten_step2: kernel E does not take "
                              "this shape (use can_deep2 before dispatch)")
     c_next = torch.empty_like(carry)
-    w1 = torch.empty_like(carry) if write_plane else None
-    w2 = torch.empty_like(carry) if write_plane else None
-    with tracing.launch(tracing.counter(PAIR_KERNEL, carry.dtype), scale):
+    w1 = torch.empty_like(carry, dtype=store) if write_plane else None
+    w2 = torch.empty_like(carry, dtype=store) if write_plane else None
+    with tracing.launch(tracing.counter(PAIR_KERNEL, store), scale):
         lib = _lib_pair()
         taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
         args = (_ptr(carry), _ptr(c_next), _ptr(w1), _ptr(w2), _ptr(recon),
                 _ptr(thr), float(weights[0]), float(weights[1]),
                 int(bool(masked[0])), int(bool(masked[1])), int(bool(soft)),
                 taps, len(sf.taps), B, H, W, 1 << scale)
-        if carry.dtype == torch.bfloat16:
+        if store == torch.bfloat16:
             code = lib.wt_whiten_pair_bf16(
                 *args, p.k, p.run, p.chunk, p.threads, p.grid, p.smem_bytes,
                 _build.stream_ptr(carry.device))

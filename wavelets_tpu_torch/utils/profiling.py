@@ -75,13 +75,14 @@ WHITEN_SCALE_OPS = 4 * FOLD_OPS + 8
 
 
 # ---- bytes of kernels A and E: each input read once, each output
-# written once, ``itemsize`` bytes an element (4 float32, 2 bfloat16) ----
+# written once; the frame and the whites ``itemsize`` bytes an element
+# (4 float32, 2 bfloat16), the carries and recon float32 in both routes ----
 
 def group_bytes(pixels: int, g: int, need_cube: bool = True,
                 itemsize: int = 4) -> int:
     """Kernel A's group of ``g`` scales: read the frame, write the ``g``
     whites (with ``need_cube``), the carry and acc."""
-    return pixels * itemsize * (1 + (g if need_cube else 0) + 2)
+    return pixels * (itemsize * (1 + (g if need_cube else 0)) + 2 * 4)
 
 
 def step_bytes(pixels: int, recon: bool = True, white: bool = True,
@@ -89,14 +90,14 @@ def step_bytes(pixels: int, recon: bool = True, white: bool = True,
     """Kernel A's deep step: read the carry (and recon), write c_next, the
     white and recon; the float32 detail between its two launches is
     scratch, not the function's."""
-    return pixels * itemsize * (2 + int(white) + 2 * int(recon))
+    return pixels * (4 * (2 + 2 * int(recon)) + itemsize * int(white))
 
 
 def pair_bytes(pixels: int, recon: bool = True, whites: bool = True,
                itemsize: int = 4) -> int:
     """Kernel E: read the carry (and recon), write c_next2, two whites and
     recon."""
-    return pixels * itemsize * (2 + 2 * int(whites) + 2 * int(recon))
+    return pixels * (4 * (2 + 2 * int(recon)) + itemsize * 2 * int(whites))
 
 
 def halo_step_bytes(H: int, W: int, halo: int, itemsize: int = 4) -> int:
