@@ -1551,6 +1551,26 @@ def test_bf16_known_noise_frame_at_4096(dev):
         assert_close_scaled(c_k[k], c32[k], 2 ** -8, scale)
 
 
+@pytest.mark.parametrize("route", ["bilateral", "stack"])
+def test_fused_body_waits_for_no_earlier_call(dev, route):
+    # the fused body's factor table is filled on the card: a warm bilateral
+    # frame and a stack on the pieces route, lazy noise, at 1024², make no
+    # synchronising CUDA operation
+    x = torch.from_numpy((np.random.default_rng(23).normal(
+        size=(4, 1024, 1024)) * 3 + 100).astype(np.float32)).to(dev)
+    kw = dict(denoise_coefficients=[5, 2])
+    run = {"bilateral": lambda: wow(x[0], bilateral=1, **kw),
+           "stack": lambda: wow_stack(x, with_coefficients=False, **kw)}[route]
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
 def test_bf16_merged_route_raises_without_its_kernel(dev, monkeypatch):
     x = _bf16(np.random.default_rng(8), (512, 512), dev)
 

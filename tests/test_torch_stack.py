@@ -217,6 +217,70 @@ def test_wow_core_stack_axes(stack):
         twow.wow_core(x, noise, axes=(0, 1), **st)
 
 
+#: the fused body's calls to kernel D: (a stack?, options)
+TABLE_CASES = {
+    "bilateral-frame": (False, dict(bilateral=1,
+                                    denoise_coefficients=[5, 2])),
+    "bilateral-frame-weights": (False, dict(
+        bilateral=1, weights=[0.3, 2, 1.1], denoise_coefficients=[5, 2])),
+    "stack-weights": (True, dict(with_coefficients=False,
+                                 weights=[0.3, 2, 1.1],
+                                 denoise_coefficients=[5, 2])),
+    "preserve-variance-stack": (True, dict(
+        preserve_variance=True, noise=0.5, weights=[0.3, 2, 1.1],
+        denoise_coefficients=[2])),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TABLE_CASES))
+def test_fused_factor_table_is_the_host_copy(stack, monkeypatch, case):
+    # kernel D's factor table, filled on the frame's device, holds the
+    # bits of torch.as_tensor of each weight (under preserve_variance, of
+    # the device power norms w·sqrt(mean(c²)) per frame), and the call's
+    # recon and planes are those that the copied table gives
+    batched, kw = TABLE_CASES[case]
+    x = torch.from_numpy(stack.astype(np.float32))
+    w = [float(v) for v in kw.get("weights", [])] + [1.0] * 8
+    pv = kw.get("preserve_variance", False)
+    real = hopper_wow.fused_whiten_pieces
+    tables, copied = [], []
+
+    def spy(pieces, factors, thresholds, sf, n_fast, layout, **opts):
+        def value(s):
+            if not pv:
+                return w[s]
+            k, r = layout[s]
+            norm = torch.stack([torch.sqrt(torch.mean(c ** 2))
+                                for c in pieces[k][r]])
+            return w[s] * (norm if opts["batch_major"] else norm[0])
+
+        host = torch.stack([torch.as_tensor(value(s), dtype=torch.float32)
+                            for s in range(n_fast)])
+        tables.append((factors, host))
+        return real(pieces, host if copied else factors, thresholds, sf,
+                    n_fast, layout, **opts)
+
+    monkeypatch.setattr(hopper_wow, "fused_whiten_pieces", spy)
+
+    def run():
+        if batched:
+            return T.wow_stack(x, device="cpu", **kw)
+        recon, coeffs = T.wow(x[0], device="cpu", **kw)
+        return recon, coeffs.data
+
+    filled = run()
+    copied.append(True)
+    recon, planes = run()
+    assert len(tables) == 2
+    factors, host = tables[0]
+    assert factors.shape == ((3, 2) if batched and pv else (3,))
+    assert torch.equal(factors, host)
+    assert torch.equal(filled[0], recon)
+    assert (planes is None) == (filled[1] is None)
+    if planes is not None:
+        assert torch.equal(filled[1], planes)
+
+
 @pytest.mark.parametrize("dtype", ["bf16", "f16"])
 def test_wow_stack_low_precision(dtype):
     # once refused: a serving stack below float32 runs the per-frame

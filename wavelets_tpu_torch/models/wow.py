@@ -490,11 +490,14 @@ def _wow_body_fused(pieces, layout, tail, noise, has_noise, sf, n_scales,
 
     def factor(s):
         # the per-scale power norm sqrt(mean(c²)) (watroo/utils.py:178-184),
-        # per frame for a stack
+        # per frame for a stack; else the weight as a fill on the frame's
+        # device: a copy from host memory would wait for the calls queued
+        # before this one
         if preserve_variance:
             return weights[s] * _per_frame(
                 lambda c: torch.sqrt(torch.mean(c ** 2)), plane(s), batched)
-        return weights[s]
+        return torch.full((), float(weights[s]), dtype=torch.float32,
+                          device=noise.device)
 
     def one(t):
         # a single frame as the kernels' batch of one
@@ -503,10 +506,7 @@ def _wow_body_fused(pieces, layout, tail, noise, has_noise, sf, n_scales,
     n_fast = min(n_scales, N_FAST, tail_start)
     outs = hopper_wow.fused_whiten_pieces(
         pieces if batched else tuple(p[:, None] for p in pieces),
-        torch.stack([tracing.as_tensor(factor(s), dtype=torch.float32,
-                                       device=noise.device,
-                                       site="fused.factors")
-                     for s in range(n_fast)]),
+        torch.stack([factor(s) for s in range(n_fast)]),
         torch.stack([thr_of(s) for s in range(n_fast)]), sf, n_fast,
         tuple(layout[:n_fast]), soft=soft_threshold,
         write_planes=need_planes, batch_major=batched,
