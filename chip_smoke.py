@@ -102,11 +102,11 @@ CUDA toolkit.  It
 The bfloat16 slice adds: the bfloat16 forms of kernel A (the streamed
 group, g = 3 and 4 at offsets 0-2, the B3spline and the Triangle, at
 4096², 1000×1536, 257×513, 300×1020, 16², a batch of 3 and one of 4 at
-4096², the groups of the wide frames 512×4096, 1024×14080 and
-256×25600, ``need_cube`` on
-and off, soft, hard and unmasked; deep step s = 4..9 at 4096², an odd
-shape and a batch) and of kernel E's residue-class stream ((7, 8) at
-4096², (4, 5) at 512², a batch, 512×4096), each bitwise to its bfloat16 plain version, inputs unchanged,
+4096², the group (0, 4) of the wide frames 512×4096, 1024×14080 and
+256×25600, ``need_cube`` on and off, soft, hard and unmasked; deep step
+s = 4..9 at 4096², an odd shape and a batch) and of kernel E's
+residue-class stream ((7, 8) at 4096², (4, 5) at 512², a batch,
+512×4096), each bitwise to its bfloat16 plain version, inputs unchanged,
 the measured max abs error of the 4096² checks in the ``kernels`` line;
 the paths ``wow_4k_L6_bf16_known_noise`` and ``wow_4k_L10_bf16``, with
 exact bfloat16 launch counts and no float32 kernel, and on the plain
@@ -125,9 +125,10 @@ engine's band tail), 4096² on a batch of 3 and 257×513 split into 4 row
 bands, each extended as the engine extends them (s = 9 at 4096² needs a
 gathered window), s = 3..9, soft, hard and unmasked, every output bitwise
 to its plain version and the bands concatenated bitwise to the
-single-frame deep step; the bfloat16 pair with a float32 middle carry
-(two launches of kernel A's bfloat16 step, where kernel E's gate
-refuses the shape) bitwise to ``deep_whiten_step2_plain``; and the paths M1-M4 of
+single-frame deep step; the bfloat16 pair as two launches of kernel A's
+bfloat16 step with a float32 middle carry, bitwise to
+``deep_whiten_step2_plain`` (so which kernel takes a scale changes no
+white); and the paths M1-M4 of
 ``wavelets_tpu_torch.parallel`` on a one-rank NCCL group set up in this
 process — M1 ``sharded_wow_1chip_4k_L6_serving`` (stage 1, bitwise to
 ``wow_stack``), M2 ``sharded_wow`` of one 4096² frame, L10, denoise [5, 2],
@@ -789,11 +790,10 @@ def main():
         # at offsets 0-2, the B3spline and the Triangle, need_cube on and
         # off, soft, hard and unmasked; a batch of 3 and one of 4 at 4096²;
         # a frame smaller than the halo (16²); widths off 8 columns (513,
-        # 1020); the groups of ROADMAP C1's wide frames: (0, 4) of 512×4096
-        # L8 and 1024×14080, (0, 4) and (4, 1) of 256×25600 (its (5, 2) and
-        # (7, 1) have no plan: the documented plain rule).  The shapes
-        # after the first five take frames of their own generator, so every
-        # later phase draws the same frames from rng as before they came
+        # 1020); the route's group (0, 4) on the wide frames 512×4096,
+        # 1024×14080 and 256×25600.  The shapes after the first five take
+        # frames of their own generator, so every later phase draws the
+        # same frames from rng as before they came
         b3, tri = B3SPLINE, TRIANGLE
         own = np.random.default_rng(12)
         group_cases = (
@@ -808,7 +808,7 @@ def main():
             ((300, 1020), None, ((4, 0, b3),)),
             ((512, 4096), None, ((4, 0, b3),)),
             ((1024, 14080), None, ((4, 0, b3),)),
-            ((256, 25600), None, ((4, 0, b3), (1, 4, b3))))
+            ((256, 25600), None, ((4, 0, b3),)))
         for i, (shape, b, groups) in enumerate(group_cases):
             x = bf16_frame(shape, b, gen=own if i >= 5 else None)
             x0 = x.clone()
@@ -865,8 +865,8 @@ def main():
                         check_lp("whiten_step_bf16", a, r, what, shape)
             check_bitwise(x, x0, f"bf16 step {shape}: input changed")
         # kernel E at (7, 8) on 4096², (4, 5) on 512², a batch of 3, and
-        # on C1's 512×4096 (the stream takes it; the gate, kernel E's
-        # float32 tori's, leaves it to the split on the route)
+        # on 512×4096 (the stream takes it; the gate, kernel E's float32
+        # tori's, leaves it to two steps on the route)
         for shape, b, s_ in (((4096, 4096), 1, 7), ((512, 512), 1, 4),
                              ((512, 512), 3, 4), ((512, 4096), 1, 4)):
             x = bf16_frame(shape, b).float()
@@ -959,7 +959,9 @@ def main():
               "plain version, the bands concatenated bitwise to the "
               "single-frame step (s = 3..9, 4096² b=3 and 257×513)")
 
-    # ---- 3j. the bfloat16 pair as two steps (C1) -------------------------
+    # ---- 3j. the bfloat16 pair as two steps ------------------------------
+    # the route is float32 inside, so a pair is bitwise its two steps: which
+    # kernel takes a scale changes no white (the route's geometry is free)
     def bf16_two_steps(x, acc, thr2, *, sf, scale, weights, masked, **kw):
         w1, _, mid = hopper_deep.deep_whiten_step(
             x, acc, thr2[0], sf=sf, scale=scale, weight=weights[0],
@@ -969,7 +971,7 @@ def main():
             masked=masked[1], **kw)
         return w1, w2, acc, c
 
-    with Phase("bfloat16 split pair checks"):
+    with Phase("bfloat16 pair as two steps checks"):
         n_split = 0
         for shape, b, s_ in (((512, 4096), 1, 4), ((1024, 8192), 1, 5),
                              ((512, 4096), 3, 4), ((4096, 4096), 1, 7)):
@@ -986,18 +988,19 @@ def main():
                 out_p = hopper_deep.deep_whiten_step2_plain(x, a_p, thr2,
                                                             **kw)
                 torch.cuda.synchronize()
-                what = f"split pair {shape} b={b} s={s_} masked={masked}"
+                what = (f"pair as two steps {shape} b={b} s={s_} "
+                        f"masked={masked}")
                 require(_build.LAUNCHES["whiten_step_bf16"] == n0 + 2,
                         what + ": not two launches")
                 for a, r_ in zip(out_k, out_p):
                     check_bitwise(a, r_, what)
                 n_split += 1
-            check_bitwise(x, x0, f"split pair {shape}: input changed")
+            check_bitwise(x, x0,
+                          f"pair as two steps {shape}: input changed")
         del x, x0, acc
-        print(f"bfloat16 split pair: {n_split} checks bitwise to "
-              "deep_whiten_step2_plain (the route's pair where kernel "
-              "E's gate refuses: (4, 5) on 512×4096, (5, 6) on "
-              "1024×8192)")
+        print(f"bfloat16 pair as two steps: {n_split} checks bitwise to "
+              "deep_whiten_step2_plain ((4, 5) on 512×4096, (5, 6) on "
+              "1024×8192, (7, 8) on 4096²)")
 
     # ---- 4. the paths ----------------------------------------------------
     launches = {}
@@ -2433,8 +2436,8 @@ def main():
         b_p = bound_ms(pair_bytes(n, itemsize=2), 2 * n * WHITEN_SCALE_OPS)
         p_s = timed(lambda: bf16_two_steps(xs, rb, thr2, **pkw), torch)
         print(f"  bf16 pair (7, 8) 4096²: {p_k:.3f} ms, plain {p_p:.3f} "
-              f"ms, bound {b_p[0]:.3f} ({b_p[1]}); the split pair (two "
-              f"launches of kernel A's stream) {p_s:.3f} ms")
+              f"ms, bound {b_p[0]:.3f} ({b_p[1]}); as two launches of "
+              f"kernel A's stream {p_s:.3f} ms")
         kernels_out.append(dict(
             name="whiten_pair_bf16", route="cuda",
             source="wavelets_tpu_torch/csrc/whiten_pair.cu",

@@ -28,9 +28,7 @@ are only timed.
   built; the taps at run time;
 * kernel A's group (``whiten_group.cu``), scales 0-2 at 4096²: as built
   (32-row tile); a 64-row tile; the taps at run time; no whitening
-  epilogue; one fold a lane at a time (no four-way overlap); the streamed
-  group's float32 instantiation (``stream_plan`` of 4-byte elements, no
-  path's);
+  epilogue; one fold a lane at a time (no four-way overlap);
 * the bfloat16 forms (``whiten_group_bf16``, ``whiten_step_bf16``,
   ``whiten_pair_bf16``): the group g = 4 (scales 0-3) at 4096² as
   planned (the streamed group, float32 inside: 64-column strips,
@@ -108,7 +106,6 @@ VARIANTS = {
     "group, no whitening epilogue": ("whiten_group", ("NO_EPILOGUE",),
                                      None),
     "group, one fold a lane": ("whiten_group", ("ONE_FOLD",), None),
-    "group, streamed": ("whiten_group", (), "streamed"),
     "group bf16": ("whiten_group_bf16", (), None),
     "group bf16, 96-column strips": ("whiten_group_bf16", (), "strip 96"),
     "group bf16, 64-column strips": ("whiten_group_bf16", (), "strip 64"),
@@ -317,14 +314,14 @@ def main():
 
     def strip(ws):
         # a strip of ws columns, the band that fills one wave
-        def plan(B, H, W, g, hw, off, itemsize=4):
-            smem = hopper_conv.stream_smem(ws, g, hw, off, itemsize)
+        def plan(B, H, W, g, hw, off, itemsize=2):
+            smem = hopper_conv.stream_smem(ws, g, hw, off)
             slots = hopper_conv.H100_SMS * (
                 2 if smem <= hopper_conv.SMEM_TWO_PER_SM else 1)
             bands = max(1, slots // (-(-W // ws) * B))
             hb = -(-(-(-H // bands)) // 8) * 8
             return dataclasses.replace(
-                stream_plan(B, H, W, g, hw, off, itemsize), strip_w=ws,
+                stream_plan(B, H, W, g, hw, off), strip_w=ws,
                 band_h=hb, grid=(-(-W // ws), -(-H // hb), B),
                 smem_bytes=smem)
         return plan
@@ -402,8 +399,6 @@ def main():
         "tile 64": (hopper_conv, "group_plan", tile(64)),
         "strip 96": (hopper_conv, "group_plan", strip(96)),
         "strip 64": (hopper_conv, "group_plan", strip(64)),
-        "streamed": (hopper_conv, "group_plan", lambda *a: stream_plan(
-            *a[:6], 4)),
         "cluster 1": (hopper_deep, "pair_plan", lambda *a: dataclasses
                       .replace(pair_plan(*a), cluster=1)),
         "k 8": (hopper_deep, "pair_stream_plan", pair_group(8)),

@@ -1,9 +1,10 @@
 """bfloat16 WOW on the merged route: the port's bfloat16 merged body on a
 bfloat16 frame against JAX's ``_wow_body_merged`` in float32 on the
 widened frame (interpret mode), serving against its cube-bearing twin,
-and the route's geometry and launch counts against the JAX plan.  The
-route is bfloat16 at the boundary and float32 inside, and departs on
-purpose from the JAX package's bfloat16 arithmetic (PERF.md, section 6).
+the route's gate against the JAX package's, and its geometry (the
+float32 route's) and launch counts.  The route is bfloat16 at the
+boundary and float32 inside, and departs on purpose from the JAX
+package's bfloat16 arithmetic (PERF.md, section 6).
 Its kernels alone: tests/test_torch_bf16.py.
 
 Tolerances: the whitened planes and the reconstruction within
@@ -20,7 +21,7 @@ import pytest
 import torch
 
 from tests.torch_parity import assert_close_scaled, to_np
-from wavelets_tpu.ops import pallas_conv, pallas_deep
+from wavelets_tpu.ops import pallas_deep
 from wavelets_tpu.ops.filters import B3SPLINE as JB3
 from wavelets_tpu.ops.filters import TRIANGLE as JTRI
 from wavelets_tpu_torch.models import lowp_route
@@ -88,7 +89,7 @@ def test_merged_wow_matches_jax_bf16(merged_jax, case, layout):
     _build.reset_counters()
     r_t, planes = TW.wow_core(t, torch.tensor(1.0, dtype=torch.bfloat16),
                               planes_layout=layout, **_statics(den))
-    # JAX's plan: one group of scales 0-3, the pair (4, 5)
+    # one group of scales 0-3, the pair (4, 5)
     assert dict(_build.PLAIN_CALLS) == {"whiten_group_bf16": 1,
                                         "whiten_pair_bf16": 1}
     assert r_t.dtype == torch.bfloat16
@@ -126,11 +127,10 @@ def test_merged_serving_bitwise_to_its_twin(merged_jax, case):
 
 
 def test_merged_wow_matches_jax_bf16_wide():
-    # ROADMAP C1: at 512x4096 L8 the JAX plan pairs (4, 5), whose float32
-    # tori kernel E cannot hold: the port runs them as two steps of kernel
-    # A (the JAX plan's launches, the middle carry float32 either way).
-    # Reference: JAX's float32 _wow_body_merged on the widened frame in
-    # interpret mode (about 17 s).
+    # at 512x4096 L8 kernel E's float32 tori cannot hold (4, 5): the route
+    # takes one step at 4, the pair (5, 6) and a step at 7, as float32
+    # does.  Reference: JAX's float32 _wow_body_merged on the widened
+    # frame in interpret mode (about 17 s).
     j, t = _pair((512, 4096), 11, mean=0.0)
     r_j, rows_j = JW._wow_body_merged(
         j.astype(jnp.float32), jnp.asarray(1.0, jnp.float32), True, JB3, 8,
@@ -141,7 +141,8 @@ def test_merged_wow_matches_jax_bf16_wide():
                               planes_layout="rows",
                               **_statics((0.0,) * 9, n=8))
     assert dict(_build.PLAIN_CALLS) == {"whiten_group_bf16": 1,
-                                        "whiten_step_bf16": 4}
+                                        "whiten_step_bf16": 2,
+                                        "whiten_pair_bf16": 1}
     scale = float(np.abs(to_np(r_j)).max())
     assert_close_scaled(r_t, r_j, RTOL)
     for k in range(9):
@@ -149,9 +150,10 @@ def test_merged_wow_matches_jax_bf16_wide():
 
 
 def test_split_pair_bitwise_to_the_pair_plain():
-    # the pair where kernel E's gate refuses: two steps of kernel A's
-    # plain version from a float32 carry, bfloat16 whites, the middle
-    # carry float32, bitwise the pair's plain version
+    # a pair as two steps of kernel A's plain version from a float32
+    # carry, bfloat16 whites, the middle carry float32, bitwise the pair's
+    # plain version: which kernel takes a scale changes no white, so the
+    # route's geometry is free
     _, t = _pair((2, 256, 384), 5, mean=0.0)
     t = t.float()
     acc = torch.randn((2, 256, 384)).to(torch.bfloat16).float()
@@ -252,31 +254,30 @@ def test_bf16_group_without_tile_runs_plain(g, offset):
     assert dict(_build.PLAIN_CALLS) == {"whiten_step": g}
 
 
-def test_bf16_wide_route_runs_the_jax_groups():
-    # 256x25600 L8: the JAX stream refuses every scale, so JAX merges the
-    # groups (0,4), (4,1), (5,2), (7,1); the port runs the first two as
-    # groups, and (5,2) and (7,1), whose rings no streamed group holds, as
-    # one deep step a scale (no pair), here each on its plain version
+def test_bf16_wide_route_runs_one_group():
+    # 256x25600 L8, where the JAX stream refuses every scale and the JAX
+    # plan cuts the scales into four groups: the route's one group of
+    # scales 0-3, steps at 4 and 5 and the pair (6, 7), here each on its
+    # plain version
     _, t = _pair((256, 25600), 9, mean=0.0)
     _build.reset_counters()
     r, _ = TW.wow_core(t, torch.tensor(1.0, dtype=torch.bfloat16),
                        need_planes=False, **_statics((0.0,) * 9, n=8))
-    # ((4,1) from the float32 carry: a counter of its own)
     assert dict(_build.PLAIN_CALLS) == {"whiten_group_bf16": 1,
-                                        "whiten_group_f32in_bf16": 1,
-                                        "whiten_step_bf16": 3}
+                                        "whiten_step_bf16": 2,
+                                        "whiten_pair_bf16": 1}
     assert r.dtype == torch.bfloat16 and bool(torch.isfinite(r).all())
 
 
 # ---------------------------------------------------------------------
-# (f) the route and its geometry against the JAX plan
+# (f) the route's gate against the JAX package's, and its geometry
 # ---------------------------------------------------------------------
 
 GEOMETRY = [(256, 256), (512, 512), (1024, 1024), (4096, 4096), (256, 512),
             (512, 256), (4096, 1024), (768, 1280), (2048, 4096),
             (300, 512), (512, 300), (96, 128),
-            # ROADMAP C1: wide frames, where the JAX stream's and pair
-            # stream's budgets and kernel E's shared memory refuse
+            # wide frames, where the JAX stream's budget and kernel E's
+            # shared memory refuse
             (512, 4096), (1024, 4096), (1024, 8192), (2048, 8192),
             (1024, 14080), (4096, 16384), (8192, 16384), (256, 25600)]
 
@@ -296,48 +297,40 @@ class _Shape:
         return _Shape((1,) + self.shape)
 
 
-def _jax_tail(H, W, jsf, n_fast, n):
-    probe = _Shape((1, H, W))
-    plan, s = [], n_fast
-    while s < n:
-        if (s + 1 < n and (H >> s) <= 32
-                and pallas_deep.can_deep2(probe, jsf, s, None)):
-            plan.append((s, s + 1))
-            s += 2
-        else:
-            plan.append(s)
-            s += 1
-    return plan
+def _route_tail(monkeypatch, H, W, tsf, start, n, white_dtype):
+    """The scales ``_deep_tail_scales`` takes from ``start`` on an ``(H,
+    W)`` float32 carry (shapes only), recorded from its calls of kernel
+    A's deep step (a scale) and of kernel E (a pair)."""
+    taken = []
 
+    def step(carry, acc, thr, *, scale, **kw):
+        taken.append(scale)
+        return None, None, carry
 
-def _port_tail(H, W, tsf, n_fast, n):
-    """The scales of the port's bfloat16 ``_deep_tail_scales`` and the
-    route of each pair: kernel E where its tori fit, else the split pair
-    (two steps of kernel A with a float32 middle carry)."""
-    probe = torch.empty((1, H, W), dtype=torch.bfloat16, device="meta")
-    plan, routes, s = [], [], n_fast
-    while s < n:
-        if (s + 1 < n and (H >> s) <= 32
-                and TW._lowp_can_pair(H, W, tsf, s)):
-            plan.append((s, s + 1))
-            routes.append("pair" if hopper_deep.can_deep2(probe, tsf, s)
-                          else "split")
-            s += 2
-        else:
-            plan.append(s)
-            s += 1
-    return plan, routes
+    def pair(carry, acc, thr, *, scale, **kw):
+        taken.append((scale, scale + 1))
+        return None, None, None, carry
+
+    monkeypatch.setattr(hopper_deep, "deep_whiten_step", step)
+    monkeypatch.setattr(hopper_deep, "deep_whiten_step2", pair)
+    carry = torch.empty((H, W), dtype=torch.float32, device="meta")
+    TW._deep_tail_scales(
+        carry, torch.empty_like(carry), lambda s: torch.zeros(()), tsf,
+        start, n, (1.0,) * (n + 1), (0.0,) * (n + 1), True, True,
+        write_planes=False, white_dtype=white_dtype)
+    return taken
 
 
 @pytest.mark.parametrize("shape", GEOMETRY)
 @pytest.mark.parametrize("sf", ["b3", "tri"])
-def test_lowp_geometry_matches_jax(shape, sf):
+def test_lowp_geometry_matches_jax(monkeypatch, shape, sf):
+    # the gate is JAX's; the tail is the float32 route's on the same shape
     jsf, tsf = {"b3": (JB3, B3SPLINE), "tri": (JTRI, TRIANGLE)}[sf]
     H, W = shape
     x_j = _Shape(shape)
     x_t = torch.empty(shape, dtype=torch.bfloat16, device="meta")
     ds = JW._deep_start(x_j, jsf)
-    assert TW._lowp_deep_start(H, W, tsf) == ds
+    assert lowp_route.lowp_deep_start(H, W, tsf) == ds
     for n in (2, 4, 5, 6, 8, 10):
         # JAX's bfloat16 gate: sides of 256 multiples, _can_merge_whiten
         gate = not (H % 256 or W % 256) and JW._can_merge_whiten(
@@ -346,35 +339,37 @@ def test_lowp_geometry_matches_jax(shape, sf):
         assert not TW._lowp_merges(x_t, tsf, n, True, True)
         if not gate:
             continue
-        n_fast = min(n, ds)
-        # the JAX plan's groups below the deep start, where the recon rounds
-        assert lowp_route.lowp_groups(H, W, n_fast, tsf.half_width) == \
-            pallas_conv.plan_wow_prefix(H, W, n_fast, jsf.half_width, 2)
-        for s in range(n_fast, n):
-            assert TW._lowp_can_deep(H, W, tsf, s) == pallas_deep.can_deep(
-                x_j[None], jsf, s, None)
-        assert _port_tail(H, W, tsf, n_fast, n)[0] == \
-            _jax_tail(H, W, jsf, n_fast, n)
+        for s in range(min(n, ds), n):
+            assert lowp_route.lowp_can_deep(H, W, tsf, s) == \
+                pallas_deep.can_deep(x_j[None], jsf, s, None)
+        start = min(n, hopper_conv.N_STREAM)
+        assert _route_tail(monkeypatch, H, W, tsf, start, n,
+                           torch.bfloat16) == \
+            _route_tail(monkeypatch, H, W, tsf, start, n, None)
 
 
-@pytest.mark.parametrize("shape,n,tail,routes,groups", [
-    # ROADMAP C1's table: the JAX tail, and where kernel E's tori do not
-    # fit, the split pair
-    ((512, 4096), 8, [(4, 5), 6, 7], ["split"], [(0, 4)]),
-    ((1024, 4096), 8, [4, (5, 6), 7], ["split"], [(0, 4)]),
-    ((1024, 8192), 8, [4, (5, 6), 7], ["split"], [(0, 4)]),
-    ((2048, 8192), 8, [4, 5, (6, 7)], ["split"], [(0, 4)]),
-    ((2048, 8192), 10, [4, 5, (6, 7), 8, 9], ["split"], [(0, 4)]),
-    ((1024, 14080), 8, [4, 5, 6, 7], [], [(0, 4)]),
-    ((4096, 16384), 10, [4, 5, 6, 7, 8, 9], [], [(0, 4)]),
-    ((8192, 16384), 10, [4, 5, 6, 7, 8, 9], [], [(0, 4)]),
-    ((256, 25600), 8, [], [], [(0, 4), (4, 1), (5, 2), (7, 1)]),
+@pytest.mark.parametrize("shape,n,tail", [
+    # the wide frames, where kernel E's tori do not fit at the first scale
+    # the pair rule admits: a step there, the pair one scale later
+    ((512, 4096), 8, [4, (5, 6), 7]),
+    ((1024, 4096), 8, [4, 5, (6, 7)]),
+    ((1024, 8192), 8, [4, 5, (6, 7)]),
+    ((2048, 8192), 8, [4, 5, 6, 7]),
+    ((2048, 8192), 10, [4, 5, 6, (7, 8), 9]),
+    ((1024, 14080), 8, [4, 5, (6, 7)]),
+    ((4096, 16384), 10, [4, 5, 6, 7, (8, 9)]),
+    ((8192, 16384), 10, [4, 5, 6, 7, (8, 9)]),
+    ((256, 25600), 8, [4, 5, (6, 7)]),
+    # the cell aia_wow_bf16.frame
+    ((4096, 4096), 10, [4, 5, 6, (7, 8), 9]),
 ])
-def test_c1_route_pinned(shape, n, tail, routes, groups):
+def test_c1_route_pinned(monkeypatch, shape, n, tail):
     H, W = shape
-    n_fast = min(n, TW._lowp_deep_start(H, W, B3SPLINE))
-    assert lowp_route.lowp_groups(H, W, n_fast, 2) == (groups, n_fast)
-    assert _port_tail(H, W, B3SPLINE, n_fast, n) == (tail, routes)
+    assert TW._lowp_merges(
+        torch.empty(shape, dtype=torch.bfloat16, device="meta"), B3SPLINE,
+        n, False, True)
+    assert _route_tail(monkeypatch, H, W, B3SPLINE, hopper_conv.N_STREAM,
+                       n, torch.bfloat16) == tail
 
 
 @pytest.mark.parametrize("shape,n,expect", [
@@ -388,7 +383,7 @@ def test_bf16_dispatch_counts(shape, n, expect):
     _, t = _pair(shape, 3)
     _build.reset_counters()
     r, c = TW.wow(t, n_scales=n, denoise_coefficients=[3, 1], noise=0.5)
-    # the plain versions of exactly the JAX plan's kernels, nothing else
+    # the plain versions of exactly the route's kernels, nothing else
     assert dict(_build.PLAIN_CALLS) == expect
     assert not _build.LAUNCHES
     assert r.dtype == torch.bfloat16 and len(c) == n + 1

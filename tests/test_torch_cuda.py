@@ -1292,17 +1292,6 @@ def test_bf16_group_kernel_bitwise(dev, shape, g, offset, sf, mode,
     assert rows_k[-1].dtype == acc_k.dtype == torch.float32
     _bitwise(acc_k, acc_p)
     _bitwise(x, x0)
-    # a later group of the route: a float32 carry, bfloat16 whites
-    c = rows_k[-1]
-    _build.reset_counters()
-    out_k = hopper_conv.fused_wow_group(c, *args, **kw,
-                                        white_dtype=torch.bfloat16)
-    assert dict(_build.LAUNCHES) == {"whiten_group_f32in_bf16": 1}
-    out_p = hopper_conv.fused_wow_group_plain(c, *args, **kw,
-                                              white_dtype=torch.bfloat16)
-    torch.cuda.synchronize()
-    for a, b in zip((*out_k[0], out_k[1]), (*out_p[0], out_p[1])):
-        _bitwise(a, b)
 
 
 @pytest.mark.parametrize("g", [4, 3])
@@ -1349,31 +1338,6 @@ def test_bf16_group_stream_plan_variants_keep_the_bits(dev, monkeypatch,
         _bitwise(a, b)
 
 
-@pytest.mark.parametrize("shape", [(1, 4096, 4096), (2, 257, 130),
-                                   (16, 16)])
-@pytest.mark.parametrize("g,offset", [(3, 0), (3, 1), (2, 2)])
-def test_stream_f32_bitwise_to_the_tile(dev, monkeypatch, shape, g, offset):
-    # the streamed group's float32 instantiation (no path's) against the
-    # float32 tile: the same folds and epilogue in another order of
-    # blocks, so every output bitwise
-    x = torch.from_numpy(np.random.default_rng(g).normal(size=shape)
-                         .astype(np.float32) * 3 + 10).to(dev)
-    args = ([1.0, 2.0, 0.5][:g], torch.tensor([0.9, 0.5, 0.0][:g],
-                                              device=dev), g, B3SPLINE)
-    kw = dict(offset=offset, masked=(True, True, False)[:g])
-    _build.reset_counters()
-    rows_t, acc_t = hopper_conv.fused_wow_group(x, *args, **kw)
-    assert dict(_build.LAUNCHES) == {"whiten_group": 1}
-    stream = hopper_conv.stream_plan
-    monkeypatch.setattr(hopper_conv, "group_plan", lambda *a: stream(
-        *a[:6], 4))
-    rows_s, acc_s = hopper_conv.fused_wow_group(x, *args, **kw)
-    torch.cuda.synchronize()
-    assert dict(_build.LAUNCHES) == {"whiten_group": 2}
-    for a, b in zip((*rows_s, acc_s), (*rows_t, acc_t)):
-        assert torch.equal(a, b)
-
-
 @pytest.mark.parametrize("shape", [(1, 64, 96), (2, 257, 130),
                                    (1, 512, 512)])
 @pytest.mark.parametrize("s", [0, 3, 5])
@@ -1401,7 +1365,8 @@ def test_bf16_deep_step_kernel_bitwise(dev, shape, s, mode):
     ((1, 256, 256), 4, B3SPLINE), ((2, 64, 96), 3, B3SPLINE),
     ((1, 512, 512), 4, B3SPLINE), ((1, 4096, 4096), 7, B3SPLINE),
     ((3, 512, 512), 4, B3SPLINE), ((1, 512, 512), 5, TRIANGLE),
-    # C1's frame, which the gate leaves to the split (the kernel takes it);
+    # 512x4096 at (4, 5), which the gate leaves to two steps (the kernel
+    # takes it);
     # D = 1 and D = 2; windows of the columns at one point a thread and at
     # four classes a group
     ((1, 512, 4096), 4, B3SPLINE), ((2, 12, 20), 0, B3SPLINE),
@@ -1522,7 +1487,7 @@ def test_bf16_wow_merged_on_the_card(dev, shape, launched, frame):
 
 def test_bf16_known_noise_frame_at_4096(dev):
     # the deployment: a 4096² bfloat16 frame of counts, a known scalar
-    # noise, the automatic 10 scales: the JAX plan's launches, nothing
+    # noise, the automatic 10 scales: the route's launches, nothing
     # plain, no host wait (the noise is a fill, not a copy), and every
     # output within bfloat16 rounding of the float32 route on the frame
     rng = np.random.default_rng(11)
@@ -1652,8 +1617,8 @@ def test_halo_step_raises_on_bf16(dev):
 
 
 def _two_steps(x, acc, thr, *, sf, scale, weights, masked, **kw):
-    """The pair as the route runs it where kernel E's gate refuses: two
-    steps of kernel A, the middle carry float32 → the pair's returns."""
+    """A pair as two steps of kernel A, the middle carry float32 → the
+    pair's returns."""
     w1, _, mid = hopper_deep.deep_whiten_step(
         x, acc, thr[0], sf=sf, scale=scale, weight=weights[0],
         masked=masked[0], **kw)
@@ -1686,9 +1651,9 @@ def test_bf16_split_pair_bitwise(dev, shape, s):
 
 
 def test_bf16_wide_route_launches_the_groups_the_plan_takes(dev):
-    # 256x25600 L8: JAX's groups (0, 4), (4, 1), (5, 2), (7, 1); the
-    # streamed group's plan takes the first two, kernel A's bfloat16 deep
-    # step the other two, one launch a scale, and nothing runs plain
+    # 256x25600 L8: the streamed group takes scales 0-3, kernel A's
+    # bfloat16 deep step scales 4 and 5, kernel E's stream (6, 7), and
+    # nothing runs plain
     from wavelets_tpu_torch.models.wow import wow_core
     x = _bf16(np.random.default_rng(9), (256, 25600), dev, mean=0.0)
     _build.reset_counters()
@@ -1700,10 +1665,9 @@ def test_bf16_wide_route_launches_the_groups_the_plan_takes(dev):
         preserve_variance=False, gamma=3.2, gamma_min=None, gamma_max=None,
         h=0.0, has_noise=True)
     torch.cuda.synchronize()
-    # (0, 4) from the frame, (4, 1) from the float32 carry
     assert dict(_build.LAUNCHES) == {"whiten_group_bf16": 1,
-                                     "whiten_group_f32in_bf16": 1,
-                                     "whiten_step_bf16": 3}
+                                     "whiten_step_bf16": 2,
+                                     "whiten_pair_bf16": 1}
     assert not _build.PLAIN_CALLS
     assert r.dtype == torch.bfloat16 and bool(torch.isfinite(r).all())
 

@@ -29,7 +29,6 @@ import pytest
 import torch
 
 from tests.test_torch_bf16_wow import GEOMETRY
-from wavelets_tpu_torch.models import lowp_route
 from wavelets_tpu_torch.models.wow import PAIR_MAX_CLASS_ROWS
 from wavelets_tpu_torch.ops import hopper_conv, hopper_deep
 from wavelets_tpu_torch.ops.filters import B3SPLINE, TRIANGLE
@@ -380,8 +379,7 @@ def test_pair_stream_plan_takes_the_bf16_route(shape, sf):
     H, W = shape
     for s in range(3, 14):
         D = 1 << s
-        if not (lowp_route.lowp_can_pair(H, W, tsf, s)
-                and H >> s <= PAIR_MAX_CLASS_ROWS
+        if not (H >> s <= PAIR_MAX_CLASS_ROWS
                 and hopper_deep.can_deep2(
                     torch.empty((1, H, W), dtype=torch.bfloat16,
                                 device="meta"), tsf, s)):

@@ -161,8 +161,8 @@ def test_stream_plan_covers_the_frame(shape, g, offset, sf):
 
 
 def test_stream_plan_refuses_rings_past_the_shared_memory():
-    # 256x25600 L8's deep groups (5, 2) and (7, 1): no strip's rings fit,
-    # so they keep the documented plain rule; (4, 1) now launches
+    # the B3spline's groups (5, 2) and (7, 1) at 256x25600: no strip's
+    # rings fit, so they keep the documented plain rule; (4, 1) launches
     assert hopper_conv.stream_plan(1, 256, 25600, 2, 2, 5) is None
     assert hopper_conv.stream_plan(1, 256, 25600, 1, 2, 7) is None
     assert hopper_conv.group_plan(1, 256, 25600, 1, 2, 4, 2) is not None

@@ -49,14 +49,12 @@
 // tile fits 227 KB (the B3spline from offset 2 at g = 3) the plan says so
 // and the wrapper runs the scales as deep steps (whiten_step.cu).
 //
-// The streamed group (wt_whiten_group_bf16 and, for the later groups of a
-// frame the JAX plan cuts into several, wt_whiten_group_bf16_f32in; its
-// float32 instantiation wt_whiten_group_stream_f32 is timed and checked
-// beside the tile, no path calls it).  The bfloat16 route takes the JAX
-// plan's g = 4 at offset 0 (halo 46).  On a tile that cost 44.5 folds an
-// output pixel, most of them the halo recomputed every 64 rows, of which
-// 16 are the function's: 1.71-1.72 ms of device time at 4096^2 against a
-// 0.070 ms bound by bytes.  Here a block of 8 warps owns a strip of Ws
+// The streamed group (wt_whiten_group_bf16), the bfloat16 route's group:
+// g = 4 at offset 0 (halo 46, ops/hopper_conv.py::N_STREAM), the float32
+// carry and acc out.  On a tile that cost 44.5 folds an output pixel,
+// most of them the halo recomputed every 64 rows, of which 16 are the
+// function's: 1.71-1.72 ms of device time at 4096^2 against a 0.070 ms
+// bound by bytes.  Here a block of 8 warps owns a strip of Ws
 // output columns and a band of Hb rows of one frame (the plan's,
 // stream_plan) and walks down the band 8 rows a step, one a warp:
 //   * rings of rows in shared memory: the input's, 2hd_0 + 16 rows of
@@ -91,8 +89,7 @@
 // (bfloat16 rings, this kernel's earlier form): 1.30-1.33 ms against the
 // tile's 1.71, 0.93 without the whitening epilogue, 1.59 on 96-column
 // strips, 1.69-1.73 on 64, 1.71-1.74 with float32 rings (twice the
-// bytes, one block an SM), which the float32 inside now takes; the
-// float32 instantiation at g = 3 0.763 ms against the tile's 0.764-0.765.
+// bytes, one block an SM), which the float32 inside now takes.
 //
 // Rounding.  Every fold is x*t_0 + sum_j t_j*(l + r) with __fmul_rn /
 // __fadd_rn in the JAX order, as wt_common.cuh's folds, so c_next is
@@ -127,13 +124,11 @@ constexpr int kTW = 64;
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 
-// S: the storage type of the input, the tile, the whites, carry and acc.
-template <class S>
 struct GroupArgs {
-  const S* x;
-  S* white[WT_MAX_G];  // null: that plane is not written
-  S* carry;
-  S* acc;
+  const float* x;
+  float* white[WT_MAX_G];  // null: that plane is not written
+  float* carry;
+  float* acc;
   const float* thr;  // (g, B)
   float fac[WT_MAX_G];
   int masked[WT_MAX_G];
@@ -155,26 +150,20 @@ __device__ __forceinline__ int margin(int k, int g, int hw, int offset) {
   return m;
 }
 
-// x*x as the JAX kernel forms the power plane in S: the square of an S
-// value rounded to S (exact in float32, then one rounding).
-template <class S>
-__device__ __forceinline__ float square(float x) {
-  return wt::round_to<S>(__fmul_rn(x, x));
-}
-
 // The fold x*t_0 + sum_t t_t*(l + r) around p with taps st apart (of the
 // squares where SQUARE), in float32, rounded step by step in the JAX
 // order.
-template <bool SQUARE, int HW, class S>
-__device__ __forceinline__ float fold(const S* p, int st, const Taps& tp) {
-  const float c = wt::to_f32(p[0]);
-  float o = __fmul_rn(SQUARE ? square<S>(c) : c, tp.t[0]);
+template <bool SQUARE, int HW>
+__device__ __forceinline__ float fold(const float* p, int st,
+                                      const Taps& tp) {
+  const float c = p[0];
+  float o = __fmul_rn(SQUARE ? __fmul_rn(c, c) : c, tp.t[0]);
 #pragma unroll
   for (int t = 1; t <= wt::half_width<HW>(tp); ++t) {
-    float l = wt::to_f32(p[-t * st]), r = wt::to_f32(p[t * st]);
+    float l = p[-t * st], r = p[t * st];
     if (SQUARE) {
-      l = square<S>(l);
-      r = square<S>(r);
+      l = __fmul_rn(l, l);
+      r = __fmul_rn(r, r);
     }
     o = __fadd_rn(o, __fmul_rn(tp.t[t], __fadd_rn(l, r)));
   }
@@ -204,29 +193,29 @@ __device__ __forceinline__ void warp_row(int lo, int hi, int lane, F f, S s) {
   }
 }
 
-template <class S, int TH, int HW>
-__global__ void __launch_bounds__(kThreads, 2) whiten_group(GroupArgs<S> a) {
+template <int TH, int HW>
+__global__ void __launch_bounds__(kThreads, 2) whiten_group(GroupArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  S* sm = reinterpret_cast<S*>(smem);
+  float* sm = reinterpret_cast<float*>(smem);
   const int SH = TH + 2 * a.R, SW = kTW + 2 * a.Rc;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  S* X = sm;
-  S* C = sm + SH * SW;
-  S* rowbuf = sm + 2 * SH * SW + warp * SW;
+  float* X = sm;
+  float* C = sm + SH * SW;
+  float* rowbuf = sm + 2 * SH * SW + warp * SW;
   const int b = blockIdx.z, h0 = blockIdx.y * TH, w0 = blockIdx.x * kTW;
   const int H = a.H, W = a.W;
   const size_t plane = static_cast<size_t>(b) * H * W;
-  const S* src = a.x + plane;
+  const float* src = a.x + plane;
   const Taps& tp = a.taps;
   const int hw = wt::half_width<HW>(tp);
 
   // the carry and its halo
   if (a.vec && h0 - a.R >= 0 && h0 + TH + a.R <= H && w0 - a.Rc >= 0 &&
       w0 + kTW + a.Rc <= W) {
-    constexpr int kVec = 16 / sizeof(S);  // elements a 16-byte copy
+    constexpr int kVec = 4;  // floats a 16-byte copy
     const int nv = SW / kVec;
     for (int i = warp; i < SH; i += kWarps) {
-      const S* row =
+      const float* row =
           src + static_cast<size_t>(h0 - a.R + i) * W + (w0 - a.Rc);
       for (int j = lane; j < nv; j += 32)
         wt::cp_async16(X + i * SW + kVec * j, row + kVec * j);
@@ -234,7 +223,7 @@ __global__ void __launch_bounds__(kThreads, 2) whiten_group(GroupArgs<S> a) {
     wt::cp_async_wait_all();
   } else {
     for (int i = warp; i < SH; i += kWarps) {
-      const S* row =
+      const float* row =
           src + static_cast<size_t>(wt::sym32(h0 - a.R + i, H)) * W;
       for (int j = lane; j < SW; j += 32)
         X[i * SW + j] = row[wt::sym32(w0 - a.Rc + j, W)];
@@ -250,66 +239,63 @@ __global__ void __launch_bounds__(kThreads, 2) whiten_group(GroupArgs<S> a) {
     // 1. chain smooth on rows [-Cm, TH + Cm): rows fold -> row buffer,
     //    cols fold -> C
     for (int i = -Cm + warp; i < TH + Cm; i += kWarps) {
-      const S* xr = X + (i + a.R) * SW + a.Rc;
-      S* rb = rowbuf + a.Rc;
+      const float* xr = X + (i + a.R) * SW + a.Rc;
+      float* rb = rowbuf + a.Rc;
       warp_row(
           -Mk, kTW + Mk, lane,
           [&](int j) { return fold<false, HW>(xr + j, dS, tp); },
-          [&](int j, float o) { rb[j] = wt::from_f32<S>(o); });
+          [&](int j, float o) { rb[j] = o; });
       __syncwarp();
-      S* cr = C + (i + a.R) * SW + a.Rc;
+      float* cr = C + (i + a.R) * SW + a.Rc;
       warp_row(
           -Cm, kTW + Cm, lane,
           [&](int j) { return fold<false, HW>(rb + j, d, tp); },
-          [&](int j, float o) { cr[j] = wt::from_f32<S>(o); });
+          [&](int j, float o) { cr[j] = o; });
       __syncwarp();
     }
     __syncthreads();
     // 2. detail = carry - c_next, in place, on the power smooth's reach
     for (int i = -hd + warp; i < TH + hd; i += kWarps) {
-      S* xr = X + (i + a.R) * SW + a.Rc;
-      const S* cr = C + (i + a.R) * SW + a.Rc;
+      float* xr = X + (i + a.R) * SW + a.Rc;
+      const float* cr = C + (i + a.R) * SW + a.Rc;
       for (int j = -hd + lane; j < kTW + hd; j += 32)
-        xr[j] = wt::from_f32<S>(
-            __fsub_rn(wt::to_f32(xr[j]), wt::to_f32(cr[j])));
+        xr[j] = __fsub_rn(xr[j], cr[j]);
     }
     __syncthreads();
     // 3. power smooth of detail^2 and the whitening of the output tile
     const float* thr = a.masked[k] ? a.thr + k * a.B + b : nullptr;
-    S* white = a.white[k];
+    float* white = a.white[k];
 #pragma unroll
     for (int r = 0; r < TH / kWarps; ++r) {
       const int i = warp + r * kWarps;
-      const S* xr = X + (i + a.R) * SW + a.Rc;
-      S* rb = rowbuf + a.Rc;
+      const float* xr = X + (i + a.R) * SW + a.Rc;
+      float* rb = rowbuf + a.Rc;
       warp_row(
           -hd, kTW + hd, lane,
           [&](int j) { return fold<true, HW>(xr + j, dS, tp); },
-          [&](int j, float o) { rb[j] = wt::from_f32<S>(o); });
+          [&](int j, float o) { rb[j] = o; });
       __syncwarp();
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const int j = lane + 32 * c;
-        // the power smooth as the JAX kernel stores it (its tmp plane)
-        const float lp = wt::round_to<S>(fold<false, HW>(rb + j, d, tp));
+        const float lp = fold<false, HW>(rb + j, d, tp);
 #ifdef WT_VARIANT_NO_EPILOGUE
         const float v = lp;
         (void)thr;
 #else
         float wc;
-        const float v = wt::whiten_value(wt::to_f32(xr[j]), lp, a.fac[k],
-                                         thr, a.soft, &wc);
+        const float v =
+            wt::whiten_value(xr[j], lp, a.fac[k], thr, a.soft, &wc);
 #endif
         acc[r][c] = k == 0 ? v : __fadd_rn(acc[r][c], v);
         const int gh = h0 + i, gw = w0 + j;
         if (white && gh < H && gw < W)
-          white[plane + static_cast<size_t>(gh) * W + gw] =
-              wt::from_f32<S>(v);
+          white[plane + static_cast<size_t>(gh) * W + gw] = v;
       }
       __syncwarp();
     }
     __syncthreads();
-    S* s = X;
+    float* s = X;
     X = C;
     C = s;
   }
@@ -323,30 +309,29 @@ __global__ void __launch_bounds__(kThreads, 2) whiten_group(GroupArgs<S> a) {
       if (gh < H && gw < W) {
         const size_t g = plane + static_cast<size_t>(gh) * W + gw;
         a.carry[g] = X[(i + a.R) * SW + a.Rc + j];
-        a.acc[g] = wt::from_f32<S>(acc[r][c]);
+        a.acc[g] = acc[r][c];
       }
     }
   }
 }
 
-template <class S, int TH, int HW>
-int launch(const GroupArgs<S>& a, dim3 grid, int bytes, cudaStream_t s) {
+template <int TH, int HW>
+int launch(const GroupArgs& a, dim3 grid, int bytes, cudaStream_t s) {
   static std::atomic<int> optin[wt::kMaxDevices];
-  cudaError_t err = wt::smem_optin(whiten_group<S, TH, HW>, bytes, optin);
+  cudaError_t err = wt::smem_optin(whiten_group<TH, HW>, bytes, optin);
   if (err != cudaSuccess) return static_cast<int>(err);
-  whiten_group<S, TH, HW>
-      <<<grid, kThreads, static_cast<size_t>(bytes), s>>>(a);
+  whiten_group<TH, HW><<<grid, kThreads, static_cast<size_t>(bytes), s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
-// Scales offset .. offset+g-1 of a contiguous (B, H, W) stack of S.
-template <class S>
-int whiten_group_entry(const S* x, S* const* whites, S* carry, S* acc,
-                       const float* thr, const float* fac, const int* masked,
-                       int soft, int g, int offset, const double* taps,
-                       int n_taps, long long B, long long H, long long W,
-                       int tile_h, int halo, int halo_cols, long long grid_x,
-                       long long grid_y, long long smem_bytes, void* stream) {
-  GroupArgs<S> a;
+// Scales offset .. offset+g-1 of a contiguous (B, H, W) float32 stack.
+int whiten_group_entry(const float* x, float* const* whites, float* carry,
+                       float* acc, const float* thr, const float* fac,
+                       const int* masked, int soft, int g, int offset,
+                       const double* taps, int n_taps, long long B,
+                       long long H, long long W, int tile_h, int halo,
+                       int halo_cols, long long grid_x, long long grid_y,
+                       long long smem_bytes, void* stream) {
+  GroupArgs a;
   if (!wt::make_taps(taps, n_taps, &a.taps) || !x || !carry || !acc ||
       !fac || !masked || g < 1 || g > WT_MAX_G || offset < 0 ||
       offset + g > 20 || B < 1 || B > 65535 || H < 1 || W < 1 ||
@@ -354,15 +339,14 @@ int whiten_group_entry(const S* x, S* const* whites, S* carry, S* acc,
     return static_cast<int>(cudaErrorInvalidValue);
   // the plan: the group's reach as halo, columns rounded up to 16-byte
   // copies, tiles covering the frame once, two planes and eight row
-  // buffers of 64 + 2*halo_cols elements of S in the shared memory
-  constexpr int kVec = 16 / sizeof(S);
+  // buffers of 64 + 2*halo_cols floats in the shared memory
+  constexpr int kVec = 4;
   const long long sw = kTW + 2ll * halo_cols;
   if ((tile_h != 64 && tile_h != 32 && tile_h != 16) ||
       halo != group_halo(a.taps.hw, offset, g) || halo_cols < halo ||
       halo_cols % kVec != 0 || grid_x != (W + kTW - 1) / kTW ||
       grid_y != (H + tile_h - 1) / tile_h ||
-      smem_bytes < static_cast<long long>(sizeof(S)) *
-                       (2 * (tile_h + 2ll * halo) * sw + kWarps * sw) ||
+      smem_bytes < 4ll * (2 * (tile_h + 2ll * halo) * sw + kWarps * sw) ||
       smem_bytes > (1ll << 30))
     return static_cast<int>(cudaErrorInvalidValue);
   for (int k = 0; k < g; ++k) {
@@ -390,9 +374,9 @@ int whiten_group_entry(const S* x, S* const* whites, S* carry, S* acc,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return wt::dispatch_hw(a.taps.hw, [&](auto hw) {
     constexpr int HW = decltype(hw)::value;
-    if (tile_h == 64) return launch<S, 64, HW>(a, grid, bytes, s);
-    if (tile_h == 32) return launch<S, 32, HW>(a, grid, bytes, s);
-    return launch<S, 16, HW>(a, grid, bytes, s);
+    if (tile_h == 64) return launch<64, HW>(a, grid, bytes, s);
+    if (tile_h == 32) return launch<32, HW>(a, grid, bytes, s);
+    return launch<16, HW>(a, grid, bytes, s);
   });
 }
 
@@ -419,11 +403,12 @@ struct StreamRing {
   int margin;  // columns left of the strip's column 0
 };
 
-// X: the input's type; Wt: the whites'.  The carry and acc are float32.
-template <class X, class Wt>
+using bf16 = __nv_bfloat16;
+
+// The input and the whites are bfloat16, the carry and acc float32.
 struct StreamArgs {
-  const X* x;
-  Wt* white[WT_MAX_G];
+  const bf16* x;
+  bf16* white[WT_MAX_G];
   float* carry;
   float* acc;
   const float* thr;  // (g, B)
@@ -440,11 +425,10 @@ struct StreamArgs {
 
 // What a scale reads by a run-time index lives in shared memory (a
 // kernel argument indexed at run time would be copied to local memory).
-template <class Wt>
 struct StreamTable {
   StreamRing ring[kRings];
   int head[2][kRings];  // by step parity
-  Wt* white[WT_MAX_G];
+  bf16* white[WT_MAX_G];
   float fac[WT_MAX_G];
   int masked[WT_MAX_G], ec[WT_MAX_G], ecar[WT_MAX_G], eq[WT_MAX_G];
 };
@@ -460,13 +444,13 @@ __device__ __forceinline__ float2 unpack2(unsigned u) {
   return make_float2(__uint_as_float(u << 16),
                      __uint_as_float(u & 0xffff0000u));
 }
-__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
+__device__ __forceinline__ float2 ld2(const bf16* p) {
   return unpack2(*reinterpret_cast<const unsigned*>(p));
 }
 __device__ __forceinline__ void st2(float* p, float2 v) {
   *reinterpret_cast<float2*>(p) = v;
 }
-__device__ __forceinline__ void st2(__nv_bfloat16* p, float2 v) {
+__device__ __forceinline__ void st2(bf16* p, float2 v) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v.x, v.y);
 }
 
@@ -487,11 +471,11 @@ __device__ __forceinline__ float2 vfold2(const T* const* rows, int j,
   return o;
 }
 
-// The fold of the columns j, j + 1 along a row at dilation d.  An even d
-// keeps every tap pair 4-byte aligned; at d = 1 the 2hw + 2 columns
-// around the pair are loaded once, as ceil(hw/2)*2 + 1 pairs.
-template <int HW, class T>
-__device__ __forceinline__ float2 hfold2(const T* p, int j, int d,
+// The fold of the columns j, j + 1 along a float32 row at dilation d.  An
+// even d keeps every tap pair 8-byte aligned; at d = 1 the 2hw + 2
+// columns around the pair are loaded once, as ceil(hw/2)*2 + 1 pairs.
+template <int HW>
+__device__ __forceinline__ float2 hfold2(const float* p, int j, int d,
                                          const Taps& tp) {
   if (d == 1) {
     if (HW == 0)
@@ -517,7 +501,7 @@ __device__ __forceinline__ float2 hfold2(const T* p, int j, int d,
     return o;
   }
   const int hw = wt::half_width<HW>(tp);
-  const T* q = p + j;
+  const float* q = p + j;
   const float2 c = ld2(q);
   float2 o = make_float2(__fmul_rn(c.x, tp.t[0]), __fmul_rn(c.y, tp.t[0]));
 #pragma unroll
@@ -576,7 +560,7 @@ __device__ __forceinline__ void store_pair(S* row, int gw, int W, bool pairs,
 // row's detail (carry_k and carry_(k+1), still in their rings), the white
 // (and at the last scale the acc and the group's carry) to device memory,
 // acc += white in the acc ring.  Everything is float32 but the input's
-// ring (Tc = X at scale 0, float after) and the white's store (Wt).
+// ring (Tc = bfloat16 at scale 0, float after) and the white's store.
 struct StreamStep {
   int k, d, hd, hd0, lag;  // lag: S_k = hd_0 + .. + hd_(k-1)
   int step_row;            // the virtual row of the input's step
@@ -600,9 +584,9 @@ struct ChainOut {
   float2 c, sq;  // c_next and the detail's square
 };
 
-template <class X, class Wt, int HW, class Tc>
+template <int HW, class Tc>
 __device__ __forceinline__ void stream_chain(
-    const StreamArgs<X, Wt>& a, StreamTable<Wt>* tab, unsigned char* smem,
+    const StreamArgs& a, StreamTable* tab, unsigned char* smem,
     const int* head, float* tmp, const StreamStep& st, int h0, int h1,
     int w0, size_t plane, int row, int lane) {
   const Taps& tp = a.taps;
@@ -645,9 +629,9 @@ __device__ __forceinline__ void stream_chain(
   __syncwarp();
 }
 
-template <class X, class Wt, int HW, class Tc>
+template <int HW, class Tc>
 __device__ __forceinline__ void stream_power(
-    const StreamArgs<X, Wt>& a, StreamTable<Wt>* tab, unsigned char* smem,
+    const StreamArgs& a, StreamTable* tab, unsigned char* smem,
     const int* head, float* tmp, const StreamStep& st, int h0, int h1,
     int w0, size_t plane, int row, int lane) {
   const Taps& tp = a.taps;
@@ -677,7 +661,7 @@ __device__ __forceinline__ void stream_power(
   const int gh = st.step_row - st.lag - 2 * hd + row;
   const bool in = gh >= h0 && gh < h1, pairs = W % 2 == 0;
   const size_t at = plane + static_cast<size_t>(gh) * W + w0;
-  Wt* white = in && tab->white[k] ? tab->white[k] + at : nullptr;
+  bf16* white = in && tab->white[k] ? tab->white[k] + at : nullptr;
   // at the last scale the acc and the group's carry, c_next of this row
   float* acc = in && k == a.g - 1 ? a.acc + at : nullptr;
   float* carry = acc ? a.carry + at : nullptr;
@@ -719,14 +703,13 @@ __device__ __forceinline__ void stream_power(
   __syncwarp();
 }
 
-// X: the input's type (its ring's); Wt: the whites'.  The rings of the
-// later carries, the squared details, the acc and the warps' rows are
-// float32.
-template <class X, class Wt, int HW>
+// The input's ring is bfloat16; the rings of the later carries, the
+// squared details, the acc and the warps' rows are float32.
+template <int HW>
 __global__ void __launch_bounds__(kSThreads, 2)
-    whiten_stream(StreamArgs<X, Wt> a) {
+    whiten_stream(StreamArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  auto* tab = reinterpret_cast<StreamTable<Wt>*>(smem);
+  auto* tab = reinterpret_cast<StreamTable*>(smem);
   const int tid = threadIdx.x, row = tid >> 5, lane = tid & 31;
 #pragma unroll
   for (int i = 0; i < kRings; ++i)
@@ -751,7 +734,7 @@ __global__ void __launch_bounds__(kSThreads, 2)
   const int a0 = h0 - R;
   const int steps = (h1 - h0 + 2 * R + kRS - 1) / kRS;
   const size_t plane = static_cast<size_t>(b) * H * W;
-  const X* src = a.x + plane;
+  const bf16* src = a.x + plane;
   const StreamRing in = a.ring[0];
   float* tmp = reinterpret_cast<float*>(smem + a.tmp_off) +
                row * a.tmp_pitch + a.ecar[0];
@@ -759,10 +742,11 @@ __global__ void __launch_bounds__(kSThreads, 2)
   // the input rows of step t: virtual rows through the symmetric map,
   // one a row, 16-byte copies where a chunk lies inside the frame
   auto fetch = [&](int t) {
-    constexpr int kV = 16 / sizeof(X);
+    constexpr int kV = 8;  // bfloat16 elements a 16-byte copy
     const int q = t * kRS + row;
-    X* dst = reinterpret_cast<X*>(smem + in.off) + (q % in.rows) * in.pitch;
-    const X* row = src + static_cast<size_t>(wt::sym32(a0 + q, H)) * W;
+    bf16* dst =
+        reinterpret_cast<bf16*>(smem + in.off) + (q % in.rows) * in.pitch;
+    const bf16* row = src + static_cast<size_t>(wt::sym32(a0 + q, H)) * W;
     const int c0 = w0 - a.Rc;
     for (int c = lane * kV; c < in.pitch; c += 32 * kV) {
       if (a.vec && c0 + c >= 0 && c0 + c + kV <= W) {
@@ -787,31 +771,30 @@ __global__ void __launch_bounds__(kSThreads, 2)
     if (t + 1 < steps) fetch(t + 1);
     for (int k = 0; k < g; ++k) {
       const StreamStep st = stream_step<HW>(a, k, a0 + t * kRS);
-      if (std::is_same<X, float>::value || k > 0) {
-        stream_chain<X, Wt, HW, float>(a, tab, smem, head, tmp, st, h0, h1,
-                                       w0, plane, row, lane);
+      if (k > 0) {
+        stream_chain<HW, float>(a, tab, smem, head, tmp, st, h0, h1, w0,
+                                plane, row, lane);
         __syncthreads();
-        stream_power<X, Wt, HW, float>(a, tab, smem, head, tmp, st, h0, h1,
-                                       w0, plane, row, lane);
+        stream_power<HW, float>(a, tab, smem, head, tmp, st, h0, h1, w0,
+                                plane, row, lane);
       } else {
-        stream_chain<X, Wt, HW, X>(a, tab, smem, head, tmp, st, h0, h1, w0,
-                                   plane, row, lane);
+        stream_chain<HW, bf16>(a, tab, smem, head, tmp, st, h0, h1, w0,
+                               plane, row, lane);
         __syncthreads();
-        stream_power<X, Wt, HW, X>(a, tab, smem, head, tmp, st, h0, h1, w0,
-                                   plane, row, lane);
+        stream_power<HW, bf16>(a, tab, smem, head, tmp, st, h0, h1, w0,
+                               plane, row, lane);
       }
     }
   }
 }
 
-template <class X, class Wt, int HW>
-int launch_stream(const StreamArgs<X, Wt>& a, dim3 grid, int bytes,
+template <int HW>
+int launch_stream(const StreamArgs& a, dim3 grid, int bytes,
                   cudaStream_t s) {
   static std::atomic<int> optin[wt::kMaxDevices];
-  cudaError_t err = wt::smem_optin(whiten_stream<X, Wt, HW>, bytes, optin);
+  cudaError_t err = wt::smem_optin(whiten_stream<HW>, bytes, optin);
   if (err != cudaSuccess) return static_cast<int>(err);
-  whiten_stream<X, Wt, HW>
-      <<<grid, kSThreads, static_cast<size_t>(bytes), s>>>(a);
+  whiten_stream<HW><<<grid, kSThreads, static_cast<size_t>(bytes), s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -820,11 +803,9 @@ inline int even(int n) { return n + (n & 1); }
 
 // The rings of a strip of Ws columns for g scales from offset: their
 // rows, margins and byte offsets into a, and the shared bytes they take
-// (the table, the input's ring in X, the float32 rings, the warps'
+// (the table, the input's bfloat16 ring, the float32 rings, the warps'
 // float32 rows).  ops/hopper_conv.py::stream_smem is the same arithmetic.
-template <class X, class Wt>
-long long stream_layout(StreamArgs<X, Wt>* a, int g, int hw, int offset,
-                        int Ws) {
+long long stream_layout(StreamArgs* a, int g, int hw, int offset, int Ws) {
   int hd[WT_MAX_G];
   for (int k = 0; k < g; ++k) hd[k] = hw << (offset + k);
   int ecar_next = 0;
@@ -834,7 +815,7 @@ long long stream_layout(StreamArgs<X, Wt>* a, int g, int hw, int offset,
     a->eq[k] = even(hd[k]);
     ecar_next = a->ecar[k];
   }
-  constexpr int kV = 16 / sizeof(X);
+  constexpr int kV = 8;
   const int Rc = (a->ecar[0] + kV - 1) / kV * kV;
   const int R = group_halo(hw, offset, g);
   long long off = kTableBytes;
@@ -847,7 +828,7 @@ long long stream_layout(StreamArgs<X, Wt>* a, int g, int hw, int offset,
     off += align16(static_cast<long long>(rows) * pitch * elem);
   };
   for (int i = 0; i < kRings; ++i) a->ring[i] = StreamRing{0, 0, 0, 0};
-  place(&a->ring[0], 2 * hd[0] + 2 * kRS, Rc, Ws + 2 * Rc, sizeof(X));
+  place(&a->ring[0], 2 * hd[0] + 2 * kRS, Rc, Ws + 2 * Rc, sizeof(bf16));
   for (int k = 1; k < g; ++k)
     place(&a->ring[k], 2 * hd[k] + kRS, a->ec[k - 1], Ws + 2 * a->ec[k - 1],
           sizeof(float));
@@ -880,19 +861,18 @@ long long stream_layout(StreamArgs<X, Wt>* a, int g, int hw, int offset,
   return off;
 }
 
-// Scales offset .. offset+g-1 of a contiguous (B, H, W) stack of X on the
-// streamed plan, the whites stored as Wt, carry and acc float32.
-template <class X, class Wt>
-int whiten_stream_entry(const X* x, Wt* const* whites, float* carry,
-                        float* acc,
-                        const float* thr, const float* fac, const int* masked,
-                        int soft, int g, int offset, const double* taps,
-                        int n_taps, long long B, long long H, long long W,
-                        int strip_w, int band_h, int halo, int halo_cols,
-                        long long grid_x, long long grid_y,
-                        long long smem_bytes, void* stream) {
-  static_assert(sizeof(StreamTable<Wt>) <= kTableBytes, "table");
-  StreamArgs<X, Wt> a;
+// Scales offset .. offset+g-1 of a contiguous (B, H, W) bfloat16 stack on
+// the streamed plan, the whites stored in bfloat16, carry and acc float32.
+int whiten_stream_entry(const bf16* x, bf16* const* whites, float* carry,
+                        float* acc, const float* thr, const float* fac,
+                        const int* masked, int soft, int g, int offset,
+                        const double* taps, int n_taps, long long B,
+                        long long H, long long W, int strip_w, int band_h,
+                        int halo, int halo_cols, long long grid_x,
+                        long long grid_y, long long smem_bytes,
+                        void* stream) {
+  static_assert(sizeof(StreamTable) <= kTableBytes, "table");
+  StreamArgs a;
   if (!wt::make_taps(taps, n_taps, &a.taps) || !x || !carry || !acc ||
       !fac || !masked || g < 1 || g > WT_MAX_G || offset < 0 ||
       offset + g > 20 || B < 1 || B > 65535 || H < 1 || W < 1 ||
@@ -904,8 +884,7 @@ int whiten_stream_entry(const X* x, Wt* const* whites, float* carry,
   // rounded up to 16-byte copies, strips and bands covering the frame
   // once, the rings within the shared bytes given
   const long long need =
-      stream_layout<X, Wt>(&a, g, a.taps.hw, static_cast<int>(offset),
-                           strip_w);
+      stream_layout(&a, g, a.taps.hw, static_cast<int>(offset), strip_w);
   if (halo != a.R || halo_cols != a.Rc ||
       grid_x != (W + strip_w - 1) / strip_w ||
       grid_y != (H + band_h - 1) / band_h || grid_y > 65535 ||
@@ -931,15 +910,14 @@ int whiten_stream_entry(const X* x, Wt* const* whites, float* carry,
   a.W = static_cast<int>(W);
   a.Ws = strip_w;
   a.Hb = band_h;
-  a.vec = W % (16 / sizeof(X)) == 0 &&
-          reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  a.vec = W % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const dim3 grid(static_cast<unsigned>(grid_x),
                   static_cast<unsigned>(grid_y), static_cast<unsigned>(B));
   const int bytes = static_cast<int>(smem_bytes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return wt::dispatch_hw(a.taps.hw, [&](auto hw) {
     constexpr int HW = decltype(hw)::value;
-    return launch_stream<X, Wt, HW>(a, grid, bytes, s);
+    return launch_stream<HW>(a, grid, bytes, s);
   });
 }
 
@@ -968,10 +946,9 @@ int wt_whiten_group_f32(const float* x, float* const* whites, float* carry,
                         long long H, long long W, int tile_h, int halo,
                         int halo_cols, long long grid_x, long long grid_y,
                         long long smem_bytes, void* stream) {
-  return whiten_group_entry<float>(x, whites, carry, acc, thr, fac, masked,
-                                   soft, g, offset, taps, n_taps, B, H, W,
-                                   tile_h, halo, halo_cols, grid_x, grid_y,
-                                   smem_bytes, stream);
+  return whiten_group_entry(x, whites, carry, acc, thr, fac, masked, soft,
+                            g, offset, taps, n_taps, B, H, W, tile_h, halo,
+                            halo_cols, grid_x, grid_y, smem_bytes, stream);
 }
 
 // The same group, streamed, on a bfloat16 stack: every fold, the detail,
@@ -991,45 +968,10 @@ int wt_whiten_group_bf16(const __nv_bfloat16* x, __nv_bfloat16* const* whites,
                          int band_h, int halo, int halo_cols,
                          long long grid_x, long long grid_y,
                          long long smem_bytes, void* stream) {
-  return whiten_stream_entry<__nv_bfloat16, __nv_bfloat16>(
-      x, whites, carry, acc, thr, fac, masked, soft, g, offset, taps, n_taps,
-      B, H, W, strip_w, band_h, halo, halo_cols, grid_x, grid_y, smem_bytes,
-      stream);
-}
-
-// The bfloat16 route's later groups (a frame the JAX plan cuts into
-// several groups): the same from a float32 carry, with the arguments of
-// wt_whiten_group_bf16.
-int wt_whiten_group_bf16_f32in(const float* x, __nv_bfloat16* const* whites,
-                               float* carry, float* acc, const float* thr,
-                               const float* fac, const int* masked, int soft,
-                               int g, int offset, const double* taps,
-                               int n_taps, long long B, long long H,
-                               long long W, int strip_w, int band_h,
-                               int halo, int halo_cols, long long grid_x,
-                               long long grid_y, long long smem_bytes,
-                               void* stream) {
-  return whiten_stream_entry<float, __nv_bfloat16>(
-      x, whites, carry, acc, thr, fac, masked, soft, g, offset, taps, n_taps,
-      B, H, W, strip_w, band_h, halo, halo_cols, grid_x, grid_y, smem_bytes,
-      stream);
-}
-
-// The streamed group in float32 (no path takes it: the float32 route
-// keeps the tile), with the arguments of wt_whiten_group_bf16.
-int wt_whiten_group_stream_f32(const float* x, float* const* whites,
-                               float* carry, float* acc, const float* thr,
-                               const float* fac, const int* masked, int soft,
-                               int g, int offset, const double* taps,
-                               int n_taps, long long B, long long H,
-                               long long W, int strip_w, int band_h,
-                               int halo, int halo_cols, long long grid_x,
-                               long long grid_y, long long smem_bytes,
-                               void* stream) {
-  return whiten_stream_entry<float, float>(
-      x, whites, carry, acc, thr, fac, masked, soft, g, offset, taps, n_taps,
-      B, H, W, strip_w, band_h, halo, halo_cols, grid_x, grid_y, smem_bytes,
-      stream);
+  return whiten_stream_entry(x, whites, carry, acc, thr, fac, masked, soft, g,
+                             offset, taps, n_taps, B, H, W, strip_w, band_h,
+                             halo, halo_cols, grid_x, grid_y, smem_bytes,
+                             stream);
 }
 
 }  // extern "C"

@@ -33,16 +33,11 @@ inline bool make_taps(const double* taps, int n_taps, Taps* out) {
 }
 
 // Storage types.  The kernels of the bfloat16 WOW route (whiten_group.cu,
-// whiten_step.cu, whiten_pair.cu) are templates on the type their input
-// or whites are stored in, float or __nv_bfloat16: every fold runs in
-// float32, and a value is rounded (round to nearest even, as torch
-// rounds) only where it is stored as S.  For S = float both are the
-// identity, so the float32 instantiations keep their bits.
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
+// whiten_step.cu, whiten_pair.cu) store their whites as float or
+// __nv_bfloat16: every fold runs in float32, and a value is rounded
+// (round to nearest even, as torch rounds) only where it is stored as S.
+// For S = float the store is the identity, so the float32 instantiations
+// keep their bits.
 template <class S>
 __device__ __forceinline__ S from_f32(float x);
 template <>
@@ -52,12 +47,6 @@ __device__ __forceinline__ float from_f32<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
-}
-
-// x rounded to S and back: the value a store to an S plane keeps.
-template <class S>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<S>(x));
 }
 
 __device__ __forceinline__ long long sym_index(long long k, long long n) {

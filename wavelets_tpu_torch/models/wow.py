@@ -9,11 +9,11 @@ statistics), with three bodies:
   ``preserve_variance``), the main path: lazy MAD noise from ``w0 = data
   − smooth(data, 0)`` when some scale is denoised and no noise is given
   (on the card the detail row of one kernel C launch at scale 0, and
-  kernel B's median); the scales ``[0, N_FAST)`` in one
-  ``fused_wow_group`` call (kernel A), the deeper ones from the carry by
-  ``_deep_tail_scales``: a pair ``deep_whiten_step2`` (kernel E) where
-  ``H >> s ≤ 32`` and kernel E's gate admits it, else one
-  ``deep_whiten_step`` (kernel A) per scale;
+  kernel B's median); the scales ``[0, N_FAST)`` (``[0, N_STREAM)`` in
+  bfloat16) in one ``fused_wow_group`` call (kernel A), the deeper ones
+  from the carry by ``_deep_tail_scales``: a pair ``deep_whiten_step2``
+  (kernel E) where ``H >> s ≤ 32`` and kernel E's gate admits it, else
+  one ``deep_whiten_step`` (kernel A) per scale;
 * ``_wow_body_fused`` — the materialized-plane route of bilateral WOW,
   ``preserve_variance``, the gamma blend (``0 < h < 1``) and the
   ``wow(Coefficients)`` reuse entry: decomposition by kernel C, or by
@@ -45,9 +45,10 @@ bfloat16 and float16 follow the JAX package's low-precision dispatch
 (wavelets_tpu/models/wow.py:921-941): a bfloat16 frame, or a bfloat16
 ``(B, H, W)`` stack in serving mode, with ``fuse``, standard WOW and
 known noise takes ``_wow_body_merged`` on the bfloat16 forms of kernels
-A and E, with the JAX plan's geometry (:func:`_lowp_merges`); every other
-bfloat16 case and every float16 case runs the plain bodies in the input
-dtype on the input's device, as the JAX package sends them to XLA.
+A and E where the JAX package's gate merges it (:func:`_lowp_merges`),
+with the float32 route's geometry; every other bfloat16 case and every
+float16 case runs the plain bodies in the input dtype on the input's
+device, as the JAX package sends them to XLA.
 :func:`wow_stack` never merges below float32 (the JAX ``_stack_core``
 merges float32 only): its frames run the plain bodies one by one.  The
 merged route departs on purpose from the JAX package's bfloat16
@@ -93,35 +94,18 @@ __all__ = ["wow", "wow_core", "wow_stack", "normalize_wow_params", "N_FAST"]
 #: package's dispatch rule (wavelets_tpu/models/wow.py:219-247)
 PAIR_MAX_CLASS_ROWS = 32
 
-# The bfloat16 merged route's geometry is the JAX plan's, copied as shape
-# predicates (lowp_route.py); the names below are the ones the route and
-# its tests use.
-_lowp_can_deep = lowp_route.lowp_can_deep
-_lowp_can_pair = lowp_route.lowp_can_pair
-_lowp_deep_start = lowp_route.lowp_deep_start
-
-
 def _lowp_merges(data: torch.Tensor, sf: ScalingFunction, n_scales: int,
                  lazy: bool, need_planes: bool) -> bool:
     """The JAX package's bfloat16 merged gate (wow.py:921-941,
-    ``_can_merge_whiten``) on the shape: a bfloat16 frame, or a stack
-    with ``need_planes=False``, no lazy masked noise, sides that are
-    multiples of 256, the JAX group planner covering every scale below
-    :func:`_lowp_deep_start` (:func:`~.lowp_route.lowp_groups`), and
-    every deeper scale on the JAX stream (:func:`_lowp_can_deep`).
-    Float16 never merges: the JAX gate admits float32 and bfloat16
-    only."""
+    ``_can_merge_whiten``): a bfloat16 frame, or a stack with
+    ``need_planes=False``, no lazy masked noise, and a shape the JAX
+    plan merges (:func:`~.lowp_route.lowp_merges_shape`).  Float16 never
+    merges: the JAX gate admits float32 and bfloat16 only."""
     if data.dtype != torch.bfloat16 or lazy:
         return False
     if data.ndim == 3 and need_planes:
         return False
-    H, W = data.shape[-2:]
-    if H % 256 or W % 256:
-        return False
-    n_fast = min(n_scales, _lowp_deep_start(H, W, sf))
-    if lowp_route.lowp_groups(H, W, n_fast, sf.half_width)[1] != n_fast:
-        return False
-    return all(_lowp_can_deep(H, W, sf, s) for s in range(n_fast, n_scales))
+    return lowp_route.lowp_merges_shape(*data.shape[-2:], sf, n_scales)
 
 
 def normalize_wow_params(spec, n_scales, weights, denoise_coefficients,
@@ -248,21 +232,17 @@ def _deep_tail_scales(carry, recon, thr_of, sf, start, n_scales, weights,
     the JAX package's rule when ``can_deep2`` is false
     (wavelets_tpu/ops/pallas_deep.py:688-710).  The bfloat16 route
     (``white_dtype`` bfloat16: a float32 carry and recon, bfloat16
-    whites) pairs where the JAX pair gate does (:func:`_lowp_can_pair`):
-    on kernel E, or where its gate refuses, two steps of kernel A (the
-    middle carry float32 either way, so the geometry keeps the JAX plan's
-    launches).  ``kernels`` selects the wrappers over their plain
-    versions.  ``carry`` and ``recon`` are one frame ``(H, W)`` or a
-    stack ``(B, H, W)`` with ``thr_of(s)`` per frame ``(B,)``.  Returns
-    ``(rows, residual)``."""
+    whites) takes the same scales: the route is float32 inside, so a pair
+    is bitwise its two steps.  ``kernels`` selects the wrappers over
+    their plain versions.  ``carry`` and ``recon`` are one frame ``(H,
+    W)`` or a stack ``(B, H, W)`` with ``thr_of(s)`` per frame ``(B,)``.
+    Returns ``(rows, residual)``."""
     step = (hopper_deep.deep_whiten_step if kernels
             else hopper_deep.deep_whiten_step_plain)
     pair = (hopper_deep.deep_whiten_step2 if kernels
             else hopper_deep.deep_whiten_step2_plain)
     bil_step = (hopper_deep.deep_bilateral_whiten_step if kernels
                 else hopper_deep.deep_bilateral_whiten_step_plain)
-    lowp = low_precision(carry.dtype if white_dtype is None
-                         else white_dtype)
     with tracing.span("wt.deep_tail"):
         batched = carry.ndim == 3
         rows = []
@@ -275,15 +255,6 @@ def _deep_tail_scales(carry, recon, thr_of, sf, start, n_scales, weights,
         def masked(k):
             return denoise_coefficients[k] != 0
 
-        def one(s):
-            nonlocal carry
-            white, _, carry = step(
-                carry, acc, thr_of(s).reshape(-1), sf=sf, scale=s,
-                weight=weights[s], soft=soft_threshold, masked=masked(s),
-                write_plane=write_planes, white_dtype=white_dtype)
-            if write_planes:
-                rows.append(row(white))
-
         s = start
         while s < n_scales:
             if bilateral is not None:
@@ -293,33 +264,26 @@ def _deep_tail_scales(carry, recon, thr_of, sf, start, n_scales, weights,
                     soft=soft_threshold, masked=masked(s),
                     bilateral_scaling=bilateral_scaling, recon=acc,
                     write_plane=write_planes)
-                if write_planes:
-                    rows.append(row(white))
-                s += 1
-                continue
-            fits = hopper_deep.can_deep2(carry, sf, s)
-            if (s + 1 < n_scales
+                whites = [white]
+            elif (s + 1 < n_scales
                     and (carry.shape[-2] >> s) <= PAIR_MAX_CLASS_ROWS
-                    and (_lowp_can_pair(*carry.shape[-2:], sf, s)
-                         if lowp else fits)):
-                if fits:
-                    w1, w2, _, carry = pair(
-                        carry, acc, torch.stack([thr_of(s), thr_of(s + 1)])
-                        .reshape(2, -1), sf=sf, scale=s,
-                        weights=(weights[s], weights[s + 1]),
-                        soft=soft_threshold,
-                        masked=(masked(s), masked(s + 1)),
-                        write_plane=write_planes, white_dtype=white_dtype)
-                    if write_planes:
-                        rows.extend([row(w1), row(w2)])
-                else:
-                    # the JAX plan's pair where kernel E's tori do not fit
-                    one(s)
-                    one(s + 1)
-                s += 2
-                continue
-            one(s)
-            s += 1
+                    and hopper_deep.can_deep2(carry, sf, s)):
+                w1, w2, _, carry = pair(
+                    carry, acc, torch.stack([thr_of(s), thr_of(s + 1)])
+                    .reshape(2, -1), sf=sf, scale=s,
+                    weights=(weights[s], weights[s + 1]),
+                    soft=soft_threshold, masked=(masked(s), masked(s + 1)),
+                    write_plane=write_planes, white_dtype=white_dtype)
+                whites = [w1, w2]
+            else:
+                white, _, carry = step(
+                    carry, acc, thr_of(s).reshape(-1), sf=sf, scale=s,
+                    weight=weights[s], soft=soft_threshold, masked=masked(s),
+                    write_plane=write_planes, white_dtype=white_dtype)
+                whites = [white]
+            if write_planes:
+                rows.extend(row(w) for w in whites)
+            s += len(whites)
         return rows, row(carry)
 
 
@@ -370,11 +334,12 @@ def _wow_body_merged(data, noise, has_noise, sf, n_scales, weights,
     ``kernels`` selects the kernels' wrappers over their plain
     versions.
 
-    A bfloat16 ``data`` (known noise only, :func:`_lowp_merges`) takes the
-    JAX plan's geometry: the groups of the scales below
-    :func:`_lowp_deep_start` (one, 0-3, for the B3spline on 4096²), then
-    the deep steps and pairs of ``_deep_tail_scales``.  It is float32
-    inside: the first group reads the bfloat16 frame, every carry, the
+    One group of the first ``min(n_scales, depth)`` scales (kernel A's
+    group form; ``depth`` is its kernel's: :data:`N_FAST` for the float32
+    tile, :data:`~.hopper_conv.N_STREAM` for the bfloat16 streamed
+    group), then the deep steps and pairs of ``_deep_tail_scales``.  A
+    bfloat16 ``data`` (known noise only, :func:`_lowp_merges`) is float32
+    inside: the group reads the bfloat16 frame, every carry, the
     thresholds and the recon's sum are float32, and the whites, the
     residual plane and the recon are rounded to bfloat16 once, on
     store."""
@@ -403,27 +368,17 @@ def _wow_body_merged(data, noise, has_noise, sf, n_scales, weights,
         noise = noise.float()
     thr_of = _threshold_fn(noise, sigma_e, denoise_coefficients)
 
-    if lowp:
-        # the JAX plan's groups below its deep start
-        n_fast = min(n_scales, _lowp_deep_start(*data.shape[-2:], sf))
-        groups = lowp_route.lowp_groups(*data.shape[-2:], n_fast,
-                                        sf.half_width)[0]
-    else:
-        n_fast = min(n_scales, N_FAST)
-        groups = [(0, n_fast)] if n_fast else []
+    n_fast = min(n_scales, hopper_conv.N_STREAM if lowp else N_FAST)
     out_rows, recon, carry = [], None, data
-    for off, g in groups:
-        rows, acc = group(
-            carry, weights[off:off + g],
-            torch.stack([thr_of(off + k) for k in range(g)]), g, sf,
-            offset=off, soft=soft_threshold,
-            masked=tuple(denoise_coefficients[off + k] != 0
-                         for k in range(g)),
-            need_cube=need_planes, white_dtype=store)
+    if n_fast:
+        rows, recon = group(
+            data, weights[:n_fast],
+            torch.stack([thr_of(k) for k in range(n_fast)]), n_fast, sf,
+            soft=soft_threshold,
+            masked=tuple(d != 0 for d in denoise_coefficients[:n_fast]),
+            need_cube=need_planes)
         out_rows.extend(rows[:-1])
         carry = rows[-1]
-        recon = acc if recon is None else recon + acc
-    if n_fast:
         # recon accumulates in place inside the deep steps
         deep_rows, carry = _deep_tail_scales(
             carry, recon, thr_of, sf, n_fast, n_scales, weights,

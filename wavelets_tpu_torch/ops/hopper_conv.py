@@ -27,11 +27,13 @@ rule on the shape, scale offset and taps alone), each scale is one deep
 step of kernel A's deep form, ``csrc/whiten_step.cu`` (counter
 ``whiten_step``, two launches sized by :func:`step_plan`; in bfloat16
 and in halo mode one launch of its residue-class stream, sized by
-:func:`stream_step_plan`).  In bfloat16
-the group is the same source's streamed design, sized by
-:func:`stream_plan`: a block walks a band of rows down a strip of
-columns with each scale on rings of rows, so the vertical halo is
-computed once a band, not once a tile.  On a CPU
+:func:`stream_step_plan`).  In bfloat16 the group is the same source's
+streamed design, sized by :func:`stream_plan`: a block walks a band of
+rows down a strip of columns with each scale on rings of rows, so the
+vertical halo is computed once a band, not once a tile.  The merged
+route's group takes :data:`N_FAST` scales on the tile and
+:data:`N_STREAM` on the streamed group; the rest of its geometry is the
+same in every dtype (``models/wow.py``).  On a CPU
 tensor the plain PyTorch versions below run, along the same route.
 There is no fallback between kernel and plain version: a CUDA tensor the
 kernel cannot take raises.  The same holds for kernel C.
@@ -39,11 +41,10 @@ kernel cannot take raises.  The same holds for kernel C.
 Kernel A has a bfloat16 form of both its entries (``wt_whiten_group_bf16``,
 the streamed group, and ``wt_whiten_step_bf16``, counters
 ``whiten_group_bf16`` and ``whiten_step_bf16``): bfloat16 at the
-boundary, float32 inside.  The group reads a bfloat16 frame (or, for a
-later group of the route, a float32 carry), computes every pass, the
-detail, its square, the power smooth, the mask and the white in
-float32, and stores the whites in bfloat16, the carry and acc in
-float32; the deep step reads and writes float32 carries and acc and
+boundary, float32 inside.  The group reads a bfloat16 frame, computes
+every pass, the detail, its square, the power smooth, the mask and the
+white in float32, and stores the whites in bfloat16, the carry and acc
+in float32; the deep step reads and writes float32 carries and acc and
 stores its white in bfloat16.  Thresholds and factors are float32.  The
 plain versions are the float32 plain versions on the widened input, the
 whites rounded on store.  This departs on purpose from the JAX package's
@@ -69,8 +70,8 @@ from .conv import low_precision, separable_smooth_axis, smooth, widen
 from .filters import ScalingFunction
 from .layout import stack_planes
 
-__all__ = ["N_FAST", "fused_group", "fused_group_plain", "group_pieces",
-           "fused_decompose_pieces", "fused_decompose",
+__all__ = ["N_FAST", "N_STREAM", "fused_group", "fused_group_plain",
+           "group_pieces", "fused_decompose_pieces", "fused_decompose",
            "fused_volume_decompose", "fused_wow_group",
            "fused_wow_group_plain", "whiten_scale_plain",
            "whiten_detail_plain", "whiten_power_plain", "threshold_dtype",
@@ -85,9 +86,6 @@ KERNEL = "whiten_step"
 #: the launch counter of kernel A's deep step in halo mode
 HALO_KERNEL = "whiten_step_halo"
 GROUP_KERNEL = "whiten_group"
-#: the bfloat16 route's later groups (a float32 carry in, bfloat16 whites
-#: out): an entry of their own, so a counter of their own
-GROUP_F32IN_KERNEL = "whiten_group_f32in"
 DECOMPOSE_KERNEL = "decompose_group"
 
 #: scales per group: the decompose groups (kernel C), the merged WOW
@@ -100,6 +98,13 @@ DECOMPOSE_KERNEL = "decompose_group"
 #: tile then takes 70 KB, at least two blocks to an SM
 #: (:func:`group_plan`).
 N_FAST = 3
+#: scales of the bfloat16 merged route's group (the streamed group of
+#: ``csrc/whiten_group.cu``): its rings hold a group's vertical halo once
+#: a band, not once a tile, so a fourth scale costs one more ring, not a
+#: tile twice as tall; g = 4 at 4096² takes two 107 KiB blocks an SM
+#: (:func:`stream_plan`), the group ``aia_wow_bf16.frame`` runs and was
+#: measured at (PERF.md, section 5)
+N_STREAM = 4
 
 #: shared memory one block may opt in to on an H100 (227 KB): the
 #: dynamic bytes of a launch and the kernel's static ones together
@@ -183,7 +188,7 @@ def group_plan(B: int, H: int, W: int, g: int, hw: int, offset: int,
     if g < 1:
         raise ValueError("a group needs at least one scale")
     if itemsize != 4:
-        return stream_plan(B, H, W, g, hw, offset, itemsize)
+        return stream_plan(B, H, W, g, hw, offset)
     if offset + g > 20:
         return None
     halo = group_halo(hw, offset, g)
@@ -234,23 +239,25 @@ def _even(n: int) -> int:
     return n + (n & 1)
 
 
-def stream_smem(strip_w: int, g: int, hw: int, offset: int,
-                itemsize: int = 2) -> int:
+# bfloat16 elements a 16-byte copy: the input ring's column margin is a
+# multiple of it
+_STREAM_VEC = 8
+
+
+def stream_smem(strip_w: int, g: int, hw: int, offset: int) -> int:
     """Shared bytes of a streamed block, as ``csrc/whiten_group.cu::
     stream_layout`` lays them out, each region on 16 bytes: the block's
     table (:data:`STREAM_TABLE_BYTES`); the input's ring of ``2hd_0 +
     2·8`` rows (one step read, the next arriving) of the strip and
-    ``halo_cols`` a side, of ``itemsize``-byte elements (the input's);
-    in float32, per scale the ring of its c_next, ``2hd_(k+1) + 8`` rows
-    (the last one ``hd + 8``) and that of its squared detail, ``2hd_k +
-    8`` rows, the sums of the whites, ``R − 2hd_0 + 8`` rows of the
-    strip, and a row a warp."""
+    ``halo_cols`` a side, in bfloat16; in float32, per scale the ring of
+    its c_next, ``2hd_(k+1) + 8`` rows (the last one ``hd + 8``) and
+    that of its squared detail, ``2hd_k + 8`` rows, the sums of the
+    whites, ``R − 2hd_0 + 8`` rows of the strip, and a row a warp."""
     rs = STREAM_ROWS
     hd, ec, ecar = stream_margins(g, hw, offset)
-    vec = 16 // itemsize
-    rc = -(-ecar[0] // vec) * vec
+    rc = -(-ecar[0] // _STREAM_VEC) * _STREAM_VEC
     halo = group_halo(hw, offset, g)
-    regions = [(2 * hd[0] + 2 * rs) * (strip_w + 2 * rc) * itemsize]
+    regions = [(2 * hd[0] + 2 * rs) * (strip_w + 2 * rc) * 2]
     regions += [(2 * hd[k] + rs) * (strip_w + 2 * ec[k - 1]) * 4
                 for k in range(1, g)]
     regions.append((hd[g - 1] + rs) * (strip_w + 2 * ec[g - 1]) * 4)
@@ -272,11 +279,11 @@ def _stream_step_cost(strip_w: int, g: int, hw: int, offset: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def stream_plan(B: int, H: int, W: int, g: int, hw: int, offset: int,
-                itemsize: int = 2) -> Optional[StreamPlan]:
+def stream_plan(B: int, H: int, W: int, g: int, hw: int,
+                offset: int) -> Optional[StreamPlan]:
     """The streamed group's launch on an H100 from the shape, group
-    depth, half width of the taps, scale offset and element size alone:
-    of the strips of :data:`STREAM_STRIPS` columns whose rings fit the
+    depth, half width of the taps and scale offset alone: of the strips
+    of :data:`STREAM_STRIPS` columns whose rings fit the
     opt-in shared memory (:func:`stream_smem`) and the bands of
     :data:`STREAM_BANDS` rows or of the frame cut into 1..64 bands
     (rounded up to 8 rows), the pair that takes the fewest steps on the
@@ -285,8 +292,8 @@ def stream_plan(B: int, H: int, W: int, g: int, hw: int, offset: int,
     passes; ties go to the taller band, then the wider strip.  At 4096²,
     g = 4 (the bfloat16 route's group, float32 rings): 64 columns by
     1024 rows, 256 blocks of 107 KiB, two an SM.  None where no strip
-    fits (a dilation whose rings pass 227 KB: 256×25600 L8's ``(5, 2)``
-    and ``(7, 1)``)."""
+    fits (a dilation whose rings pass 227 KB: the B3spline at ``(5, 2)``
+    or ``(7, 1)``)."""
     if g < 1:
         raise ValueError("a group needs at least one scale")
     if g > 8 or offset + g > 20 or (hw << (offset + g - 1)) > 1 << 20:
@@ -294,7 +301,7 @@ def stream_plan(B: int, H: int, W: int, g: int, hw: int, offset: int,
     halo = group_halo(hw, offset, g)
     best = None
     for ws in STREAM_STRIPS:
-        smem = stream_smem(ws, g, hw, offset, itemsize)
+        smem = stream_smem(ws, g, hw, offset)
         if smem > SMEM_OPTIN:
             continue
         slots = H100_SMS * (2 if smem <= SMEM_TWO_PER_SM else 1)
@@ -314,8 +321,8 @@ def stream_plan(B: int, H: int, W: int, g: int, hw: int, offset: int,
     if best is None:
         return None
     _, ws, hb, smem = best
-    vec = 16 // itemsize
-    halo_cols = -(-stream_margins(g, hw, offset)[2][0] // vec) * vec
+    halo_cols = (-(-stream_margins(g, hw, offset)[2][0] // _STREAM_VEC)
+                 * _STREAM_VEC)
     return StreamPlan(ws, hb, halo, halo_cols, smem,
                       (-(-W // ws), -(-H // hb), B))
 
@@ -533,15 +540,10 @@ def _lib():
     return lib
 
 
-#: the group's entries: the float32 tile, the streamed group of the
-#: bfloat16 route (from a bfloat16 frame, or from a float32 carry for a
-#: later group) and its float32 instantiation (no path's: a streamed plan
-#: of float32, as scripts/kernel_variants.py and the GPU tests pass one),
-#: and the number of plan integers after the shape (tile_h or strip_w
-#: and band_h, then halo and halo_cols)
-_GROUP_ENTRIES = {"wt_whiten_group_f32": 3, "wt_whiten_group_bf16": 4,
-                  "wt_whiten_group_bf16_f32in": 4,
-                  "wt_whiten_group_stream_f32": 4}
+#: the group's entries, the float32 tile and the bfloat16 streamed
+#: group, and the number of plan integers after the shape (tile_h or
+#: strip_w and band_h, then halo and halo_cols)
+_GROUP_ENTRIES = {"wt_whiten_group_f32": 3, "wt_whiten_group_bf16": 4}
 
 
 def _lib_group():
@@ -698,36 +700,19 @@ def threshold_dtype(dtype):
     return torch.float32 if low_precision(dtype) else dtype
 
 
-def _white_dtype(x: torch.Tensor, white_dtype):
-    """The dtype a group's whites are stored in: ``white_dtype``, by
-    default the input's."""
-    return x.dtype if white_dtype is None else white_dtype
-
-
-def _group_counter(x: torch.Tensor, store) -> str:
-    """A group's launch counter: ``whiten_group`` in float32,
-    ``whiten_group_bf16`` from a bfloat16 frame, and
-    ``whiten_group_f32in_bf16`` from a float32 carry to bfloat16 whites
-    (the bfloat16 route's later groups)."""
-    f32in = low_precision(store) and not low_precision(x.dtype)
-    return tracing.counter(GROUP_F32IN_KERNEL if f32in else GROUP_KERNEL,
-                           store)
-
-
 def fused_wow_group_plain(x: torch.Tensor, factors: Sequence[float],
                           thresholds, g: int, sf: ScalingFunction,
                           offset: int = 0, soft: bool = True,
                           masked: Tuple[bool, ...] = (),
-                          need_cube: bool = True, white_dtype=None):
+                          need_cube: bool = True):
     """Plain PyTorch version of :func:`fused_wow_group` (any dtype or
     device).  Below float32 it is the float32 version on the widened
     input (:func:`~.conv.widen`): every pass, the detail, its square, the
     power smooth, the mask and the whitening in float32, the whites
-    rounded to ``white_dtype`` on store, the carry and acc left in
-    float32.  At float32 and above the whites keep the input's dtype
-    unless ``white_dtype`` says otherwise."""
-    store = _white_dtype(x, white_dtype)
-    with tracing.plain(_group_counter(x, store), offset):
+    rounded to the input's dtype on store, the carry and acc left in
+    float32.  At float32 and above everything keeps the input's dtype."""
+    store = x.dtype
+    with tracing.plain(tracing.counter(GROUP_KERNEL, store), offset):
         batched, xb, factors, masked, thr = _group_args(
             widen(x), factors, thresholds, g, masked)
         rows, acc, cur = [], None, xb
@@ -759,7 +744,7 @@ def fused_wow_group_plain(x: torch.Tensor, factors: Sequence[float],
 def fused_wow_group(x: torch.Tensor, factors: Sequence[float], thresholds,
                     g: int, sf: ScalingFunction, offset: int = 0,
                     soft: bool = True, masked: Tuple[bool, ...] = (),
-                    need_cube: bool = True, white_dtype=None):
+                    need_cube: bool = True):
     """Fused decompose+whiten of ``g`` scales at dilation base
     ``2^offset``: returns ``(rows, acc)`` where ``rows`` holds the ``g``
     whitened detail planes then the carry (the carry alone when
@@ -768,35 +753,29 @@ def fused_wow_group(x: torch.Tensor, factors: Sequence[float], thresholds,
     ``x`` is ``(H, W)`` or a frame stack ``(B, H, W)``; ``factors`` are
     ``g`` host floats (the per-scale weights); ``thresholds`` is a tensor
     of shape ``(g,)`` or ``(g, B)`` on ``x``'s device, used for the scales
-    with ``masked[k]``.  The whites are stored in ``white_dtype``, by
-    default ``x``'s; the carry and acc in float32 for a bfloat16 ``x``
-    (the bfloat16 route: float32 inside), else in ``x``'s dtype.
+    with ``masked[k]``.  The whites are stored in ``x``'s dtype; the carry
+    and acc in float32 for a bfloat16 ``x`` (the bfloat16 route: float32
+    inside), else in ``x``'s dtype.
 
     Route, by :func:`group_plan` (shape, ``g``, taps, ``offset`` and
     element size only): where a plan fits, one launch of
     ``csrc/whiten_group.cu`` on a CUDA ``x`` (the float32 tile, or the
-    streamed group where the whites are bfloat16: from a bfloat16 frame,
-    or a float32 carry with ``white_dtype`` bfloat16, a later group of the
-    bfloat16 route; :func:`fused_wow_group_plain` on a CPU ``x``); where
-    no plan fits (a float32 tile: the B3spline from offset 2 at g = 3; a
-    streamed group whose rings pass the shared memory: the JAX plan's
-    bfloat16 groups ``(5, 2)`` and ``(7, 1)`` of 256×25600), one
+    bfloat16 streamed group; :func:`fused_wow_group_plain` on a CPU
+    ``x``); where no plan fits (a float32 tile: the B3spline from offset
+    2 at g = 3; a streamed group whose rings pass the shared memory: the
+    B3spline at ``(5, 2)`` or ``(7, 1)``), one
     :func:`~.hopper_deep.deep_whiten_step` per scale on the widened input
     (kernel A's deep form on a CUDA ``x``, its plain version on a CPU
     ``x``), bitwise the group: the route is float32 inside, so its whites
     round only on store wherever they are made.  A CUDA ``x`` the kernels
     cannot take (float16, float64) raises."""
     from .hopper_deep import deep_whiten_step
-    store = _white_dtype(x, white_dtype)
+    store = x.dtype
     lowp = low_precision(store)
     batched, xb, factors, masked, thr = _group_args(
         x, factors, thresholds, g, masked)
     B, H, W = xb.shape
-    # a float32 carry with bfloat16 whites takes the streamed group too
-    plan = (stream_plan(B, H, W, g, sf.half_width, offset, 4)
-            if lowp and not low_precision(x.dtype)
-            else group_plan(B, H, W, g, sf.half_width, offset,
-                            x.element_size()))
+    plan = group_plan(B, H, W, g, sf.half_width, offset, x.element_size())
     if plan is None:
         rows, acc, cur = [], None, widen(xb)
         if lowp:
@@ -815,13 +794,10 @@ def fused_wow_group(x: torch.Tensor, factors: Sequence[float], thresholds,
                 rows.append(white)
     elif not x.is_cuda:
         return fused_wow_group_plain(x, factors, thresholds, g, sf, offset,
-                                     soft, masked, need_cube, store)
+                                     soft, masked, need_cube)
     else:
         check_kernel_input(x, sf, "fused_wow_group", bf16=True)
-        if lowp and store != torch.bfloat16:
-            raise TypeError("fused_wow_group: the streamed group stores "
-                            f"bfloat16 whites, not {store}")
-        with tracing.launch(_group_counter(x, store), offset):
+        with tracing.launch(tracing.counter(GROUP_KERNEL, store), offset):
             thr = thr.contiguous()
             wide = xb.dtype if not lowp else torch.float32
             acc = torch.empty(xb.shape, dtype=wide, device=x.device)
@@ -830,16 +806,11 @@ def fused_wow_group(x: torch.Tensor, factors: Sequence[float], thresholds,
                      for _ in range(g)] if need_cube else [])
             lib = _lib_group()
             taps = (ctypes.c_double * len(sf.taps))(*sf.taps)
+            # a plan of 4-byte elements is the float32 tile's
             if isinstance(plan, StreamPlan):
-                entry = (lib.wt_whiten_group_stream_f32 if not lowp
-                         else lib.wt_whiten_group_bf16
-                         if x.dtype == torch.bfloat16
-                         else lib.wt_whiten_group_bf16_f32in)
-                shape = (plan.strip_w, plan.band_h)
+                entry, shape = (lib.wt_whiten_group_bf16,
+                                (plan.strip_w, plan.band_h))
             else:
-                if x.dtype != torch.float32:
-                    raise TypeError("fused_wow_group: the tile takes "
-                                    "float32")
                 entry, shape = lib.wt_whiten_group_f32, (plan.tile_h,)
             code = entry(
                 _ptr(xb),

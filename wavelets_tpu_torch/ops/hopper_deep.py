@@ -26,11 +26,11 @@ Counterpart of ``wavelets_tpu/ops/pallas_deep.py`` (signatures minus
   row class pair's circle walked a tick a row with ``k`` column classes
   held as their circle (:func:`pair_stream_plan`).  :func:`can_deep2` is
   kernel E's gate, the float32 tori's, for both forms (the stream takes
-  every shape it admits and more: the route's pairs and launch counts
-  stay); where it refuses, the caller takes two :func:`deep_whiten_step`
-  calls, the JAX package's rule when ``can_deep2`` is false (the two are
-  numerically identical, pallas_deep.py:950-952), the bfloat16 route
-  too (its middle carry is float32 either way).
+  every shape it admits and more, so the two dtypes pair alike); where
+  it refuses, the caller takes a :func:`deep_whiten_step` for the
+  scale, the JAX package's rule when ``can_deep2`` is false (a pair and
+  its two steps are numerically identical, pallas_deep.py:950-952, in
+  bfloat16 too: its middle carry is float32 either way).
 * :func:`deep_whiten_plane` — whiten one materialized deep plane, on
   kernel D's deep-plane form (``csrc/whiten_plane.cu``: one launch of
   the row-buffer pass that kernel A's deep step and kernel G's second
